@@ -10,14 +10,19 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time;
-2. kernel phases: each kernel at the shapes the serving path gives it, in
-   bf16, against its plain PyTorch version on the same inputs: every
-   output element within one bf16 ulp of the plain one (``out_err``; the
-   int8 phase also shows that V dequantised with the wrong scales fails
-   that check), timed beside the plain version, a PyTorch
-   library call computing the same attention (``library_ms``; timed only,
-   never used by the port) and the least time the card could take
-   (``bound_ms``, from the bytes and operations of this run's inputs);
+2. kernel phases: each kernel at the shapes its path gives it, in bf16,
+   against its plain PyTorch version on the same inputs — the serving
+   attention kernels (K3 slotted, K4 paged) and the training kernels (K1
+   flash forward, K1b flash backward, K2 fused cross-entropy) — each
+   timed beside the plain version, a PyTorch library call computing the
+   same function (``library_ms``; timed only, never used by the port) and
+   the least time the card could take (``bound_ms``, from the bytes and
+   operations of this run's inputs). Tolerances: bf16 outputs within one
+   bf16 ulp of the plain ones per element; float32 outputs of K1b and K2
+   within 1e-4 of the plain tensor's largest value (1e-5 relative for
+   K2's loss and K1's log-sum-exp). Probes that must fail the checks: V
+   dequantised with the wrong scales (K4 int8), the head shifted by one
+   vocab tile (K2);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -27,8 +32,18 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    must have launched and the plain-version dispatch counters must read 0.
    The first prefill step's logits are held against the same step on the
    plain versions, and across the two layouts;
-4. after both timed engine runs, a torch.profiler trace of five decode
-   steps in each layout (device busy share, kernels by device time).
+4. train phase: llama3.2-1b at full width through the train Session
+   (zeropp, vpp 2, 4 micro-batches of one 2048-token sequence in units of
+   2, bf16 params and compute, float32 master and moments): step 1 runs
+   twice on the same params and batch, through the kernels and through
+   the plain versions, and the loss and every gradient must agree; then
+   five timed steps (train_step + opt_step) with the launch counters set
+   to 0 before them: K1, K1b and K2 must launch 128, 64 and 8 times a
+   step, no plain version may run, every loss must be finite and step
+   1's near ln(vocab);
+5. after every timed run, torch.profiler traces: five decode steps in
+   each serving layout and one training step (device busy share, kernels
+   by device time, launches a step).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -61,6 +76,27 @@ SLOTTED = dict(route="cuda",
 PAGED = dict(route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:265")
+FLASH_FWD = dict(route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+                 replaces="src/repro/kernels/flash_attention.py:82")
+FLASH_BWD = dict(route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces="src/repro/core/tape.py:134")
+XENT = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_xent.cu",
+            replaces="src/repro/kernels/fused_xent.py:109")
+TRAIN_SEQ, TRAIN_STEPS = 2048, 5
+# launches a training step: 16 layers x 4 micro-batches x (F + B's
+# recompute) forwards, one backward per layer and micro-batch, two passes
+# of the loss per micro-batch
+TRAIN_LAUNCHES = {"flash_attention_fwd": 128, "flash_attention_bwd": 64,
+                  "fused_xent": 8}
+# kernel vs plain versions on step 1: loss within 1e-3 relative; each
+# gradient within 5e-2 of the plain tensor's largest value. Both paths
+# round the same float32 values to bf16 up to summation order, so their
+# activations differ by about one bf16 ulp (2^-8) here and there; the
+# backward through 16 bf16 layers carries such differences into every
+# gradient, and 5e-2 is about a dozen ulps of the largest value.
+STEP1_LOSS_RTOL, STEP1_GRAD_RTOL = 1e-3, 5e-2
 
 
 def fail(msg: str) -> None:
@@ -102,6 +138,71 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def excess(a, p) -> tuple[float, float]:
+    """(max |a - p|, the worst |a - p| / limit) with the elementwise
+    limit BF16_ULP * (|p| + mean |p|): both sides round the same float32
+    value to bf16 up to summation order, so they differ by at most one
+    ulp; the mean term covers values near zero."""
+    a, p = a.float(), p.float()
+    diff = (a - p).abs()
+    typ = p.abs().mean().item()
+    worst = (diff / (BF16_ULP * (p.abs() + typ))).max().item()
+    log(f"[kernel]   max |diff| {diff.max().item():.3e}, mean |plain| "
+        f"{typ:.3e}, max |plain| {p.abs().max().item():.3e}, worst "
+        f"|diff| / limit {worst:.4f}")
+    return diff.max().item(), worst
+
+
+def out_err(a, p) -> float:
+    err, worst = excess(a, p)
+    if not worst <= 1.0:                           # NaN fails too
+        fail(f"kernel disagrees with its plain version: |diff| up to "
+             f"{worst} x the limit")
+    return err
+
+
+def rel_excess(a, p, rtol: float, what: str) -> tuple[float, float]:
+    """(max |a - p|, max |a - p| / (rtol * max |p|)) for float32 outputs
+    summed in another order than the plain version's."""
+    diff = (a.float() - p.float()).abs().max().item()
+    scale = p.float().abs().max().item()
+    worst = diff / (rtol * scale) if scale > 0 else float(diff > 0) * 1e30
+    log(f"[kernel]   {what}: max |diff| {diff:.3e}, max |plain| "
+        f"{scale:.3e}, worst |diff| / ({rtol:g} max |plain|) {worst:.4f}")
+    return diff, worst
+
+
+def rel_err(a, p, rtol: float, what: str) -> float:
+    diff, worst = rel_excess(a, p, rtol, what)
+    if not worst <= 1.0:
+        fail(f"{what}: kernel off its plain version by {worst} x the "
+             "limit")
+    return diff
+
+
+def record_phase(torch, flush, results, name, meta, kern, plain, lib,
+                 nbytes, flops, check, iters=10, plain_iters=3):
+    """Check the kernel against its plain version, then time kernel,
+    plain version and library call; appends the phase's row."""
+    out_k, out_p = kern(), plain()
+    torch.cuda.synchronize()
+    err = check(out_k, out_p)
+    del out_k, out_p
+    t_bound, by = bound(nbytes, flops, "bfloat16")
+    row = dict(name=name, **meta, max_abs_err=err,
+               ms=time_ms(torch, kern, flush, iters),
+               plain_ms=time_ms(torch, plain, flush, plain_iters),
+               bound_ms=t_bound, bound_by=by,
+               library_ms=(time_ms(torch, lib, flush, iters)
+                           if lib is not None else None),
+               bytes=nbytes, flops=flops)
+    lib_ms = "n/a" if lib is None else f"{row['library_ms']:.4f} ms"
+    log(f"[kernel] {name}: max_abs_err {err:.3e} | kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+        f"{lib_ms}, bound {t_bound:.4f} ms ({by})")
+    results.append(row)
+
+
 # --------------------------------------------------------------------------- #
 # Kernel phases
 # --------------------------------------------------------------------------- #
@@ -133,43 +234,8 @@ def kernel_phases(torch, flush):
                                                       attn_mask=mask)
 
     def record(name, meta, kern, plain, lib, nbytes, flops, check):
-        out_k, out_p = kern(), plain()
-        torch.cuda.synchronize()
-        err = check(out_k, out_p)
-        t_bound, by = bound(nbytes, flops, "bfloat16")
-        row = dict(name=name, **meta, max_abs_err=err,
-                   ms=time_ms(torch, kern, flush),
-                   plain_ms=time_ms(torch, plain, flush, iters=3),
-                   bound_ms=t_bound, bound_by=by,
-                   library_ms=(time_ms(torch, lib, flush)
-                               if lib is not None else None),
-                   bytes=nbytes, flops=flops)
-        lib_ms = "n/a" if lib is None else f"{row['library_ms']:.4f} ms"
-        log(f"[kernel] {name}: max_abs_err {err:.3e} | kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{lib_ms}, bound {t_bound:.4f} ms ({by})")
-        results.append(row)
-
-    def excess(a, p):
-        """(max |a - p|, the worst |a - p| / limit) with the elementwise
-        limit BF16_ULP * (|p| + mean |p|): both sides round the same
-        float32 value to bf16 up to summation order, so they differ by at
-        most one ulp; the mean term covers values near zero."""
-        a, p = a.float(), p.float()
-        diff = (a - p).abs()
-        typ = p.abs().mean().item()
-        worst = (diff / (BF16_ULP * (p.abs() + typ))).max().item()
-        log(f"[kernel]   max |diff| {diff.max().item():.3e}, mean |plain| "
-            f"{typ:.3e}, max |plain| {p.abs().max().item():.3e}, worst "
-            f"|diff| / limit {worst:.4f}")
-        return diff.max().item(), worst
-
-    def out_err(a, p):
-        err, worst = excess(a, p)
-        if not worst <= 1.0:                           # NaN fails too
-            fail(f"kernel disagrees with its plain version: |diff| up to "
-                 f"{worst} x the limit")
-        return err
+        record_phase(torch, flush, results, name, meta, kern, plain, lib,
+                     nbytes, flops, check)
 
     def causal_pairs(pos, sq, limit):
         """Visible (query, key) pairs of causal rows at pos + i."""
@@ -300,6 +366,317 @@ def kernel_phases(torch, flush):
                 if not worst > 1.0:
                     fail(f"the int8 check passes V dequantised with {what}")
     return results
+
+
+def train_kernel_phases(torch, flush):
+    """K1, K1b and K2 at the training path's shapes (one 2048-token
+    micro-batch of llama3.2-1b), each against its plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, g, e, S = 32, 8, 64, TRAIN_SEQ
+    rep = h // g
+    results = []
+
+    def rand(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def pairs(sq, sk, causal, off):
+        if not causal:
+            return sq * sk
+        i = torch.arange(sq, device=dev)
+        return int((off + i + 1).clamp(0, sk).sum())
+
+    def rep_kv(x):
+        return x.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+    # ---- K1: flash forward ---------------------------------------------- #
+    for phase, causal, sq, off in (("causal", True, S, 0),
+                                   ("causal_offset", True, S // 2, S // 2),
+                                   ("bidirectional", False, S, 0)):
+        sk = sq + off
+        q, k, v = rand(1, sq, h, e), rand(1, sk, g, e), rand(1, sk, g, e)
+        kw = dict(causal=causal, q_offset=off)
+        n_pairs = pairs(sq, sk, causal, off)
+        nbytes = 2 * q.nbytes + k.nbytes + v.nbytes + 1 * h * sq * 4
+        flops = n_pairs * h * 2 * (e + e)
+        qt, kt, vt = q.transpose(1, 2), rep_kv(k), rep_kv(v)
+        if causal and off:
+            mask = (torch.arange(sk, device=dev)[None, :]
+                    <= off + torch.arange(sq, device=dev)[:, None])
+        else:
+            mask = None
+
+        def lib(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal, off=off):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not off)
+
+        def check(a, p):
+            rel_err(a[1], p[1], 1e-5, "lse")
+            return out_err(a[0], p[0])
+
+        log(f"[kernel] flash_attention_fwd:{phase} q [1, {sq}, {h}, {e}], "
+            f"k/v [1, {sk}, {g}, {e}], q_offset {off}, causal {causal} "
+            "(tolerance: out |diff| <= 2^-7 (|plain| + mean |plain|) per "
+            "element; lse 1e-5 of max |plain|)")
+        record_phase(torch, flush, results, f"flash_attention_fwd:{phase}",
+                     FLASH_FWD,
+                     lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd(
+                         q, k, v, **kw),
+                     lambda q=q, k=k, v=v, kw=kw: ref.attention(
+                         q, k, v, return_lse=True, **kw),
+                     lib, nbytes, flops, check)
+
+    # ---- K1b: flash backward (causal) ----------------------------------- #
+    q, k, v = rand(1, S, h, e), rand(1, S, g, e), rand(1, S, g, e)
+    do = rand(1, S, h, e)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    n_pairs = pairs(S, S, True, 0)
+    # read q, k, v, out, do (bf16) and lse; write dq, dk, dv (float32)
+    nbytes = (q.nbytes + k.nbytes + v.nbytes + out.nbytes + do.nbytes
+              + lse.nbytes + 4 * (q.numel() + k.numel() + v.numel()))
+    # the least work: S, dP, dV, dQ and dK over the visible pairs
+    flops = n_pairs * h * 2 * (3 * e + 2 * e)
+    qg = q.transpose(1, 2).detach().requires_grad_()
+    kg = rep_kv(k).detach().requires_grad_()
+    vg = rep_kv(v).detach().requires_grad_()
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    do_t = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(o_lib, (qg, kg, vg), do_t,
+                                   retain_graph=True)
+
+    def check_bwd(a, p):
+        err = 0.0
+        for x, y, what in zip(a, p, ("dq", "dk", "dv")):
+            err = max(err, rel_err(x, y, 1e-4, what))
+        return err
+
+    log(f"[kernel] flash_attention_bwd:causal q [1, {S}, {h}, {e}], k/v "
+        f"[1, {S}, {g}, {e}], fed the kernel's out and lse (tolerance: "
+        "dq, dk, dv float32 max |diff| <= 1e-4 max |plain|)")
+    record_phase(torch, flush, results, "flash_attention_bwd:causal",
+                 FLASH_BWD,
+                 lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                                causal=True),
+                 lambda: ref.attention_bwd(q, k, v, out, do, lse,
+                                           causal=True),
+                 lib_bwd, nbytes, flops, check_bwd)
+    del qg, kg, vg, o_lib
+
+    # ---- K2: fused cross-entropy ---------------------------------------- #
+    n, d, vocab = TRAIN_SEQ, 2048, 128256
+    hn = rand(n, d, dtype=torch.float32)
+    table = rand(vocab, d, scale=0.02)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    mask = torch.ones(n, device=dev)
+    mask[torch.randperm(n, generator=gen, device=dev)[: n // 8]] = 0.0
+    denom = float(4 * n)
+    kw = dict(chunk=8192, mask=mask, denom=denom)
+    # read h, the table, labels, mask; write dh and dW (float32)
+    nbytes = (hn.nbytes + table.nbytes + lab.nbytes + mask.nbytes
+              + hn.nbytes + vocab * d * 4)
+    # the least work: the logits, dh and dW products
+    flops = 3 * 2 * n * d * vocab
+
+    def lib_xent():
+        hh = hn.detach().requires_grad_()
+        ww = table.float().requires_grad_()
+        lg = hh @ ww.t()
+        loss = (F.cross_entropy(lg, lab, reduction="none") * mask).sum() \
+            / denom
+        return torch.autograd.grad(loss, (hh, ww))
+
+    def check_xent(a, p):
+        (la, (dha, dwa)), (lp, (dhp, dwp)) = a, p
+        rel_err(la.reshape(1), lp.reshape(1), 1e-5, "loss")
+        return max(rel_err(dha, dhp, 1e-4, "dh"),
+                   rel_err(dwa, dwp, 1e-4, "dW"))
+
+    log(f"[kernel] fused_xent: h [{n}, {d}] float32, table [{vocab}, {d}] "
+        f"bf16 read as the [d, V] head, {int((mask == 0).sum())} rows "
+        "masked (tolerance: loss 1e-5 relative; dh, dW max |diff| <= 1e-4 "
+        "max |plain|)")
+    record_phase(torch, flush, results, "fused_xent", XENT,
+                 lambda: fx.softmax_xent(hn, table.t(), lab, **kw),
+                 lambda: ref.softmax_xent(hn, table.t(), lab, **kw),
+                 lib_xent, nbytes, flops, check_xent, iters=3)
+    # the check must see a head shifted by one vocab tile
+    plain = ref.softmax_xent(hn, table.t(), lab, **kw)
+    bad = fx.softmax_xent(hn, table.roll(fx.TILE, 0).t(), lab, **kw)
+    log("[kernel] fused_xent check, head shifted by one vocab tile:")
+    _, w_loss = rel_excess(bad[0].reshape(1), plain[0].reshape(1), 1e-5,
+                           "loss")
+    _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
+    if not (w_loss > 1.0 and w_dw > 1.0):
+        fail("the fused_xent check passes a head shifted by one vocab tile")
+    return results
+
+
+# --------------------------------------------------------------------------- #
+# Train phase
+# --------------------------------------------------------------------------- #
+
+
+def train_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    return {**fa.LAUNCHES, **fx.LAUNCHES}
+
+
+def train_phase(torch):
+    """Step 1 through the kernels and the plain versions, then timed
+    steps; returns (result row, session, params, opt state)."""
+    import math
+
+    from repro_torch.api import session
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ops
+
+    sess = session(ARCH, mode="train", reduced=False, device="cuda",
+                   seq_len=TRAIN_SEQ)
+    plain = session(ARCH, mode="train", reduced=False, device="cuda",
+                    seq_len=TRAIN_SEQ, overrides=dict(kernel_impl="ref"))
+    desc = sess.describe()
+    sc = sess.shape_cfg
+    log(f"[train] {desc['n_params']} params, schedule {desc['schedule']}, "
+        f"batch {sc.global_batch} x {sc.seq_len}")
+    t0 = time.perf_counter()
+    params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[train] params ({sess.rc.param_dtype}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    stream = sess.stream()
+    batch = stream.batch(0)
+
+    # ---- step 1: kernels vs plain versions ------------------------------ #
+    t0 = time.perf_counter()
+    g_k, m_k = sess.train_step(params, batch)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_p, m_p = plain.train_step(params, batch)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    loss_k, loss_p = float(m_k["loss_sum"]), float(m_p["loss_sum"])
+    log(f"[train] step 1: loss kernels {loss_k:.6f} ({t_k:.2f} s), plain "
+        f"versions {loss_p:.6f} ({t_p:.2f} s); tolerance loss "
+        f"{STEP1_LOSS_RTOL:g} relative, grads {STEP1_GRAD_RTOL:g} of the "
+        "plain tensor's max |value|")
+    if not abs(loss_k - loss_p) <= STEP1_LOSS_RTOL * abs(loss_p):
+        fail(f"step-1 loss {loss_k} off the plain versions' {loss_p}")
+    worst, worst_name, n_t = 0.0, None, 0
+    for part in ("io", "segments"):
+        gk = g_k[part] if part == "io" else g_k[part]["main"]
+        gp = g_p[part] if part == "io" else g_p[part]["main"]
+        for name in gk:
+            a, b = gk[name], gp[name]
+            r = ((a - b).abs().max() / b.abs().max()).item()
+            if not math.isfinite(r) or r > worst or worst_name is None:
+                worst, worst_name = r, name
+            if not math.isfinite(a.abs().max().item()):
+                fail(f"step-1 gradient {name} is not finite")
+            n_t += 1
+    log(f"[train] step 1: {n_t} gradient tensors, worst max |diff| / max "
+        f"|plain| {worst:.4e} ({worst_name})")
+    if not worst <= STEP1_GRAD_RTOL:
+        fail(f"step-1 gradient {worst_name} off the plain versions by "
+             f"{worst} of its max |value|")
+    if not abs(loss_k - math.log(128256)) <= 0.5:
+        fail(f"step-1 loss {loss_k} is not near ln(vocab) = "
+             f"{math.log(128256):.3f}")
+    del g_k, g_p, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- timed steps ---------------------------------------------------- #
+    opt = sess.init_opt_state(params)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    fx.reset_launches()
+    base = ops.kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    tokens = sc.global_batch * sc.seq_len
+    for i in range(TRAIN_STEPS):
+        b = stream.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, m = sess.train_step(params, b)
+        params, opt, om = sess.opt_step(params, grads, opt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        del grads
+        loss = float(m["loss_sum"])
+        row = dict(step=i + 1, ms=dt * 1e3, tok_per_s=tokens / dt,
+                   loss=loss, grad_norm=float(om["grad_norm"]),
+                   max_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+        steps.append(row)
+        log(f"[train] step {i + 1}: {row['ms']:.1f} ms, "
+            f"{row['tok_per_s']:.1f} tok/s, loss {loss:.4f}, grad norm "
+            f"{row['grad_norm']:.3f}, max memory "
+            f"{row['max_memory_gb']:.2f} GiB")
+    launches = train_launches()
+    counters = {k: v - base.get(k, 0) for k, v in ops.kernel_counters().items()
+                if v - base.get(k, 0)}
+    log(f"[train] launches in {TRAIN_STEPS} steps: {launches}; dispatch "
+        f"{counters}")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f"{name} launched {launches[name]} times in "
+                 f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    if any(k.startswith("ref_") for k in counters):
+        fail(f"the timed steps reached a plain version: {counters}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"non-finite losses: {[r['loss'] for r in steps]}")
+    res = dict(step1_loss_kernels=loss_k, step1_loss_plain=loss_p,
+               step1_worst_grad=worst, step1_worst_name=worst_name,
+               step1_s_kernels=t_k, step1_s_plain=t_p, steps=steps,
+               step_ms=sum(r["ms"] for r in steps) / len(steps),
+               tok_per_s=sum(r["tok_per_s"] for r in steps) / len(steps),
+               max_memory_gb=max(r["max_memory_gb"] for r in steps),
+               launches=launches, counters=counters)
+    return res, sess, params, opt
+
+
+def profile_train(torch, sess, params, opt):
+    """One training step (train_step + opt_step) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = sess.stream().batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads, _ = sess.train_step(params, batch)
+        sess.opt_step(params, grads, opt)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del grads
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(t for _, t, _ in dev)
+    n = sum(c for *_, c in dev)
+    log(f"[profile] train step: {wall_us / 1e3:.1f} ms under the profiler, "
+        f"device busy {busy / wall_us:.3f} of it, {n} kernels")
+    top = sorted(dev, key=lambda r: -r[1])[:15]
+    for name, t, c in top:
+        log(f"[profile]   {t / 1e3:9.3f} ms {c:6d}x {name[:90]}")
+    prof.export_chrome_trace(str(OUT / "train_trace.json"))
+    return dict(step_ms=wall_us / 1e3, busy_share=busy / wall_us,
+                kernels_per_step=n,
+                top=[dict(name=k, ms=t / 1e3, calls=c) for k, t, c in top])
 
 
 # --------------------------------------------------------------------------- #
@@ -513,7 +890,9 @@ def main() -> None:
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = kernel_phases(torch, flush)
+    train_kernels = train_kernel_phases(torch, flush)
     del flush
+    gc.collect()
     torch.cuda.empty_cache()
     contig, outs_c, lg_c, params, sess_c = serve_phase(torch, "contiguous")
     paged, outs_p, lg_p, _, sess_p = serve_phase(torch, "paged", params)
@@ -530,15 +909,21 @@ def main() -> None:
     for row in kernels:
         lay = contig if row["name"].startswith("slotted") else paged
         row["launches"] = lay["launches"][row["name"].split(":")[0]]
+    train, sess_t, params_t, opt_t = train_phase(torch)
+    for row in train_kernels:
+        row["launches"] = train["launches"][row["name"].split(":")[0]]
+    kernels += train_kernels
     # after every timed run: the profiler slows what follows it
     profiles = [profile_decode(torch, s, params, r["layout"])
                 for r, s in ((contig, sess_c), (paged, sess_p))]
+    profiles.append(profile_train(torch, sess_t, params_t, opt_t))
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "kernels": kernels,
-         "serve": serve, "profiles": profiles,
+         "serve": serve, "train": train, "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,25 @@
-"""The Session facade of the port, serving side.
+"""The Session facade of the port: training and serving.
 
-The serving half of ``repro/api/session.py`` — everything
-:class:`repro_torch.serving.ServeEngine` reads::
+The port's counterpart of ``repro/api/session.py``. Training::
+
+    sess = repro_torch.api.session("llama3.2-1b", mode="train",
+                                   reduced=False, seq_len=2048)
+    params = sess.init_params()
+    opt = sess.init_opt_state(params)
+    grads, metrics = sess.train_step(params, sess.stream().batch(0))
+    params, opt, om = sess.opt_step(params, grads, opt)
+
+Serving — everything :class:`repro_torch.serving.ServeEngine` reads::
 
     sess = repro_torch.api.session("llama3.2-1b", max_slots=8,
                                    max_seq=2048, reduced=False)
-    params = sess.init_params()
-    eng = sess.serve_engine(params)
+    eng = sess.serve_engine(sess.init_params())
 
 It runs on one rank and one device: ``device="cuda"`` (the default, which
 raises when no GPU is present) or ``device="cpu"`` (the tests). Batches
-arrive as numpy arrays from the engine and move to the device here;
-tokens and logits come back as CPU tensors, which ``np.asarray`` reads.
-Caches stay on the device and are updated in place (``core/serve.py``).
+arrive as numpy arrays and move to the device here; serve tokens and
+logits come back as CPU tensors, which ``np.asarray`` reads. Caches stay
+on the device and are updated in place (``core/serve.py``).
 """
 
 from __future__ import annotations
@@ -25,20 +32,29 @@ import torch
 
 from repro_torch.api.spec import SessionError, SessionSpec
 from repro_torch.core import serve as CS
+from repro_torch.core.pipeline import Runtime, make_train_step
+from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.models.common import ShapeConfig
+from repro_torch.optim import adamw
 from repro_torch.params import init_all_params
+
+_OPT_FIELDS = {f.name for f in dataclasses.fields(adamw.AdamWConfig)}
+_CKPT = ("checkpoints (ckpt/checkpoint.py) and the fault-tolerance "
+         "controller wait for the checkpoint slice (ROADMAP.md queue 1)")
 
 
 def session(arch: str, *, mode: str = "serve", overrides=None,
             **kw) -> "Session":
-    """Build a validated serve Session. See SessionSpec for every knob."""
+    """Build a validated Session. See SessionSpec for every knob."""
     return Session(SessionSpec(arch=arch, mode=mode,
                                overrides=dict(overrides or {}), **kw))
 
 
 class Session:
-    """A bound (arch × RunConfig × device) with its serve steps."""
+    """A bound (arch × RunConfig × device) with its train or serve
+    steps."""
 
     def __init__(self, spec: SessionSpec):
         self.spec = spec.validate()
@@ -60,8 +76,16 @@ class Session:
                 "pp/vpp overrides.") from e
         for seg in self.geo.segments:   # unported layer kinds fail here
             M.stage_specs(self.cfg, seg)
-        # the engine reads rt.G (page partitions per FSDP group)
-        self.rt = types.SimpleNamespace(G=self.rc.groups)
+        self._shape_cfg = None
+        self._train_step = None
+        if spec.mode == "train":
+            try:
+                self.rt = Runtime(self.cfg, self.rc, self.device)
+            except ValueError as e:
+                raise SessionError(str(e)) from e
+        else:
+            # the engine reads rt.G (page partitions per FSDP group)
+            self.rt = types.SimpleNamespace(G=self.rc.groups)
         self._rope = None
         self._engine_stats = None   # serving EngineStats (engine attaches)
         # baseline for the per-session dispatch counters (process-wide)
@@ -135,6 +159,77 @@ class Session:
     def copy_pages(self, caches, src, dst):
         """Copy page ``src[i]`` -> ``dst[i]`` in every paged leaf."""
         return CS.copy_pages(caches, self._ids(src), self._ids(dst))
+
+    # ------------------------------------------------------------------ #
+    # Training
+    # ------------------------------------------------------------------ #
+
+    @property
+    def shape_cfg(self) -> ShapeConfig:
+        """The train shape: ``seq_len`` (default 32) by ``global_batch``
+        (default one sequence per micro-batch)."""
+        if self._shape_cfg is None:
+            sp = self.spec
+            self._shape_cfg = ShapeConfig(
+                "train", sp.seq_len or 32,
+                sp.global_batch or self.rc.microbatches, "train")
+        return self._shape_cfg
+
+    def _need_train(self, what: str) -> None:
+        if self.spec.mode != "train":
+            raise SessionError(f"{what} needs a mode='train' session")
+
+    def train_step(self, params, batch):
+        """One pipeline step on the schedule's tick table; returns (grads,
+        metrics): float32 grads shaped like params, metrics ``loss_sum``
+        (the step's mean token loss), ``aux_sum`` and ``emb_dropped``."""
+        self._need_train("train_step")
+        if self._train_step is None:
+            try:
+                self._train_step = make_train_step(self.rt, self.shape_cfg)
+            except ValueError as e:
+                raise SessionError(str(e)) from e
+        return self._train_step(params, batch)
+
+    def opt_config(self):
+        """(AdamWConfig, use_lr_schedule, warmup, total) from spec.optim."""
+        kw = dict(self.spec.optim)
+        use_sched = "warmup" in kw or "total" in kw
+        warmup = kw.pop("warmup", 100)
+        total = kw.pop("total", 10_000)
+        bad = sorted(set(kw) - _OPT_FIELDS)
+        if bad:
+            raise SessionError(
+                f"unknown optim option(s) {bad}; valid: warmup, total, "
+                f"{', '.join(sorted(_OPT_FIELDS))}")
+        kw.setdefault("moment_dtype", self.rc.opt_moment_dtype)
+        return adamw.AdamWConfig(**kw), use_sched, warmup, total
+
+    def init_opt_state(self, params):
+        """Float32 master weights and zero moments for ``params``."""
+        return adamw.init_state(params, self.opt_config()[0])
+
+    def opt_step(self, params, grads, opt_state):
+        """One AdamW update (in place); returns (params, opt_state,
+        metrics) with ``grad_norm`` and ``lr``."""
+        cfg, use_sched, warmup, total = self.opt_config()
+        scale = adamw.lr_schedule(opt_state["step"], base_lr=1.0,
+                                  warmup=warmup, total=total) \
+            if use_sched else 1.0
+        return adamw.apply_updates(params, grads, opt_state, cfg, scale)
+
+    def stream(self, seed: int = 0) -> SyntheticStream:
+        """The deterministic synthetic token stream of the train shape."""
+        sc = self.shape_cfg
+        return SyntheticStream(DataConfig(
+            seq_len=sc.seq_len, global_batch=sc.global_batch,
+            vocab=self.cfg.vocab, seed=seed))
+
+    def checkpointing(self, ckpt_dir: str, **kw):
+        raise SessionError(_CKPT)
+
+    def restore_params(self, ckpt_dir: str, **kw):
+        raise SessionError(_CKPT)
 
     # ------------------------------------------------------------------ #
     # Serve steps
@@ -251,6 +346,17 @@ class Session:
             },
             "n_params": n_params,
         }
+        if self.spec.mode == "train":
+            plan = self.rt.plans["main"]
+            pt = plan.packed
+            sc = self.shape_cfg
+            out["schedule"] = {
+                "name": plan.name, "microbatches": rc.microbatches,
+                "unit": pt.U, "vpp": rc.vpp, "ticks": pt.T,
+                "prefetch": pt.prefetch, "counts": plan.table.counts(),
+                "coalesce": rc.coalesce}
+            out["shape"] = {"seq_len": sc.seq_len,
+                            "global_batch": sc.global_batch}
         if self._engine_stats is not None:
             out["serving"] = dataclasses.asdict(self._engine_stats)
         return out

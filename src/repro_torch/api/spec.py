@@ -1,10 +1,11 @@
 """SessionSpec: the validated builder behind ``repro_torch.api.session``.
 
-The serving slice of ``repro/api/spec.py``: architecture resolution,
-RunConfig overrides and the serving knobs, checked before any device
-work. The port runs on one rank, so the data/pod axes are 1 and the
-schedule, cost-model, topology and mesh knobs of the reference have no
-counterpart yet.
+The port's slice of ``repro/api/spec.py``: architecture resolution,
+RunConfig overrides, the training shape and optimizer knobs, and the
+serving knobs, checked before any device work. The port runs on one rank,
+so the data/pod axes are 1 and pp is 1 in train mode (multi-rank: next
+slice); ``schedule="auto"``/``"auto_profiled"``, topologies, MoE and
+checkpoints are refused with the slice they wait for.
 """
 
 from __future__ import annotations
@@ -12,7 +13,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-from repro_torch.api.registry import RegistryError, get_arch
+from repro_torch.api.registry import (
+    SCHEDULE_REGISTRY,
+    RegistryError,
+    get_arch,
+)
 from repro_torch.models.common import RunConfig
 
 
@@ -25,18 +30,24 @@ _RC_FIELDS = {f.name for f in dataclasses.fields(RunConfig)}
 
 @dataclasses.dataclass(frozen=True)
 class SessionSpec:
-    """Everything needed to build a serve Session. Validated, not built."""
+    """Everything needed to build a Session. Validated, not built."""
 
     arch: str
     mode: str = "serve"
     reduced: bool = True            # reduced() smoke config vs the
     #                                 published width on one card
+    schedule: str | None = None     # shorthand for overrides["schedule"]
     overrides: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    optim: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    seq_len: int | None = None      # train: sequence length (default 32)
+    topology: Any = None            # hardware topology (refused: one card)
     data: int | None = None         # data-axis size (one rank: 1)
     pods: int | None = None         # pod axis (one rank: 1)
     max_seq: int | None = None      # serving cache length
     max_slots: int | None = None    # continuous-batching slot count
-    global_batch: int | None = None  # same quantity as max_slots
+    global_batch: int | None = None  # serve: same quantity as max_slots;
+    #                                  train: sequences a step (default one
+    #                                  per micro-batch)
     prefill_chunk: int | None = None  # split prompts into chunks of this
     #                                   width
     page_size: int | None = None    # paged KV cache: tokens per page
@@ -50,6 +61,15 @@ class SessionSpec:
 
     def __post_init__(self):
         object.__setattr__(self, "overrides", dict(self.overrides or {}))
+        object.__setattr__(self, "optim", dict(self.optim or {}))
+        if self.schedule is not None:
+            prev = self.overrides.get("schedule")
+            if prev is not None and prev != self.schedule:
+                raise SessionError(
+                    f"schedule given twice and inconsistently: "
+                    f"schedule={self.schedule!r} vs "
+                    f"overrides['schedule']={prev!r}")
+            self.overrides["schedule"] = self.schedule
         if self.kv_cache_dtype is not None:
             prev = self.overrides.get("kv_cache_dtype")
             if prev is not None and prev != self.kv_cache_dtype:
@@ -60,11 +80,10 @@ class SessionSpec:
             self.overrides["kv_cache_dtype"] = self.kv_cache_dtype
 
     def validate(self) -> "SessionSpec":
-        if self.mode != "serve":
+        if self.mode not in ("train", "serve"):
             raise SessionError(
-                f"mode={self.mode!r}: repro_torch serves only so far; the "
-                "training side (tape, tick engine, FSDP, AdamW) is the next "
-                "slice of the port (ROADMAP.md queue 1)")
+                f"mode={self.mode!r}: pick 'train' or 'serve' (the dry-run "
+                "mode lowers for a TPU mesh and has no port)")
         try:
             get_arch(self.arch)
         except RegistryError as e:
@@ -96,12 +115,22 @@ class SessionSpec:
         for axis in ("data", "pods"):
             if getattr(self, axis) not in (None, 1):
                 raise SessionError(
-                    f"{axis}={getattr(self, axis)}: repro_torch serves on "
-                    "one rank; data-parallel serving arrives with the "
-                    "multi-rank slices (ROADMAP.md queue 1)")
+                    f"{axis}={getattr(self, axis)}: repro_torch runs on "
+                    "one rank (multi-rank: next slice, ROADMAP.md queue 1)")
         if self.device not in ("cuda", "cpu"):
             raise SessionError(
                 f"device={self.device!r}: pick 'cuda' or 'cpu'")
+        if self.topology is not None:
+            raise SessionError(
+                "topology presets lay a model over a cluster; the port runs "
+                "on one card until the multi-rank slice (ROADMAP.md queue 1)")
+        moe = self.overrides.get("moe_mode", "gathered")
+        if moe != "gathered" or self.overrides.get("moe_stats"):
+            raise SessionError(
+                f"moe_mode={moe!r} / moe_stats: MoE blocks and expert "
+                "parallelism wait for the MoE slice (ROADMAP.md queue 1)")
+        if self.mode == "train":
+            return self._validate_train()
         if self.max_seq is None or self.max_seq < 1:
             raise SessionError(
                 "serve sessions need max_seq=<prompt+gen+slack> (the KV "
@@ -141,11 +170,49 @@ class SessionSpec:
                     f"max_pages must be >= 1, got {self.max_pages}")
         return self
 
+    def _validate_train(self) -> "SessionSpec":
+        sched = self.overrides.get("schedule")
+        if sched in ("auto", "auto_profiled", "autogen", "autogen_gated"):
+            raise SessionError(
+                f"schedule={sched!r}: the simulated plan selection and the "
+                "§4 auto-generated schedules wait for the auto slice "
+                "(ROADMAP.md queue 1); pick one of "
+                f"{', '.join(SCHEDULE_REGISTRY.names())}")
+        if sched is not None:
+            try:
+                SCHEDULE_REGISTRY.get(sched)
+            except RegistryError as e:
+                raise SessionError(str(e)) from e
+        for knob in ("pp", "groups"):
+            if self.overrides.get(knob, 1) != 1:
+                raise SessionError(
+                    f"{knob}={self.overrides[knob]}: the port trains on one "
+                    "rank, pp = groups = 1 (multi-rank: next slice, "
+                    "ROADMAP.md queue 1)")
+        if self.overrides.get("grad_compress", "none") != "none":
+            raise SessionError(
+                "grad_compress='int8' compresses the cross-rank "
+                "reduce-scatter (multi-rank: next slice)")
+        if self.seq_len is not None and self.seq_len < 1:
+            raise SessionError(f"seq_len must be >= 1, got {self.seq_len}")
+        if self.global_batch is not None and self.global_batch < 1:
+            raise SessionError(
+                f"global_batch must be >= 1, got {self.global_batch}")
+        return self
+
     def resolve_configs(self):
-        """Returns (arch_module, ModelConfig, RunConfig) post-overrides."""
+        """Returns (arch_module, ModelConfig, RunConfig) post-overrides.
+
+        Train mode runs on one rank: the reduced RunConfig's pp (2, the
+        reference's multi-device smoke layout) becomes 1, and the full
+        width takes the module's ``one_card_train_run()``."""
         mod = get_arch(self.arch)
         if self.reduced:
             cfg, rc = mod.reduced()
+            if self.mode == "train":
+                rc = dataclasses.replace(rc, pp=1)
+        elif self.mode == "train":
+            cfg, rc = mod.config(), mod.one_card_train_run()
         else:
             cfg, rc = mod.config(), mod.one_card_run()
         if self.overrides:

@@ -5,7 +5,7 @@ SwiGLU, RMSNorm, tied embeddings, head_dim 64. Same values as
 ``repro/configs/llama3p2_1b.py``.
 """
 
-from repro_torch.configs._base import one_card
+from repro_torch.configs._base import one_card, one_card_train
 from repro_torch.models.common import ModelConfig, RunConfig
 
 
@@ -19,6 +19,10 @@ def config() -> ModelConfig:
 
 def one_card_run() -> RunConfig:
     return one_card()
+
+
+def one_card_train_run() -> RunConfig:
+    return one_card_train()
 
 
 def reduced():

@@ -21,18 +21,26 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
-SOURCES = ("slotted_attention", "paged_attention")
+SOURCES = ("slotted_attention", "paged_attention", "flash_attention_fwd",
+           "flash_attention_bwd", "fused_xent")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of each library's C entry point (pointers as void*: a
-# bare Python int would be passed as a 32-bit int and cut)
+# argument types of each library's C entry points, by source (pointers
+# as void*: a bare Python int would be passed as a 32-bit int and cut)
 SIGNATURES = {
-    "slotted_attention": (
-        [_I, _I] + [_P] * 8 + [_I] * 8 + [_F, _P]),
-    "paged_attention": (
-        [_I, _I] + [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "slotted_attention": {"slotted_attention": (
+        [_I, _I] + [_P] * 8 + [_I] * 8 + [_F, _P])},
+    "paged_attention": {"paged_attention": (
+        [_I, _I] + [_P] * 8 + [_I] * 9 + [_F, _P])},
+    "flash_attention_fwd": {"flash_attention_fwd": (
+        [_I] + [_P] * 5 + [_I] * 9 + [_F, _P])},
+    "flash_attention_bwd": {"flash_attention_bwd": (
+        [_I] + [_P] * 10 + [_I] * 9 + [_F, _P])},
+    "fused_xent": {
+        "fused_xent_fwd": [_I] + [_P] * 7 + [_I] * 3 + [_P],
+        "fused_xent_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -94,14 +102,15 @@ def build_all() -> dict[str, pathlib.Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed, with its entry point's argument types declared."""
+    needed, with its entry points' argument types declared."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = build_all()[name]
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib

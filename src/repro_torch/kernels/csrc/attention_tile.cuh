@@ -149,17 +149,20 @@ struct PagedKV {
   }
 };
 
-// The block body. q [b, sq, H, E]; out [b, sq, H, EV] in TQ; pos [b]:
-// causal rows see keys k <= pos[b] + i, window rows keys k < pos[b].
-// With stats (m_out non-null) also writes m, l [b, H, sq] and the
-// unnormalised acc [b, H, sq, EV] in float32.
+// The block body. q [b, sq, H, E]; out [b, sq, H, EV] in TQ; p0 is the
+// block's batch row position: causal rows see keys k <= p0 + i, window
+// rows keys k < p0. With stats (m_out non-null) also writes m, l
+// [b, H, sq] and the unnormalised acc [b, H, sq, EV] in float32; with
+// lse_out non-null the per-row log-sum-exp m + log(l) [b, H, sq] in
+// float32 (-inf for a row that sees no key).
 template <typename TQ, int E, int EV, int BM, typename KV>
 __device__ __forceinline__ void attend(const TQ* __restrict__ q,
                                        TQ* __restrict__ out,
                                        float* __restrict__ m_out,
                                        float* __restrict__ l_out,
                                        float* __restrict__ acc_out,
-                                       const int* __restrict__ pos, int sq,
+                                       float* __restrict__ lse_out, int p0,
+                                       int sq,
                                        int H, int G, int window, float scale,
                                        const KV& kv) {
   constexpr int RG = BM / 4;
@@ -180,7 +183,6 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ q,
   const int M = rep * sq;
   const int m0 = blockIdx.y * BM;
   const int tr = threadIdx.x / CG, tc = threadIdx.x % CG;
-  const int p0 = pos[b];
   const int S_lim = kv.limit();
 
   // Q tile, scaled in float32; rows past M are zeros.
@@ -303,6 +305,9 @@ __device__ __forceinline__ void attend(const TQ* __restrict__ q,
     TQ* o = out + ((static_cast<size_t>(b) * sq + iq) * H + h) * EV;
 #pragma unroll
     for (int a = 0; a < NA; ++a) o[tc + a * CG] = from_f32<TQ>(acc[i][a] / den);
+    if (lse_out != nullptr && tc == 0)
+      lse_out[(static_cast<size_t>(b) * H + h) * sq + iq] =
+          lrow[i] > 0.f ? mrow[i] + logf(lrow[i]) : -INFINITY;
     if (m_out != nullptr) {
       const size_t st = (static_cast<size_t>(b) * H + h) * sq + iq;
       if (tc == 0) {

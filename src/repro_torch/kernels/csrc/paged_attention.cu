@@ -49,7 +49,8 @@ __global__ void __launch_bounds__(THREADS)
                  const int* __restrict__ pos, TQ* __restrict__ out, int sq,
                  int H, int G, int n_pages, int ps, int ppr, float scale) {
   const attn::PagedKV<TKV, E, EV> kv{k, v, ks, vs, pt, ppr, ps, n_pages, G};
-  attn::attend<TQ, E, EV, BM>(q, out, nullptr, nullptr, nullptr, pos, sq, H,
+  attn::attend<TQ, E, EV, BM>(q, out, nullptr, nullptr, nullptr, nullptr,
+                              pos[blockIdx.x / G], sq, H,
                               G, /*window=*/0, scale, kv);
 }
 

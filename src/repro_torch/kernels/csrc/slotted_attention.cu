@@ -49,8 +49,9 @@ __global__ void __launch_bounds__(THREADS)
                    float* __restrict__ l_out, float* __restrict__ acc_out,
                    int sq, int H, int G, int S, int window, float scale) {
   const attn::ContigKV<TKV, E, EV> kv{k, v, S, G};
-  attn::attend<TQ, E, EV, BM>(q, out, m_out, l_out, acc_out, pos, sq, H, G,
-                              window, scale, kv);
+  attn::attend<TQ, E, EV, BM>(q, out, m_out, l_out, acc_out, nullptr,
+                              pos[blockIdx.x / G], sq, H, G, window, scale,
+                              kv);
 }
 
 template <typename TQ, typename TKV, int E, int EV, int BM>

@@ -8,13 +8,24 @@ forces the kernel and raises on a CPU tensor, None picks by device. A
 CUDA tensor never falls back to the plain version by itself: the kernel
 runs, or the call raises.
 
+Attention dispatches by the type of its offset, as the reference does
+(``repro/kernels/ops.py:62-96``): a tensor offset (per-row positions,
+serving) goes to the slotted kernel (K3), a static Python int (training,
+causal or bidirectional) to the flash kernels (K1 forward, K1b backward)
+through a differentiable ``torch.autograd.Function``. ``softmax_xent``
+goes to the fused cross-entropy kernel (K2).
+
 Every call bumps a process-wide counter (``kernel_counters``), one count
 per executed call — the port runs eagerly, so there is no trace-time
-distinction. ``Session.describe()["kernels"]`` reports per-session deltas.
+distinction; the flash backward counts when autograd runs it
+(``kernel_flash_bwd`` / ``ref_flash_bwd``). ``Session.describe()
+["kernels"]`` reports per-session deltas.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_xent as fx
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 
@@ -45,14 +56,21 @@ def _use_kernel(t, impl: str | None) -> bool:
 
 
 def attention(q, k, v, *, causal=True, q_offset=0, block_k=512, impl=None):
-    if not _use_kernel(q, impl):
+    """q: [b, sq, h, e]; k: [b, sk, g, e]; v: [b, sk, g, ev]. A Python int
+    ``q_offset`` takes the differentiable flash path (causal or not); a
+    tensor offset (0-d or per-row ``[b]``) the causal slotted path."""
+    use = _use_kernel(q, impl)
+    if isinstance(q_offset, int):
+        return fa.attention(q, k, v, causal=causal, q_offset=q_offset,
+                            use_kernel=use, count=_count)
+    if not use:
         _count("ref_attention")
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset,
                              block_k=block_k)
     if not causal:
-        raise NotImplementedError(
-            "bidirectional attention on the card needs the flash-attention "
-            "kernel (K1), which is still to be ported: ROADMAP.md queue 2")
+        raise ValueError(
+            "a tensor q_offset is causal only (the slotted kernel); pass a "
+            "Python int offset for bidirectional attention")
     _count("kernel_slotted")
     return pa.flash_attention_slotted(q, k, v, pos=q_offset)
 
@@ -71,3 +89,14 @@ def paged_attention(q, k_pool, v_pool, *, page_tables, pos, k_scale=None,
         q, k_pool, v_pool, page_tables=page_tables, pos=pos,
         k_scale=k_scale, v_scale=v_scale, slot_mask=slot_mask)
 
+
+def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None,
+                 impl=None):
+    """(loss, (dh, dW [d, vocab] float32)) of softmax cross-entropy over
+    the head ``w_head`` [d, vocab]; see ``ref.softmax_xent``."""
+    kw = dict(chunk=chunk, mask=mask, denom=denom)
+    if not _use_kernel(h, impl):
+        _count("ref_xent")
+        return ref.softmax_xent(h, w_head, labels, **kw)
+    _count("kernel_xent")
+    return fx.softmax_xent(h, w_head, labels, **kw)

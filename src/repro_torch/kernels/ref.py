@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the serving attention hot spots.
+"""Plain PyTorch versions of the port's kernels.
 
 The port's copy of ``repro/kernels/ref.py`` for the functions the serving
-slice runs. These are (a) the CPU execution path, and (b) the oracle the
-CUDA kernels in ``kernels/csrc`` are held against on the card. Masking
-follows the reference: ``-inf`` scores with ``isfinite`` guards, so a row
-that sees no key comes out as exact zeros. The slotted kernel's plain
-versions are ``attention`` with a ``[b]`` ``q_offset`` (causal) and
-``decode_attention`` (window, with stats).
+and training slices run. These are (a) the CPU execution path, and (b)
+the oracle the CUDA kernels in ``kernels/csrc`` are held against on the
+card. Masking follows the reference: ``-inf`` scores with ``isfinite``
+guards, so a row that sees no key comes out as exact zeros. Plain
+versions by kernel: slotted — ``attention`` with a ``[b]`` ``q_offset``
+(causal) and ``decode_attention`` (window, with stats); paged —
+``paged_attention``; flash forward — ``attention`` with an int offset and
+``return_lse``; flash backward — ``attention_bwd``; fused cross-entropy —
+``softmax_xent``.
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
     return x if rep == 1 else x.repeat_interleave(rep, dim=2)
 
 
-def attention(q, k, v, *, causal=True, q_offset=0, block_k=512, scale=None):
+def attention(q, k, v, *, causal=True, q_offset=0, block_k=512, scale=None,
+              return_lse=False):
     """Streaming-softmax attention; O(sq * block_k) live memory.
 
     q: [b, sq, h, e]; k: [b, sk, g, e]; v: [b, sk, g, ev] (h % g == 0).
     ``q_offset`` is the absolute position of q[0] (an int, a 0-d tensor,
     or a ``[b]`` tensor giving each batch row its own offset). Accumulates
-    in float32 whatever the input dtype; returns [b, sq, h, ev] in q.dtype.
+    in float32 whatever the input dtype; returns [b, sq, h, ev] in q.dtype
+    and, with ``return_lse``, also the per-row log-sum-exp [b, h, sq]
+    float32 (-inf for a row that sees no key), the flash kernel's residual.
     """
     b, sq, h, e = q.shape
     sk, g = k.shape[1], k.shape[2]
@@ -75,7 +81,116 @@ def attention(q, k, v, *, causal=True, q_offset=0, block_k=512, scale=None):
             "bhqk,bkhe->bhqe", p, _repeat_heads(vf[:, blk], rep))
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    out = out.permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        lse = torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)),
+                          float("-inf"))
+        return out, lse
+    return out
+
+
+def attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
+                  block_q=512, scale=None):
+    """Gradients of ``attention`` (int ``q_offset``) written out from the
+    recomputed probabilities, as the flash backward kernel computes them.
+
+    o, do: [b, sq, h, ev] (the forward's output and its cotangent); lse
+    [b, h, sq] the forward's log-sum-exp. With S = scale q k^T,
+    P = exp(S - lse) and D = rowsum(do * o): dV = P^T do,
+    dS = P (do V^T - D), dQ = scale dS K, dK = scale dS^T q; the rep q
+    heads of a kv head sum into its dK, dV. Returns float32 (dq [b, sq, h,
+    e], dk [b, sk, g, e], dv [b, sk, g, ev]); query blocks of ``block_q``
+    rows bound the live [h, block_q, sk] score memory.
+    """
+    b, sq, h, e = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    ev = v.shape[-1]
+    rep = h // g
+    scale = scale if scale is not None else (1.0 / e ** 0.5)
+    dev = q.device
+    kf = _repeat_heads(k, rep).float()                  # [b, sk, h, e]
+    vf = _repeat_heads(v, rep).float()
+    k_pos = torch.arange(sk, device=dev)
+    dq = torch.empty((b, sq, h, e), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, sk, h, e), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, sk, h, ev), dtype=torch.float32, device=dev)
+    for i0 in range(0, sq, block_q):
+        i1 = min(i0 + block_q, sq)
+        qb = q[:, i0:i1].float()
+        dob = do[:, i0:i1].float()
+        lb = lse[:, :, i0:i1]                            # [b, h, bq]
+        dd = (dob * o[:, i0:i1].float()).sum(-1).permute(0, 2, 1)
+        s = torch.einsum("bqhe,bkhe->bhqk", qb * scale, kf)
+        if causal:
+            q_pos = q_offset + torch.arange(i0, i1, device=dev)
+            mask = k_pos[None, :] <= q_pos[:, None]
+        else:
+            mask = torch.ones((i1 - i0, sk), dtype=torch.bool, device=dev)
+        keep = mask[None, None] & torch.isfinite(lb)[..., None]
+        p = torch.where(keep, torch.exp(s - torch.where(
+            torch.isfinite(lb), lb, 0.0)[..., None]), 0.0)
+        dv += torch.einsum("bhqk,bqhe->bkhe", p, dob)
+        dp = torch.einsum("bqhe,bkhe->bhqk", dob, vf)
+        ds = p * (dp - dd[..., None])
+        dq[:, i0:i1] = torch.einsum("bhqk,bkhe->bqhe", ds, kf) * scale
+        dk += torch.einsum("bhqk,bqhe->bkhe", ds, qb) * scale
+    dk = dk.reshape(b, sk, g, rep, e).sum(3)
+    dv = dv.reshape(b, sk, g, rep, ev).sum(3)
+    return dq, dk, dv
+
+
+def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
+    """Returns (loss, (dh, dW)) without materializing [n, vocab] logits.
+
+    h [n, d] final hiddens; w_head [d, vocab] (a transposed view of the
+    tied [vocab, d] table is read in place, one chunk upcast at a time);
+    labels [n] int; mask [n] (1.0 = count this token). loss =
+    sum((lse - label logit) * mask) / denom with ``denom`` the reference's
+    max(sum(mask), 1) when None (the trainer passes the step's global
+    token count). dlog = (softmax - onehot) * mask / denom is streamed over
+    vocab chunks: dh = dlog W^T, dW = h^T dlog, in float32 (h and W are
+    upcast), returned as dh in h.dtype and dW [d, vocab] in float32 (the
+    reference casts dW to the head's dtype; the trainer accumulates it in
+    float32).
+    """
+    n, d = h.shape
+    vocab = w_head.shape[1]
+    dev = h.device
+    hf = h.float()
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.float32, device=dev)
+    mask = mask.float()
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    lab = labels.long()
+    m = torch.full((n,), float("-inf"), device=dev)
+    l = torch.zeros((n,), device=dev)
+    lab_logit = torch.zeros((n,), device=dev)
+    rows = torch.arange(n, device=dev)
+    for lo in range(0, vocab, chunk):
+        hi = min(lo + chunk, vocab)
+        logits = hf @ w_head[:, lo:hi].float()           # [n, chunk]
+        m_new = torch.maximum(m, logits.amax(dim=1))
+        l = l * torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0) \
+            + torch.exp(logits - m_new[:, None]).sum(dim=1)
+        m = m_new
+        inc = (lab >= lo) & (lab < hi)
+        got = logits[rows, (lab - lo).clamp(0, hi - lo - 1)]
+        lab_logit = torch.where(inc, got, lab_logit)
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
+    loss = ((lse - lab_logit) * mask).sum() / denom
+    sc = mask / denom
+    dh = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    dw = torch.empty((d, vocab), dtype=torch.float32, device=dev)
+    for lo in range(0, vocab, chunk):
+        hi = min(lo + chunk, vocab)
+        wc = w_head[:, lo:hi].float()
+        p = torch.exp(hf @ wc - lse[:, None])
+        onehot = (lab[:, None] == torch.arange(lo, hi, device=dev)[None])
+        dlog = (p - onehot.float()) * sc[:, None]
+        dh += dlog @ wc.t()
+        dw[:, lo:hi] = hf.t() @ dlog
+    return loss, (dh.to(h.dtype), dw)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len=None, scale=None):

@@ -1,9 +1,12 @@
-"""Transformer blocks for cached serving (prefill s > 1 / decode s == 1).
+"""Transformer blocks: tape versions for training, cached for serving.
 
-The port's counterpart of the serving half of ``repro/models/blocks.py``
-for dense attention layers: RMSNorm, the SwiGLU FFN, and ``attn_cached``
-with its three cache layouts (paged pool, per-slot positions, one scalar
-position). The reference's sequence-sharded cache branch
+The port's counterpart of ``repro/models/blocks.py`` for dense attention
+layers. Training: ``apply_norm``, ``apply_attn`` and ``apply_ffn`` are
+written against the ZeroPP tape (``core/tape.py``): every parameterised
+GEMM is a ``dense`` node (deferred dW, the W task), everything else a
+``prim`` (immediate grads in B). Serving: RMSNorm, the SwiGLU FFN, and
+``attn_cached`` with its three cache layouts (paged pool, per-slot
+positions, one scalar position). The reference's sequence-sharded cache branch
 (``blocks.py:832``) combines attention across ranks and waits for the
 multi-rank slices. Params are flat dicts named like the reference's (``L{j}.``
 prefixes are added by the stage assembly in ``model.py``).
@@ -33,6 +36,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.tape import Tape, TVal
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
     ModelConfig,
@@ -102,7 +106,50 @@ def ffn_specs(cfg: ModelConfig, pfx: str):
 
 
 # --------------------------------------------------------------------------- #
-# Forward pieces
+# Tape versions (training: F / B / W)
+# --------------------------------------------------------------------------- #
+
+
+def apply_norm(t: Tape, cfg: ModelConfig, pfx: str, x: TVal) -> TVal:
+    """RMSNorm in float32, cast back to x.dtype; the scale's gradient is
+    immediate."""
+    def rms(scale, v):
+        vf = v.float()
+        y = vf * torch.rsqrt((vf * vf).mean(dim=-1, keepdim=True) + 1e-6)
+        return (y * scale).to(v.dtype)
+
+    return t.prim(rms, x, pnames=(f"{pfx}.scale",))
+
+
+def apply_attn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+    """Self-attention: QKV and O are dense nodes; RoPE and the attention
+    core (the flash kernels on the card) are one prim."""
+    cfg, rc = ctx.cfg, ctx.rc
+    q = t.dense(x, f"{pfx}.wq", "bsd,dhe->bshe")
+    k = t.dense(x, f"{pfx}.wk", "bsd,dge->bsge")
+    v = t.dense(x, f"{pfx}.wv", "bsd,dge->bsge")
+    cos, sin = ctx.rope[cfg.head_dim]
+
+    def core(qv, kv, vv):
+        return ops.attention(apply_rope(qv, cos, sin),
+                             apply_rope(kv, cos, sin), vv,
+                             causal=ctx.causal, q_offset=0,
+                             block_k=rc.attn_block_k, impl=rc.kernel_impl)
+
+    o = t.prim(core, q, k, v)
+    return t.dense(o, f"{pfx}.wo", "bshe,hed->bsd")
+
+
+def apply_ffn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+    """SwiGLU: three dense nodes around one element-wise prim."""
+    g = t.dense(x, f"{pfx}.wg", "bsd,df->bsf")
+    u = t.dense(x, f"{pfx}.wu", "bsd,df->bsf")
+    h = t.prim(lambda a, b: F.silu(a) * b, g, u)
+    return t.dense(h, f"{pfx}.wd", "bsf,fd->bsd")
+
+
+# --------------------------------------------------------------------------- #
+# Forward pieces (serving)
 # --------------------------------------------------------------------------- #
 
 

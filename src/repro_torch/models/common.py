@@ -133,6 +133,14 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Distribution + schedule hyper-parameters for one launch."""
@@ -204,6 +212,42 @@ class ParamSpec:
     scale: float = 1.0           # init scale multiplier
     ep: bool = False             # expert-parallel: dim0 stays sharded over
                                  # "data" (never FSDP-gathered) in ep mode
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatEntry:
+    """One gatherable tensor's slice of a stage's flat segment.
+
+    The segment stores each tensor with its data-sharded dim moved to
+    axis 0 and flattened, laid out *shard-major*: the per-rank local
+    packs concatenate in entry order, and the gathered segment is the
+    rank-order concatenation of those locals. ``offset``/``size`` index
+    the LOCAL (per-shard) pack — the gathered view of tensor ``i`` is
+    ``seg.reshape(dsize, local_size)[:, offset:offset+size]``.
+    """
+
+    name: str
+    shape: tuple[int, ...]       # full (unsharded) tensor shape
+    ld: int                      # data-sharded dim (moved to axis 0)
+    offset: int                  # start in the local flat pack (elements)
+    size: int                    # local element count (= prod(shape)/dsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Static offsets of one stage segment's flat parameter buffer."""
+
+    entries: tuple[FlatEntry, ...]
+    local_size: int              # per-shard flat length
+    dsize: int                   # data-axis size the layout was built for
+
+    @property
+    def full_size(self) -> int:
+        return self.local_size * self.dsize
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(e.name for e in self.entries)
 
 
 _DTYPES = {

@@ -1,6 +1,7 @@
-"""Architecture assembly for serving: geometry, stage params, cached stages.
+"""Architecture assembly: geometry, stage params, tape stages (training),
+cached stages (serving) and the single-device reference forward.
 
-The port's counterpart of ``repro/models/model.py`` for the serving slice.
+The port's counterpart of ``repro/models/model.py``.
 Geometry and parameter stacking follow the reference exactly: stage
 ``s = v·pp + p`` holds ``k`` consecutive layers, and the stacked params
 and caches store it at index ``storage_index(p, v, V) = p·V + v``, so a
@@ -15,11 +16,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from repro_torch.core.tape import Tape, TVal
 from repro_torch.models import blocks
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     RunConfig,
+    rope_tables,
     torch_dtype,
 )
 
@@ -129,6 +134,79 @@ def io_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
                                  scale=1.0),
         "final_norm.scale": ParamSpec((cfg.d_model,), "ones"),
     }
+
+
+# --------------------------------------------------------------------------- #
+# Stage application (tape — the train path)
+# --------------------------------------------------------------------------- #
+
+
+def rope_for(cfg: ModelConfig, seq: int, device=None):
+    """{head_dim: (cos, sin) [seq, head_dim/2]} for a training sequence."""
+    return {cfg.head_dim: rope_tables(seq, cfg.head_dim, cfg.rope_theta,
+                                      device)}
+
+
+def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
+                keep: float) -> TVal:
+    """Pre-norm residual layer; ``keep`` (0.0 for padding layers) scales
+    each residual branch, as the reference's ``u + v * keep``. Dense
+    kinds have no auxiliary loss."""
+    _check_kind(ctx.cfg, kind)
+
+    def res_add(a, b):
+        return t.prim(lambda u, v: u + v * keep, a, b)
+
+    h = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln1", x)
+    x = res_add(x, blocks.apply_attn(t, ctx, f"{pfx}.mix", h))
+    h2 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln2", x)
+    return res_add(x, blocks.apply_ffn(t, ctx, f"{pfx}.ffn", h2))
+
+
+def apply_stage(t: Tape, ctx: blocks.LayerCtx, seg: Segment, x: TVal,
+                stage_id: int) -> tuple[TVal, TVal]:
+    """Apply the k layers of one stage. Returns (y, aux scalar): the aux
+    loss stays 0 for dense layers, kept for the ``aux_sum`` metric."""
+    aux_total = t.value(torch.zeros((), dtype=torch.float32,
+                                    device=x.val.device))
+    for j, kind in enumerate(seg.kinds):
+        keep = float(stage_id * seg.k + j < seg.n_layers)
+        x = apply_layer(t, ctx, kind, f"L{j}", x, keep)
+    return x, aux_total
+
+
+def reference_logits(cfg, rc, params, tokens):
+    """Full forward on one device, looping stages in logical order; the
+    plain oracle of the pipeline. Returns (logits [b, s, vocab] in the
+    compute dtype, aux)."""
+    geo = build_geometry(cfg, rc)
+    dtype = torch_dtype(rc.compute_dtype)
+    io = params["io"]
+    seg = geo.segments[0]
+    x = embed_tokens(io, tokens, cfg, dtype)
+    ctx = blocks.LayerCtx(cfg=cfg, rc=rc,
+                          rope=rope_for(cfg, x.shape[1], x.device),
+                          causal=seg.causal)
+    stacked = params["segments"][seg.name]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in range(geo.seg_stages(seg)):
+        idx = storage_index(s % geo.pp, s // geo.pp, seg.vpp)
+        t = Tape({n: a[idx] for n, a in stacked.items()}, mode="fwd")
+        xv, aux = apply_stage(t, ctx, seg, t.value(x), s)
+        x, aux_total = xv.val, aux_total + aux.val
+    xf = x.float()
+    hn = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6) \
+        * io["final_norm.scale"]
+    return hn.to(dtype) @ io["embed.table"].t(), aux_total
+
+
+def reference_loss(cfg, rc, params, tokens, labels):
+    """Mean token cross-entropy of :func:`reference_logits` (float32)."""
+    logits, _ = reference_logits(cfg, rc, params, tokens)
+    lf = logits.reshape(-1, logits.shape[-1]).float()
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = lf.gather(1, labels.reshape(-1, 1).long())[:, 0]
+    return (lse - lab).mean()
 
 
 # --------------------------------------------------------------------------- #

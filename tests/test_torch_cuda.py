@@ -10,7 +10,10 @@ Tolerances: 2e-5 absolute for float32 inputs (same float32 math, other
 summation order); for bfloat16 outputs each element within one bf16 ulp
 of the plain version's, |got - want| <= 2^-7 * (|want| + mean |want|)
 (both round the same float32 value, up to summation order); stats 1e-4
-relative.
+relative. Float32 outputs of the training kernels (the flash backward's
+dq, dk, dv; the fused cross-entropy's loss, dh, dW) sum hundreds to
+thousands of float32 terms in another order: max |diff| <= 1e-4 * max
+|plain| per tensor, and 1e-5 relative for the loss and the log-sum-exp.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_xent as fx  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
@@ -93,3 +98,76 @@ def test_paged_kernel_matches_plain(cuda, pool):
     want = tref.paged_attention(qt, kp, vp, **kw)
     _close(got, want, qt.dtype)
     assert not got[~kw["slot_mask"]].any()
+
+
+def _rel_close(got, want, rtol=1e-4):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= rtol * scale, (err, scale)
+
+
+FLASH_CASES = [
+    dict(causal=True, q_offset=0, sq=150, sk=150),
+    dict(causal=True, q_offset=37, sq=90, sk=127),   # sq < sk window
+    dict(causal=False, q_offset=0, sq=70, sk=133),   # bidirectional
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    """K1 (out, lse) and K1b (dq, dk, dv) against their plain versions on
+    the same inputs, the backward fed the same out and lse."""
+    dt = getattr(torch, dtype)
+    b, h, g, e = 2, 8, 2, 64
+    q, k, v = (_t(a).to(cuda, dt) for a in _qkv(
+        8, b, case["sq"], h, g, e, case["sk"]))
+    kw = dict(causal=case["causal"], q_offset=case["q_offset"])
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    _close(out, want, dt)
+    _rel_close(lse, want_lse, 1e-5)
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(dt)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, plain):
+        assert a.dtype == torch.float32
+        _rel_close(a, w)
+    # the differentiable op launches both kernels
+    before = dict(fa.LAUNCHES)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fa.attention(qg, kg, vg, **kw)
+    grads = torch.autograd.grad(o, (qg, kg, vg), do)
+    assert fa.LAUNCHES["flash_attention_fwd"] == before[
+        "flash_attention_fwd"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == before[
+        "flash_attention_bwd"] + 1
+    for a, w in zip(grads, got):
+        torch.testing.assert_close(a, w.to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_fused_xent_kernel_matches_plain(cuda, w_dtype):
+    """K2: ragged rows (300) and vocab (1000 over chunks of 256), a mask
+    that zeroes rows, the head a transposed view of a [vocab, d] table;
+    a table shifted by one vocab tile must fail the check."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    n, d, vocab = 300, 136, 1000
+    h = torch.randn((n, d), generator=gen, device=cuda)
+    table = (0.3 * torch.randn((vocab, d), generator=gen, device=cuda)).to(
+        getattr(torch, w_dtype))
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=cuda)
+    mask = (torch.rand((n,), generator=gen, device=cuda) > 0.25).float()
+    kw = dict(chunk=256, mask=mask, denom=float(n))
+    loss, (dh, dw) = fx.softmax_xent(h, table.t(), lab, **kw)
+    wl, (wdh, wdw) = tref.softmax_xent(h, table.t(), lab, **kw)
+    _rel_close(loss.reshape(1), wl.reshape(1), 1e-5)
+    _rel_close(dh, wdh)
+    _rel_close(dw, wdw)
+    assert dw.shape == (d, vocab) and dw.t().is_contiguous()
+    bad, _ = fx.softmax_xent(h, table.roll(128, 0).t(), lab, **kw)
+    assert abs(bad.item() - wl.item()) > 1e-5 * abs(wl.item())
