@@ -10,19 +10,23 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time;
-2. kernel phases: each kernel at the shapes its path gives it, in bf16,
-   against its plain PyTorch version on the same inputs — the serving
-   attention kernels (K3 slotted, K4 paged) and the training kernels (K1
-   flash forward, K1b flash backward, K2 fused cross-entropy) — each
-   timed beside the plain version, a PyTorch library call computing the
-   same function (``library_ms``; timed only, never used by the port) and
-   the least time the card could take (``bound_ms``, from the bytes and
-   operations of this run's inputs). Tolerances: bf16 outputs within one
-   bf16 ulp of the plain ones per element; float32 outputs of K1b and K2
-   within 1e-4 of the plain tensor's largest value (1e-5 relative for
-   K2's loss and K1's log-sum-exp). Probes that must fail the checks: V
-   dequantised with the wrong scales (K4 int8), the head shifted by one
-   vocab tile (K2);
+2. kernel phases: each kernel at the shapes its path gives it, against
+   its plain PyTorch version on the same inputs — the serving attention
+   kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
+   kernels (K1 flash forward, K1b flash backward, K2 fused cross-entropy)
+   in bf16, and the selective scan (K5) in float32 — each timed beside
+   the plain version, a PyTorch library call computing the same function
+   (``library_ms``; timed only, never used by the port; none exists for
+   the scan) and the least time the card could take (``bound_ms``, from
+   the bytes and operations of this run's inputs). Tolerances: bf16
+   outputs within one bf16 ulp of the plain ones per element; float32
+   outputs of K1b and K2 within 1e-4 of the plain tensor's largest value
+   (1e-5 relative for K2's loss and K1's log-sum-exp); K5's y and final
+   state within 1e-5 of the plain tensor's largest value, and K5 chained
+   over two halves with h0 equal bit for bit to one pass over the whole.
+   Probes that must fail the checks: V dequantised with the wrong scales
+   (K4 int8), the head shifted by one vocab tile (K2), B and C swapped
+   (K5);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -41,9 +45,18 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    to 0 before them: K1, K1b and K2 must launch 128, 64 and 8 times a
    step, no plain version may run, every loss must be finite and step
    1's near ln(vocab);
-5. after every timed run, torch.profiler traces: five decode steps in
-   each serving layout and one training step (device busy share, kernels
-   by device time, launches a step).
+5. Jamba serve phase, after the training state is freed:
+   jamba-v0.1-52b at its published widths cut to depth 8 (one period:
+   Mamba, attention and gathered-MoE layers; 26.6 GB of bf16 weights
+   from a seeded generator) through the ``ServeEngine`` with the same 8
+   slots, ``max_seq`` 2048 and 16 requests. The launch counters are set
+   to 0 before the engine run; after it K5 must have launched 7 times a
+   prefill step (one per Mamba layer), K3 once a step, and no plain
+   version may have run. The first prefill step's logits are held
+   against the same step on the plain versions;
+6. after every timed run, torch.profiler traces: five decode steps in
+   each llama serving layout and in Jamba, and one training step (device
+   busy share, kernels by device time, launches a step).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -84,6 +97,15 @@ FLASH_BWD = dict(route="cuda",
                  replaces="src/repro/core/tape.py:134")
 XENT = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_xent.cu",
             replaces="src/repro/kernels/fused_xent.py:109")
+SCAN = dict(route="cuda",
+            source="src/repro_torch/kernels/csrc/selective_scan.cu",
+            replaces="src/repro/kernels/selective_scan.py:57")
+JAMBA, JAMBA_VOCAB, MAMBA_LAYERS = "jamba-v0.1-52b", 65536, 7
+SCAN_B, SCAN_S, SCAN_D, SCAN_N = 8, 512, 8192, 16
+# K5 vs its plain version: both compute in float32, the kernel one step at
+# a time, the plain version in doubling steps inside chunks of 256, so y
+# and the state differ by float32 rounding only
+SCAN_RTOL = 1e-5
 TRAIN_SEQ, TRAIN_STEPS = 2048, 5
 # launches a training step: 16 layers x 4 micro-batches x (F + B's
 # recompute) forwards, one backward per layer and micro-batch, two passes
@@ -181,14 +203,16 @@ def rel_err(a, p, rtol: float, what: str) -> float:
 
 
 def record_phase(torch, flush, results, name, meta, kern, plain, lib,
-                 nbytes, flops, check, iters=10, plain_iters=3):
+                 nbytes, flops, check, iters=10, plain_iters=3,
+                 dtype="bfloat16"):
     """Check the kernel against its plain version, then time kernel,
-    plain version and library call; appends the phase's row."""
+    plain version and library call; appends the phase's row. ``dtype``
+    picks the peak rate of the operations' bound."""
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
     err = check(out_k, out_p)
     del out_k, out_p
-    t_bound, by = bound(nbytes, flops, "bfloat16")
+    t_bound, by = bound(nbytes, flops, dtype)
     row = dict(name=name, **meta, max_abs_err=err,
                ms=time_ms(torch, kern, flush, iters),
                plain_ms=time_ms(torch, plain, flush, plain_iters),
@@ -243,9 +267,9 @@ def kernel_phases(torch, flush):
         return int((pos[:, None] + i[None, :] + 1).clamp(max=limit).sum())
 
     # ---- slotted attention (contiguous cache) --------------------------- #
-    for phase, sq in (("causal_prefill", 512), ("decode", 1)):
-        q = rand(b, sq, h, e)
-        k, v = rand(b, S, g, e), rand(b, S, g, e)
+    def slotted_phase(phase, sq, hd, rand):
+        q = rand(b, sq, h, hd)
+        k, v = rand(b, S, g, hd), rand(b, S, g, hd)
         if sq > 1:
             pos = torch.linspace(0, S - sq, b, device=dev).int()
         else:
@@ -255,15 +279,18 @@ def kernel_phases(torch, flush):
         mask = (kpos[None, None, :] <= (pos[:, None] + torch.arange(
             sq, device=dev))[:, :, None])[:, None]
         nbytes = (2 * q.nbytes + pos.nbytes
-                  + int(keys.sum()) * g * 2 * e * 2)
-        flops = causal_pairs(pos, sq, S) * h * 2 * (e + e)
+                  + int(keys.sum()) * g * 2 * hd * 2)
+        flops = causal_pairs(pos, sq, S) * h * 2 * (hd + hd)
         log(f"[kernel] slotted_attention:{phase} b={b} sq={sq} h={h} g={g} "
-            f"e={e} S={S} pos={pos.tolist()} (tolerance |diff| <= 2^-7 "
+            f"e={hd} S={S} pos={pos.tolist()} (tolerance |diff| <= 2^-7 "
             "(|plain| + mean |plain|) per element)")
         record(f"slotted_attention:{phase}", SLOTTED,
                lambda: pa.flash_attention_slotted(q, k, v, pos=pos),
                lambda: ref.attention(q, k, v, q_offset=pos),
                sdpa(q, k, v, mask), nbytes, flops, out_err)
+
+    for phase, sq in (("causal_prefill", 512), ("decode", 1)):
+        slotted_phase(phase, sq, e, rand)
 
     # window + stats (decode-attention contract, pos = cache length)
     q = rand(b, 1, h, e)
@@ -365,6 +392,15 @@ def kernel_phases(torch, flush):
                     q, kp, vp, **dict(kw, v_scale=bad)), plain)
                 if not worst > 1.0:
                     fail(f"the int8 check passes V dequantised with {what}")
+
+    # ---- slotted attention at head_dim 128 (jamba-v0.1-52b) ------------- #
+    gen128 = torch.Generator(device=dev).manual_seed(3)
+
+    def rand128(*shape):
+        return torch.randn(shape, generator=gen128, device=dev).to(bf)
+
+    for phase, sq in (("e128_causal_prefill", 512), ("e128_decode", 1)):
+        slotted_phase(phase, sq, 128, rand128)
     return results
 
 
@@ -518,6 +554,78 @@ def train_kernel_phases(torch, flush):
     _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
     if not (w_loss > 1.0 and w_dw > 1.0):
         fail("the fused_xent check passes a head shifted by one vocab tile")
+    return results
+
+
+def scan_kernel_phase(torch, flush):
+    """K5 at the Jamba prefill's shape (8 rows of 512 steps, 8192
+    channels, state 16, float32) against its plain version, then the
+    chaining case and the B/C-swap probe."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, s, d, n = SCAN_B, SCAN_S, SCAN_D, SCAN_N
+    results = []
+
+    def inputs(s):
+        """Mamba-like values: dt log-uniform in [1e-3, 1e-1] and A = -(1..n)
+        (S4D-real), so exp(dt A) spans short and long memory."""
+        x = torch.randn((b, s, d), generator=gen, device=dev)
+        dt = torch.exp(torch.empty((b, s, d), device=dev).uniform_(
+            -6.9078, -2.3026, generator=gen))
+        bm = torch.randn((b, s, n), generator=gen, device=dev)
+        cm = torch.randn((b, s, n), generator=gen, device=dev)
+        return x, dt, bm, cm
+
+    A = -(torch.arange(1, n + 1, device=dev, dtype=torch.float32)[None]
+          * torch.exp(0.1 * torch.randn((d, n), generator=gen, device=dev)))
+    D = torch.randn((d,), generator=gen, device=dev)
+    x, dt, bm, cm = inputs(2 * s)
+    half = [t[:, :s].contiguous() for t in (x, dt, bm, cm)]
+
+    def check(a, p):
+        return max(rel_err(a[0], p[0], SCAN_RTOL, "y"),
+                   rel_err(a[1], p[1], SCAN_RTOL, "h"))
+
+    f32 = 4
+    # read x, dt, B, C, A, D once; write y and the final state
+    nbytes = f32 * (3 * b * s * d + 2 * b * s * n + d * n + d + b * d * n)
+    # per (row, step, channel, state): dt*A, exp, dt*B, *x, a*h+u, +C*h
+    flops = b * s * d * (n * 8 + 2)
+    log(f"[kernel] selective_scan: x, dt [{b}, {s}, {d}], A [{d}, {n}], "
+        f"B, C [{b}, {s}, {n}], float32, return_state (tolerance: y and h "
+        f"max |diff| <= {SCAN_RTOL:g} max |plain|); bound by the float32 "
+        "rate for the operations")
+    record_phase(torch, flush, results, "selective_scan", SCAN,
+                 lambda: ss.selective_scan(*half[:2], A, *half[2:], D,
+                                           return_state=True),
+                 lambda: ref.selective_scan(*half[:2], A, *half[2:], D,
+                                            return_state=True),
+                 None, nbytes, flops, check, dtype="float32")
+    # chaining: 2s steps in one pass equal s steps, then s more from h0
+    rest = [t[:, s:].contiguous() for t in (x, dt, bm, cm)]
+    y_all, h_all = ss.selective_scan(x, dt, A, bm, cm, D, return_state=True)
+    y1, h1 = ss.selective_scan(*half[:2], A, *half[2:], D, return_state=True)
+    y2, h2 = ss.selective_scan(*rest[:2], A, *rest[2:], D, h0=h1,
+                               return_state=True)
+    same = (torch.equal(torch.cat([y1, y2], 1), y_all)
+            and torch.equal(h2, h_all))
+    log(f"[kernel] selective_scan chaining: {2 * s} steps in one pass vs "
+        f"{s} + {s} through h0: bit-identical {same}")
+    if not same:
+        fail("selective_scan chained through h0 differs from one pass")
+    y_p, h_p = ref.selective_scan(*rest[:2], A, *rest[2:], D, h0=h1,
+                                  return_state=True)
+    check((y2, h2), (y_p, h_p))
+    log("[kernel] selective_scan check, B and C swapped:")
+    plain = ref.selective_scan(*half[:2], A, *half[2:], D)
+    _, worst = rel_excess(ss.selective_scan(half[0], half[1], A, half[3],
+                                            half[2], D), plain, SCAN_RTOL,
+                          "y")
+    if not worst > 1.0:
+        fail("the selective_scan check passes B and C swapped")
     return results
 
 
@@ -684,12 +792,13 @@ def profile_train(torch, sess, params, opt):
 # --------------------------------------------------------------------------- #
 
 
-def workload():
+def workload(vocab: int = 128256):
+    """The 16 prompts: lengths 64-512 from seed 0, ids below ``vocab``."""
     import numpy as np
 
     rng = np.random.RandomState(0)
     lens = rng.randint(64, 513, size=N_REQ)
-    return [rng.randint(0, 128256, size=int(n)).astype(np.int32)
+    return [rng.randint(0, vocab, size=int(n)).astype(np.int32)
             for n in lens]
 
 
@@ -698,7 +807,7 @@ def first_step(torch, sess, params):
     prompt at position 0, the other slots are masked."""
     import numpy as np
 
-    prompt = workload()[0]
+    prompt = workload(sess.cfg.vocab)[0]
     n = sess.max_slots
     toks = np.zeros((n, prompt.size), np.int32)
     toks[0] = prompt
@@ -758,32 +867,49 @@ def profile_decode(torch, sess, params, layout, steps=5):
                           calls_per_step=c / steps) for n, t, c in top])
 
 
-def serve_phase(torch, layout, params=None):
+def serve_launches():
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import selective_scan as ss
+
+    return {**pa.LAUNCHES, **ss.LAUNCHES}
+
+
+def reset_serve_launches():
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import selective_scan as ss
+
+    pa.reset_launches()
+    ss.reset_launches()
+
+
+def serve_phase(torch, layout, params=None, arch=ARCH):
     import numpy as np
 
     from repro_torch.api import session
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
 
     kw = dict(page_size=PAGE) if layout == "paged" else {}
-    sess = session(ARCH, reduced=False, device="cuda", max_slots=SLOTS,
+    sess = session(arch, reduced=False, device="cuda", max_slots=SLOTS,
                    max_seq=MAX_SEQ, **kw)
+    vocab = sess.cfg.vocab
     if params is None:
         t0 = time.perf_counter()
         params = sess.init_params(
             torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
-        log(f"[serve] params: {sess.describe()['n_params']} "
-            f"({sess.rc.param_dtype}) in {time.perf_counter() - t0:.2f} s")
-    plain = session(ARCH, reduced=False, device="cuda", max_slots=SLOTS,
+        log(f"[serve] {arch} params: {sess.describe()['n_params']} "
+            f"({sess.rc.param_dtype}) in {time.perf_counter() - t0:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    plain = session(arch, reduced=False, device="cuda", max_slots=SLOTS,
                     max_seq=MAX_SEQ, overrides=dict(kernel_impl="ref"), **kw)
     lg_k = first_step(torch, sess, params)
     lg_p = first_step(torch, plain, params)
-    if not bool(torch.isfinite(lg_k).all()) or lg_k.shape != (128256,):
+    if not bool(torch.isfinite(lg_k).all()) or lg_k.shape != (vocab,):
         fail(f"{layout}: first-step logits are not finite [vocab] values")
     scale = lg_p.abs().max().item()
     d_plain = (lg_k - lg_p).abs().max().item()
-    log(f"[serve] {layout}: first-step logits kernel vs plain versions: "
+    log(f"[serve] {arch} {layout}: first-step logits kernel vs plain "
+        "versions: "
         f"max |diff| {d_plain:.4e} (max |logit| {scale:.3f}; tolerance "
         f"0.05 * max |logit|), argmax {int(lg_k.argmax())} vs "
         f"{int(lg_p.argmax())}")
@@ -804,33 +930,46 @@ def serve_phase(torch, layout, params=None):
 
     sess.serve_step_batched = timed
     eng = sess.serve_engine(params)
-    prompts = workload()
+    prompts = workload(vocab)
     gc.collect()                  # the previous layout's engine and caches
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    pa.reset_launches()
+    reset_serve_launches()
     base = ops.kernel_counters()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_gen=GEN) for p in prompts]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(pa.LAUNCHES)
+    launches = serve_launches()
     counters = {k: v - base.get(k, 0) for k, v in ops.kernel_counters().items()
                 if v - base.get(k, 0)}
     outs = [r.result(timeout=1) for r in reqs]
     st = eng.stats
     if st.finished_requests != N_REQ or any(len(o) != GEN for o in outs):
         fail(f"{layout}: {st.finished_requests}/{N_REQ} requests finished")
-    if any(not 0 <= t < 128256 for o in outs for t in o):
+    if any(not 0 <= t < vocab for o in outs for t in o):
         fail(f"{layout}: token ids outside the vocabulary")
     need = "paged_attention" if layout == "paged" else "slotted_attention"
     if launches[need] == 0:
         fail(f"{layout}: the engine run never launched {need}")
+    if arch == JAMBA:
+        # one K5 launch per Mamba layer a prefill step (decode steps take
+        # the plain one-step update, which has no kernel), one K3 launch
+        # per step for the attention layer
+        if launches["selective_scan"] != MAMBA_LAYERS * st.prefill_steps:
+            fail(f"{layout}: selective_scan launched "
+                 f"{launches['selective_scan']} times in "
+                 f"{st.prefill_steps} prefill steps, expected "
+                 f"{MAMBA_LAYERS} a step")
+        if launches[need] != st.prefill_steps + st.decode_steps:
+            fail(f"{layout}: {need} launched {launches[need]} times in "
+                 f"{st.prefill_steps + st.decode_steps} steps")
     if any(k.startswith("ref_") for k in counters):
         fail(f"{layout}: the engine run reached a plain version: {counters}")
     sess.serve_step_batched = step
     res = dict(
+        arch=arch,
         layout=layout, wall_s=wall, generated_tokens=st.generated_tokens,
         tok_per_s=st.generated_tokens / wall,
         prefill_steps=st.prefill_steps, decode_steps=st.decode_steps,
@@ -838,7 +977,8 @@ def serve_phase(torch, layout, params=None):
         decode_step_ms=sum(times["decode"]) / max(len(times["decode"]), 1),
         max_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
         launches=launches, counters=counters, first_logits_vs_plain=d_plain)
-    log(f"[serve] {layout}: {N_REQ} requests, {st.generated_tokens} tokens "
+    log(f"[serve] {arch} {layout}: {N_REQ} requests, "
+        f"{st.generated_tokens} tokens "
         f"in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s; "
         f"{st.prefill_steps} prefill steps of {res['prefill_step_ms']:.2f} "
         f"ms, {st.decode_steps} decode steps of {res['decode_step_ms']:.2f} "
@@ -891,6 +1031,7 @@ def main() -> None:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = kernel_phases(torch, flush)
     train_kernels = train_kernel_phases(torch, flush)
+    scan_kernels = scan_kernel_phase(torch, flush)
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -913,10 +1054,31 @@ def main() -> None:
     for row in train_kernels:
         row["launches"] = train["launches"][row["name"].split(":")[0]]
     kernels += train_kernels
+    # Jamba next: the optimizer state (float32 master and moments) goes,
+    # the bf16 params stay for the training profile
+    del opt_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    jamba, _, _, params_j, sess_j = serve_phase(torch, "contiguous",
+                                                arch=JAMBA)
+    serve.append(jamba)
+    for row in kernels:
+        if row["name"].startswith("slotted_attention:e128"):
+            row["launches"] = jamba["launches"]["slotted_attention"]
+    for row in scan_kernels:
+        row["launches"] = jamba["launches"]["selective_scan"]
+    kernels += scan_kernels
     # after every timed run: the profiler slows what follows it
     profiles = [profile_decode(torch, s, params, r["layout"])
                 for r, s in ((contig, sess_c), (paged, sess_p))]
-    profiles.append(profile_train(torch, sess_t, params_t, opt_t))
+    profiles.append(profile_decode(torch, sess_j, params_j, "jamba"))
+    del params_j, sess_j
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles.append(profile_train(torch, sess_t, params_t,
+                                  sess_t.init_opt_state(params_t)))
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "kernels": kernels,
          "serve": serve, "train": train, "profiles": profiles,

@@ -19,7 +19,8 @@ class RegistryError(ValueError):
     """Unknown architecture (message is actionable)."""
 
 
-ARCHS = {"llama3p2_1b": "repro_torch.configs.llama3p2_1b"}
+ARCHS = {"llama3p2_1b": "repro_torch.configs.llama3p2_1b",
+         "jamba_v0p1_52b": "repro_torch.configs.jamba_v0p1_52b"}
 
 
 def get_arch(name: str):

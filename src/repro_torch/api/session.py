@@ -15,6 +15,11 @@ Serving — everything :class:`repro_torch.serving.ServeEngine` reads::
                                    max_seq=2048, reduced=False)
     eng = sess.serve_engine(sess.init_params())
 
+``session("jamba-v0.1-52b", reduced=False, max_slots=8, max_seq=2048)``
+serves Jamba's published widths at depth 8 (``one_card_config()``) the
+same way, with Mamba, attention and gathered-MoE layers; Jamba trains in
+a later slice (a train session raises ``SessionError``).
+
 It runs on one rank and one device: ``device="cuda"`` (the default, which
 raises when no GPU is present) or ``device="cpu"`` (the tests). Batches
 arrive as numpy arrays and move to the device here; serve tokens and

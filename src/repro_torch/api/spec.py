@@ -4,8 +4,9 @@ The port's slice of ``repro/api/spec.py``: architecture resolution,
 RunConfig overrides, the training shape and optimizer knobs, and the
 serving knobs, checked before any device work. The port runs on one rank,
 so the data/pod axes are 1 and pp is 1 in train mode (multi-rank: next
-slice); ``schedule="auto"``/``"auto_profiled"``, topologies, MoE and
-checkpoints are refused with the slice they wait for.
+slice); ``schedule="auto"``/``"auto_profiled"``, topologies, expert
+parallelism, Mamba/MoE training and checkpoints are refused with the slice
+they wait for.
 """
 
 from __future__ import annotations
@@ -125,10 +126,16 @@ class SessionSpec:
                 "topology presets lay a model over a cluster; the port runs "
                 "on one card until the multi-rank slice (ROADMAP.md queue 1)")
         moe = self.overrides.get("moe_mode", "gathered")
-        if moe != "gathered" or self.overrides.get("moe_stats"):
+        if moe != "gathered":
             raise SessionError(
-                f"moe_mode={moe!r} / moe_stats: MoE blocks and expert "
-                "parallelism wait for the MoE slice (ROADMAP.md queue 1)")
+                f"moe_mode={moe!r}: the port routes MoE layers in the "
+                "gathered mode only; 'ep' and 'auto' wait for the "
+                "expert-parallel MoE slice (ROADMAP.md queue 1)")
+        if self.overrides.get("moe_stats"):
+            raise SessionError(
+                "moe_stats: the per-layer expert-load histograms and "
+                "capacity-drop counters wait for the expert-parallel MoE "
+                "slice (ROADMAP.md queue 1)")
         if self.mode == "train":
             return self._validate_train()
         if self.max_seq is None or self.max_seq < 1:
@@ -171,6 +178,13 @@ class SessionSpec:
         return self
 
     def _validate_train(self) -> "SessionSpec":
+        cfg = get_arch(self.arch).config()
+        if cfg.mamba is not None or cfg.moe is not None:
+            raise SessionError(
+                f"training {cfg.name} (Mamba and MoE layers) waits for the "
+                "Jamba training slice: apply_mamba and apply_moe on the "
+                "tape, the selective-scan backward and the router aux "
+                "loss (ROADMAP.md queue 1); serve it with mode='serve'")
         sched = self.overrides.get("schedule")
         if sched in ("auto", "auto_profiled", "autogen", "autogen_gated"):
             raise SessionError(
@@ -205,16 +219,18 @@ class SessionSpec:
 
         Train mode runs on one rank: the reduced RunConfig's pp (2, the
         reference's multi-device smoke layout) becomes 1, and the full
-        width takes the module's ``one_card_train_run()``."""
+        width takes the module's ``one_card_train_run()``. The full width
+        is the module's ``one_card_config()`` where it defines one (a
+        model cut in depth to fit one card), else ``config()``."""
         mod = get_arch(self.arch)
         if self.reduced:
             cfg, rc = mod.reduced()
             if self.mode == "train":
                 rc = dataclasses.replace(rc, pp=1)
-        elif self.mode == "train":
-            cfg, rc = mod.config(), mod.one_card_train_run()
         else:
-            cfg, rc = mod.config(), mod.one_card_run()
+            cfg = getattr(mod, "one_card_config", mod.config)()
+            rc = (mod.one_card_train_run() if self.mode == "train"
+                  else mod.one_card_run())
         if self.overrides:
             rc = dataclasses.replace(rc, **self.overrides)
         return mod, cfg, rc

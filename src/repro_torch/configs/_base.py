@@ -5,7 +5,11 @@ Each config module exports:
   reduced()       -> (ModelConfig, RunConfig) tiny same-family smoke config,
                      equal to the reference's ``reduced()``
   one_card_run()  -> RunConfig for serving the published width on one GPU
-  one_card_train_run() -> RunConfig for training it on one GPU
+  one_card_train_run() -> RunConfig for training it on one GPU (where
+                     the port trains the architecture)
+  one_card_config() -> ModelConfig cut to what one GPU holds, where the
+                     published model does not fit (its docstring names
+                     the cut); ``config()`` otherwise
 
 The reference's ``production_run(shape)`` lays a model over a 256-chip
 mesh; the port runs on one card (pp = data = 1), so it has no counterpart

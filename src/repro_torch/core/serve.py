@@ -25,7 +25,9 @@ Callers that need the old cache contents must clone them first.
 Cache tree: ``{"main": {"L{j}.k": [P·V, slots, max_seq, g, e], ...}}``,
 or with paging ``[P·V, n_pages, page_size, g, e]`` leaves plus
 ``L{j}.k_scale``/``L{j}.v_scale`` ``[P·V, n_pages, g]`` float32 leaves
-for int8 pools.
+for int8 pools. A Mamba layer slot holds ``L{j}.conv`` ``[P·V, slots,
+d_conv-1, di]`` (compute dtype) and ``L{j}.h`` ``[P·V, slots, di,
+d_state]`` (float32); its state has no positions, so it is never paged.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ def init_serve_caches(cfg, rc, geo, *, slots: int, max_seq: int,
         slots_tree = {}
         for j, kind in enumerate(seg.kinds):
             cs = dict(M.layer_cache_spec(cfg, rc, kind, slots, max_seq))
+            if page_size and set(cs) != {"k", "v"}:
+                raise ValueError(
+                    f"layer kind {kind!r} keeps per-slot recurrent state "
+                    "that has no pages; build its caches without "
+                    "page_size")
             for n in list(cs):
                 shape, dt = cs[n]
                 if page_size:

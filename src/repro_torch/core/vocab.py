@@ -2,9 +2,8 @@
 serving logits.
 
 The port's counterpart of ``repro/core/vocab.py`` with the head
-replicated (``vloc=None``): one rank holds the whole head, tied to the
-embedding table. The vocab-sharded head needs several ranks and arrives
-with them.
+replicated (``vloc=None``): one rank holds the whole head. The
+vocab-sharded head needs several ranks and arrives with them.
 
 Training (``loss_and_dy``): the reference's one-rank branch holds the
 ``[n, vocab]`` logits in float32; the port computes the same function —
@@ -14,7 +13,9 @@ on the card, with the bf16 tied table read in place (no float32 copy of
 the head).
 
 Serving: the ``[b, d] @ [d, vocab]`` product is a plain float32 matrix
-product (the reference upcasts the head to float32 the same way).
+product (the reference upcasts the head to float32 the same way); the
+head is the tied table's transpose, or ``head.w`` [d, vocab] when the
+embedding is untied. The training loss takes the tied head only.
 """
 
 from __future__ import annotations
@@ -85,7 +86,9 @@ def loss_and_dy(cfg, rc, io_p, h, labels, denom: float, vloc: int | None,
     """
     _replicated(vloc)
     if not cfg.tie_embeddings:
-        raise NotImplementedError("the untied head has no port yet")
+        raise NotImplementedError(
+            "the untied head's training loss has no port yet (it comes "
+            "with the Jamba training slice); serving reads head.w")
     hn, res = _final_norm_fwd(cfg, io_p, h)
     w_head = io_p["embed.table"].t()            # [d, vocab], read in place
     loss, (dhn, dw) = ops.softmax_xent(
@@ -106,7 +109,9 @@ def serve_logits(cfg, rc, io_p, h, vloc: int | None = None):
     h [b, d]. Feeds the host-side sampling layer."""
     _replicated(vloc)
     hn, _ = _final_norm_fwd(cfg, io_p, h)
-    return hn @ io_p["embed.table"].t().float()
+    w = (io_p["embed.table"].t() if cfg.tie_embeddings
+         else io_p["head.w"])
+    return hn @ w.float()
 
 
 def greedy_sample(cfg, rc, io_p, h, vloc: int | None = None):

@@ -22,7 +22,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("slotted_attention", "paged_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "fused_xent")
+           "flash_attention_bwd", "fused_xent", "selective_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,7 @@ SIGNATURES = {
     "fused_xent": {
         "fused_xent_fwd": [_I] + [_P] * 7 + [_I] * 3 + [_P],
         "fused_xent_bwd": [_I] + [_P] * 8 + [_I] * 4 + [_P]},
+    "selective_scan": {"selective_scan": [_P] * 9 + [_I] * 4 + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

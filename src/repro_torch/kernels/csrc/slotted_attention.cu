@@ -69,12 +69,18 @@ int run(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dim 64 only (llama3.2-1b); other widths come with their configs.
+// Head dims 64 (llama3.2-1b) and 128 (jamba-v0.1-52b); other widths come
+// with their configs. At E = EV = 128 a BM-64 block takes 115,456 bytes of
+// dynamic shared memory (allow_smem raises the cap) and 64 accumulator
+// registers a thread.
 template <typename TQ, typename TKV>
 int by_shape(const Args& a, int E, int EV) {
   const bool small = attn::pick_bm(a.H / a.G * a.sq) == 16;
   if (E == 64 && EV == 64)
     return small ? run<TQ, TKV, 64, 64, 16>(a) : run<TQ, TKV, 64, 64, 64>(a);
+  if (E == 128 && EV == 128)
+    return small ? run<TQ, TKV, 128, 128, 16>(a)
+                 : run<TQ, TKV, 128, 128, 64>(a);
   return -1;
 }
 

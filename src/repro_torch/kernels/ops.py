@@ -13,7 +13,10 @@ Attention dispatches by the type of its offset, as the reference does
 serving) goes to the slotted kernel (K3), a static Python int (training,
 causal or bidirectional) to the flash kernels (K1 forward, K1b backward)
 through a differentiable ``torch.autograd.Function``. ``softmax_xent``
-goes to the fused cross-entropy kernel (K2).
+goes to the fused cross-entropy kernel (K2), ``selective_scan`` to the
+selective-scan kernel (K5). ``selective_scan_step``, one decode step of
+the scan, is plain PyTorch on every device, as in the reference (which
+has no kernel for it either); it is not counted.
 
 Every call bumps a process-wide counter (``kernel_counters``), one count
 per executed call — the port runs eagerly, so there is no trace-time
@@ -28,6 +31,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_xent as fx
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as ss
 
 _COUNTERS: dict[str, int] = {}
 
@@ -100,3 +104,19 @@ def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None,
         return ref.softmax_xent(h, w_head, labels, **kw)
     _count("kernel_xent")
     return fx.softmax_xent(h, w_head, labels, **kw)
+
+
+def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,
+                   return_state=False, impl=None):
+    """The Mamba-1 scan over a sequence; see ``ref.selective_scan``."""
+    kw = dict(chunk=chunk, h0=h0, return_state=return_state)
+    if not _use_kernel(x, impl):
+        _count("ref_scan")
+        return ref.selective_scan(x, dt, A, B, C, D, **kw)
+    _count("kernel_scan")
+    return ss.selective_scan(x, dt, A, B, C, D, **kw)
+
+
+def selective_scan_step(h, x, dt, A, B, C, D):
+    """One decode step of the scan (plain PyTorch on every device)."""
+    return ref.selective_scan_step(h, x, dt, A, B, C, D)

@@ -30,7 +30,11 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"slotted_attention": 0, "paged_attention": 0}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64,)   # (e == ev) widths the kernels are built for
+# (e == ev) head widths each kernel is instantiated for: the slotted
+# kernel also at 128 (jamba-v0.1-52b's attention layer); the paged and the
+# flash kernels at 64 only
+_HEAD_DIMS = (64,)
+_SLOTTED_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -58,11 +62,12 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_dims(e: int, ev: int, h: int, g: int) -> None:
-    if e != ev or e not in _HEAD_DIMS:
+def _check_dims(e: int, ev: int, h: int, g: int,
+                dims: tuple = _HEAD_DIMS) -> None:
+    if e != ev or e not in dims:
         raise ValueError(
-            f"head dims e={e}, ev={ev}: the kernels are built for e == ev "
-            f"in {_HEAD_DIMS}")
+            f"head dims e={e}, ev={ev}: the kernel is built for e == ev "
+            f"in {dims}")
     if g < 1 or h % g:
         raise ValueError(f"{h} q heads do not group over {g} kv heads")
 
@@ -100,7 +105,7 @@ def _slotted(q, k, v, pos, window):
     if k.shape[0] != b or v.shape[:3] != k.shape[:3] or k.shape[3] != e:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    _check_dims(e, ev, h, g)
+    _check_dims(e, ev, h, g, _SLOTTED_HEAD_DIMS)
     out = torch.empty((b, sq, h, ev), dtype=q.dtype, device=dev)
     m = l = acc = None
     if window:

@@ -4,12 +4,18 @@ The port's copy of ``repro/kernels/ref.py`` for the functions the serving
 and training slices run. These are (a) the CPU execution path, and (b)
 the oracle the CUDA kernels in ``kernels/csrc`` are held against on the
 card. Masking follows the reference: ``-inf`` scores with ``isfinite``
-guards, so a row that sees no key comes out as exact zeros. Plain
+guards, so a row that sees no key comes out as exact zeros. Attention
+scales q after upcasting it to float32, as the TPU kernels do
+(``repro/kernels/paged_attention.py:75``, ``flash_attention.py:43``); the
+jnp reference scales in q's dtype, which differs only for bfloat16 q
+with a scale that is not a power of two (head_dim 128). Plain
 versions by kernel: slotted — ``attention`` with a ``[b]`` ``q_offset``
 (causal) and ``decode_attention`` (window, with stats); paged —
 ``paged_attention``; flash forward — ``attention`` with an int offset and
 ``return_lse``; flash backward — ``attention_bwd``; fused cross-entropy —
-``softmax_xent``.
+``softmax_xent``; selective scan — ``selective_scan``.
+``selective_scan_step`` (one decode step of the scan) has no kernel on
+either side and runs as plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ def attention(q, k, v, *, causal=True, q_offset=0, block_k=512, scale=None,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
 
-    qf = (q * scale).float()
+    qf = q.float() * scale        # upcast before the scale (see above)
     kf = k.float().reshape(b, n_blocks, block_k, g, e)
     vf = v.float().reshape(b, n_blocks, block_k, g, ev)
 
@@ -205,7 +211,7 @@ def decode_attention(q, k_cache, v_cache, cache_len=None, scale=None):
     S, g = k_cache.shape[1], k_cache.shape[2]
     rep = h // g
     scale = scale if scale is not None else (1.0 / e ** 0.5)
-    s = torch.einsum("bqhe,bkhe->bhqk", (q * scale).float(),
+    s = torch.einsum("bqhe,bkhe->bhqk", q.float() * scale,
                      _repeat_heads(k_cache, rep).float())
     if cache_len is not None:
         cl = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
@@ -258,3 +264,72 @@ def paged_attention(q, k_pool, v_pool, *, page_tables, pos, k_scale=None,
         off = torch.where(slot_mask, off, -sq)
     return attention(q, k, v, causal=True, q_offset=off, block_k=block_k,
                      scale=scale)
+
+
+def _scan_pairs(a, u):
+    """Inclusive scan along dim 1 of the affine maps h -> a h + u, the
+    earlier map applied first: returns (a_cum, u_cum) with h_t = a_cum[t]
+    h_{-1} + u_cum[t]. Written out in log2(len) doubling steps (torch has
+    no ``associative_scan``); each step pairs position t with t - off.
+    Updates a and u in place, one temporary at a time."""
+    c = a.shape[1]
+    off = 1
+    while off < c:
+        u[:, off:] += a[:, off:] * u[:, :-off]
+        a[:, off:] = a[:, off:] * a[:, :-off]
+        off *= 2
+    return a, u
+
+
+def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,
+                   return_state=False):
+    """y_t = C_t · h_t + D x_t with h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t.
+
+    x, dt: [b, s, d] (post-conv activations, softplus'd timestep); A: [d, n]
+    (negative); B, C: [b, s, n]; D: [d]; h0: optional [b, d, n] initial
+    state. Chunked as the reference: within a chunk the diagonal
+    recurrence is an inclusive scan of (a_t, u_t) = (exp(dt_t A), dt_t B_t
+    x_t); chunks chain through the [b, d, n] float32 state. Live memory
+    is a few [b, chunk, d, n] float32 tensors. Returns y [b, s, d] in
+    x.dtype and, with ``return_state``, the final state [b, d, n] float32
+    (padding past s has dt = 0, the identity map, so it is the state
+    after step s - 1).
+    """
+    b, s, d = x.shape
+    n = A.shape[1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    if pad:
+        xf, dtf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                           for t in (xf, dtf, Bf, Cf))
+    Af = A.float()
+    h = (h0.float() if h0 is not None
+         else torch.zeros((b, d, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for c0 in range(0, nc * chunk, chunk):
+        xc, dtc = xf[:, c0:c0 + chunk], dtf[:, c0:c0 + chunk]
+        Bc, Cc = Bf[:, c0:c0 + chunk], Cf[:, c0:c0 + chunk]
+        a = torch.exp(dtc[..., None] * Af[None, None])         # [b,c,d,n]
+        u = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+        a_cum, u_cum = _scan_pairs(a, u)
+        h_all = a_cum.mul_(h[:, None]).add_(u_cum)              # [b,c,d,n]
+        del u, u_cum
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, Cc))
+        h = h_all[:, -1].clone()
+        del a, a_cum, h_all
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + x.float() * D[None, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def selective_scan_step(h, x, dt, A, B, C, D):
+    """One decode step. h: [b, d, n]; x, dt: [b, d]; B, C: [b, n].
+    Returns (h_new [b, d, n], y [b, d] in x.dtype)."""
+    g = torch.exp(dt[..., None] * A[None])
+    h_new = g * h + dt[..., None] * B[:, None, :] * x[..., None]
+    y = torch.einsum("bdn,bn->bd", h_new, C) + D[None] * x
+    return h_new, y.to(x.dtype)

@@ -12,9 +12,15 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --slots 4 --n-requests 8 --prompt 12 --gen 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --full --device cuda --slots 8
 
-``--full`` serves the published width (llama3.2-1b: 16 layers, d_model
-2048, bf16) on one card; without it the reduced smoke config runs.
+``--full`` serves the published width on one card (llama3.2-1b: 16
+layers, d_model 2048; jamba-v0.1-52b: d_model 4096 at depth 8, one
+period of its layer pattern, as ``one_card_config()`` cuts it; bf16);
+without it the reduced smoke config runs. Jamba's Mamba layers keep
+per-slot state, so ``--page-size`` and ``--prefill-chunk`` are refused
+for it.
 """
 
 from __future__ import annotations
@@ -27,14 +33,17 @@ import numpy as np
 import torch
 
 from repro_torch.api import get_arch, session
+from repro_torch.serving.engine import check_layout
 
 _LATER = {
     "--replicas": "data-parallel replicas behind a router arrive with the "
                   "elasticity slice",
     "--ckpt": "booting from a train checkpoint arrives with the training "
               "slice (checkpoint format shared with repro)",
-    "--moe-mode": "MoE serving arrives with the MoE blocks",
-    "--moe-stats": "MoE serving arrives with the MoE blocks",
+    "--moe-mode": "MoE layers are routed in the gathered mode only; ep "
+                  "and auto arrive with the expert-parallel MoE slice",
+    "--moe-stats": "expert-load statistics arrive with the "
+                   "expert-parallel MoE slice",
 }
 
 
@@ -149,6 +158,10 @@ def main(argv=None):
           f"({sess.describe()['n_params']} params, "
           f"{sess.rc.compute_dtype}); {args.slots} slots, max_seq {max_seq}"
           f"{f', page_size {args.page_size}' if args.page_size else ''}")
+    try:
+        check_layout(sess, args.prefill_chunk)   # before any weights
+    except NotImplementedError as e:
+        raise SystemExit(f"{args.arch}: {e}") from e
     gen = torch.Generator(device=sess.device).manual_seed(0)
     eng = sess.serve_engine(sess.init_params(gen))
     t0 = time.time()

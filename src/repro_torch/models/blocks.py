@@ -1,12 +1,15 @@
 """Transformer blocks: tape versions for training, cached for serving.
 
-The port's counterpart of ``repro/models/blocks.py`` for dense attention
-layers. Training: ``apply_norm``, ``apply_attn`` and ``apply_ffn`` are
+The port's counterpart of ``repro/models/blocks.py`` for dense attention,
+Mamba and gathered-MoE layers. Training (dense attention layers only):
+``apply_norm``, ``apply_attn`` and ``apply_ffn`` are
 written against the ZeroPP tape (``core/tape.py``): every parameterised
 GEMM is a ``dense`` node (deferred dW, the W task), everything else a
-``prim`` (immediate grads in B). Serving: RMSNorm, the SwiGLU FFN, and
+``prim`` (immediate grads in B). Serving: RMSNorm, the SwiGLU FFN,
 ``attn_cached`` with its three cache layouts (paged pool, per-slot
-positions, one scalar position). The reference's sequence-sharded cache branch
+positions, one scalar position), ``mamba_cached`` (prefill through the
+selective-scan kernel, decode one SSM step) and ``moe_fwd`` (the
+gathered top-k MoE, no tape). The reference's sequence-sharded cache branch
 (``blocks.py:832``) combines attention across ranks and waits for the
 multi-rank slices. Params are flat dicts named like the reference's (``L{j}.``
 prefixes are added by the stage assembly in ``model.py``).
@@ -24,7 +27,9 @@ relies on them:
 
 Unlike the reference, the caches are updated in place: the leaves handed
 in are views of the session's cache tree, and ``attn_cached`` writes K/V
-(and int8 scales) straight into them and returns the same tensors.
+(and int8 scales) straight into them and returns the same tensors;
+``_slot_state`` writes a Mamba layer's new conv and SSM state into its
+leaves on the writing rows only.
 """
 
 from __future__ import annotations
@@ -307,3 +312,197 @@ def attn_cached(ctx: LayerCtx, params, pfx, x, cache, pos):
         cache = {"k": kc, "v": vc}
     y = _dense(o, params[f"{pfx}.wo"], n_in=2)
     return y, cache
+
+
+# --------------------------------------------------------------------------- #
+# MoE (routed top-k, capacity-based dispatch; gathered experts, serving)
+# --------------------------------------------------------------------------- #
+
+
+def moe_specs(cfg: ModelConfig, pfx: str):
+    mo = cfg.moe
+    d, fe = cfg.d_model, mo.d_ff_expert
+    sp = {
+        f"{pfx}.router": ParamSpec((d, mo.n_experts), fsdp_dim=0, scale=0.1),
+        f"{pfx}.e_wg": ParamSpec((mo.n_experts, d, fe), fsdp_dim=2, ep=True),
+        f"{pfx}.e_wu": ParamSpec((mo.n_experts, d, fe), fsdp_dim=2, ep=True),
+        f"{pfx}.e_wd": ParamSpec((mo.n_experts, fe, d), fsdp_dim=1, ep=True),
+    }
+    if mo.n_shared:
+        fs = mo.d_ff_shared or fe * mo.n_shared
+        sp.update({
+            f"{pfx}.s_wg": ParamSpec((d, fs), fsdp_dim=1),
+            f"{pfx}.s_wu": ParamSpec((d, fs), fsdp_dim=1),
+            f"{pfx}.s_wd": ParamSpec((fs, d), fsdp_dim=0),
+        })
+    return sp
+
+
+def _capacity(n_tok: int, mo) -> int:
+    c = int(n_tok * mo.top_k / mo.n_experts * mo.capacity_factor) + 1
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def _route(logits: torch.Tensor, mo, cap: int):
+    """Top-k routing of the [n, E] router logits: (weights [n, K] float32
+    renormalised over the k picks, expert ids [n, K], capacity slot [n,
+    K] with ``cap`` for a dropped pick). Ties go to the lower expert id,
+    as ``jax.lax.top_k`` breaks them (a stable descending sort); a pick's
+    slot is its rank among its expert's picks in flattened (token, k)
+    order."""
+    n, E = logits.shape
+    K = mo.top_k
+    probs = torch.softmax(logits.float(), dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :K], topi[:, :K]
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    flat_oh = F.one_hot(topi.reshape(n * K), E)          # [n*K, E] int64
+    rank = torch.cumsum(flat_oh, dim=0) - flat_oh
+    slot = (rank * flat_oh).sum(-1).reshape(n, K)
+    slot = torch.where(slot < cap, slot, cap)
+    return topw, topi, slot
+
+
+def moe_fwd(ctx, params, pfx, x):
+    """Gathered top-k MoE for serving (the reference's ``moe_fwd``: its
+    tape forward of ``apply_moe`` without expert parallelism or stats).
+
+    Every row of the batch is routed, masked serving rows included:
+    capacity ranks count every token in flattened (row, position, k)
+    order, so masked rows compete for capacity as in the reference.
+    Dispatch scatters each kept pick into its expert's [cap, d] buffer
+    (dropped picks land in an extra slot that is cut off), the experts run
+    as batched SwiGLU products, and combine gathers each pick's output
+    (zeros for a dropped one) weighted by its routing weight.
+    """
+    mo = ctx.cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    E, K = mo.n_experts, mo.top_k
+    cap = _capacity(n, mo)
+    logits = _dense(x, params[f"{pfx}.router"]).reshape(n, E)
+    topw, topi, slot = _route(logits, mo, cap)
+    ti, sl = topi.reshape(-1), slot.reshape(-1)
+    buf = torch.zeros((E, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((ti, sl), x.reshape(n, d).repeat_interleave(K, dim=0),
+                   accumulate=True)
+    xe = buf[:, :cap]                                     # [E, cap, d]
+    g = torch.bmm(xe, params[f"{pfx}.e_wg"])
+    u = torch.bmm(xe, params[f"{pfx}.e_wu"])
+    ye = torch.bmm(F.silu(g) * u, params[f"{pfx}.e_wd"])  # [E, cap, d]
+    ypad = F.pad(ye, (0, 0, 0, 1))           # the drop slot reads zeros
+    out = (ypad[topi, slot] * topw[..., None].to(ye.dtype)).sum(dim=1)
+    y = out.reshape(b, s, d)
+    if mo.n_shared:
+        g2 = _dense(x, params[f"{pfx}.s_wg"])
+        u2 = _dense(x, params[f"{pfx}.s_wu"])
+        y = y + _dense(F.silu(g2) * u2, params[f"{pfx}.s_wd"])
+    return y
+
+
+# --------------------------------------------------------------------------- #
+# Mamba (selective SSM; serving)
+# --------------------------------------------------------------------------- #
+
+
+def _mamba_dims(cfg):
+    mc = cfg.mamba
+    di = mc.expand * cfg.d_model
+    dt_rank = mc.dt_rank or max(1, cfg.d_model // 16)
+    return mc, di, dt_rank
+
+
+def mamba_specs(cfg: ModelConfig, pfx: str):
+    mc, di, dt_rank = _mamba_dims(cfg)
+    d, n = cfg.d_model, mc.d_state
+    return {
+        f"{pfx}.w_in": ParamSpec((d, 2 * di), fsdp_dim=1),
+        f"{pfx}.conv_w": ParamSpec((mc.d_conv, di), "small", fsdp_dim=1,
+                                   scale=0.5),
+        f"{pfx}.conv_b": ParamSpec((di,), "zeros"),
+        f"{pfx}.w_x": ParamSpec((di, dt_rank + 2 * n), fsdp_dim=0),
+        f"{pfx}.w_dt": ParamSpec((dt_rank, di), fsdp_dim=1),
+        f"{pfx}.dt_bias": ParamSpec((di,), "zeros"),
+        f"{pfx}.A_log": ParamSpec((di, n), "ones"),
+        f"{pfx}.Dd": ParamSpec((di,), "ones"),
+        f"{pfx}.w_out": ParamSpec((di, d), fsdp_dim=0),
+    }
+
+
+def _ssm_inputs(params, pfx, xs_c, dt_rank, n):
+    """dt (softplus, float32), B, C (float32, contiguous) and A = -exp(A_log)
+    from the post-conv activations [..., di]."""
+    bcdt = _dense(xs_c, params[f"{pfx}.w_x"])
+    dt = F.softplus(_dense(bcdt[..., :dt_rank], params[f"{pfx}.w_dt"])
+                    + params[f"{pfx}.dt_bias"]).float()
+    Bm = bcdt[..., dt_rank:dt_rank + n].float().contiguous()
+    Cm = bcdt[..., dt_rank + n:].float().contiguous()
+    A = -torch.exp(params[f"{pfx}.A_log"].float())
+    return dt, Bm, Cm, A
+
+
+def mamba_cached(ctx, params, pfx, x, cache, pos):
+    """Prefill (s > 1) runs the selective scan (the K5 kernel on the card)
+    with the state out; decode (s == 1) steps the SSM. As in the
+    reference, prefill ignores the incoming cache: the conv is zero-padded,
+    the scan starts from h = 0, and the new conv state is the last
+    ``d_conv - 1`` pre-conv activations. Returns (y, new state); the
+    caller stores the state (``_slot_state``)."""
+    cfg = ctx.cfg
+    mc, di, dt_rank = _mamba_dims(cfg)
+    b, s, d = x.shape
+    if s == 1:
+        return mamba_decode(ctx, params, pfx, x, cache, pos)
+    if s < mc.d_conv - 1:
+        raise ValueError(
+            f"a Mamba prefill of {s} tokens cannot fill the conv state of "
+            f"d_conv - 1 = {mc.d_conv - 1} positions (the reference "
+            "mis-shapes the cache here); prefill at least "
+            f"{mc.d_conv - 1} tokens, or one")
+    xz = _dense(x, params[f"{pfx}.w_in"])
+    xs, z = xz[..., :di], xz[..., di:]
+    pad = F.pad(xs, (0, 0, mc.d_conv - 1, 0))
+    cw = params[f"{pfx}.conv_w"]
+    out = sum(pad[:, i:i + s] * cw[i] for i in range(mc.d_conv)) \
+        + params[f"{pfx}.conv_b"]
+    xs_c = F.silu(out)
+    dt, Bm, Cm, A = _ssm_inputs(params, pfx, xs_c, dt_rank, mc.d_state)
+    y, h = ops.selective_scan(
+        xs_c.float(), dt, A, Bm, Cm, params[f"{pfx}.Dd"].float(),
+        return_state=True, impl=ctx.rc.kernel_impl)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    y = _dense(y, params[f"{pfx}.w_out"])
+    conv_state = xs[:, -(mc.d_conv - 1):]
+    return y, {"conv": conv_state.to(cache["conv"].dtype), "h": h}
+
+
+def mamba_decode(ctx, params, pfx, x, cache, pos):
+    """One SSM step. cache: {"conv": [b, d_conv-1, di], "h": [b, di, n]};
+    x [b, 1, d]."""
+    cfg = ctx.cfg
+    mc, di, dt_rank = _mamba_dims(cfg)
+    xz = _dense(x, params[f"{pfx}.w_in"])[:, 0]
+    xs, z = xz[..., :di], xz[..., di:]
+    conv_in = torch.cat([cache["conv"], xs[:, None]], dim=1)
+    cw = params[f"{pfx}.conv_w"]
+    out = sum(conv_in[:, i] * cw[i] for i in range(mc.d_conv))
+    xs_c = F.silu(out + params[f"{pfx}.conv_b"])
+    dt, Bm, Cm, A = _ssm_inputs(params, pfx, xs_c, dt_rank, mc.d_state)
+    h_new, y = ops.selective_scan_step(
+        cache["h"], xs_c.float(), dt, A, Bm, Cm,
+        params[f"{pfx}.Dd"].float())
+    y = (y * F.silu(z.float())).to(x.dtype)
+    y = _dense(y, params[f"{pfx}.w_out"])[:, None]
+    return y, {"conv": conv_in[:, 1:], "h": h_new}
+
+
+def _slot_state(ctx, cache, new):
+    """Store a recurrent layer's new state in its cache leaves, in place,
+    on the writing rows only (``LayerCtx.write_rows``): masked-off rows
+    keep their previous state, as the reference's per-row select does.
+    Returns the cache."""
+    for name, v in new.items():
+        old = cache[name]
+        rows = _write_rows(ctx, old.shape[0], old.device)
+        old[rows] = v[rows].to(old.dtype)
+    return cache

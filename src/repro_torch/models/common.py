@@ -265,7 +265,8 @@ def torch_dtype(name: str) -> torch.dtype:
 def init_param(spec: ParamSpec, dtype, generator: torch.Generator,
                device) -> torch.Tensor:
     """One tensor under the reference's rules: zeros/ones, else a normal
-    draw scaled by ``spec.scale / sqrt(fan_in)`` with fan_in = shape[0]."""
+    draw scaled by ``spec.scale / sqrt(fan_in)`` with fan_in = shape[0]
+    (scaled in place: one float32 copy of the tensor while it is made)."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
@@ -274,7 +275,7 @@ def init_param(spec: ParamSpec, dtype, generator: torch.Generator,
     std = spec.scale / np.sqrt(max(fan_in, 1))
     x = torch.randn(spec.shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_params(specs: dict[str, ParamSpec], dtype, generator, device

@@ -7,9 +7,11 @@ Geometry and parameter stacking follow the reference exactly: stage
 and caches store it at index ``storage_index(p, v, V) = p·V + v``, so a
 reference parameter tree carries over name for name.
 
-Only llama-style models have blocks in the port so far: dense attention
-layers (``attn:dense``) with RMSNorm, a SwiGLU FFN and a tied head. Any
-other layer kind or variant raises ``NotImplementedError``.
+The port has blocks for RMSNorm decoder layers with an attention or a
+Mamba mixer and a SwiGLU or a gathered-MoE FFN (``attn:dense``,
+``attn:moe``, ``mamba:dense``, ``mamba:moe``), and a tied or untied head.
+Serving runs all four kinds; training runs ``attn:dense`` with a tied
+head. Any other layer kind or variant raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from repro_torch.models.common import (
 )
 
 _NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; MLA, "
-               "MoE, Mamba, xLSTM, enc-dec and the other variants arrive in "
-               "later slices (ROADMAP.md queue 1)")
+               "xLSTM, enc-dec and the other variants arrive in later "
+               "slices (ROADMAP.md queue 1)")
+_SERVE_KINDS = ("attn:dense", "attn:moe", "mamba:dense", "mamba:moe")
 
 # --------------------------------------------------------------------------- #
 # Geometry
@@ -70,8 +73,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         ("the MTP head", cfg.mtp),
         (f"the {cfg.frontend} frontend", cfg.frontend is not None),
         (f"norm={cfg.norm!r}", cfg.norm != "rmsnorm"),
-        (f"act={cfg.act!r}", cfg.act != "swiglu"),
-        ("the untied head", not cfg.tie_embeddings)) if bad]
+        (f"act={cfg.act!r}", cfg.act != "swiglu")) if bad]
     if missing:
         raise NotImplementedError(_NOT_PORTED.format(
             what=", ".join(missing), name=cfg.name))
@@ -103,7 +105,7 @@ def storage_index(p: int, v: int, V: int) -> int:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "attn:dense":
+    if kind not in _SERVE_KINDS:
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"layer kind {kind!r}", name=cfg.name))
 
@@ -111,11 +113,18 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
 def layer_slot_specs(cfg: ModelConfig, kind: str, pfx: str):
     """Specs for one layer slot of the given static kind."""
     _check_kind(cfg, kind)
+    mix, ffn = kind.split(":")
     sp: dict[str, ParamSpec] = {}
     sp.update(blocks.norm_specs(cfg, f"{pfx}.ln1"))
-    sp.update(blocks.attn_specs(cfg, f"{pfx}.mix"))
+    if mix == "attn":
+        sp.update(blocks.attn_specs(cfg, f"{pfx}.mix"))
+    else:
+        sp.update(blocks.mamba_specs(cfg, f"{pfx}.mix"))
     sp.update(blocks.norm_specs(cfg, f"{pfx}.ln2"))
-    sp.update(blocks.ffn_specs(cfg, f"{pfx}.ffn"))
+    if ffn == "moe":
+        sp.update(blocks.moe_specs(cfg, f"{pfx}.ffn"))
+    else:
+        sp.update(blocks.ffn_specs(cfg, f"{pfx}.ffn"))
     return sp
 
 
@@ -127,13 +136,17 @@ def stage_specs(cfg: ModelConfig, seg: Segment) -> dict[str, ParamSpec]:
 
 
 def io_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Embedding (tied to the head) and final norm, outside the pipeline."""
+    """Embedding, final norm and, when untied, the head ``head.w`` [d,
+    vocab], outside the pipeline."""
     _check_supported(cfg)
-    return {
+    sp = {
         "embed.table": ParamSpec((cfg.vocab, cfg.d_model), fsdp_dim=0,
                                  scale=1.0),
         "final_norm.scale": ParamSpec((cfg.d_model,), "ones"),
     }
+    if not cfg.tie_embeddings:
+        sp["head.w"] = ParamSpec((cfg.d_model, cfg.vocab), fsdp_dim=1)
+    return sp
 
 
 # --------------------------------------------------------------------------- #
@@ -151,8 +164,13 @@ def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
                 keep: float) -> TVal:
     """Pre-norm residual layer; ``keep`` (0.0 for padding layers) scales
     each residual branch, as the reference's ``u + v * keep``. Dense
-    kinds have no auxiliary loss."""
-    _check_kind(ctx.cfg, kind)
+    kinds have no auxiliary loss. Training runs ``attn:dense`` layers
+    only: Mamba and MoE on the tape wait for the Jamba training slice."""
+    if kind != "attn:dense":
+        raise NotImplementedError(
+            f"training a {kind!r} layer of {ctx.cfg.name} waits for the "
+            "Jamba training slice (apply_mamba and apply_moe on the tape; "
+            "ROADMAP.md queue 1)")
 
     def res_add(a, b):
         return t.prim(lambda u, v: u + v * keep, a, b)
@@ -217,8 +235,15 @@ def reference_loss(cfg, rc, params, tokens, labels):
 def layer_cache_spec(cfg, rc, kind, batch, max_seq) -> dict[str, tuple]:
     """(shape, dtype) of each leaf of one layer's serve cache. The KV
     storage dtype is decoupled from compute: fp32/bf16, or int8 for
-    quantised pages (their scales are added by ``init_serve_caches``)."""
+    quantised pages (their scales are added by ``init_serve_caches``).
+    A Mamba layer keeps its conv state [batch, d_conv-1, di] in the
+    compute dtype and its SSM state [batch, di, d_state] in float32."""
     _check_kind(cfg, kind)
+    if kind.startswith("mamba:"):
+        mc, di, _ = blocks._mamba_dims(cfg)
+        return {"conv": ((batch, mc.d_conv - 1, di),
+                         torch_dtype(rc.compute_dtype)),
+                "h": ((batch, di, mc.d_state), torch.float32)}
     kv_dt = torch_dtype(rc.kv_cache_dtype or rc.compute_dtype)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, kv_dt), "v": (shape, kv_dt)}
@@ -235,11 +260,21 @@ def cached_layer(ctx, params, kind, pfx, x, cache, pos):
     """Unified prefill (s>1) / decode (s=1) for one pre-norm layer."""
     _check_kind(ctx.cfg, kind)
     cfg = ctx.cfg
+    mix, ffn = kind.split(":")
     h = blocks.norm_fwd(cfg, params, f"{pfx}.ln1", x)
-    dh, cache = blocks.attn_cached(ctx, params, f"{pfx}.mix", h, cache, pos)
+    if mix == "attn":
+        dh, cache = blocks.attn_cached(ctx, params, f"{pfx}.mix", h, cache,
+                                       pos)
+    else:
+        dh, c2 = blocks.mamba_cached(ctx, params, f"{pfx}.mix", h, cache,
+                                     pos)
+        cache = blocks._slot_state(ctx, cache, c2)
     x = x + dh
     h2 = blocks.norm_fwd(cfg, params, f"{pfx}.ln2", x)
-    x = x + blocks.ffn_fwd(ctx, params, f"{pfx}.ffn", h2)
+    if ffn == "moe":
+        x = x + blocks.moe_fwd(ctx, params, f"{pfx}.ffn", h2)
+    else:
+        x = x + blocks.ffn_fwd(ctx, params, f"{pfx}.ffn", h2)
     return x, cache
 
 

@@ -36,8 +36,10 @@ logits and draw host-side with a per-request seeded generator.
 A copy of ``repro.serving.engine`` for ``repro_torch`` sessions. It takes
 numpy batches to the session and reads back host tensors, exactly as the
 reference engine does with jax sessions. Left out until their slices:
-MoE capacity-aware admission and expert-load stats, and the elastic
-``park_all``/``resubmit``/``reshard`` path with the router hooks.
+MoE capacity-aware admission and expert-load stats (at 8 slots of
+jamba-v0.1-52b the reference's bound never defers an admission), and the
+elastic ``park_all``/``resubmit``/``reshard`` path with the router
+hooks.
 """
 
 from __future__ import annotations
@@ -63,6 +65,27 @@ _DONE = object()  # per-request stream sentinel
 # kinds recompute their state from scratch per call, so chunking is only
 # sound for position-indexed (attention-family) caches.
 _CHUNKABLE_MIXES = ("attn", "mla", "dec")
+
+
+def check_layout(session, prefill_chunk: int | None = None) -> None:
+    """Refuse what recurrent-state layers cannot carry: paged caches and
+    chunked prefill (a Mamba prefill starts from zero state, so a second
+    chunk would drop the first one's). Raises ``NotImplementedError``;
+    callers may run it before building params."""
+    kinds = session.geo.segments[-1].kinds
+    if not any(k.split(":")[0] not in _CHUNKABLE_MIXES for k in kinds):
+        return
+    if session.paged:
+        raise NotImplementedError(
+            "paged KV covers position-indexed (attention-family) "
+            f"caches; segment kinds {kinds} keep per-slot "
+            "recurrent state — drop page_size for this "
+            "architecture")
+    if prefill_chunk is not None:
+        raise NotImplementedError(
+            "prefill_chunk needs position-indexed caches; segment "
+            f"kinds {kinds} include recurrent state that does "
+            "not carry across prefill chunks")
 
 
 @dataclasses.dataclass
@@ -100,19 +123,12 @@ class ServeEngine:
         self.session = session
         self.params = params
         self._paged = bool(session.paged)
-        self.pool: SlotPool | PagedSlotPool = self._build_pool()
-        self.scheduler = RequestScheduler(policy)
         self.prefill_chunk = (prefill_chunk
                               if prefill_chunk is not None
                               else session.spec.prefill_chunk)
-        seg = (session.geo.segments[-1])
-        if self.prefill_chunk is not None and any(
-                k.split(":")[0] not in _CHUNKABLE_MIXES
-                for k in seg.kinds):
-            raise NotImplementedError(
-                "prefill_chunk needs position-indexed caches; segment "
-                f"kinds {seg.kinds} include recurrent state that does "
-                "not carry across prefill chunks")
+        check_layout(session, self.prefill_chunk)
+        self.pool: SlotPool | PagedSlotPool = self._build_pool()
+        self.scheduler = RequestScheduler(policy)
         session.check_slot_sharding()  # fail before allocating caches
         # host-side sampling needs the serve step's full-logits return,
         # which some layouts cannot provide; probe once so submit() can
@@ -136,14 +152,6 @@ class ServeEngine:
         partitioning follows the session's data and group axes)."""
         session = self.session
         if self._paged:
-            seg_ = session.geo.segments[-1]
-            if any(k.split(":")[0] not in _CHUNKABLE_MIXES
-                   for k in seg_.kinds):
-                raise NotImplementedError(
-                    "paged KV covers position-indexed (attention-family) "
-                    f"caches; segment kinds {seg_.kinds} keep per-slot "
-                    "recurrent state — drop page_size for this "
-                    "architecture")
             pods = getattr(session, "pods_size", None) \
                 or (session.spec.pods or 1)
             return PagedSlotPool(

@@ -8,9 +8,11 @@ bound how much prefill work may delay in-flight decodes per tick, and
 full batch only when the pool is empty) — the baseline the benchmark
 compares against.
 
-A copy of ``repro.serving.scheduler`` without the MoE capacity bound:
-the port serves dense attention models only, and MoE serving arrives
-with the MoE blocks.
+A copy of ``repro.serving.scheduler`` without the MoE capacity bound
+(``MoECapacity``), which arrives with the Jamba training slice. At the
+slot counts the port serves MoE models with (8 slots of jamba-v0.1-52b,
+4 of its reduced config) the reference's bound admits every co-batch,
+so admission is the same.
 """
 
 from __future__ import annotations

@@ -14,6 +14,11 @@ relative. Float32 outputs of the training kernels (the flash backward's
 dq, dk, dv; the fused cross-entropy's loss, dh, dW) sum hundreds to
 thousands of float32 terms in another order: max |diff| <= 1e-4 * max
 |plain| per tensor, and 1e-5 relative for the loss and the log-sum-exp.
+The selective scan (float32 in and out) walks the recurrence one step at
+a time where the plain version scans each chunk in doubling steps: y and
+the final state within 1e-5 of the plain tensor's max |value|; the
+kernel chained over two halves with h0 repeats the same float32
+operations, so it must equal the one-pass run bit for bit.
 """
 
 import numpy as np
@@ -25,6 +30,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_xent as fx  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
 from torch_cases import qkv as _qkv  # noqa: E402
 
@@ -74,6 +80,65 @@ def test_slotted_kernel_matches_plain(cuda, dtype, mode):
         got = pa.flash_attention_slotted(q, k, v, pos=pos)
         want = tref.attention(q, k, v, q_offset=pos)
     _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["causal", "decode"])
+def test_slotted_kernel_head_dim_128(cuda, dtype, mode):
+    """K3 at jamba-v0.1-52b's head width (e = ev = 128, 4 q heads a kv
+    head): both block heights (BM 16 at decode, 64 for the prefill)."""
+    dt = getattr(torch, dtype)
+    b, h, g, e, S = 3, 8, 2, 128, 200
+    sq = 1 if mode == "decode" else 70
+    q, k, v = (_t(a).to(cuda, dt) for a in _qkv(11, b, sq, h, g, e, S))
+    pos = torch.tensor([0, 57, S - sq], dtype=torch.int32, device=cuda)
+    got = pa.flash_attention_slotted(q, k, v, pos=pos)
+    _close(got, tref.attention(q, k, v, q_offset=pos), dt)
+
+
+def _scan_case(seed, b, s, d, n, device):
+    """Mamba-like inputs: dt log-uniform in [1e-3, 1e-1] and A = -(1..n)
+    (S4D-real), so exp(dt A) spans short and long memory."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, s, d)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(b, s, d)))
+    A = -np.arange(1, n + 1)[None] * np.exp(0.1 * rng.randn(d, n))
+    B, C = rng.randn(b, s, n), rng.randn(b, s, n)
+    D, h0 = rng.randn(d), rng.randn(b, d, n)
+    return [_t(a.astype(np.float32)).to(device)
+            for a in (x, dt, A, B, C, D, h0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_kernel_matches_plain(cuda, n, with_h0):
+    """K5 with s not a multiple of the staged tile or the plain chunk and
+    d not a multiple of the block; then chained over two halves."""
+    x, dt, A, B, C, D, h0 = _scan_case(12, 3, 300, 200, n, cuda)
+    h0 = h0 if with_h0 else None
+    before = ss.LAUNCHES["selective_scan"]
+    y, h = ss.selective_scan(x, dt, A, B, C, D, h0=h0, return_state=True)
+    assert ss.LAUNCHES["selective_scan"] == before + 1
+    wy, wh = tref.selective_scan(x, dt, A, B, C, D, chunk=128, h0=h0,
+                                 return_state=True)
+    _rel_close(y, wy, 1e-5)
+    _rel_close(h, wh, 1e-5)
+    assert torch.equal(ss.selective_scan(x, dt, A, B, C, D, h0=h0), y)
+    first, second = ([t[:, part].contiguous() for t in (x, dt, B, C)]
+                     for part in (slice(0, 150), slice(150, None)))
+    y1, h1 = ss.selective_scan(first[0], first[1], A, first[2], first[3],
+                               D, h0=h0, return_state=True)
+    y2, h2 = ss.selective_scan(second[0], second[1], A, second[2],
+                               second[3], D, h0=h1, return_state=True)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    # B and C swapped must fail the check
+    bad = ss.selective_scan(x, dt, A, C, B, D, h0=h0)
+    err = (bad - wy).abs().max().item()
+    assert err > 1e-5 * wy.abs().max().item()
+    with pytest.raises(ValueError, match="float32"):
+        ss.selective_scan(x.double(), dt, A, B, C, D)
 
 
 @pytest.mark.cuda
