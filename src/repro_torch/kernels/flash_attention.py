@@ -21,6 +21,23 @@ checks device, dtype, shape and contiguity, launches its kernel on the
 current stream and raises if the launch is refused: there is no fallback
 to the plain version on the card. ``LAUNCHES`` counts the kernel
 launches, and nothing else.
+
+Both kernels replace TPU work bound by operations (17.2 GFLOP forward and
+43 GFLOP backward for a causal call at the training shape: sq = sk =
+2048, 32 q heads over 8 kv heads, head dim 64). The C entry point picks
+the body by dtype:
+
+  * bfloat16 (the training path): tensor-core bodies. One warpgroup owns
+    64 query rows of one kv head (all its q heads), or in the backward's
+    dK/dV pass three warpgroups share 64 keys and split the query tiles;
+    bf16 tiles in shared memory in the 128-byte swizzle, streamed through
+    a two-stage ``cp.async`` ring; every product is a ``wgmma`` (bf16 in,
+    float32 accumulate), with P and dS rounded to bf16 in registers as the
+    A operand of the products that consume them.
+  * float32: CUDA-core bodies (products in float32), for float32 callers
+    and tests; no path of the port runs them on the card.
+
+Other head widths or dtypes have no instantiation and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +56,40 @@ from repro_torch.kernels.paged_attention import (
 )
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+# Agreement of the bf16 kernels with the float32 plain versions, element
+# by element against the largest |plain| of the element's row (its last
+# dim: one position of one head): |kernel - plain| <= BF16_RTOL * that
+# row's max |plain|, plus one bf16 ulp of |plain| (2^-7 |plain|) where the
+# plain output is bf16 itself (out: both sides round to bf16). The
+# tensor-core bodies round P (and dS) to bf16 before their products, as
+# FlashAttention does, which costs a few bf16 ulps of the row's largest
+# value. A row scale, not the tensor's largest value, keeps late causal
+# rows (|out| about 0.04 at 2048 positions against about 4 in the first
+# rows) held as tightly as the first ones. tests/test_torch_train_kernels.py
+# emulates the kernels' rounding on the CPU and holds it within half of
+# this limit. The log-sum-exp sums exact bf16 products in float32 and is
+# held to 1e-5 relative.
+BF16_RTOL = 1e-2
+# a row whose plain values are all near zero (dq of a causal row that sees
+# one key cancels exactly) is scaled by this share of the tensor's max
+ROW_FLOOR = 1e-3
+
+
+def bf16_excess(got: torch.Tensor, want: torch.Tensor,
+                rtol: float = BF16_RTOL) -> float:
+    """The worst ``|got - want|`` over its limit (above 1 fails) for a bf16
+    kernel's output against its plain version: ``rtol`` times the largest
+    ``|want|`` of the element's row, floored at ``ROW_FLOOR`` of the
+    tensor's largest, plus one bf16 ulp of ``|want|`` where ``want`` is
+    bf16."""
+    ulp = 2.0**-7 if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    mag = want.abs()
+    row = mag.amax(-1, keepdim=True).clamp_min(
+        ROW_FLOOR * mag.max().item())
+    limit = rtol * row + ulp * mag
+    return ((got - want).abs() / limit).max().item()
 
 
 def reset_launches() -> None:

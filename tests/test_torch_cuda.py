@@ -14,6 +14,13 @@ relative. Float32 outputs of the training kernels (the flash backward's
 dq, dk, dv; the fused cross-entropy's loss, dh, dW) sum hundreds to
 thousands of float32 terms in another order: max |diff| <= 1e-4 * max
 |plain| per tensor, and 1e-5 relative for the loss and the log-sum-exp.
+The bf16 flash kernels run their products on the tensor cores with P and
+dS rounded to bf16, as FlashAttention does, so their out, dq, dk and dv
+are held by ``flash_attention.bf16_excess``: each element within
+``BF16_RTOL`` (1e-2) of the largest |plain| of its row (one position of
+one head), plus one bf16 ulp for the bf16 out
+(``tests/test_torch_train_kernels.py`` calibrates it on the CPU); their
+log-sum-exp stays within 1e-5 relative.
 The selective scan (float32 in and out) walks the recurrence one step at
 a time where the plain version scans each chunk in doubling steps: y and
 the final state within 1e-5 of the plain tensor's max |value|; the
@@ -172,6 +179,19 @@ def _rel_close(got, want, rtol=1e-4):
     assert err <= rtol * scale, (err, scale)
 
 
+def _bf16_close(got, want):
+    worst = fa.bf16_excess(got, want)
+    assert worst <= 1.0, worst
+
+
+def _late_rolled(x):
+    """x with its kv heads rolled by one at the keys of the second half."""
+    x = x.clone()
+    half = x.shape[1] // 2
+    x[:, half:] = x[:, half:].roll(1, dims=2)
+    return x
+
+
 FLASH_CASES = [
     dict(causal=True, q_offset=0, sq=150, sk=150),
     dict(causal=True, q_offset=37, sq=90, sk=127),   # sq < sk window
@@ -192,7 +212,10 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     kw = dict(causal=case["causal"], q_offset=case["q_offset"])
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
-    _close(out, want, dt)
+    if dt == torch.float32:
+        _close(out, want, dt)
+    else:
+        _bf16_close(out, want)
     _rel_close(lse, want_lse, 1e-5)
     do = torch.randn(out.shape, generator=torch.Generator(
         device=cuda).manual_seed(9), device=cuda).to(dt)
@@ -200,7 +223,10 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
     for a, w in zip(got, plain):
         assert a.dtype == torch.float32
-        _rel_close(a, w)
+        if dt == torch.float32:
+            _rel_close(a, w)
+        else:
+            _bf16_close(a, w)
     # the differentiable op launches both kernels
     before = dict(fa.LAUNCHES)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
@@ -212,6 +238,63 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
         "flash_attention_bwd"] + 1
     for a, w in zip(grads, got):
         torch.testing.assert_close(a, w.to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 128])
+def test_flash_kernels_tile_aligned_bf16(cuda, q_offset):
+    """K1 and K1b in bf16 at tile-aligned sizes with the training path's
+    heads (32 q heads over 8 kv heads): the tensor-core bodies against the
+    plain versions. Faults must fail the same checks: K with its kv heads
+    rolled by one and V rolled over kv heads at the keys of the second
+    half (forward); the neighbouring head's lse and K rolled over kv heads
+    at the keys of the second half (backward, each of dq, dk, dv)."""
+    bf = torch.bfloat16
+    b, s, h, g, e = 1, 512, 32, 8, 64
+    q, k, v = (_t(a).to(cuda, bf) for a in _qkv(13, b, s, h, g, e, s))
+    kw = dict(causal=True, q_offset=q_offset)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    _bf16_close(out, want)
+    _rel_close(lse, want_lse, 1e-5)
+    for kk, vv in ((k.roll(1, dims=2).contiguous(), v),
+                   (k, _late_rolled(v))):
+        bad, _ = fa.flash_attention_fwd(q, kk, vv, **kw)
+        assert fa.bf16_excess(bad, want) > 1.0
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(14), device=cuda).to(bf)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, plain):
+        _bf16_close(a, w)
+    for kk, ll in ((k, lse.roll(1, dims=1).contiguous()),
+                   (_late_rolled(k), lse)):
+        bad = fa.flash_attention_bwd(q, kk, v, out, do, ll, **kw)
+        for a, w in zip(bad, plain):
+            assert fa.bf16_excess(a, w) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,g", [(4, 4), (6, 2), (16, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_gqa_ratios_bf16(cuda, h, g, causal):
+    """The bf16 K1 and K1b at other q-heads-per-kv-head ratios (1, 3 and
+    8: a 64-row tile then starts mid-position for 3) and two batch rows,
+    ragged sizes, against the plain versions."""
+    bf = torch.bfloat16
+    b, sq, sk, e = 2, 100, 141, 64
+    q, k, v = (_t(a).to(cuda, bf) for a in _qkv(15, b, sq, h, g, e, sk))
+    kw = dict(causal=causal, q_offset=sk - sq if causal else 0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    _bf16_close(out, want)
+    _rel_close(lse, want_lse, 1e-5)
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(16), device=cuda).to(bf)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, plain):
+        _bf16_close(a, w)
 
 
 @pytest.mark.cuda

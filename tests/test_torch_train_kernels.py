@@ -9,7 +9,9 @@ and ``jax.vjp``. ``tests/test_torch_cuda.py`` holds the CUDA kernels
 (K1, K1b, K2) to these plain versions on a GPU.
 
 Tolerance: float32 throughout; 1e-5 relative to the largest reference
-value (sums of up to a few hundred terms in another order).
+value (sums of up to a few hundred terms in another order). The last
+tests calibrate the bf16 kernels' tolerance on the CPU: an emulation of
+their rounding (P and dS in bf16) against the float32 plain versions.
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from repro.kernels.fused_xent import (  # noqa: E402
 )
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.core import vocab as tvocab  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from torch_cases import qkv as _qkv  # noqa: E402
@@ -166,3 +169,120 @@ def test_loss_and_dy_matches_jax():
     assert set(tg) == set(jg)
     for k in jg:
         _close(tg[k], jg[k])
+
+
+# ---- the bf16 tolerance of the tensor-core flash kernels ------------------ #
+# The bf16 K1 and K1b round P (and dS) to bf16 before the products that
+# consume them and accumulate in float32, as FlashAttention does; the
+# plain versions keep float32 throughout. ``flash_attention.bf16_excess``
+# holds out, dq, dk and dv to BF16_RTOL of the largest |plain| of each
+# element's row (one position of one head), plus one bf16 ulp where the
+# plain output is bf16. The emulation below repeats the kernels' rounding
+# in plain torch; at this size it must stay within half that limit, and
+# the probes the card checks reject must exceed it: kv heads rolled by
+# one, the neighbouring head's lse, and two faults confined to the keys of
+# the second half (V or K rolled over kv heads there), which leave every
+# early row exactly as it was.
+
+CAL = dict(b=1, s=256, h=8, g=2, e=64)
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate(q, k, v, do, causal, q_offset):
+    """(out, dq, dk, dv) with the kernels' rounding: inputs in bf16, S and
+    dP from exact bf16 products summed in float32, P and dS rounded to
+    bf16 before their products, float32 accumulation."""
+    b, sq, h, e = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    rep, scale = h // g, 1.0 / e ** 0.5
+    kr = k.repeat_interleave(rep, dim=2)
+    vr = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhe,bkhe->bhqk", q, kr) * scale
+    if causal:
+        vis = (torch.arange(sk)[None] <= q_offset + torch.arange(sq)[:, None])
+        s = torch.where(vis, s, float("-inf"))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    out = torch.einsum("bhqk,bkhe->bqhe", _bf(p), vr)
+    o_bf = _bf(out)                       # the kernel writes out in bf16
+    dd = (do * o_bf).sum(-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhe,bkhe->bhqk", do, vr)
+    ds = _bf(p * (dp - dd))
+    dv = torch.einsum("bhqk,bqhe->bkhe", _bf(p), do)
+    dq = torch.einsum("bhqk,bkhe->bqhe", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhe->bkhe", ds, q) * scale
+    dk = dk.reshape(b, sk, g, rep, e).sum(3)
+    dv = dv.reshape(b, sk, g, rep, e).sum(3)
+    return out, dq, dk, dv
+
+
+def _cal_inputs(q_offset):
+    c = CAL
+    q, k, v = (_bf(_t(a)) for a in _qkv(20, c["b"], c["s"], c["h"], c["g"],
+                                         c["e"], c["s"] + q_offset))
+    do = _bf(_t(np.random.RandomState(21).randn(c["b"], c["s"], c["h"],
+                                                c["e"])))
+    return q, k, v, do
+
+
+def _probe(name, q, k, v, do, out, lse):
+    """(bad, plain, early rows) for a probe: the outputs with the fault
+    fed in, the unperturbed plain ones, and how many leading positions of
+    each output the fault leaves untouched."""
+    half = k.shape[1] // 2
+
+    def late_rolled(x):
+        x = x.clone()
+        x[:, half:] = x[:, half:].roll(1, dims=2)
+        return x
+
+    if name == "kv_heads_rolled":
+        return ((tref.attention(q, k.roll(1, dims=2), v),),
+                (out,), (0,))
+    if name == "late_v_rolled":
+        return (tref.attention(q, k, late_rolled(v)),), (out,), (half,)
+    plain = tref.attention_bwd(q, k, v, out, do, lse)
+    if name == "neighbour_lse":
+        return (tref.attention_bwd(q, k, v, out, do, lse.roll(1, dims=1)),
+                plain, (0, 0, 0))
+    return (tref.attention_bwd(q, late_rolled(k), v, out, do, lse), plain,
+            (half, half, half))
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 64),
+                                             (False, 0)])
+def test_flash_bf16_tolerance_holds_the_kernels_rounding(causal, q_offset):
+    """The emulated kernel rounding stays within half of the bf16 limit
+    against the float32 plain versions: out (both sides in bf16, as the
+    kernel and the plain version return it), and dq, dk, dv fed the same
+    out."""
+    q, k, v, do = _cal_inputs(q_offset)
+    kw = dict(causal=causal, q_offset=q_offset)
+    out, lse = tref.attention(q, k, v, return_lse=True, **kw)
+    emu = _emulate(q, k, v, do, **kw)
+    worst = fa.bf16_excess(emu[0].bfloat16(), out.bfloat16())
+    assert worst <= 0.5, worst
+    plain = tref.attention_bwd(q, k, v, _bf(emu[0]), do, lse, **kw)
+    for a, w in zip(emu[1:], plain):
+        worst = fa.bf16_excess(a, w)
+        assert worst <= 0.5, worst
+
+
+@pytest.mark.parametrize("probe", ["kv_heads_rolled", "neighbour_lse",
+                                   "late_v_rolled", "late_k_rolled"])
+def test_flash_bf16_tolerance_rejects_probes(probe):
+    """The probes chip_smoke.py feeds the kernels exceed the bf16 limit.
+    The forward probes (K's kv heads rolled by one; V rolled over kv heads
+    at the keys of the second half) fail out; the backward probes (the
+    neighbouring q head's lse; K rolled over kv heads at the keys of the
+    second half) fail dq, dk and dv. The late probes leave every early
+    row exactly as it was, so a fault in late tiles alone is seen."""
+    q, k, v, do = _cal_inputs(0)
+    out, lse = tref.attention(q, k, v, return_lse=True)
+    bad, plain, early = _probe(probe, q, k, v, do, out, lse)
+    for a, w, n in zip(bad, plain, early):
+        assert fa.bf16_excess(a, w) > 1.0
+        assert torch.equal(a[:, :n], w[:, :n])
