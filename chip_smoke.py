@@ -10,8 +10,9 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time, and
-   for each flash-attention kernel its registers and spills (ptxas) and
-   its tensor-core instructions (``cuobjdump -sass``);
+   for each attention kernel's entry functions their registers and
+   spills (ptxas) and tensor-core instructions (``cuobjdump -sass``): the
+   serving kernels' bf16 entries must hold HGMMA (wgmma);
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
    kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
@@ -21,20 +22,28 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
    the bytes and operations of this run's inputs); times are device time
-   with the L2 flushed and the host's launch overhead kept out.
-   Tolerances: bf16 outputs of K3 and K4 within one bf16 ulp of the plain
-   ones per element; K1's out and K1b's dq, dk, dv within 1e-2 of the plain
-   tensor's largest value (their tensor-core bodies round P and dS to
-   bf16, as FlashAttention does; SDPA's own error against the same plain
-   version is printed beside it), K1's log-sum-exp within 1e-5 relative;
+   with the L2 flushed and the host's launch overhead kept out. The K3/K4
+   decode phases are also timed at other key-split counts.
+   Tolerances: the bf16 outputs of the tensor-core bodies (K3 and K4
+   out, K1 out, K1b dq, dk, dv) element by element within 1e-2 of the
+   largest |plain| of the element's row plus one bf16 ulp for a bf16
+   out (``flash_attention.bf16_excess``: they round P, and dS, to bf16,
+   as FlashAttention does; SDPA's own error against the same plain
+   version is printed beside it); K3's window + stats contract (the
+   CUDA-core body) within one bf16 ulp per element for out and 1e-4 of
+   the largest |plain| for m, l, acc; K1's log-sum-exp within 1e-5
+   relative;
    K2's float32 outputs within 1e-4 of the plain tensor's largest value
    (1e-5 relative for its loss); K5's y and final state within 1e-5 of
    the plain tensor's largest value, and K5 chained over two halves with
    h0 equal bit for bit to one pass over the whole. Probes that must fail
-   the checks: V dequantised with the wrong scales (K4 int8), K with its
-   kv heads rolled by one (K1), the neighbouring q head's log-sum-exp fed
-   to the backward (K1b), the head shifted by one vocab tile (K2), B and
-   C swapped (K5);
+   the checks: K with its kv heads rolled by one and V rolled over kv
+   heads at the keys of the second half only (K3, K1), one live
+   page-table entry pointed at another row's page and, for int8 pages,
+   V dequantised with K's or the next kv head's scales (K4), the
+   neighbouring q head's log-sum-exp and K rolled over kv heads at the
+   keys of the second half (K1b), the head shifted by one vocab tile
+   (K2), B and C swapped (K5);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -62,10 +71,12 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    prefill step (one per Mamba layer), K3 once a step, and no plain
    version may have run. The first prefill step's logits are held
    against the same step on the plain versions;
-6. after every timed run, torch.profiler traces: five decode steps in
-   each llama serving layout and in Jamba, and one training step (device
-   busy share, kernels by device time, launches a step, and the device
-   time of K1, K1b and K2).
+6. after every timed run, torch.profiler traces: five decode steps and
+   three 512-token prefill steps in each llama serving layout and in
+   Jamba (device busy share, kernels by device time, and the device
+   kernels of K3/K4 with the key-split combine by name), and one
+   training step (device busy share, kernels by device time, launches a
+   step, and the device time of K1, K1b and K2).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -93,6 +104,13 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: covers a call's enqueue
 ARCH = "llama3.2-1b"
 N_REQ, GEN, SLOTS, MAX_SEQ, PAGE = 16, 32, 8, 2048, 16
 
+# the serving kernels' bf16 tensor-core entry functions
+TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "paged_tc_bf16",
+            "paged_tc_int8")
+# device kernels of each serving kernel, by name, for the decode profiles
+SERVE_KERNELS = {"K3 slotted_attention": ("slotted_tc", "slotted_kernel"),
+                 "K4 paged_attention": ("paged_tc", "paged_kernel"),
+                 "K3/K4 key-split combine": ("combine_e",)}
 SLOTTED = dict(route="cuda",
                source="src/repro_torch/kernels/csrc/slotted_attention.cu",
                replaces="src/repro/kernels/paged_attention.py:117")
@@ -252,6 +270,15 @@ def bf16_probe(fa, bad, plain, whats, probe: str) -> None:
             fail(f"the {what} check passes {probe}")
 
 
+def late_rolled(x):
+    """x [b, s, kv heads, e] with its kv heads rolled by one at the keys
+    of the second half: a fault of late tiles only."""
+    x = x.clone()
+    half = x.shape[1] // 2
+    x[:, half:] = x[:, half:].roll(1, dims=2)
+    return x
+
+
 def record_phase(torch, flush, results, name, meta, kern, plain, lib,
                  nbytes, flops, check, iters=10, plain_iters=3,
                  dtype="bfloat16"):
@@ -277,20 +304,25 @@ def record_phase(torch, flush, results, name, meta, kern, plain, lib,
     results.append(row)
 
 
-def kernel_resources(build, names=("flash_attention_fwd",
+def kernel_resources(build, names=("slotted_attention", "paged_attention",
+                                   "flash_attention_fwd",
                                    "flash_attention_bwd")) -> dict:
-    """Per entry function of the named libraries: registers and spill
-    bytes from the ptxas log of this run's build, and the tensor-core
-    instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS from
-    cuobjdump (None where the toolkit has no cuobjdump)."""
+    """Per entry function of the named libraries (keyed "library:name";
+    the float32 bodies' instantiations share one name): registers and
+    spill bytes from the ptxas log of this run's build, and the
+    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS
+    from cuobjdump (None where the toolkit has no cuobjdump). Fails if a
+    serving kernel's bf16 tensor-core entry has no HGMMA."""
     import os
     import re
 
-    short = ("flash_fwd_tc", "flash_fwd_kernel", "dq_tc", "dkdv_tc",
-             "dq_kernel", "dkdv_kernel")
+    short = TC_SERVE + ("combine_e64", "combine_e128", "slotted_kernel",
+                        "paged_kernel", "flash_fwd_tc", "flash_fwd_kernel",
+                        "dq_tc", "dkdv_tc", "dq_kernel", "dkdv_kernel")
 
-    def name_of(mangled):
-        return next((k for k in short if k in mangled), mangled[:60])
+    def name_of(lib, mangled):
+        return f"{lib}:" + next((k for k in short if k in mangled),
+                                mangled[:60])
 
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     res = {}
@@ -299,7 +331,7 @@ def kernel_resources(build, names=("flash_attention_fwd",
         for line in build.BUILD_LOG.get(lib, {}).get("log", "").splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = name_of(m.group(1))
+                fn = name_of(lib, m.group(1))
                 res[fn] = dict(library=lib, hgmma=None, hmma=None)
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -315,7 +347,7 @@ def kernel_resources(build, names=("flash_attention_fwd",
         fn = None
         for line in sass.stdout.splitlines():
             if "Function :" in line:
-                fn = name_of(line.split("Function :")[1].strip())
+                fn = name_of(lib, line.split("Function :")[1].strip())
                 res.setdefault(fn, dict(library=lib))
                 res[fn].update(hgmma=0, hmma=0)
             elif fn and " HGMMA." in line:
@@ -325,8 +357,16 @@ def kernel_resources(build, names=("flash_attention_fwd",
     for fn, r in res.items():
         sass = ("not measured" if r.get("hgmma") is None else
                 f"HGMMA {r['hgmma']}, HMMA {r['hmma']}")
-        log(f"[build] {r['library']} {fn}: {r.get('registers')} registers, "
+        log(f"[build] {fn}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} spill bytes; SASS {sass}")
+    for k in TC_SERVE:
+        lib = "paged_attention" if k.startswith("paged") else \
+            "slotted_attention"
+        r = res.get(f"{lib}:{k}")
+        if r is None:
+            fail(f"the {lib} build has no entry function {k}")
+        if r.get("hgmma") == 0:
+            fail(f"{lib}:{k} has no HGMMA (wgmma) in its SASS")
     return res
 
 
@@ -338,6 +378,7 @@ def kernel_resources(build, names=("flash_attention_fwd",
 def kernel_phases(torch, flush):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
@@ -346,6 +387,7 @@ def kernel_phases(torch, flush):
     gen = torch.Generator(device=dev).manual_seed(1)
     b, h, g, e, S = 8, 32, 8, 64, MAX_SEQ
     rep = h // g
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = []
 
     def rand(*shape, dtype=bf):
@@ -369,6 +411,36 @@ def kernel_phases(torch, flush):
         i = torch.arange(sq, device=dev)
         return int((pos[:, None] + i[None, :] + 1).clamp(max=limit).sum())
 
+    def tc_check(lib, rows=None):
+        """The bf16 tensor-core rule for out, SDPA's error against the same
+        plain version beside it (over ``rows``, the batch rows that see a
+        key: SDPA gives NaN for a row that sees none)."""
+        def check(a, p):
+            sel = slice(None) if rows is None else rows
+            bf16_excess(fa, lib().transpose(1, 2)[sel], p[sel],
+                        "out (SDPA, for the record)")
+            return bf16_err(fa, a, p, "out")
+        return check
+
+    tol = (f"tolerance: out |diff| <= {fa.BF16_RTOL:g} max |plain| of its "
+           "row + 1 bf16 ulp (P rounded to bf16 on the tensor cores)")
+
+    def split_sweep(kern):
+        """A decode kernel's time against the blocks an SM that the key
+        splits aim for (``paged_attention._BLOCKS_AN_SM``; 0 = no split),
+        recorded beside the phase's row."""
+        keep, res = pa._BLOCKS_AN_SM, {}
+        try:
+            for w in (0, 1, 2, 4, 8):
+                pa._BLOCKS_AN_SM = w
+                res[w] = (pa.splits(b, g, rep, S, sms),
+                          time_ms(torch, kern, flush))
+        finally:
+            pa._BLOCKS_AN_SM = keep
+        log("[kernel]   key splits, blocks an SM (splits): " + ", ".join(
+            f"{w} ({n}) {t:.4f} ms" for w, (n, t) in res.items()))
+        results[-1]["split_ms"] = {w: t for w, (_, t) in res.items()}
+
     # ---- slotted attention (contiguous cache) --------------------------- #
     def slotted_phase(phase, sq, hd, rand):
         q = rand(b, sq, h, hd)
@@ -384,18 +456,33 @@ def kernel_phases(torch, flush):
         nbytes = (2 * q.nbytes + pos.nbytes
                   + int(keys.sum()) * g * 2 * hd * 2)
         flops = causal_pairs(pos, sq, S) * h * 2 * (hd + hd)
+        ns = pa.splits(b, g, rep * sq, S, sms)
         log(f"[kernel] slotted_attention:{phase} b={b} sq={sq} h={h} g={g} "
-            f"e={hd} S={S} pos={pos.tolist()} (tolerance |diff| <= 2^-7 "
-            "(|plain| + mean |plain|) per element)")
+            f"e={hd} S={S} pos={pos.tolist()} key splits {ns} ({tol})")
+        lib = sdpa(q, k, v, mask)
         record(f"slotted_attention:{phase}", SLOTTED,
                lambda: pa.flash_attention_slotted(q, k, v, pos=pos),
                lambda: ref.attention(q, k, v, q_offset=pos),
-               sdpa(q, k, v, mask), nbytes, flops, out_err)
+               lib, nbytes, flops, tc_check(lib))
+        if sq == 1:
+            split_sweep(lambda: pa.flash_attention_slotted(q, k, v, pos=pos))
+        # the check must see K with its kv heads rolled by one, and V
+        # rolled over kv heads at the keys of the second half only (a
+        # fault of late tiles: rows that see no such key stay exact)
+        plain = ref.attention(q, k, v, q_offset=pos)
+        bf16_probe(fa, (pa.flash_attention_slotted(
+            q, k.roll(1, dims=2).contiguous(), v, pos=pos),), (plain,),
+            ("slotted_attention out",), "K's kv heads rolled by one")
+        bf16_probe(fa, (pa.flash_attention_slotted(
+            q, k, late_rolled(v), pos=pos),), (plain,),
+            ("slotted_attention out",),
+            f"V rolled over kv heads at keys >= {S // 2}")
 
     for phase, sq in (("causal_prefill", 512), ("decode", 1)):
         slotted_phase(phase, sq, e, rand)
 
-    # window + stats (decode-attention contract, pos = cache length)
+    # window + stats (decode-attention contract, pos = cache length): the
+    # CUDA-core body, one bf16 ulp for out
     q = rand(b, 1, h, e)
     k, v = rand(b, S, g, e), rand(b, S, g, e)
     cl = (128 + 256 * torch.arange(b, device=dev)).int()
@@ -413,8 +500,9 @@ def kernel_phases(torch, flush):
         return err
 
     log(f"[kernel] slotted_attention:window_stats b={b} sq=1 cache_len="
-        f"{cl.tolist()} (out: |diff| <= 2^-7 (|plain| + mean |plain|) per "
-        "element; m, l, acc: max |diff| <= 1e-4 * max |plain|)")
+        f"{cl.tolist()} (CUDA-core body; out: |diff| <= 2^-7 (|plain| + "
+        "mean |plain|) per element; m, l, acc: max |diff| <= 1e-4 * max "
+        "|plain|)")
     record("slotted_attention:window_stats", SLOTTED,
            lambda: pa.decode_attention(q, k, v, cl),
            lambda: ref.decode_attention(q, k, v, cl),
@@ -468,33 +556,46 @@ def kernel_phases(torch, flush):
         pmask = (torch.arange(kg.shape[1], device=dev)[None, None, :]
                  <= (off[:, None] + torch.arange(sq, device=dev))[:, :, None]
                  )[:, None]
+        lib = sdpa(q, kg, vg, pmask)
+        tc = tc_check(lib, on)
 
-        def check(a, p, mask=mask):
-            err = out_err(a, p)
+        def check(a, p, mask=mask, tc=tc):
+            err = tc(a, p)
             if a[~mask].any():
                 fail("paged kernel: a masked row is not exactly zero")
             return err
 
+        ns = pa.splits(b, g, rep * sq, S, sms)
         log(f"[kernel] paged_attention:{phase} b={b} sq={sq} h={h} g={g} "
             f"e={e} page_size={PAGE} ppr={ppr} n_pages={n_pages} "
-            f"pos={pos.tolist()} masked_row=3 (tolerance |diff| <= 2^-7 "
-            "(|plain| + mean |plain|) per element, masked row exactly 0)")
+            f"pos={pos.tolist()} masked_row=3 key splits {ns} ({tol}; "
+            "masked row exactly 0)")
         record(f"paged_attention:{phase}", PAGED,
                lambda: pa.paged_attention(q, kp, vp, **kw),
                lambda: ref.paged_attention(q, kp, vp, **kw),
-               sdpa(q, kg, vg, pmask), nbytes, flops, check)
+               lib, nbytes, flops, check)
+        if sq == 1:
+            split_sweep(lambda: pa.paged_attention(q, kp, vp, **kw))
+        plain = ref.paged_attention(q, kp, vp, **kw)
+        # the check must see one live page-table entry of one row, past
+        # its first 64-key tile, pointed at a page of another row (row 7
+        # sees every key of entry 5: keys 80..95)
+        wrong = pt.clone()
+        wrong[7, 5] = pt[0, 0]
+        bf16_probe(fa, (pa.paged_attention(
+            q, kp, vp, **dict(kw, page_tables=wrong)),), (plain,),
+            ("paged_attention out",),
+            "row 7's page-table entry 5 pointed at row 0's first page")
         if int8:
-            # the check must see V dequantised with the wrong scales: K's,
-            # or those of the next kv head
-            plain = ref.paged_attention(q, kp, vp, **kw)
+            # and V dequantised with the wrong scales: K's, or those of
+            # the next kv head
             for what, bad in (("K's scales", ks),
                               ("the next kv head's scales",
                                vs.roll(1, dims=1).contiguous())):
-                log(f"[kernel] int8 check, V dequantised with {what}:")
-                _, worst = excess(pa.paged_attention(
-                    q, kp, vp, **dict(kw, v_scale=bad)), plain)
-                if not worst > 1.0:
-                    fail(f"the int8 check passes V dequantised with {what}")
+                bf16_probe(fa, (pa.paged_attention(
+                    q, kp, vp, **dict(kw, v_scale=bad)),), (plain,),
+                    ("paged_attention out",),
+                    f"V dequantised with {what}")
 
     # ---- slotted attention at head_dim 128 (jamba-v0.1-52b) ------------- #
     gen128 = torch.Generator(device=dev).manual_seed(3)
@@ -535,14 +636,6 @@ def train_kernel_phases(torch, flush):
 
     def rep_kv(x):
         return x.repeat_interleave(rep, dim=2).transpose(1, 2)
-
-    def late_rolled(x):
-        """x with its kv heads rolled by one at the keys of the second
-        half."""
-        x = x.clone()
-        half = x.shape[1] // 2
-        x[:, half:] = x[:, half:].roll(1, dims=2)
-        return x
 
     # ---- K1: flash forward ---------------------------------------------- #
     for phase, causal, sq, off in (("causal", True, S, 0),
@@ -984,18 +1077,28 @@ def first_step(torch, sess, params):
     return logits[0].float()
 
 
-def profile_decode(torch, sess, params, layout, steps=5):
-    """Trace ``steps`` decode steps (8 active slots at position 1024, on
-    fresh caches) with torch.profiler; prints the device busy share of the
-    window and the kernels by device time, writes a chrome trace."""
+def profile_serve(torch, sess, params, layout, kind="decode", steps=5):
+    """Trace ``steps`` serve steps on fresh caches with torch.profiler:
+    decode (8 active slots at position 1024) or prefill (slot 0 takes a
+    512-token prompt at position 0, the other slots masked, as a lone
+    admission does; one step at that shape runs first, outside the
+    trace). Prints the device busy share of the window, the kernels by
+    device time and the serving attention kernels' device kernels by
+    name (with the key-split combine); writes a chrome trace."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     caches = sess.init_caches()
     n = sess.max_slots
-    batch = {"tokens": np.ones((n, 1), np.int32),
-             "pos": np.full(n, 1024, np.int32),
-             "slot_mask": np.ones(n, bool)}
+    if kind == "decode":
+        batch = {"tokens": np.ones((n, 1), np.int32),
+                 "pos": np.full(n, 1024, np.int32),
+                 "slot_mask": np.ones(n, bool)}
+    else:
+        toks = np.zeros((n, 512), np.int32)
+        toks[0] = np.random.RandomState(1).randint(0, sess.cfg.vocab, 512)
+        batch = {"tokens": toks, "pos": np.zeros(n, np.int32),
+                 "slot_mask": np.arange(n) == 0}
     if sess.paged:
         batch["page_tables"] = np.arange(
             n * sess.pages_per_slot, dtype=np.int32).reshape(n, -1)
@@ -1008,20 +1111,30 @@ def profile_decode(torch, sess, params, layout, steps=5):
             sess.serve_step_batched(params, caches, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    del caches
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     dev = [(e.key, e.self_device_time_total, e.count) for e in kern]
     busy = sum(t for _, t, _ in dev)
-    log(f"[profile] {layout} decode: {wall_us / steps / 1e3:.2f} ms a step "
+    log(f"[profile] {layout} {kind}: {wall_us / steps / 1e3:.2f} ms a step "
         f"under the profiler, device busy {busy / wall_us:.3f} of it, "
         f"{sum(c for *_, c in dev) / steps:.0f} kernels a step")
     top = sorted(dev, key=lambda r: -r[1])[:12]
     for name, t, c in top:
         log(f"[profile]   {t / steps / 1e3:8.3f} ms/step {c // steps:5d}x "
             f"{name[:90]}")
-    prof.export_chrome_trace(str(OUT / f"decode_trace_{layout}.json"))
-    return dict(layout=layout, step_ms=wall_us / steps / 1e3,
-                busy_share=busy / wall_us,
+    ours = []
+    for name, t, c in dev:
+        for k, marks in SERVE_KERNELS.items():
+            if any(m in name for m in marks):
+                ours.append(dict(kernel=k, name=name,
+                                 ms_per_step=t / steps / 1e3,
+                                 calls_per_step=c / steps))
+                log(f"[profile]   {k}: {t / steps / 1e3:.4f} ms/step in "
+                    f"{c / steps:.0f} launches a step: {name[:80]}")
+    prof.export_chrome_trace(str(OUT / f"{kind}_trace_{layout}.json"))
+    return dict(layout=layout, kind=kind, step_ms=wall_us / steps / 1e3,
+                busy_share=busy / wall_us, ours=ours,
                 kernels_per_step=sum(c for *_, c in dev) / steps,
                 top=[dict(name=n, ms_per_step=t / steps / 1e3,
                           calls_per_step=c / steps) for n, t, c in top])
@@ -1232,9 +1345,11 @@ def main() -> None:
         row["launches"] = jamba["launches"]["selective_scan"]
     kernels += scan_kernels
     # after every timed run: the profiler slows what follows it
-    profiles = [profile_decode(torch, s, params, r["layout"])
-                for r, s in ((contig, sess_c), (paged, sess_p))]
-    profiles.append(profile_decode(torch, sess_j, params_j, "jamba"))
+    profiles = [profile_serve(torch, s, p, lay, kind, steps)
+                for s, p, lay in ((sess_c, params, "contiguous"),
+                                  (sess_p, params, "paged"),
+                                  (sess_j, params_j, "jamba"))
+                for kind, steps in (("decode", 5), ("prefill", 3))]
     del params_j, sess_j
     gc.collect()
     torch.cuda.empty_cache()

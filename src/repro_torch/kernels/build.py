@@ -31,9 +31,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # as void*: a bare Python int would be passed as a 32-bit int and cut)
 SIGNATURES = {
     "slotted_attention": {"slotted_attention": (
-        [_I, _I] + [_P] * 8 + [_I] * 8 + [_F, _P])},
+        [_I, _I] + [_P] * 9 + [_I] * 9 + [_F, _P])},
     "paged_attention": {"paged_attention": (
-        [_I, _I] + [_P] * 8 + [_I] * 9 + [_F, _P])},
+        [_I, _I] + [_P] * 9 + [_I] * 10 + [_F, _P])},
     "flash_attention_fwd": {"flash_attention_fwd": (
         [_I] + [_P] * 5 + [_I] * 9 + [_F, _P])},
     "flash_attention_bwd": {"flash_attention_bwd": (

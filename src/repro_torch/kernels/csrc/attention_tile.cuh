@@ -1,4 +1,7 @@
-// Shared body of the slotted and paged serving attention kernels (sm_90a).
+// CUDA-core body of the slotted and paged serving attention kernels
+// (sm_90a): float32 or mixed float32/bf16 dtypes and the window + stats
+// contract (bf16 q over bf16 caches or bf16/int8 pools runs the
+// tensor-core body, attention_tc.cuh), and K1's float32 path.
 //
 // One thread block owns one (batch row b, kv head gi) pair and BM "query
 // rows" of it. A query row is one (q position i, q head r of the kv

@@ -12,15 +12,28 @@
 // q's dtype; with m non-null also the float32 stats m, l [b, H, sq] and
 // the unnormalised acc [b, H, sq, EV].
 //
-// Bound on the H100: bytes. At decode (sq = 1) every K/V byte up to the
-// row's position is read once for 4*rep flops per byte pair (rep = 4 for
-// llama3.2-1b), far below the card's ~295 flops per byte; a causal
-// prefill chunk of 512 rows lifts that to ~hundreds and approaches the
-// compute line. The design answers the bytes: one block serves all rep
-// q heads of a kv head (each K/V tile leaves device memory once per
-// block, not once per q head), and tiles past a block's causal limit are
-// never read. Scores and products run on the CUDA cores in float32; a
-// tensor-core (wgmma) path is later work.
+// Bound on the H100: a causal prefill chunk of 512 rows at the serving
+// shape (8 rows at positions 0..1536, 32 q heads over 8 kv heads, e = 64)
+// does 2 * (e + ev) flops for each visible (query, key) pair, ~34 GFLOP
+// against ~22 MB of q, out and K/V: operations, far above the card's ~295
+// flops a byte. A decode step (sq = 1) reads every K/V byte up to the
+// row's position once for 4 * rep flops a byte pair: bytes.
+//
+// bf16 q and cache, causal (the serving path): the tensor-core body
+// (attention_tc.cuh, on mma_tile.cuh's tiles and wgmma). One warpgroup
+// owns 64 query rows of one (batch row, kv head), Q resident in shared
+// memory, K/V tiles of 64 keys in a two-stage cp.async ring, S = Q K^T
+// and O += P V on the tensor cores with P rounded to bf16 in registers;
+// tiles past a block's causal limit are never loaded. When the grid has
+// under two blocks an SM (decode: b * G blocks), the wrapper splits the
+// keys: each block takes a contiguous range of whole tiles and writes
+// float32 (m, l, acc) to scratch, and combine_e* merges the splits in
+// fixed order into the bf16 out. Instantiated for e = 64 (llama3.2-1b)
+// and e = 128 (jamba-v0.1-52b).
+//
+// float32 or mixed dtypes, and the window + stats contract: the CUDA-core
+// body (attention_tile.cuh attend), products in float32.
+#include "attention_tc.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -36,7 +49,8 @@ struct Args {
   float* m;
   float* l;
   float* acc;
-  int b, sq, H, G, S, window;
+  float* part;
+  int b, sq, H, G, S, window, ns;
   float scale;
   cudaStream_t stream;
 };
@@ -84,20 +98,74 @@ int by_shape(const Args& a, int E, int EV) {
   return -1;
 }
 
+// ---- bf16 tensor-core path ---------------------------------------------- //
+
+using attn_tc::Contig;
+using attn_tc::Params;
+using bf16 = __nv_bfloat16;
+
+__global__ void __launch_bounds__(mma::WG)
+    slotted_tc_e64(const Params<Contig<64>> p) {
+  attn_tc::attend<64>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
+    slotted_tc_e128(const Params<Contig<128>> p) {
+  attn_tc::attend<128>(p);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_e64(const float* part, bf16* out, int ns, int R, int sq, int H) {
+  attn_tc::combine<64>(part, out, ns, R, sq, H);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_e128(const float* part, bf16* out, int ns, int R, int sq,
+                 int H) {
+  attn_tc::combine<128>(part, out, ns, R, sq, H);
+}
+
+template <int E, typename Kern, typename Comb>
+int run_tc(const Args& a, Kern kern, Comb comb) {
+  const Params<Contig<E>> p{static_cast<const bf16*>(a.q),
+                            static_cast<bf16*>(a.out),
+                            a.part,
+                            a.pos,
+                            a.sq,
+                            a.H,
+                            a.ns,
+                            a.b * a.H * a.sq,
+                            a.scale,
+                            {static_cast<const bf16*>(a.k),
+                             static_cast<const bf16*>(a.v), a.S, a.G}};
+  return attn_tc::launch<E>(kern, comb, p, a.b, a.stream);
+}
+
+int by_shape_tc(const Args& a, int E, int EV) {
+  if (E == 64 && EV == 64) return run_tc<64>(a, slotted_tc_e64, combine_e64);
+  if (E == 128 && EV == 128)
+    return run_tc<128>(a, slotted_tc_e128, combine_e128);
+  return -1;
+}
+
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16 (q and cache may differ: a session's
-// kv_cache_dtype need not be its compute dtype). Returns 0, a cudaError_t,
-// or -1 for a shape or dtype without an instantiation.
+// kv_cache_dtype need not be its compute dtype). n_split key splits (bf16
+// causal only; > 1 needs part, float32 [n_split * b * H * sq * (EV + 2)]).
+// Returns 0, a cudaError_t, or -1 for a shape, dtype or split without an
+// instantiation.
 extern "C" int slotted_attention(int q_dtype, int kv_dtype, const void* q,
                                  const void* k, const void* v, const int* pos,
                                  void* out, float* m, float* l, float* acc,
-                                 int b, int sq, int H, int G, int S, int E,
-                                 int EV, int window, float scale,
-                                 void* stream) {
-  const Args a{q, k, v, pos, out, m, l, acc, b, sq, H, G, S, window, scale,
+                                 float* part, int b, int sq, int H, int G,
+                                 int S, int E, int EV, int window,
+                                 int n_split, float scale, void* stream) {
+  const Args a{q, k,  v, pos, out, m,      l,       acc,   part,
+               b, sq, H, G,   S,   window, n_split, scale,
                static_cast<cudaStream_t>(stream)};
   if (b == 0 || sq == 0) return 0;
+  if (n_split < 1 || (n_split > 1 && part == nullptr)) return -1;
+  if (q_dtype == 1 && kv_dtype == 1 && window == 0)
+    return by_shape_tc(a, E, EV);
+  if (n_split != 1) return -1;
   if (q_dtype == 0 && kv_dtype == 0) return by_shape<float, float>(a, E, EV);
   if (q_dtype == 1 && kv_dtype == 1)
     return by_shape<__nv_bfloat16, __nv_bfloat16>(a, E, EV);

@@ -16,11 +16,26 @@ with a ``[b]`` offset, ``decode_attention``, ``paged_attention``) for a
 tensor on the CPU. For a CUDA tensor it checks device, dtype, shape and
 contiguity, launches its kernel on the tensor's device and current
 stream, and raises if the launch is refused: there is no fallback to the
-plain version on the card. ``LAUNCHES`` counts the kernel launches, and nothing else.
+plain version on the card. ``LAUNCHES`` counts the wrapper calls that
+launched a kernel, once a call, and nothing else.
+
+The C entry points pick the body by dtype. bf16 q over a bf16 cache
+(causal) or bf16/int8 pools runs the tensor-core body
+(``csrc/attention_tc.cuh``): S and P V are ``wgmma`` products with P
+rounded to bf16 in registers, so its out is held to the plain version by
+``flash_attention.bf16_excess`` (1e-2 of the largest |plain| of the
+element's row plus one bf16 ulp), as the bf16 flash kernels are. When
+the grid would hold under two blocks an SM (decode), the keys are split
+over ``n_split`` blocks a (row, kv head) (``splits``); the wrapper
+allocates their float32 scratch and the same call launches the combine
+kernel. float32 or mixed dtypes and the window + stats contract run the
+CUDA-core body, whose outputs round the same float32 values as the plain
+version (one bf16 ulp for a bf16 out).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,6 +50,47 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # flash kernels at 64 only
 _HEAD_DIMS = (64,)
 _SLOTTED_HEAD_DIMS = (64, 128)
+
+
+# blocks a (batch row, kv head) row tile of the tensor-core body: 64
+# query rows (one wgmma tile) and 64-key tiles
+_ROWS_A_BLOCK = _KEYS_A_TILE = 64
+
+
+# blocks an SM a launch should hold before its keys are split (two
+# waves): at decode on the H100 (b 8, g 8) 5 splits, within noise of 9
+# and 17 over bf16 caches (chip_smoke.py's key-split sweep, PERF.md)
+_BLOCKS_AN_SM = 2
+
+
+def splits(b: int, g: int, rows: int, keys: int, sms: int) -> int:
+    """Key splits of a tensor-core launch: 1 when the b * g * (row tiles)
+    blocks fill ``_BLOCKS_AN_SM`` blocks on each of ``sms`` SMs, else
+    enough splits to reach that, at most one a 64-key tile of the
+    ``keys`` a row may see. ``rows`` is a kv head's query rows (q heads
+    a kv head times sq). At decode on an H100 (b 8, g 8, 2048 keys): 5."""
+    blocks = b * g * -(-rows // _ROWS_A_BLOCK)
+    want = _BLOCKS_AN_SM * sms
+    if blocks >= want:
+        return 1
+    return max(1, min(-(-want // blocks), -(-keys // _KEYS_A_TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(q, g: int, ev: int, keys: int):
+    """(n_split, float32 scratch or None) for a tensor-core launch on q
+    over g kv heads of ``keys`` keys."""
+    b, sq, h, _ = q.shape
+    ns = splits(b, g, h // g * sq, keys, _sms(q.device.index or 0))
+    if ns == 1:
+        return 1, None
+    part = torch.empty(ns * b * h * sq * (ev + 2), dtype=torch.float32,
+                       device=q.device)
+    return ns, part
 
 
 def reset_launches() -> None:
@@ -114,12 +170,15 @@ def _slotted(q, k, v, pos, window):
         acc = torch.empty((b, h, sq, ev), dtype=torch.float32, device=dev)
     if out.numel():
         p = _rows(pos, b, dev)
+        tc = not window and q.dtype == k.dtype == torch.bfloat16
+        ns, part = _scratch(q, g, ev, S) if tc else (1, None)
         fn = build.load("slotted_attention").slotted_attention
         with torch.cuda.device(dev):
             rc = fn(_CODES[q.dtype], _CODES[k.dtype], q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), p.data_ptr(),
-                    out.data_ptr(), _ptr(m), _ptr(l), _ptr(acc), b, sq, h,
-                    g, S, e, ev, int(window), 1.0 / math.sqrt(e),
+                    out.data_ptr(), _ptr(m), _ptr(l), _ptr(acc), _ptr(part),
+                    b, sq, h, g, S, e, ev, int(window), ns,
+                    1.0 / math.sqrt(e),
                     torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, "slotted_attention")
         LAUNCHES["slotted_attention"] += 1
@@ -202,13 +261,16 @@ def paged_attention(q, k_pool, v_pool, *, page_tables, pos, k_scale=None,
         p = torch.where(slot_mask.to(dev), p, -sq).to(torch.int32)
     out = torch.empty((b, sq, h, ev), dtype=q.dtype, device=dev)
     if out.numel():
+        tc = q.dtype == torch.bfloat16 and k_pool.dtype != torch.float32
+        ns, part = (_scratch(q, g, ev, pt.shape[1] * ps) if tc
+                    else (1, None))
         fn = build.load("paged_attention").paged_attention
         with torch.cuda.device(dev):
             rc = fn(_CODES[q.dtype], _CODES[k_pool.dtype], q.data_ptr(),
                     k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
                     _ptr(v_scale), pt.data_ptr(), p.data_ptr(),
-                    out.data_ptr(), b, sq, h, g, n_pages, ps, pt.shape[1],
-                    e, ev, 1.0 / math.sqrt(e),
+                    out.data_ptr(), _ptr(part), b, sq, h, g, n_pages, ps,
+                    pt.shape[1], e, ev, ns, 1.0 / math.sqrt(e),
                     torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, "paged_attention")
         LAUNCHES["paged_attention"] += 1

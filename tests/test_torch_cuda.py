@@ -20,7 +20,12 @@ are held by ``flash_attention.bf16_excess``: each element within
 ``BF16_RTOL`` (1e-2) of the largest |plain| of its row (one position of
 one head), plus one bf16 ulp for the bf16 out
 (``tests/test_torch_train_kernels.py`` calibrates it on the CPU); their
-log-sum-exp stays within 1e-5 relative.
+log-sum-exp stays within 1e-5 relative. The serving kernels' bf16 paths
+(bf16 q over a bf16 cache, causal; bf16 q over bf16 or int8 pools) run
+the same way on the tensor cores with P rounded to bf16, and their out is
+held by the same rule (``tests/test_torch_serving_kernels.py`` calibrates
+it); their float32 and mixed-dtype cases and the window + stats contract
+keep the CUDA-core body and the float32 / one-ulp rules above.
 The selective scan (float32 in and out) walks the recurrence one step at
 a time where the plain version scans each chunk in doubling steps: y and
 the final state within 1e-5 of the plain tensor's max |value|; the
@@ -38,6 +43,7 @@ from repro_torch.kernels import fused_xent as fx  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
+from torch_cases import late_rolled as _late_rolled  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
 from torch_cases import qkv as _qkv  # noqa: E402
 
@@ -86,7 +92,10 @@ def test_slotted_kernel_matches_plain(cuda, dtype, mode):
     else:
         got = pa.flash_attention_slotted(q, k, v, pos=pos)
         want = tref.attention(q, k, v, q_offset=pos)
-    _close(got, want, dt)
+    if dt == torch.bfloat16 and not window:
+        _bf16_close(got, want)              # the tensor-core body
+    else:
+        _close(got, want, dt)
 
 
 @pytest.mark.cuda
@@ -94,14 +103,50 @@ def test_slotted_kernel_matches_plain(cuda, dtype, mode):
 @pytest.mark.parametrize("mode", ["causal", "decode"])
 def test_slotted_kernel_head_dim_128(cuda, dtype, mode):
     """K3 at jamba-v0.1-52b's head width (e = ev = 128, 4 q heads a kv
-    head): both block heights (BM 16 at decode, 64 for the prefill)."""
+    head): both block heights of the float32 body (BM 16 at decode, 64
+    for the prefill), and the bf16 tensor-core body with and without key
+    splits."""
     dt = getattr(torch, dtype)
     b, h, g, e, S = 3, 8, 2, 128, 200
     sq = 1 if mode == "decode" else 70
     q, k, v = (_t(a).to(cuda, dt) for a in _qkv(11, b, sq, h, g, e, S))
     pos = torch.tensor([0, 57, S - sq], dtype=torch.int32, device=cuda)
     got = pa.flash_attention_slotted(q, k, v, pos=pos)
-    _close(got, tref.attention(q, k, v, q_offset=pos), dt)
+    want = tref.attention(q, k, v, q_offset=pos)
+    if dt == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [64, 128])
+def test_slotted_bf16_decode_split_edges(cuda, e):
+    """The bf16 tensor-core body at decode with the llama/Jamba kv-head
+    layout (32 q heads over 8 kv heads) and 2048 keys, so the keys are
+    split over blocks: positions at 0, on a split boundary (the last key
+    of a tile and the first of the next), inside the last tile, and
+    clamped at S; one wrapper call counts one launch. K with its kv heads
+    rolled by one must fail the check."""
+    b, h, g, S = 6, 32, 8, 2048
+    q, k, v = (_t(a).to(cuda, torch.bfloat16)
+               for a in _qkv(17, b, 1, h, g, e, S))
+    ns = pa.splits(b, g, h // g, S, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert ns > 1
+    # a row at position p sees (p + 64) // 64 tiles, split into ns
+    # ranges of whole tiles: 1023 ends a tile, 1024 starts one (17 tiles,
+    # so some splits get one tile more than others), 1279 ends the 20th
+    pos = torch.tensor([0, 1023, 1024, 1279, S - 2, S + 5],
+                       dtype=torch.int32, device=cuda)
+    before = pa.LAUNCHES["slotted_attention"]
+    got = pa.flash_attention_slotted(q, k, v, pos=pos)
+    assert pa.LAUNCHES["slotted_attention"] == before + 1
+    want = tref.attention(q, k, v, q_offset=pos)
+    _bf16_close(got, want)
+    bad = pa.flash_attention_slotted(q, k.roll(1, dims=2).contiguous(), v,
+                                     pos=pos)
+    assert fa.bf16_excess(bad, want) > 1.0
 
 
 def _scan_case(seed, b, s, d, n, device):
@@ -148,28 +193,84 @@ def test_selective_scan_kernel_matches_plain(cuda, n, with_h0):
         ss.selective_scan(x.double(), dt, A, B, C, D)
 
 
+def _int8_pools(kp, vp, cuda):
+    ks = torch.from_numpy(np.abs(kp).max(axis=(1, 3)) / 127.0).to(cuda)
+    vs = torch.from_numpy(np.abs(vp).max(axis=(1, 3)) / 127.0).to(cuda)
+    kq = (_t(kp).to(cuda) / ks[:, None, :, None]).round().to(torch.int8)
+    vq = (_t(vp).to(cuda) / vs[:, None, :, None]).round().to(torch.int8)
+    return kq, vq, ks, vs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8",
+                                  "bf16_q_int8"])
 def test_paged_kernel_matches_plain(cuda, pool):
+    """float32 q (float32 or int8 pools) on the CUDA-core body; bf16 q
+    over bf16 or int8 pools on the tensor-core body, held by the bf16
+    rule."""
     b, sq, h, g, e, ps, ppr, n_pages = 4, 3, 8, 2, 64, 16, 12, 40
     q, kp, vp, pt, pos, mask = _paged_case(7, b, sq, h, g, e, ps, ppr,
                                            n_pages)
-    qt = _t(q).to(cuda, torch.bfloat16 if pool == "bfloat16"
-                  else torch.float32)
+    bf = pool in ("bfloat16", "bf16_q_int8")
+    qt = _t(q).to(cuda, torch.bfloat16 if bf else torch.float32)
     ks = vs = None
-    if pool == "int8":
-        ks = torch.from_numpy(np.abs(kp).max(axis=(1, 3)) / 127.0).to(cuda)
-        vs = torch.from_numpy(np.abs(vp).max(axis=(1, 3)) / 127.0).to(cuda)
-        kp = (_t(kp).to(cuda) / ks[:, None, :, None]).round().to(torch.int8)
-        vp = (_t(vp).to(cuda) / vs[:, None, :, None]).round().to(torch.int8)
+    if pool in ("int8", "bf16_q_int8"):
+        kp, vp, ks, vs = _int8_pools(kp, vp, cuda)
     else:
         kp, vp = (_t(a).to(cuda, qt.dtype) for a in (kp, vp))
     kw = dict(page_tables=_t(pt).to(cuda), pos=_t(pos).to(cuda),
               slot_mask=_t(mask).to(cuda), k_scale=ks, v_scale=vs)
     got = pa.paged_attention(qt, kp, vp, **kw)
     want = tref.paged_attention(qt, kp, vp, **kw)
-    _close(got, want, qt.dtype)
+    if bf:
+        _bf16_close(got, want)
+    else:
+        _close(got, want, qt.dtype)
     assert not got[~kw["slot_mask"]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("sq", [1, 40])
+def test_paged_bf16_wrong_page_probe(cuda, pool, sq):
+    """The bf16 tensor-core body over 320-key rows (decode: split keys;
+    a 40-row chunk), a masked row exactly zero; then one live page-table
+    entry of one row, past its first 64-key tile, pointed at a page of
+    another row must fail the check (swapping two of a row's own visible
+    pages would prove nothing: attention does not depend on key order).
+    With int8 pools, V dequantised with K's scales or with the next kv
+    head's scales must fail it too."""
+    b, h, g, e, ps, ppr = 4, 8, 2, 64, 16, 20
+    n_pages = b * ppr
+    rng = np.random.RandomState(18)
+    q = rng.randn(b, sq, h, e).astype(np.float32)
+    kp = rng.randn(n_pages, ps, g, e).astype(np.float32)
+    vp = rng.randn(n_pages, ps, g, e).astype(np.float32)
+    pt = rng.permutation(n_pages).reshape(b, ppr).astype(np.int32)
+    pos = np.array([0, 150, ppr * ps - sq, 200], np.int32)
+    mask = np.array([True, True, True, False])
+    ks = vs = None
+    if pool == "int8":
+        kp, vp, ks, vs = _int8_pools(kp, vp, cuda)
+    else:
+        kp, vp = (_t(a).to(cuda, torch.bfloat16) for a in (kp, vp))
+    qt = _t(q).to(cuda, torch.bfloat16)
+    ptt = _t(pt).to(cuda)
+    kw = dict(pos=_t(pos).to(cuda), slot_mask=_t(mask).to(cuda),
+              k_scale=ks, v_scale=vs)
+    got = pa.paged_attention(qt, kp, vp, page_tables=ptt, **kw)
+    want = tref.paged_attention(qt, kp, vp, page_tables=ptt, **kw)
+    _bf16_close(got, want)
+    assert not got[~kw["slot_mask"]].any()
+    wrong = ptt.clone()
+    wrong[2, 5] = ptt[1, 0]        # keys 80..95 of row 2 from row 1's page
+    bad = pa.paged_attention(qt, kp, vp, page_tables=wrong, **kw)
+    assert fa.bf16_excess(bad, want) > 1.0
+    if pool == "int8":
+        for v_bad in (ks, vs.roll(1, dims=1).contiguous()):
+            bad = pa.paged_attention(qt, kp, vp, page_tables=ptt,
+                                     **dict(kw, v_scale=v_bad))
+            assert fa.bf16_excess(bad, want) > 1.0
 
 
 def _rel_close(got, want, rtol=1e-4):
@@ -182,14 +283,6 @@ def _rel_close(got, want, rtol=1e-4):
 def _bf16_close(got, want):
     worst = fa.bf16_excess(got, want)
     assert worst <= 1.0, worst
-
-
-def _late_rolled(x):
-    """x with its kv heads rolled by one at the keys of the second half."""
-    x = x.clone()
-    half = x.shape[1] // 2
-    x[:, half:] = x[:, half:].roll(1, dims=2)
-    return x
 
 
 FLASH_CASES = [

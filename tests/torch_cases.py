@@ -1,5 +1,6 @@
-"""Seeded numpy inputs shared by the repro_torch attention tests (no jax
-here: the GPU tests that use them run where jax is not installed)."""
+"""Seeded numpy inputs and fault helpers shared by the repro_torch
+attention tests (no jax here: the GPU tests that use them run where jax
+is not installed)."""
 
 import numpy as np
 
@@ -27,3 +28,12 @@ def paged_case(seed, b, sq, h, g, e, ps, ppr, n_pages, ev=None):
     mask = np.ones(b, bool)
     mask[1] = False
     return q, kp, vp, pt.astype(np.int32), pos, mask
+
+
+def late_rolled(x):
+    """x [b, s, kv heads, e] (a torch tensor) with its kv heads rolled by
+    one at the keys of the second half: a fault of late tiles only."""
+    x = x.clone()
+    half = x.shape[1] // 2
+    x[:, half:] = x[:, half:].roll(1, dims=2)
+    return x
