@@ -10,9 +10,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time, and
-   for each attention kernel's entry functions their registers and
-   spills (ptxas) and tensor-core instructions (``cuobjdump -sass``): the
-   serving kernels' bf16 entries must hold HGMMA (wgmma);
+   for the entry functions of the attention kernels and K2 their
+   registers and spills (ptxas) and tensor-core instructions
+   (``cuobjdump -sass``): the serving kernels' and K2's bf16 entries
+   must hold HGMMA (wgmma), and K2's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
    kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
@@ -34,16 +35,18 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    the largest |plain| for m, l, acc; K1's log-sum-exp within 1e-5
    relative;
    K2's float32 outputs within 1e-4 of the plain tensor's largest value
-   (1e-5 relative for its loss); K5's y and final state within 1e-5 of
-   the plain tensor's largest value, and K5 chained over two halves with
-   h0 equal bit for bit to one pass over the whole. Probes that must fail
+   (1e-5 relative for its loss; the bf16 body splits h and dlog into
+   two bf16 terms each to hold that rule on the tensor cores); K5's y
+   and final state within 1e-5 of the plain tensor's largest value, and
+   K5 chained over two halves with h0 equal bit for bit to one pass over
+   the whole. Probes that must fail
    the checks: K with its kv heads rolled by one and V rolled over kv
    heads at the keys of the second half only (K3, K1), one live
    page-table entry pointed at another row's page and, for int8 pages,
    V dequantised with K's or the next kv head's scales (K4), the
    neighbouring q head's log-sum-exp and K rolled over kv heads at the
    keys of the second half (K1b), the head shifted by one vocab tile
-   (K2), B and C swapped (K5);
+   and h rounded to bf16, i.e. no lo term (K2), B and C swapped (K5);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -76,7 +79,8 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    Jamba (device busy share, kernels by device time, and the device
    kernels of K3/K4 with the key-split combine by name), and one
    training step (device busy share, kernels by device time, launches a
-   step, and the device time of K1, K1b and K2).
+   step, and the device time of K1, K1b and K2, K2 also by pass: the
+   split, pass 1, pass 2).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -107,6 +111,11 @@ N_REQ, GEN, SLOTS, MAX_SEQ, PAGE = 16, 32, 8, 2048, 16
 # the serving kernels' bf16 tensor-core entry functions
 TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "paged_tc_bf16",
             "paged_tc_int8")
+# K2's bf16 tensor-core entry functions, and its split and lse kernels
+TC_XENT = ("stats_tc", "dlog_tc", "dw_tc", "dh_tc")
+XENT_PASSES = {"split": ("xent_split",),
+               "pass 1": ("stats_tc", "lse_kernel"),
+               "pass 2": ("dlog_tc", "dw_tc", "dh_tc")}
 # device kernels of each serving kernel, by name, for the decode profiles
 SERVE_KERNELS = {"K3 slotted_attention": ("slotted_tc", "slotted_kernel"),
                  "K4 paged_attention": ("paged_tc", "paged_kernel"),
@@ -143,8 +152,7 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 128, "flash_attention_bwd": 64,
 # device kernels of each training kernel, by name, for the step's profile
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
-                 "K2 fused_xent": ("stats_kernel", "lse_kernel",
-                                   "dlog_kernel", "dh_kernel", "dw_kernel")}
+                 "K2 fused_xent": sum(XENT_PASSES.values(), ())}
 # kernel vs plain versions on step 1: loss within 1e-3 relative; each
 # gradient within 5e-2 of the plain tensor's largest value. Both paths
 # round the same float32 values to bf16 up to summation order, so their
@@ -306,19 +314,23 @@ def record_phase(torch, flush, results, name, meta, kern, plain, lib,
 
 def kernel_resources(build, names=("slotted_attention", "paged_attention",
                                    "flash_attention_fwd",
-                                   "flash_attention_bwd")) -> dict:
+                                   "flash_attention_bwd",
+                                   "fused_xent")) -> dict:
     """Per entry function of the named libraries (keyed "library:name";
     the float32 bodies' instantiations share one name): registers and
     spill bytes from the ptxas log of this run's build, and the
     tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS
     from cuobjdump (None where the toolkit has no cuobjdump). Fails if a
-    serving kernel's bf16 tensor-core entry has no HGMMA."""
+    serving kernel's or K2's bf16 tensor-core entry has no HGMMA, or a
+    K2 one spills."""
     import os
     import re
 
     short = TC_SERVE + ("combine_e64", "combine_e128", "slotted_kernel",
                         "paged_kernel", "flash_fwd_tc", "flash_fwd_kernel",
-                        "dq_tc", "dkdv_tc", "dq_kernel", "dkdv_kernel")
+                        "dq_tc", "dkdv_tc", "dq_kernel", "dkdv_kernel",
+                        *TC_XENT, "xent_split", "lse_kernel", "stats_kernel",
+                        "dlog_kernel", "dw_kernel", "dh_kernel")
 
     def name_of(lib, mangled):
         return f"{lib}:" + next((k for k in short if k in mangled),
@@ -367,6 +379,14 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
             fail(f"the {lib} build has no entry function {k}")
         if r.get("hgmma") == 0:
             fail(f"{lib}:{k} has no HGMMA (wgmma) in its SASS")
+    for k in TC_XENT:
+        r = res.get(f"fused_xent:{k}")
+        if r is None:
+            fail(f"the fused_xent build has no entry function {k}")
+        if r.get("hgmma") == 0:
+            fail(f"fused_xent:{k} has no HGMMA (wgmma) in its SASS")
+        if r.get("spill_bytes"):
+            fail(f"fused_xent:{k} spills {r['spill_bytes']} bytes")
     return res
 
 
@@ -795,6 +815,13 @@ def train_kernel_phases(torch, flush):
     _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
     if not (w_loss > 1.0 and w_dw > 1.0):
         fail("the fused_xent check passes a head shifted by one vocab tile")
+    # the bf16 body splits h into hi + lo: fed h rounded to bf16 (no lo
+    # term), its dW must fail the check against the float32 h
+    bad = fx.softmax_xent(hn.bfloat16().float(), table.t(), lab, **kw)
+    log("[kernel] fused_xent check, h rounded to bf16 (no lo term):")
+    _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
+    if not w_dw > 1.0:
+        fail("the fused_xent check passes h rounded to bf16")
     return results
 
 
@@ -1032,12 +1059,22 @@ def profile_train(torch, sess, params, opt):
     for k, (ms, calls) in ours.items():
         log(f"[profile]   {k}: {ms:.3f} ms in {calls} launches "
             f"({ms * 1e3 / wall_us:.3f} of the step)")
+    # K2 by pass: the split, pass 1 (with its lse combine), pass 2
+    xent = {}
+    for part, marks in XENT_PASSES.items():
+        rows = [(t, c) for name, t, c in dev
+                if any(m in name for m in marks)]
+        xent[part] = dict(ms=sum(t for t, _ in rows) / 1e3,
+                          kernels=sum(c for _, c in rows))
+        log(f"[profile]   K2 {part}: {xent[part]['ms']:.3f} ms in "
+            f"{xent[part]['kernels']} kernels")
     prof.export_chrome_trace(str(OUT / "train_trace.json"))
     return dict(step_ms=wall_us / 1e3, busy_share=busy / wall_us,
                 kernels_per_step=n,
                 top=[dict(name=k, ms=t / 1e3, calls=c) for k, t, c in top],
                 ours={k: dict(ms=ms, launches=c)
-                      for k, (ms, c) in ours.items()})
+                      for k, (ms, c) in ours.items()},
+                xent_passes=xent)
 
 
 # --------------------------------------------------------------------------- #

@@ -75,6 +75,8 @@ class Session:
                 "group; several groups need several ranks")
         try:
             self.geo = M.build_geometry(self.cfg, self.rc)
+        except NotImplementedError as e:    # unported model features
+            raise SessionError(str(e)) from e
         except ValueError as e:
             raise SessionError(
                 f"invalid geometry for {spec.arch!r}: {e}. Adjust the "

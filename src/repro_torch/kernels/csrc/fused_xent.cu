@@ -10,39 +10,73 @@
 // Contract: h [n, d] float32 (final-norm output), w [V, d] float32 or
 // bfloat16, labels int32 [n] in [0, V), scale float32 [n] (mask / denom).
 //   fused_xent_fwd: lse [n] = logsumexp_v(h w^T), labl [n] = the label's
-//     logit; pm, pl [n, ceil(V/128)] float32 scratch.
+//     logit; pm, pl [n, ceil(V/128)] float32 scratch; hs bf16 [2, n, d]
+//     scratch (bf16 w only: h split into two bf16 terms, kept for the
+//     backward call).
 //   fused_xent_bwd: dlog = (softmax - onehot) * scale, dh [n, d] =
-//     dlog w, dw [V, d] = dlog^T h, both float32; dlog [n, Vc] float32
-//     scratch for one vocabulary chunk of Vc columns (Vc % 128 == 0).
-// Requires d % 8 == 0. Everything is computed in float32 (w upcast while
-// it is staged), as the reference computes it.
+//     dlog w, dw [V, d] = dlog^T h, both float32; dlog scratch for one
+//     vocabulary chunk of Vc columns (Vc % 128 == 0): float32 [n, Vc]
+//     for a float32 w, bf16 [2, n, Vc] (two terms) for a bf16 w.
+// Requires d % 8 == 0.
 //
-// Design: every product is one tiled float32 GEMM core (128 x 128 output
-// tile, 8-deep k steps through shared memory, 8 x 8 outputs a thread,
-// the next k step's loads in flight while the current one computes).
-//   pass 1 (fwd): blocks own (row tile, vocab tile); the epilogue reduces
-//     each row's tile to (max, sum of exp) and picks the label logit; a
-//     second kernel combines the tiles into lse.
-//   pass 2 (bwd), per vocabulary chunk: blocks owning (row tile, vocab
-//     tile) recompute the logits and write dlog for the chunk; blocks
-//     owning (vocab tile, d tile) loop over every row and write the
-//     chunk's dW rows; blocks owning (row tile, d tile) loop over the
-//     chunk's vocabulary and add into dh. Each output element has one
-//     writer: no atomics, and the result is deterministic.
-// Logits exist only as one [n, Vc] chunk of dlog (64 MB at n = 2048,
-// Vc = 8192), never as [n, V] (1 GB).
-//
-// Bound on the H100: operations. The function needs three GEMM-shaped
+// Bound on the H100: operations. The function is three GEMM-shaped
 // products of 2 n d V flops each (logits, dh, dW): 3.2 TFLOP a call at
-// n = d = 2048, V = 128256, against 0.5 GB of table read and 1 GB of dW
-// written — thousands of flops a byte. The design spends a fourth product
-// (the logits recomputed in pass 2) to keep them out of device memory,
-// and runs the GEMMs on the CUDA cores in float32 (the reference's
-// arithmetic); tensor cores are later work.
+// n = d = 2048, V = 128256, 3.26 ms at the bf16 tensor-core peak, against
+// 0.5 GB of table read and 1 GB of dW written (~2,000 flops a byte).
+//
+// bf16 w (the training path): every product on the tensor cores (wgmma,
+// mma_tile.cuh). The reference keeps float32 logits, and the port is
+// held to its float32 plain version (loss 1e-5 relative, dh and dW 1e-4
+// of the largest |plain|). One bf16 pass, with h and dlog rounded to
+// bf16, misses that rule several times over (dh and dW). So the float32
+// operands are split into two bf16 terms, x = hi + lo with hi = bf16(x)
+// and lo = bf16(x - hi): hi + lo holds 16 significant bits, and a
+// product of a bf16 value by a bf16 table entry is exact in the float32
+// accumulator. The table is bf16 already and needs no split. The terms
+// summed into one float32 accumulator, lo * lo left out:
+//   logits = h_hi w^T + h_lo w^T              (pass 1 and again in 2a)
+//   dh     = dlog_hi w + dlog_lo w
+//   dW     = dlog_hi^T h_hi + dlog_hi^T h_lo + dlog_lo^T h_hi
+// That stays within a tenth of the rule (tests/test_torch_train_kernels.py
+// emulates it on the CPU), with dh and dW summed in partials of 256
+// (mainloop, PROMOTE). Nine bf16 products, 9.7 TFLOP a call: 9.8 ms
+// at peak is this design's own floor, three times the function's bound.
+//   split: h -> hs (hi, lo), one elementwise pass inside the fwd call.
+//   GEMM core (mainloop): a block of two consumer warpgroups owns a
+//     128 x 128 float32 output tile, 64 rows a warpgroup held as two
+//     m64n64 accumulators. 64-deep k tiles of every operand land in the
+//     128-byte swizzle through a cp.async ring (4 stages two tiles
+//     ahead; 3 stages one ahead for dW, whose stage holds four operand
+//     tiles), one k tile of wgmma in flight. Rows and 16-byte
+//     chunks past the matrix read as zeros, so d needs only d % 8 == 0;
+//     table rows past V give logit 0 and are kept out of the max, the
+//     sum and dlog by index.
+//   pass 1 (stats_tc): blocks own (row tile, vocab tile); the epilogue
+//     reduces each row's tile to (max, sum of exp) by quad shuffles on
+//     the accumulator fragments and picks the label logit; lse_kernel
+//     combines the tiles.
+//   pass 2, per vocabulary chunk, three grids with one writer per
+//     output element (no atomics, deterministic):
+//     dlog_tc: (row tile, vocab tile) recomputes the logits with the
+//       same device code, products and order as pass 1, so exp(logit -
+//       lse) is consistent with pass 1's lse bit for bit, and writes
+//       dlog as two bf16 terms;
+//     dw_tc: (d tile, vocab tile) over all n rows, both operands
+//       MN-major (A transposed in the wgmma: no transposed copy of dlog);
+//     dh_tc: (d tile, row tile) over the chunk, adding into dh.
+//   The logits exist only as the [2, n, Vc] bf16 dlog of one chunk (64
+//   MB at n = 2048, Vc = 8192).
+//
+// float32 w: the CUDA-core body below (gemm and its five kernels), in
+// float32 throughout, as the reference computes it: 128 x 128 output
+// tiles, 8-deep k steps through shared memory, 8 x 8 outputs a thread,
+// the same pass structure (stats / lse, then dlog, dW and dh per chunk).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -58,18 +92,11 @@ __device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
   f[2] = x.z;
   f[3] = x.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) f[u] = __bfloat162float(e[u]);
-}
 
 // An operand whose depth is contiguous: element (row r, depth k) at
 // p[r * ld + k]. Rows at or past `rows` and depth at or past K read 0.
-template <typename T>
 struct DepthMajor {
-  const T* p;
+  const float* p;
   int ld, rows, K;
   __device__ void load(int r0, int k0, float (&f)[4]) const {
     const int r = r0 + (threadIdx.x >> 1), k = k0 + (threadIdx.x & 1) * 4;
@@ -89,9 +116,8 @@ struct DepthMajor {
 
 // An operand whose rows are contiguous: element (row r, depth k) at
 // p[k * ld + r]. rows % 4 == 0; depth at or past K reads 0.
-template <typename T>
 struct RowMajor {
-  const T* p;
+  const float* p;
   int ld, rows, K;
   __device__ void load(int r0, int k0, float (&f)[4]) const {
     const int k = k0 + (threadIdx.x >> 5), r = r0 + (threadIdx.x & 31) * 4;
@@ -171,9 +197,8 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // pass 1: per (row tile, vocab tile) max and sum of exp of the logits,
 // and the label logit of the rows whose label falls in the tile.
-template <typename TW>
 __global__ void __launch_bounds__(GT)
-    stats_kernel(const float* __restrict__ h, const TW* __restrict__ w,
+    stats_kernel(const float* __restrict__ h, const float* __restrict__ w,
                  const int* __restrict__ labels, float* __restrict__ pm,
                  float* __restrict__ pl, float* __restrict__ labl, int n,
                  int d, int V, int nvt) {
@@ -181,7 +206,7 @@ __global__ void __launch_bounds__(GT)
   __shared__ __align__(16) float Bs[BK * LDS];
   const int v0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor<float>{h, d, n, d}, DepthMajor<TW>{w, d, V, d}, m0, v0, d,
+  gemm(DepthMajor{h, d, n, d}, DepthMajor{w, d, V, d}, m0, v0, d,
        acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -234,9 +259,8 @@ __global__ void __launch_bounds__(GT)
 
 // pass 2a: dlog[row, c] = (exp(logit - lse) - onehot) * scale[row] for the
 // chunk's columns c0 + c (c < Vc); columns at or past V are 0.
-template <typename TW>
 __global__ void __launch_bounds__(GT)
-    dlog_kernel(const float* __restrict__ h, const TW* __restrict__ w,
+    dlog_kernel(const float* __restrict__ h, const float* __restrict__ w,
                 const int* __restrict__ labels,
                 const float* __restrict__ lse,
                 const float* __restrict__ scale, float* __restrict__ dlog,
@@ -245,8 +269,8 @@ __global__ void __launch_bounds__(GT)
   __shared__ __align__(16) float Bs[BK * LDS];
   const int v0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor<float>{h, d, n, d},
-       DepthMajor<TW>{w + static_cast<size_t>(c0) * d, d, V - c0, d}, m0, v0,
+  gemm(DepthMajor{h, d, n, d},
+       DepthMajor{w + static_cast<size_t>(c0) * d, d, V - c0, d}, m0, v0,
        d, acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -279,7 +303,7 @@ __global__ void __launch_bounds__(GT)
   __shared__ __align__(16) float Bs[BK * LDS];
   const int e0 = blockIdx.x * TB, c_0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(RowMajor<float>{dlog, Vc, Vc, n}, RowMajor<float>{h, d, d, n}, c_0,
+  gemm(RowMajor{dlog, Vc, Vc, n}, RowMajor{h, d, d, n}, c_0,
        e0, n, acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -297,17 +321,16 @@ __global__ void __launch_bounds__(GT)
 }
 
 // pass 2c: dh[row, :] (+)= sum_{c < cw} dlog[row, c] * w[c0 + c, :].
-template <typename TW>
 __global__ void __launch_bounds__(GT)
-    dh_kernel(const float* __restrict__ dlog, const TW* __restrict__ w,
+    dh_kernel(const float* __restrict__ dlog, const float* __restrict__ w,
               float* __restrict__ dh, int n, int d, int c0, int Vc, int cw,
               int accumulate) {
   __shared__ __align__(16) float As[BK * LDS];
   __shared__ __align__(16) float Bs[BK * LDS];
   const int e0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor<float>{dlog, Vc, n, cw},
-       RowMajor<TW>{w + static_cast<size_t>(c0) * d, d, d, cw}, m0, e0, cw,
+  gemm(DepthMajor{dlog, Vc, n, cw},
+       RowMajor{w + static_cast<size_t>(c0) * d, d, d, cw}, m0, e0, cw,
        acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -335,27 +358,24 @@ __global__ void __launch_bounds__(GT)
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename TW>
-int fwd(const float* h, const void* w, const int* labels, float* lse,
-        float* labl, float* pm, float* pl, int n, int d, int V,
-        cudaStream_t st) {
+int fwd_cc(const float* h, const float* w, const int* labels, float* lse,
+           float* labl, float* pm, float* pl, int n, int d, int V,
+           cudaStream_t st) {
   const int nvt = cdiv(V, TB);
-  stats_kernel<TW><<<dim3(nvt, cdiv(n, TB)), GT, 0, st>>>(
-      h, static_cast<const TW*>(w), labels, pm, pl, labl, n, d, V, nvt);
+  stats_kernel<<<dim3(nvt, cdiv(n, TB)), GT, 0, st>>>(
+      h, w, labels, pm, pl, labl, n, d, V, nvt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, lse, n, nvt);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TW>
-int bwd(const float* h, const void* w_, const int* labels, const float* lse,
-        const float* scale, float* dh, float* dw, float* dlog, int n, int d,
-        int V, int Vc, cudaStream_t st) {
-  const TW* w = static_cast<const TW*>(w_);
+int bwd_cc(const float* h, const float* w, const int* labels,
+           const float* lse, const float* scale, float* dh, float* dw,
+           float* dlog, int n, int d, int V, int Vc, cudaStream_t st) {
   for (int c0 = 0; c0 < V; c0 += Vc) {
     const int cw = V - c0 < Vc ? V - c0 : Vc;
-    dlog_kernel<TW><<<dim3(Vc / TB, cdiv(n, TB)), GT, 0, st>>>(
+    dlog_kernel<<<dim3(Vc / TB, cdiv(n, TB)), GT, 0, st>>>(
         h, w, labels, lse, scale, dlog, n, d, V, c0, Vc);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -363,7 +383,7 @@ int bwd(const float* h, const void* w_, const int* labels, const float* lse,
         dlog, h, dw, n, d, c0, Vc, cw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dh_kernel<TW><<<dim3(cdiv(d, TB), cdiv(n, TB)), GT, 0, st>>>(
+    dh_kernel<<<dim3(cdiv(d, TB), cdiv(n, TB)), GT, 0, st>>>(
         dlog, w, dh, n, d, c0, Vc, cw, c0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -373,35 +393,472 @@ int bwd(const float* h, const void* w_, const int* labels, const float* lse,
 
 }  // namespace
 
-// w_dtype codes: 0 float32, 1 bfloat16. Returns 0, a cudaError_t, or -1
-// for a dtype or shape without an instantiation.
+// ---- bf16 table: the tensor-core body ----------------------------------- //
+
+namespace xtc {
+
+using namespace mma;
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 2 * WG;          // threads: two consumer warpgroups
+constexpr int BT = 128;             // output tile rows and columns
+constexpr int BK = 64;              // depth of a k tile (128-byte rows)
+constexpr int TILE = BT * BK * 2;   // bytes of one staged operand tile
+constexpr int HALF = 64 * 128;      // bytes of 64 rows of a column block
+
+// Fills a swizzled bf16 tile of R rows x W columns (mma_tile.cuh's
+// layout) with element (r, c) = src[(r0 + r) * ld + c0 + c]; rows at or
+// past `rows` and 16-byte chunks at or past column `cols` read as zeros.
+// The block's threads share the copy, neighbours on neighbouring chunks.
+template <int R, int W>
+__device__ __forceinline__ void fill(uint32_t dst, const bf16* src, int ld,
+                                     int r0, int rows, int c0, int cols) {
+  constexpr int C = W / 8;
+  static_assert(R * C % NT == 0, "tile");
+#pragma unroll
+  for (int i = 0; i < R * C / NT; ++i) {
+    const int q = threadIdx.x + i * NT, r = q / C, c = q % C;
+    const bool ok = r0 + r < rows && c0 + c * 8 < cols;
+    const size_t at =
+        ok ? static_cast<size_t>(r0 + r) * ld + c0 + c * 8 : 0;
+    cp16(dst + swz<R>(r, c), src + at, ok);
+  }
+}
+
+// The three products. load() stages k tile kt of the block's operands at
+// s; mma() issues this warpgroup's wgmmas on a staged k tile into its
+// 64 x 128 accumulator (two m64n64 halves). A operand of warpgroup g:
+// its 64 rows (K-major tile) or 64 columns (MN-major tile), HALF bytes
+// in.
+
+// logits = h w^T: output rows of h (m0..), columns = rows of w (v0..);
+// h_hi and h_lo over the same staged w tile, all K-major.
+struct Logits {
+  static constexpr int STAGE = 3 * TILE, STAGES = 4, PROMOTE = 0;
+  const bf16* hs;  // [2, n, d]: hi, lo
+  const bf16* w;   // [V, d]
+  int n, d, V;
+  __device__ int k_tiles() const { return (d + BK - 1) / BK; }
+  __device__ __forceinline__ void load(uint32_t s, int m0, int v0,
+                                       int kt) const {
+    const int k0 = kt * BK;
+    fill<BT, BK>(s, hs, d, m0, n, k0, d);
+    fill<BT, BK>(s + TILE, hs + static_cast<size_t>(n) * d, d, m0, n, k0, d);
+    fill<BT, BK>(s + 2 * TILE, w, d, v0, V, k0, d);
+  }
+  __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
+                                      int zero) const {
+    const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t db = desc_k<BT>(b + j * HALF, kk);
+        wgmma_ss(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
+        wgmma_ss(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
+      }
+  }
+};
+
+// dh = dlog w over one chunk: output rows (m0..) by columns of d (e0..);
+// dlog_hi and dlog_lo K-major (the chunk's columns are the depth), the
+// chunk's table rows MN-major (the depth runs down them, as V in P V).
+struct DH {
+  static constexpr int STAGE = 3 * TILE, STAGES = 4, PROMOTE = 4;
+  const bf16* dl;  // [2, n, Vc]
+  const bf16* w;   // the chunk's first table row; [cw, d]
+  int n, d, Vc, cw;
+  __device__ int k_tiles() const { return (cw + BK - 1) / BK; }
+  __device__ __forceinline__ void load(uint32_t s, int m0, int e0,
+                                       int kt) const {
+    const int k0 = kt * BK;
+    fill<BT, BK>(s, dl, Vc, m0, n, k0, Vc);
+    fill<BT, BK>(s + TILE, dl + static_cast<size_t>(n) * Vc, Vc, m0, n, k0,
+                 Vc);
+    fill<BK, BT>(s + 2 * TILE, w, d, k0, cw, e0, d);
+  }
+  __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
+                                      int zero) const {
+    const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t db = desc_mn<BK>(b + j * HALF, kk);
+        wgmma_ss_t<0, 1>(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
+        wgmma_ss_t<0, 1>(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
+      }
+  }
+};
+
+// dW = dlog^T h over all n rows: output rows = the chunk's columns
+// (c0..) by columns of d (e0..); the depth (rows of dlog and h) runs
+// down both tiles, so both are MN-major and A is transposed in the wgmma.
+struct DW {
+  static constexpr int STAGE = 4 * TILE, STAGES = 3, PROMOTE = 4;
+  const bf16* dl;  // [2, n, Vc]
+  const bf16* hs;  // [2, n, d]
+  int n, d, Vc;
+  __device__ int k_tiles() const { return (n + BK - 1) / BK; }
+  __device__ __forceinline__ void load(uint32_t s, int c0, int e0,
+                                       int kt) const {
+    const int k0 = kt * BK;
+    fill<BK, BT>(s, dl, Vc, k0, n, c0, Vc);
+    fill<BK, BT>(s + TILE, dl + static_cast<size_t>(n) * Vc, Vc, k0, n, c0,
+                 Vc);
+    fill<BK, BT>(s + 2 * TILE, hs, d, k0, n, e0, d);
+    fill<BK, BT>(s + 3 * TILE, hs + static_cast<size_t>(n) * d, d, k0, n, e0,
+                 d);
+  }
+  __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
+                                      int zero) const {
+    const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t hi = desc_mn<BK>(a, kk), lo = desc_mn<BK>(a + TILE, kk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t bh = desc_mn<BK>(b + j * HALF, kk);
+        const uint64_t bl = desc_mn<BK>(b + TILE + j * HALF, kk);
+        wgmma_ss_t<1, 1>(acc[j], hi, bh, kk > 0 || !zero);
+        wgmma_ss_t<1, 1>(acc[j], hi, bl, 1);
+        wgmma_ss_t<1, 1>(acc[j], lo, bh, 1);
+      }
+    }
+  }
+};
+
+// acc = the block's 128 x 128 product tile at (a0, b0) over every k tile.
+// A ring of STAGES k tiles, PF = STAGES - 2 of them in flight ahead of the
+// one multiplied; one k tile of wgmma in flight. The load issued at k
+// tile kt overwrites tile kt - 2's stage, whose wgmma every warpgroup has
+// waited for before the barrier. The first wgmma into an accumulator
+// overwrites it (scale-d 0): no instruction but a wgmma writes it while
+// one is in flight, so ptxas need not serialise them.
+// PROMOTE = k: the wgmmas sum k k tiles into a partial that is then
+// added to acc on the CUDA cores. The tensor cores' float32 sums lose low
+// bits over a long depth (dh sums 8192 vocab columns a chunk, dW n rows);
+// partials at most 256 deep keep dh and dW well inside their limit, for
+// a few percent of the call.
+template <class P>
+__device__ __forceinline__ void mainloop(const P& p, uint32_t sm, int a0,
+                                         int b0, float (&acc)[2][32]) {
+  constexpr int S = P::STAGES, PF = S - 2, PR = P::PROMOTE;
+  float part[2][32];
+  float(&run)[2][32] = PR ? part : acc;  // what the wgmmas accumulate
+  if (PR) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  }
+  const int KT = p.k_tiles();
+#pragma unroll
+  for (int i = 0; i < PF; ++i) {
+    if (i < KT) p.load(sm + i * P::STAGE, a0, b0, i);
+    cp_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<PF - 1>();
+    fence_async_smem();
+    __syncthreads();
+    if (kt + PF < KT)
+      p.load(sm + ((kt + PF) % S) * P::STAGE, a0, b0, kt + PF);
+    cp_commit();
+    reg_fence(run[0]);
+    reg_fence(run[1]);
+    wg_fence();
+    p.mma(sm + (kt % S) * P::STAGE, run, PR ? kt % PR == 0 : kt == 0);
+    wg_commit();
+    if (PR && (kt % PR == PR - 1 || kt == KT - 1)) {
+      wg_wait<0>();
+      reg_fence(run[0]);
+      reg_fence(run[1]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] += part[j][i];
+    } else {
+      wg_wait<1>();
+      reg_fence(run[0]);
+      reg_fence(run[1]);
+    }
+  }
+  wg_wait<0>();
+  reg_fence(acc[0]);
+  reg_fence(acc[1]);
+}
+
+template <class P>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(P::STAGES) * P::STAGE + 1024;  // + align
+}
+
+__device__ __forceinline__ uint32_t ring(uint8_t* smem) {
+  return (smem_u32(smem) + 1023) & ~1023u;
+}
+
+// Fragment coordinates: entry 4q + 2hh + c of half j of this thread's
+// accumulator is tile row row0() + 8 hh, tile column col0() + 64 j + 8 q
+// + c (mma_tile.cuh's m64n64 layout, warpgroup g's rows 64 g ..).
+__device__ __forceinline__ int row0() {
+  const int t = threadIdx.x % WG;
+  return (threadIdx.x / WG) * 64 + (t / 32) * 16 + (t % 32) / 4;
+}
+__device__ __forceinline__ int col0() { return 2 * (threadIdx.x % 4); }
+
+// split: hs[0] = bf16(h), hs[1] = bf16(h - hs[0]), four values a thread.
+__global__ void __launch_bounds__(256)
+    xent_split(const float* __restrict__ h, bf16* __restrict__ hs,
+               size_t count) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= count) return;
+  const float4 x = *reinterpret_cast<const float4*>(h + i);
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  const __nv_bfloat162 la = __floats2bfloat162_rn(x.x - fa.x, x.y - fa.y);
+  const __nv_bfloat162 lb = __floats2bfloat162_rn(x.z - fb.x, x.w - fb.y);
+  __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(hs + i);
+  __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(hs + count + i);
+  hi[0] = a;
+  hi[1] = b;
+  lo[0] = la;
+  lo[1] = lb;
+}
+
+// pass 1: per (row tile, vocab tile) max and sum of exp of the logits,
+// and the label logit of the rows whose label falls in the tile.
+__global__ void __launch_bounds__(NT, 1)
+    stats_tc(Logits p, const int* __restrict__ labels, float* __restrict__ pm,
+             float* __restrict__ pl, float* __restrict__ labl, int nvt) {
+  extern __shared__ __align__(1024) uint8_t smem_x[];
+  const int m0 = blockIdx.x * BT, v0 = blockIdx.y * BT;
+  float acc[2][32];
+  mainloop(p, ring(smem_x), m0, v0, acc);
+  const int cb = v0 + col0();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + row0() + 8 * hh;
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (cb + 64 * j + 8 * q + c < p.V)
+            tmax = fmaxf(tmax, acc[j][4 * q + 2 * hh + c]);
+    tmax = quad_max(tmax);
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (cb + 64 * j + 8 * q + c < p.V)
+            s += expf(acc[j][4 * q + 2 * hh + c] - tmax);
+    s = quad_sum(s);
+    if (row >= p.n) continue;
+    if (threadIdx.x % 4 == 0) {
+      pm[static_cast<size_t>(row) * nvt + blockIdx.y] = tmax;
+      pl[static_cast<size_t>(row) * nvt + blockIdx.y] = s;
+    }
+    const int lab = labels[row];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (cb + 64 * j + 8 * q + c == lab)
+            labl[row] = acc[j][4 * q + 2 * hh + c];
+  }
+}
+
+// pass 2a: dlog[row, v - c0] = (exp(logit - lse) - onehot) * scale[row]
+// for the chunk's vocab tile blockIdx.y, as two bf16 terms (dl[0] = hi,
+// dl[1] = lo); columns at or past V are 0.
+__global__ void __launch_bounds__(NT, 1)
+    dlog_tc(Logits p, const int* __restrict__ labels,
+            const float* __restrict__ lse, const float* __restrict__ scale,
+            bf16* __restrict__ dl, int c0, int Vc) {
+  extern __shared__ __align__(1024) uint8_t smem_x[];
+  const int m0 = blockIdx.x * BT, v0 = c0 + blockIdx.y * BT;
+  float acc[2][32];
+  mainloop(p, ring(smem_x), m0, v0, acc);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + row0() + 8 * hh;
+    if (row >= p.n) continue;
+    const float l = lse[row], sc = scale[row];
+    const int lab = labels[row];
+    bf16* hi = dl + static_cast<size_t>(row) * Vc;
+    bf16* lo = hi + static_cast<size_t>(p.n) * Vc;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int v = v0 + col0() + 64 * j + 8 * q;
+        float o[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pr =
+              v + c < p.V ? expf(acc[j][4 * q + 2 * hh + c] - l) : 0.f;
+          o[c] = (pr - (v + c == lab ? 1.f : 0.f)) * sc;
+        }
+        const __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+        const float2 fa = __bfloat1622float2(a);
+        *reinterpret_cast<__nv_bfloat162*>(hi + v - c0) = a;
+        *reinterpret_cast<__nv_bfloat162*>(lo + v - c0) =
+            __floats2bfloat162_rn(o[0] - fa.x, o[1] - fa.y);
+      }
+  }
+}
+
+// pass 2b: dw[c0 + c, :] = sum_rows dlog[row, c] h[row, :] for the chunk's
+// columns c < cw of vocab tile blockIdx.y, d tile blockIdx.x.
+__global__ void __launch_bounds__(NT, 1)
+    dw_tc(DW p, float* __restrict__ dw, int c0, int cw) {
+  extern __shared__ __align__(1024) uint8_t smem_x[];
+  const int e0 = blockIdx.x * BT, t0 = blockIdx.y * BT;
+  float acc[2][32];
+  mainloop(p, ring(smem_x), t0, e0, acc);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int c = t0 + row0() + 8 * hh;
+    if (c >= cw) continue;
+    float* dst = dw + static_cast<size_t>(c0 + c) * p.d;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = e0 + col0() + 64 * j + 8 * q;
+        if (e < p.d)
+          *reinterpret_cast<float2*>(dst + e) = make_float2(
+              acc[j][4 * q + 2 * hh], acc[j][4 * q + 2 * hh + 1]);
+      }
+  }
+}
+
+// pass 2c: dh[row, :] (+)= sum_{c < cw} dlog[row, c] w[c0 + c, :] for row
+// tile blockIdx.y, d tile blockIdx.x.
+__global__ void __launch_bounds__(NT, 1)
+    dh_tc(DH p, float* __restrict__ dh, int accumulate) {
+  extern __shared__ __align__(1024) uint8_t smem_x[];
+  const int e0 = blockIdx.x * BT, m0 = blockIdx.y * BT;
+  float acc[2][32];
+  mainloop(p, ring(smem_x), m0, e0, acc);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + row0() + 8 * hh;
+    if (row >= p.n) continue;
+    float* dst = dh + static_cast<size_t>(row) * p.d;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int e = e0 + col0() + 64 * j + 8 * q;
+        if (e >= p.d) continue;
+        float2 o = make_float2(acc[j][4 * q + 2 * hh],
+                               acc[j][4 * q + 2 * hh + 1]);
+        if (accumulate) {
+          const float2 prev = *reinterpret_cast<const float2*>(dst + e);
+          o.x += prev.x;
+          o.y += prev.y;
+        }
+        *reinterpret_cast<float2*>(dst + e) = o;
+      }
+  }
+}
+
+int fwd(const float* h, const bf16* w, const int* labels, float* lse,
+        float* labl, float* pm, float* pl, bf16* hs, int n, int d, int V,
+        cudaStream_t st) {
+  const size_t count = static_cast<size_t>(n) * d;
+  xent_split<<<static_cast<unsigned>((count / 4 + 255) / 256), 256, 0,
+               st>>>(h, hs, count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nvt = cdiv(V, BT);
+  constexpr size_t smem = smem_bytes<Logits>();
+  err = allow_smem(stats_tc, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_tc<<<dim3(cdiv(n, BT), nvt), NT, smem, st>>>(Logits{hs, w, n, d, V},
+                                                    labels, pm, pl, labl,
+                                                    nvt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, lse, n, nvt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd(const bf16* hs, const bf16* w, const int* labels, const float* lse,
+        const float* scale, float* dh, float* dw, bf16* dl, int n, int d,
+        int V, int Vc, cudaStream_t st) {
+  constexpr size_t sl = smem_bytes<Logits>(), sw = smem_bytes<DW>(),
+                   sh = smem_bytes<DH>();
+  cudaError_t err = allow_smem(dlog_tc, sl);
+  if (err == cudaSuccess) err = allow_smem(dw_tc, sw);
+  if (err == cudaSuccess) err = allow_smem(dh_tc, sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int c0 = 0; c0 < V; c0 += Vc) {
+    const int cw = V - c0 < Vc ? V - c0 : Vc, ct = cdiv(cw, BT);
+    dlog_tc<<<dim3(cdiv(n, BT), ct), NT, sl, st>>>(
+        Logits{hs, w, n, d, V}, labels, lse, scale, dl, c0, Vc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dw_tc<<<dim3(cdiv(d, BT), ct), NT, sw, st>>>(DW{dl, hs, n, d, Vc}, dw,
+                                                 c0, cw);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dh_tc<<<dim3(cdiv(d, BT), cdiv(n, BT)), NT, sh, st>>>(
+        DH{dl, w + static_cast<size_t>(c0) * d, n, d, Vc, cw}, dh, c0 > 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // namespace xtc
+
+// w_dtype codes: 0 float32 (the CUDA-core body), 1 bfloat16 (the
+// tensor-core body, which needs the hs scratch). Returns 0, a
+// cudaError_t, or -1 for a dtype or shape without an instantiation.
 extern "C" int fused_xent_fwd(int w_dtype, const float* h, const void* w,
                               const int* labels, float* lse, float* labl,
-                              float* pm, float* pl, int n, int d, int V,
-                              void* stream) {
+                              float* pm, float* pl, void* hs, int n, int d,
+                              int V, void* stream) {
   if (n == 0) return 0;
   if (d % 8 != 0 || V < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w_dtype == 0)
-    return fwd<float>(h, w, labels, lse, labl, pm, pl, n, d, V, st);
-  if (w_dtype == 1)
-    return fwd<__nv_bfloat16>(h, w, labels, lse, labl, pm, pl, n, d, V, st);
+    return fwd_cc(h, static_cast<const float*>(w), labels, lse, labl, pm,
+                  pl, n, d, V, st);
+  if (w_dtype == 1 && hs != nullptr)
+    return xtc::fwd(h, static_cast<const __nv_bfloat16*>(w), labels, lse,
+                    labl, pm, pl, static_cast<__nv_bfloat16*>(hs), n, d, V,
+                    st);
   return -1;
 }
 
+// hs: the split of h that fused_xent_fwd wrote (bf16 w only).
 extern "C" int fused_xent_bwd(int w_dtype, const float* h, const void* w,
                               const int* labels, const float* lse,
                               const float* scale, float* dh, float* dw,
-                              float* dlog, int n, int d, int V, int Vc,
-                              void* stream) {
+                              void* dlog, const void* hs, int n, int d,
+                              int V, int Vc, void* stream) {
   if (n == 0) return 0;
   if (d % 8 != 0 || V < 1 || Vc < TB || Vc % TB != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w_dtype == 0)
-    return bwd<float>(h, w, labels, lse, scale, dh, dw, dlog, n, d, V, Vc,
-                      st);
-  if (w_dtype == 1)
-    return bwd<__nv_bfloat16>(h, w, labels, lse, scale, dh, dw, dlog, n, d,
-                              V, Vc, st);
+    return bwd_cc(h, static_cast<const float*>(w), labels, lse, scale, dh,
+                  dw, static_cast<float*>(dlog), n, d, V, Vc, st);
+  if (w_dtype == 1 && hs != nullptr)
+    return xtc::bwd(static_cast<const __nv_bfloat16*>(hs),
+                    static_cast<const __nv_bfloat16*>(w), labels, lse,
+                    scale, dh, dw, static_cast<__nv_bfloat16*>(dlog), n, d,
+                    V, Vc, st);
   return -1;
 }

@@ -178,6 +178,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : MMA_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// d (+)= A B, m64n64k16, both operands in shared memory, each K-major
+// (TA or TB = 0: desc_k) or MN-major (1: desc_mn, the contraction runs
+// down the tile's rows; for A, the tile's 64 columns are A's rows).
+// wgmma_ss is the <0, 0> case. acc = 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMA_D32_LIST
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : MMA_D32(d)
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
 #undef MMA_D32
 #undef MMA_D32_LIST
 

@@ -5,7 +5,11 @@ dW of softmax cross-entropy over a ``[d, vocab]`` head without the
 ``[n, vocab]`` logits reaching device memory. Kernels:
 ``csrc/fused_xent.cu`` — ``fused_xent_fwd`` (pass 1: per-row log-sum-exp
 and label logit) and ``fused_xent_bwd`` (pass 2: dlog one vocabulary
-chunk at a time, dW by vocabulary tile, dh by row tile).
+chunk at a time, dW by vocabulary tile, dh by row tile). A bf16 table
+(the training path) runs every product on the tensor cores, with h and
+dlog each split into two bf16 terms (hi + lo) so that loss, dh and dW
+stay within the float32 plain version's tolerance; a float32 table runs
+the float32 CUDA-core body.
 
 ``softmax_xent`` takes the plain version (``ref.softmax_xent``) for a
 tensor on the CPU. For CUDA tensors it checks dtype, shape and layout
@@ -20,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.paged_attention import _CODES, _on_cpu, _raise_on
+from repro_torch.kernels.paged_attention import (
+    _CODES, _on_cpu, _ptr, _raise_on)
 
 LAUNCHES = {"fused_xent": 0}
 TILE = 128   # the kernels' output tile; the vocabulary chunk is a multiple
@@ -88,19 +93,25 @@ def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
         pm = torch.empty((n, nvt), **f32)
         pl = torch.empty((n, nvt), **f32)
         code = _CODES[table.dtype]
+        # bf16 table: h as two bf16 terms (written by the fwd call, read
+        # by the bwd call) and dlog as two bf16 terms; float32: dlog
+        tc = table.dtype == torch.bfloat16
+        hs = torch.empty((2, n, d), dtype=torch.bfloat16,
+                         device=dev) if tc else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib_f(code, h.data_ptr(), table.data_ptr(), lab.data_ptr(),
                        lse.data_ptr(), labl.data_ptr(), pm.data_ptr(),
-                       pl.data_ptr(), n, d, vocab, stream)
+                       pl.data_ptr(), _ptr(hs), n, d, vocab, stream)
             _raise_on(rc, "fused_xent_fwd")
             LAUNCHES["fused_xent"] += 1
             del pm, pl
-            dlog = torch.empty((n, vc), **f32)
+            dlog = (torch.empty((2, n, vc), dtype=torch.bfloat16, device=dev)
+                    if tc else torch.empty((n, vc), **f32))
             rc = lib_b(code, h.data_ptr(), table.data_ptr(), lab.data_ptr(),
                        lse.data_ptr(), scale.data_ptr(), dh.data_ptr(),
-                       dw.data_ptr(), dlog.data_ptr(), n, d, vocab, vc,
-                       stream)
+                       dw.data_ptr(), dlog.data_ptr(), _ptr(hs), n, d,
+                       vocab, vc, stream)
             _raise_on(rc, "fused_xent_bwd")
             LAUNCHES["fused_xent"] += 1
     else:

@@ -134,6 +134,20 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
         session("llama3.2-1b", max_seq=16)
 
 
+@pytest.mark.parametrize("field,value", [("norm", "layernorm"),
+                                         ("act", "gelu_mlp")])
+def test_session_refuses_norms_and_mlps_it_does_not_compute(
+        monkeypatch, field, value):
+    """The port's blocks are RMSNorm and SwiGLU whatever the config says,
+    so a config asking for LayerNorm or the GELU MLP is refused."""
+    cfg, rc = tllama.reduced()
+    monkeypatch.setattr(tllama, "reduced", lambda: (
+        dataclasses.replace(cfg, **{field: value}), rc))
+    for mode in ("train", "serve"):
+        with pytest.raises(SessionError, match="queue 1 item 2"):
+            session("llama3.2-1b", mode=mode, max_seq=16, device="cpu")
+
+
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.kernels.build; "

@@ -13,7 +13,10 @@ of the plain version's, |got - want| <= 2^-7 * (|want| + mean |want|)
 relative. Float32 outputs of the training kernels (the flash backward's
 dq, dk, dv; the fused cross-entropy's loss, dh, dW) sum hundreds to
 thousands of float32 terms in another order: max |diff| <= 1e-4 * max
-|plain| per tensor, and 1e-5 relative for the loss and the log-sum-exp.
+|plain| per tensor, and 1e-5 relative for the loss and the log-sum-exp;
+the bf16-table K2 holds that rule on the tensor cores by splitting h and
+dlog into two bf16 terms each (``tests/test_torch_train_kernels.py``
+calibrates it on the CPU).
 The bf16 flash kernels run their products on the tensor cores with P and
 dS rounded to bf16, as FlashAttention does, so their out, dq, dk and dv
 are held by ``flash_attention.bf16_excess``: each element within
@@ -390,25 +393,45 @@ def test_flash_kernels_gqa_ratios_bf16(cuda, h, g, causal):
         _bf16_close(a, w)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
-def test_fused_xent_kernel_matches_plain(cuda, w_dtype):
-    """K2: ragged rows (300) and vocab (1000 over chunks of 256), a mask
-    that zeroes rows, the head a transposed view of a [vocab, d] table;
-    a table shifted by one vocab tile must fail the check."""
+def _xent_case(cuda, n, w_dtype):
     gen = torch.Generator(device=cuda).manual_seed(10)
-    n, d, vocab = 300, 136, 1000
+    d, vocab = 136, 1000
     h = torch.randn((n, d), generator=gen, device=cuda)
     table = (0.3 * torch.randn((vocab, d), generator=gen, device=cuda)).to(
         getattr(torch, w_dtype))
     lab = torch.randint(0, vocab, (n,), generator=gen, device=cuda)
     mask = (torch.rand((n,), generator=gen, device=cuda) > 0.25).float()
-    kw = dict(chunk=256, mask=mask, denom=float(n))
+    return h, table, lab, dict(chunk=256, mask=mask, denom=float(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype,n", [("float32", 300), ("bfloat16", 300),
+                                       ("bfloat16", 64)])
+def test_fused_xent_kernel_matches_plain(cuda, w_dtype, n):
+    """K2: ragged rows (300, or 64: one partial row tile), d = 136 (a
+    ragged k tile of the bf16 tensor-core body) and vocab 1000 over chunks
+    of 256 (a ragged vocab tile), a mask that zeroes rows, the head a
+    transposed view of a [vocab, d] table; a table shifted by one vocab
+    tile must fail the check."""
+    h, table, lab, kw = _xent_case(cuda, n, w_dtype)
     loss, (dh, dw) = fx.softmax_xent(h, table.t(), lab, **kw)
     wl, (wdh, wdw) = tref.softmax_xent(h, table.t(), lab, **kw)
     _rel_close(loss.reshape(1), wl.reshape(1), 1e-5)
     _rel_close(dh, wdh)
     _rel_close(dw, wdw)
-    assert dw.shape == (d, vocab) and dw.t().is_contiguous()
+    assert dw.shape == (h.shape[1], table.shape[0])
+    assert dw.t().is_contiguous()
     bad, _ = fx.softmax_xent(h, table.roll(128, 0).t(), lab, **kw)
     assert abs(bad.item() - wl.item()) > 1e-5 * abs(wl.item())
+
+
+@pytest.mark.cuda
+def test_fused_xent_bf16_computes_the_lo_term(cuda):
+    """The bf16 body splits h into two bf16 terms: fed h rounded to bf16
+    (no lo term), its dW must fail the check against the plain version of
+    the float32 h."""
+    h, table, lab, kw = _xent_case(cuda, 300, "bfloat16")
+    _, (_, wdw) = tref.softmax_xent(h, table.t(), lab, **kw)
+    _, (_, dw) = fx.softmax_xent(h.bfloat16().float(), table.t(), lab, **kw)
+    err = (dw - wdw).abs().max().item()
+    assert err > 1e-4 * wdw.abs().max().item()

@@ -11,7 +11,8 @@ and ``jax.vjp``. ``tests/test_torch_cuda.py`` holds the CUDA kernels
 Tolerance: float32 throughout; 1e-5 relative to the largest reference
 value (sums of up to a few hundred terms in another order). The last
 tests calibrate the bf16 kernels' tolerance on the CPU: an emulation of
-their rounding (P and dS in bf16) against the float32 plain versions.
+their rounding (P and dS in bf16 for K1/K1b; h and dlog split into two
+bf16 terms for K2) against the float32 plain versions.
 """
 
 import dataclasses
@@ -286,3 +287,88 @@ def test_flash_bf16_tolerance_rejects_probes(probe):
     for a, w, n in zip(bad, plain, early):
         assert fa.bf16_excess(a, w) > 1.0
         assert torch.equal(a[:, :n], w[:, :n])
+
+
+# --------------------------------------------------------------------------- #
+# K2's split rule, calibrated on the CPU
+# --------------------------------------------------------------------------- #
+# The bf16 cross-entropy kernel runs its products on the tensor cores but
+# is held to the float32 plain version's rule (loss within 1e-5 relative;
+# dh and dW within 1e-4 of the plain tensor's largest value). It splits h
+# and dlog into bf16 terms hi = bf16(x), lo = bf16(x - hi), multiplies
+# them with the bf16 table in exact bf16 products summed in float32, and
+# leaves out lo * lo. The emulation repeats that in plain torch; it must
+# stay within half of the rule, and the probes must exceed it: h rounded
+# to bf16 (the kernel without its lo term), one bf16 pass (h and dlog
+# rounded), and the head shifted by one vocab tile.
+
+XENT_CAL = dict(n=256, d=256, vocab=4096)
+XENT_RULE = {"loss": 1e-5, "dh": 1e-4, "dW": 1e-4}
+
+
+def _split(x, terms):
+    hi = _bf(x)
+    return [hi, _bf(x - hi)][:terms]
+
+
+def _emulate_xent(h, table, labels, mask, denom, terms=2):
+    """(loss, dh, dW [d, vocab]) with the kernel's arithmetic: h and dlog
+    as ``terms`` bf16 terms (2: hi and lo; 1: one bf16 pass), the bf16
+    table, bf16 products summed in float32, lo * lo left out."""
+    w = table.float()
+    hs = _split(h, terms)
+    logits = sum(x @ w.t() for x in hs)
+    lse = torch.logsumexp(logits, 1)
+    lab = labels.long()
+    loss = ((lse - logits[torch.arange(len(lab)), lab]) * mask).sum() / denom
+    onehot = torch.nn.functional.one_hot(lab, w.shape[0]).float()
+    scale = (mask / denom)[:, None]
+    dlog = (torch.exp(logits - lse[:, None]) - onehot) * scale
+    ds = _split(dlog, terms)
+    dh = sum(x @ w for x in ds)
+    dw = sum(ds[i].t() @ hs[j] for i in range(terms) for j in range(terms)
+             if i + j < 2)
+    return loss, dh, dw.t()
+
+
+def _xent_cal_inputs(seed):
+    rng = np.random.RandomState(seed)
+    c = XENT_CAL
+    h = _t(rng.randn(c["n"], c["d"]))
+    table = _t(0.02 * rng.randn(c["vocab"], c["d"])).to(torch.bfloat16)
+    labels = torch.from_numpy(rng.randint(0, c["vocab"], size=c["n"]))
+    mask = _t(rng.rand(c["n"]) > 0.125)
+    return h, table, labels, mask, float(4 * c["n"])
+
+
+def _xent_excess(got, h, table, labels, mask, denom):
+    """Each output's max |diff| over its rule against the plain version."""
+    loss, (dh, dw) = tref.softmax_xent(h, table.t(), labels, mask=mask,
+                                       denom=denom)
+    return {what: float((a - p).abs().max() / (XENT_RULE[what]
+                                               * p.abs().max()))
+            for what, a, p in zip(XENT_RULE, got, (loss, dh, dw))}
+
+
+@pytest.mark.parametrize("seed", [30, 31])
+def test_xent_split_rule_holds_the_kernels_arithmetic(seed):
+    h, table, labels, mask, denom = _xent_cal_inputs(seed)
+    emu = _emulate_xent(h, table, labels, mask, denom)
+    worst = _xent_excess(emu, h, table, labels, mask, denom)
+    assert max(worst.values()) <= 0.5, worst
+
+
+@pytest.mark.parametrize("probe,fails", [
+    ("h_rounded_to_bf16", ("dW",)),
+    ("one_bf16_pass", ("dh", "dW")),
+    ("head_shifted_one_tile", ("loss", "dW"))])
+def test_xent_split_rule_rejects_probes(probe, fails):
+    h, table, labels, mask, denom = _xent_cal_inputs(30)
+    if probe == "h_rounded_to_bf16":
+        emu = _emulate_xent(_bf(h), table, labels, mask, denom)
+    elif probe == "one_bf16_pass":
+        emu = _emulate_xent(h, table, labels, mask, denom, terms=1)
+    else:
+        emu = _emulate_xent(h, table.roll(128, 0), labels, mask, denom)
+    worst = _xent_excess(emu, h, table, labels, mask, denom)
+    assert all(worst[what] > 1.0 for what in fails), worst
