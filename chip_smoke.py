@@ -10,10 +10,11 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time, and
-   for the entry functions of the attention kernels and K2 their
+   for the entry functions of the attention kernels, K2 and K5 their
    registers and spills (ptxas) and tensor-core instructions
-   (``cuobjdump -sass``): the serving kernels' and K2's bf16 entries
-   must hold HGMMA (wgmma), and K2's must not spill;
+   (``cuobjdump -sass``): the serving kernels' bf16 entries (the window
+   + stats contract's included) and K2's must hold HGMMA (wgmma), and
+   K2's and K5's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
    kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
@@ -31,17 +32,21 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    out (``flash_attention.bf16_excess``: they round P, and dS, to bf16,
    as FlashAttention does; SDPA's own error against the same plain
    version is printed beside it); K3's window + stats contract (the
-   CUDA-core body) within one bf16 ulp per element for out and 1e-4 of
-   the largest |plain| for m, l, acc; K1's log-sum-exp within 1e-5
-   relative;
+   same tensor-core body, its stats merged over the key splits) by
+   ``paged_attention.window_excess``: out and acc by that row rule, m
+   and l within 1e-4 of the largest |plain|, and a row with no key at m
+   = -inf and exact zeros; K1's log-sum-exp within 1e-5 relative;
    K2's float32 outputs within 1e-4 of the plain tensor's largest value
    (1e-5 relative for its loss; the bf16 body splits h and dlog into
    two bf16 terms each to hold that rule on the tensor cores); K5's y
    and final state within 1e-5 of the plain tensor's largest value, and
    K5 chained over two halves with h0 equal bit for bit to one pass over
-   the whole. Probes that must fail
+   the whole; K5's phase also logs its resident warps an SM (ptxas
+   registers and block size, and the CUDA occupancy query) and its MUFU
+   floor. Probes that must fail
    the checks: K with its kv heads rolled by one and V rolled over kv
-   heads at the keys of the second half only (K3, K1), one live
+   heads at the keys of the second half only (K3, K1; for the window
+   contract also one extra key, caught by l), one live
    page-table entry pointed at another row's page and, for int8 pages,
    V dequantised with K's or the next kv head's scales (K4), the
    neighbouring q head's log-sum-exp and K rolled over kv heads at the
@@ -77,7 +82,7 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 6. after every timed run, torch.profiler traces: five decode steps and
    three 512-token prefill steps in each llama serving layout and in
    Jamba (device busy share, kernels by device time, and the device
-   kernels of K3/K4 with the key-split combine by name), and one
+   kernels of K3/K4 with the key-split combine, and of K5, by name), and one
    training step (device busy share, kernels by device time, launches a
    step, and the device time of K1, K1b and K2, K2 also by pass: the
    split, pass 1, pass 2).
@@ -103,23 +108,24 @@ OUT = ROOT / "build" / "chip_smoke"
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core flop/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-BF16_ULP = 2.0**-7  # bf16 spacing relative to the value, at most
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: covers a call's enqueue
 ARCH = "llama3.2-1b"
 N_REQ, GEN, SLOTS, MAX_SEQ, PAGE = 16, 32, 8, 2048, 16
 
-# the serving kernels' bf16 tensor-core entry functions
-TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "paged_tc_bf16",
-            "paged_tc_int8")
+# the serving kernels' bf16 tensor-core entry functions (slotted_win_*:
+# the window + stats contract)
+TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "slotted_win_e64",
+            "slotted_win_e128", "paged_tc_bf16", "paged_tc_int8")
 # K2's bf16 tensor-core entry functions, and its split and lse kernels
 TC_XENT = ("stats_tc", "dlog_tc", "dw_tc", "dh_tc")
 XENT_PASSES = {"split": ("xent_split",),
                "pass 1": ("stats_tc", "lse_kernel"),
                "pass 2": ("dlog_tc", "dw_tc", "dh_tc")}
-# device kernels of each serving kernel, by name, for the decode profiles
+# device kernels of each serving kernel, by name, for the serve profiles
 SERVE_KERNELS = {"K3 slotted_attention": ("slotted_tc", "slotted_kernel"),
                  "K4 paged_attention": ("paged_tc", "paged_kernel"),
-                 "K3/K4 key-split combine": ("combine_e",)}
+                 "K3/K4 key-split combine": ("combine_e",),
+                 "K5 selective_scan": ("::scan_kernel<",)}
 SLOTTED = dict(route="cuda",
                source="src/repro_torch/kernels/csrc/slotted_attention.cu",
                replaces="src/repro/kernels/paged_attention.py:117")
@@ -203,29 +209,6 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_b = nbytes / HBM_BPS * 1e3
     t_f = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-
-def excess(a, p) -> tuple[float, float]:
-    """(max |a - p|, the worst |a - p| / limit) with the elementwise
-    limit BF16_ULP * (|p| + mean |p|): both sides round the same float32
-    value to bf16 up to summation order, so they differ by at most one
-    ulp; the mean term covers values near zero."""
-    a, p = a.float(), p.float()
-    diff = (a - p).abs()
-    typ = p.abs().mean().item()
-    worst = (diff / (BF16_ULP * (p.abs() + typ))).max().item()
-    log(f"[kernel]   max |diff| {diff.max().item():.3e}, mean |plain| "
-        f"{typ:.3e}, max |plain| {p.abs().max().item():.3e}, worst "
-        f"|diff| / limit {worst:.4f}")
-    return diff.max().item(), worst
-
-
-def out_err(a, p) -> float:
-    err, worst = excess(a, p)
-    if not worst <= 1.0:                           # NaN fails too
-        fail(f"kernel disagrees with its plain version: |diff| up to "
-             f"{worst} x the limit")
-    return err
 
 
 def rel_excess(a, p, rtol: float, what: str) -> tuple[float, float]:
@@ -315,24 +298,30 @@ def record_phase(torch, flush, results, name, meta, kern, plain, lib,
 def kernel_resources(build, names=("slotted_attention", "paged_attention",
                                    "flash_attention_fwd",
                                    "flash_attention_bwd",
-                                   "fused_xent")) -> dict:
+                                   "fused_xent", "selective_scan")) -> dict:
     """Per entry function of the named libraries (keyed "library:name";
-    the float32 bodies' instantiations share one name): registers and
-    spill bytes from the ptxas log of this run's build, and the
-    tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS
-    from cuobjdump (None where the toolkit has no cuobjdump). Fails if a
-    serving kernel's or K2's bf16 tensor-core entry has no HGMMA, or a
-    K2 one spills."""
+    the float32 attention bodies' instantiations share one name; K5's
+    are named by their template arguments): registers and spill bytes
+    from the ptxas log of this run's build, and the tensor-core
+    instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS from
+    cuobjdump (None where the toolkit has no cuobjdump). Fails if a
+    serving kernel's (the window contract's included) or K2's bf16
+    tensor-core entry has no HGMMA, or a K2 or K5 entry spills."""
     import os
     import re
 
-    short = TC_SERVE + ("combine_e64", "combine_e128", "slotted_kernel",
+    short = TC_SERVE + ("combine_e64", "combine_e128", "combine_stats_e64",
+                        "combine_stats_e128", "slotted_kernel",
                         "paged_kernel", "flash_fwd_tc", "flash_fwd_kernel",
                         "dq_tc", "dkdv_tc", "dq_kernel", "dkdv_kernel",
                         *TC_XENT, "xent_split", "lse_kernel", "stats_kernel",
                         "dlog_kernel", "dw_kernel", "dh_kernel")
 
     def name_of(lib, mangled):
+        m = re.search(r"scan_kernelILi(\d+)ELb([01])E", mangled)
+        if m:    # K5: scan_kernel<N, 16-byte copies>
+            return (f"{lib}:scan_kernel<{m.group(1)},"
+                    f"{'true' if m.group(2) == '1' else 'false'}>")
         return f"{lib}:" + next((k for k in short if k in mangled),
                                 mangled[:60])
 
@@ -387,6 +376,12 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
             fail(f"fused_xent:{k} has no HGMMA (wgmma) in its SASS")
         if r.get("spill_bytes"):
             fail(f"fused_xent:{k} spills {r['spill_bytes']} bytes")
+    scan = [k for k in res if k.startswith("selective_scan:scan_kernel")]
+    if not scan:
+        fail("the selective_scan build has no scan_kernel entry")
+    for k in scan:
+        if res[k].get("spill_bytes"):
+            fail(f"{k} spills {res[k]['spill_bytes']} bytes")
     return res
 
 
@@ -502,34 +497,64 @@ def kernel_phases(torch, flush):
         slotted_phase(phase, sq, e, rand)
 
     # window + stats (decode-attention contract, pos = cache length): the
-    # CUDA-core body, one bf16 ulp for out
+    # tensor-core body with key splits, its stats from the combine
     q = rand(b, 1, h, e)
     k, v = rand(b, S, g, e), rand(b, S, g, e)
     cl = (128 + 256 * torch.arange(b, device=dev)).int()
     wmask = (torch.arange(S, device=dev)[None, :] < cl[:, None])[:, None,
                                                                  None]
+    win_sdpa = sdpa(q, k, v, wmask)
 
-    def stats_err(a, p):
-        (oa, (ma, la, aa)), (op, (mp, lp, ap)) = a, p
-        err = out_err(oa, op)
-        for x, y, what in ((ma, mp, "m"), (la, lp, "l"), (aa, ap, "acc")):
-            rel = ((x - y).abs().max() / y.abs().max()).item()
-            if not rel <= 1e-4:
-                fail(f"window stats {what}: max |diff| / max |plain| = "
-                     f"{rel} > 1e-4")
-        return err
+    def window_excess(a, p, what=""):
+        res = pa.window_excess(a, p)
+        log(f"[kernel]   window stats{what}: worst |diff| / limit " + ", "
+            .join(f"{n} {x:.4f}" for n, x in res.items()))
+        return res
 
-    log(f"[kernel] slotted_attention:window_stats b={b} sq=1 cache_len="
-        f"{cl.tolist()} (CUDA-core body; out: |diff| <= 2^-7 (|plain| + "
-        "mean |plain|) per element; m, l, acc: max |diff| <= 1e-4 * max "
-        "|plain|)")
+    def window_check(a, p):
+        bf16_excess(fa, win_sdpa().transpose(1, 2), p[0],
+                    "out (SDPA, for the record)")
+        res = window_excess(a, p)
+        if not max(res.values()) <= 1.0:
+            fail(f"window stats off the plain version: {res}")
+        return (a[0].float() - p[0].float()).abs().max().item()
+
+    ns = pa.splits(b, g, rep, S, sms)
+    log(f"[kernel] slotted_attention:window_stats b={b} sq=1 h={h} g={g} "
+        f"e={e} S={S} cache_len={cl.tolist()} key splits {ns} (tensor-core "
+        f"body; {tol}; acc by the same row rule; m, l: max |diff| <= "
+        f"{pa.STATS_RTOL:g} max |plain|)")
     record("slotted_attention:window_stats", SLOTTED,
            lambda: pa.decode_attention(q, k, v, cl),
            lambda: ref.decode_attention(q, k, v, cl),
-           sdpa(q, k, v, wmask),
+           win_sdpa,
            2 * q.nbytes + cl.nbytes + int(cl.sum()) * g * 2 * e * 2
            + b * h * (2 + e) * 4,
-           int(cl.sum()) * h * 2 * (e + e), stats_err)
+           int(cl.sum()) * h * 2 * (e + e), window_check)
+    # a row with no key: m = -inf, and l, acc and out exactly 0
+    cl0 = cl.clone()
+    cl0[0] = 0
+    got0 = pa.decode_attention(q, k, v, cl0)
+    res = window_excess(got0, ref.decode_attention(q, k, v, cl0),
+                        " (cache_len[0] = 0)")
+    out0, (m0, l0, acc0) = got0
+    if not (max(res.values()) <= 1.0 and bool(torch.isneginf(m0[0]).all())
+            and not l0[0].any() and not acc0[0].any()
+            and not out0[0].any()):
+        fail("window stats: a row with cache_len 0 is not m = -inf and "
+             "exact zeros")
+    # probes: one extra key (caught by l), K rolled over kv heads, V
+    # rolled over kv heads at the late keys
+    plain = ref.decode_attention(q, k, v, cl)
+    for what, bad, field in (
+            ("cache_len + 1", pa.decode_attention(q, k, v, cl + 1), "l"),
+            ("K's kv heads rolled by one", pa.decode_attention(
+                q, k.roll(1, dims=2).contiguous(), v, cl), "out"),
+            (f"V rolled over kv heads at keys >= {S // 2}",
+             pa.decode_attention(q, k, late_rolled(v), cl), "out")):
+        log(f"[kernel] window stats check, {what}:")
+        if not window_excess(bad, plain)[field] > 1.0:
+            fail(f"the window stats {field} check passes {what}")
 
     # ---- paged attention (page pool) ------------------------------------ #
     ppr = S // PAGE
@@ -825,10 +850,25 @@ def train_kernel_phases(torch, flush):
     return results
 
 
-def scan_kernel_phase(torch, flush):
+def resident_warps(regs: int, threads: int, smem: int) -> int:
+    """Warps an H100 SM holds of a kernel using ``regs`` registers a
+    thread (ptxas), ``threads`` a block and ``smem`` bytes of shared
+    memory a block: registers go to warps in units of 256, an SM has
+    65,536 of them, 64 warps, 32 blocks and 228 KB of shared memory, of
+    which each block also reserves 1 KB."""
+    per_warp = -(-regs * 32 // 256) * 256
+    wpb = threads // 32
+    blocks = min(65536 // per_warp // wpb, 64 // wpb, 32,
+                 228 * 1024 // (smem + 1024))
+    return blocks * wpb
+
+
+def scan_kernel_phase(torch, flush, resources):
     """K5 at the Jamba prefill's shape (8 rows of 512 steps, 8192
     channels, state 16, float32) against its plain version, then the
-    chaining case and the B/C-swap probe."""
+    chaining case and the B/C-swap probe. Logs the launch's resident
+    warps an SM and the MUFU floor (one ex2 an update at 16 a clock per
+    SM, at the card's maximum SM clock)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import selective_scan as ss
 
@@ -862,16 +902,46 @@ def scan_kernel_phase(torch, flush):
     nbytes = f32 * (3 * b * s * d + 2 * b * s * n + d * n + d + b * d * n)
     # per (row, step, channel, state): dt*A, exp, dt*B, *x, a*h+u, +C*h
     flops = b * s * d * (n * 8 + 2)
+    shape = ss.launch_shape(n, d)
+    key = (f"selective_scan:scan_kernel<{n},"
+           f"{'true' if d % 4 == 0 else 'false'}>")
+    regs = resources.get(key, {}).get("registers")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    block_ch = shape["threads"] // shape["lanes"]
+    supply = b * -(-d // block_ch) * shape["threads"] / 32 / sms
+    warps = {"ptxas": (resident_warps(regs, shape["threads"],
+                                      shape["smem_bytes"]) if regs else None),
+             "occupancy": shape["blocks_per_sm"] * shape["threads"] // 32}
+    from_ptxas = (f"{regs} registers a thread (ptxas): resident warps an "
+                  f"SM {warps['ptxas']} from the registers and block size"
+                  if regs else "registers not measured (no ptxas log: this "
+                  "run did not build the kernels)")
+    log(f"[kernel] selective_scan launch: {shape['threads']} threads a "
+        f"block ({shape['lanes']} lanes a channel), {shape['smem_bytes']} "
+        f"bytes of shared memory a block, {from_ptxas}; "
+        f"{warps['occupancy']} resident warps an SM by the CUDA occupancy "
+        f"query; the grid offers {supply:.1f} warps an SM")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    mhz = float(clk[0]) if clk and clk[0].isdigit() else None
+    mufu_ms = b * s * d * n / (sms * 16 * mhz * 1e6) * 1e3 if mhz else None
+    t_bound, by = bound(nbytes, flops, "float32")
     log(f"[kernel] selective_scan: x, dt [{b}, {s}, {d}], A [{d}, {n}], "
         f"B, C [{b}, {s}, {n}], float32, return_state (tolerance: y and h "
-        f"max |diff| <= {SCAN_RTOL:g} max |plain|); bound by the float32 "
-        "rate for the operations")
+        f"max |diff| <= {SCAN_RTOL:g} max |plain|); bound {t_bound:.4f} ms "
+        f"by {by}; MUFU floor ({b * s * d * n} exponentials, 16 a clock "
+        "per SM) " + (f"{mufu_ms:.4f} ms at {mhz:g} MHz" if mhz else
+                      "not measured (no SM clock from nvidia-smi)"))
     record_phase(torch, flush, results, "selective_scan", SCAN,
                  lambda: ss.selective_scan(*half[:2], A, *half[2:], D,
                                            return_state=True),
                  lambda: ref.selective_scan(*half[:2], A, *half[2:], D,
                                             return_state=True),
                  None, nbytes, flops, check, dtype="float32")
+    results[-1].update(resident_warps=warps, mufu_floor_ms=mufu_ms,
+                       sm_clock_max_mhz=mhz)
     # chaining: 2s steps in one pass equal s steps, then s more from h0
     rest = [t[:, s:].contiguous() for t in (x, dt, bm, cm)]
     y_all, h_all = ss.selective_scan(x, dt, A, bm, cm, D, return_state=True)
@@ -1342,7 +1412,7 @@ def main() -> None:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = kernel_phases(torch, flush)
     train_kernels = train_kernel_phases(torch, flush)
-    scan_kernels = scan_kernel_phase(torch, flush)
+    scan_kernels = scan_kernel_phase(torch, flush, resources)
     del flush
     gc.collect()
     torch.cuda.empty_cache()

@@ -41,7 +41,8 @@ SIGNATURES = {
     "fused_xent": {
         "fused_xent_fwd": [_I] + [_P] * 8 + [_I] * 3 + [_P],
         "fused_xent_bwd": [_I] + [_P] * 9 + [_I] * 4 + [_P]},
-    "selective_scan": {"selective_scan": [_P] * 9 + [_I] * 4 + [_P]},
+    "selective_scan": {"selective_scan": [_P] * 9 + [_I] * 4 + [_P],
+                       "selective_scan_occupancy": [_I, _I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -33,7 +33,24 @@
 //   combine kernel merges the splits in fixed order and writes bf16 out.
 //   A split that sees no key writes m = -inf, l = 0, acc = 0 and adds
 //   nothing. Deterministic, no atomics.
+// * The window + stats contract (decode_attention; slotted cache only):
+//   every row of batch row b sees keys k < pos[b] (WindowRows, whatever
+//   the row's index), and the call also returns float32 m (natural log
+//   domain, of scale q.k), l and the unnormalised acc, [b, H, sq] and
+//   [b, H, sq, E]. With ns == 1 the body writes them itself beside out;
+//   with ns > 1 combine<E, true> writes them while it merges the splits.
+//   l sums the float32 P before P is rounded to bf16, so m and l keep
+//   the float32 rule; out and acc carry P's bf16 rounding.
+//
+// What bounds it on the H100: at decode (sq = 1, 4 q heads a kv head) a
+// block reads each K/V byte once for 4 q rows: 8 flops a K/V byte pair,
+// far below the card's ~295 flops a byte, so bytes, and the key splits
+// exist to put enough blocks (two an SM) on the card to stream them. A
+// 512-row prefill chunk reads each tile for 64 rows: operations, and the
+// wgmma products carry it.
 #pragma once
+
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
@@ -95,6 +112,7 @@ struct Layout {
 // part (ns > 1): m, l [ns, R] then acc [ns, R, E], R = b * H * sq rows.
 template <typename KV>
 struct Params {
+  using Source = KV;
   const bf16* q;
   bf16* out;
   float* part;
@@ -102,6 +120,29 @@ struct Params {
   int sq, H, ns, R;
   float scale;
   KV kv;
+};
+
+// The window contract's arguments: a block's, and its float32 stats m, l
+// [b, H, sq] and acc [b, H, sq, E]. (A type of its own: the causal and
+// paged kernels take Params as it is.)
+template <typename KV>
+struct WinParams : Params<KV> {
+  float* m;
+  float* l;
+  float* acc;
+};
+
+// Rows of the window contract: every row m < M of batch row b sees keys
+// k < pos[b] (q_offset), clamped to the cache, whatever its index.
+struct WindowRows : mma::Rows {
+  using Rows::Rows;
+  __device__ __forceinline__ int limit(int m) const {
+    return m >= M ? 0 : min(max(q_offset, 0), S);
+  }
+  template <int BM>
+  __device__ __forceinline__ int min_limit(int m0) const {
+    return m0 + BM > M ? 0 : limit(m0);
+  }
 };
 
 // ---- tile loads ---------------------------------------------------------- //
@@ -189,10 +230,27 @@ __device__ __forceinline__ void convert8(uint32_t raw, uint32_t dst) {
 
 // ---- the block body ------------------------------------------------------ //
 
-template <int E, typename KV>
-__device__ __forceinline__ void attend(const Params<KV>& p) {
+// This thread's values of row half h (rows r0 + 8 h of the m64 tile,
+// columns 8 j + c0, + 1) of the float32 accumulator o to the row arow.
+template <int E>
+__device__ __forceinline__ void store_acc(float* arow,
+                                          const float (&o)[E / 64][32],
+                                          int h, int c0) {
+#pragma unroll
+  for (int ob = 0; ob < E / 64; ++ob)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(arow + ob * 64 + 8 * j + c0) =
+          make_float2(o[ob][4 * j + 2 * h], o[ob][4 * j + 2 * h + 1]);
+}
+
+// WIN: the window + stats contract (WindowRows; p is a WinParams, its
+// stats written here with ns == 1); otherwise causal rows.
+template <int E, bool WIN = false, typename PT>
+__device__ __forceinline__ void attend(const PT& p) {
   static_assert(E % 64 == 0, "head dim");
   using namespace mma;
+  using KV = typename PT::Source;
   using L = Layout<E, KV>;
   extern __shared__ uint8_t smem_tc[];
   const uint32_t base = smem_u32(smem_tc);
@@ -204,14 +262,15 @@ __device__ __forceinline__ void attend(const Params<KV>& p) {
 
   const int G = kv.G;
   const int b = blockIdx.x / G, gi = blockIdx.x % G;
-  const Rows rows(b, gi, p.sq, p.H, G, kv.keys(), /*causal=*/1, p.pos[b]);
+  using RowsT = typename std::conditional<WIN, WindowRows, Rows>::type;
+  const RowsT rows(b, gi, p.sq, p.H, G, kv.keys(), /*causal=*/1, p.pos[b]);
   const int M = rows.M;
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16 + (lane >> 2), c0 = 2 * (lane & 3);
 
   const int lim[2] = {rows.limit(m0 + r0), rows.limit(m0 + r0 + 8)};
-  const int lo = rows.min_limit<BM>(m0);
+  const int lo = rows.template min_limit<BM>(m0);
   const int kend = rows.limit(min(m0 + BM, M) - 1);  // keys the rows see
   const int n_tiles = (kend + BN - 1) / BN;
   const int split = blockIdx.z;
@@ -402,29 +461,38 @@ __device__ __forceinline__ void attend(const Params<KV>& p) {
           *reinterpret_cast<__nv_bfloat162*>(orow + ob * 64 + 8 * j + c0) =
               __floats2bfloat162_rn(o[ob][4 * j + 2 * h] * inv,
                                     o[ob][4 * j + 2 * h + 1] * inv);
+      if constexpr (WIN) {  // the stats, with m back in the natural log
+        const size_t st = rows.stat(m);
+        if ((lane & 3) == 0) {
+          p.m[st] = mx[h] * LN2;
+          p.l[st] = lsum;
+        }
+        store_acc<E>(p.acc + st * E, o, h, c0);
+      }
     } else {
       const size_t r = static_cast<size_t>(split) * p.R + rows.stat(m);
       if ((lane & 3) == 0) {
         pm[r] = mx[h];
         pl[r] = lsum;
       }
-      float* arow = pa + r * E;
-#pragma unroll
-      for (int ob = 0; ob < E / 64; ++ob)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<float2*>(arow + ob * 64 + 8 * j + c0) =
-              make_float2(o[ob][4 * j + 2 * h], o[ob][4 * j + 2 * h + 1]);
+      store_acc<E>(pa + r * E, o, h, c0);
     }
   }
 }
 
 // Merges the ns key splits of part (m in the log2 domain, l, acc) in
 // split order into out [b, sq, H, E] bf16; one warp a row of [b, H, sq].
-template <int E>
+// STATS (the window contract): also writes the merged m in the natural
+// log domain, l and the unnormalised acc (relative to the merged max) to
+// m_out, l_out [b, H, sq] and acc_out [b, H, sq, E].
+template <int E, bool STATS = false>
 __device__ __forceinline__ void combine(const float* __restrict__ part,
                                         bf16* __restrict__ out, int ns,
-                                        int R, int sq, int H) {
+                                        int R, int sq, int H,
+                                        float* __restrict__ m_out = nullptr,
+                                        float* __restrict__ l_out = nullptr,
+                                        float* __restrict__ acc_out =
+                                            nullptr) {
   constexpr int V = E / 32;  // values a lane
   const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -446,6 +514,16 @@ __device__ __forceinline__ void combine(const float* __restrict__ part,
     for (int u = 0; u < V; ++u) acc[u] += a[u] * w;
   }
   const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  if constexpr (STATS) {
+    if (lane == 0) {
+      m_out[r] = mmax * mma::LN2;  // -inf for a row that sees no key
+      l_out[r] = lsum;
+    }
+    float* a = acc_out + static_cast<size_t>(r) * E + lane * V;
+#pragma unroll
+    for (int u = 0; u < V; u += 2)
+      *reinterpret_cast<float2*>(a + u) = make_float2(acc[u], acc[u + 1]);
+  }
   const int i = r % sq, h = (r / sq) % H, b = r / (sq * H);
   bf16* o = out + ((static_cast<size_t>(b) * sq + i) * H + h) * E + lane * V;
 #pragma unroll
@@ -456,13 +534,30 @@ __device__ __forceinline__ void combine(const float* __restrict__ part,
 
 constexpr int COMBINE_ROWS = 4;  // rows (warps) a combine block
 
+// The combine kernels: the merge into out, and the merge that also writes
+// the stats (the window contract).
+using Combine = void (*)(const float*, bf16*, int, int, int, int);
+using CombineStats = void (*)(const float*, bf16*, float*, float*, float*,
+                              int, int, int, int);
+template <typename PT>
+inline void run_combine(Combine comb, const PT& p, int grid,
+                        cudaStream_t stream) {
+  comb<<<grid, 32 * COMBINE_ROWS, 0, stream>>>(p.part, p.out, p.ns, p.R,
+                                               p.sq, p.H);
+}
+template <typename KV>
+inline void run_combine(CombineStats comb, const WinParams<KV>& p, int grid,
+                        cudaStream_t stream) {
+  comb<<<grid, 32 * COMBINE_ROWS, 0, stream>>>(p.part, p.out, p.m, p.l,
+                                               p.acc, p.ns, p.R, p.sq, p.H);
+}
+
 // Launches the body kernel over (b * G, row tiles, ns) and, with ns > 1,
 // the combine kernel. Returns 0 or a cudaError_t.
-template <int E, typename KV>
-inline int launch(void (*kern)(Params<KV>), void (*comb)(const float*, bf16*,
-                                                          int, int, int, int),
-                  const Params<KV>& p, int b, cudaStream_t stream) {
-  constexpr size_t smem = Layout<E, KV>::bytes;
+template <int E, typename PT, typename Comb>
+inline int launch(void (*kern)(PT), Comb comb, const PT& p, int b,
+                  cudaStream_t stream) {
+  constexpr size_t smem = Layout<E, typename PT::Source>::bytes;
   cudaError_t err = mma::allow_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = p.H / p.kv.G * p.sq;
@@ -470,8 +565,7 @@ inline int launch(void (*kern)(Params<KV>), void (*comb)(const float*, bf16*,
   kern<<<grid, mma::WG, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.ns == 1) return static_cast<int>(err);
-  comb<<<(p.R + COMBINE_ROWS - 1) / COMBINE_ROWS, 32 * COMBINE_ROWS, 0,
-         stream>>>(p.part, p.out, p.ns, p.R, p.sq, p.H);
+  run_combine(comb, p, (p.R + COMBINE_ROWS - 1) / COMBINE_ROWS, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,20 +19,32 @@
 // flops a byte. A decode step (sq = 1) reads every K/V byte up to the
 // row's position once for 4 * rep flops a byte pair: bytes.
 //
-// bf16 q and cache, causal (the serving path): the tensor-core body
-// (attention_tc.cuh, on mma_tile.cuh's tiles and wgmma). One warpgroup
-// owns 64 query rows of one (batch row, kv head), Q resident in shared
-// memory, K/V tiles of 64 keys in a two-stage cp.async ring, S = Q K^T
-// and O += P V on the tensor cores with P rounded to bf16 in registers;
-// tiles past a block's causal limit are never loaded. When the grid has
+// bf16 q and cache (the serving path, and the window + stats contract):
+// the tensor-core body (attention_tc.cuh, on mma_tile.cuh's tiles and
+// wgmma). One warpgroup owns 64 query rows of one (batch row, kv head),
+// Q resident in shared memory, K/V tiles of 64 keys in a two-stage
+// cp.async ring, S = Q K^T and O += P V on the tensor cores with P
+// rounded to bf16 in registers; tiles past a block's causal limit are
+// never loaded. When the grid has
 // under two blocks an SM (decode: b * G blocks), the wrapper splits the
 // keys: each block takes a contiguous range of whole tiles and writes
 // float32 (m, l, acc) to scratch, and combine_e* merges the splits in
 // fixed order into the bf16 out. Instantiated for e = 64 (llama3.2-1b)
 // and e = 128 (jamba-v0.1-52b).
 //
-// float32 or mixed dtypes, and the window + stats contract: the CUDA-core
-// body (attention_tile.cuh attend), products in float32.
+// The window + stats contract in bf16 (slotted_win_e*) is the same body
+// with WindowRows: every row sees the keys below pos[b], so a block loads
+// only the tiles under its row's cache length, split over blocks as at
+// decode. With one split the body writes m (natural log), l and the
+// unnormalised acc itself; with more, combine_stats_e* merges the splits
+// and writes them beside out. A decode call is bound by its K/V bytes,
+// as the causal decode is; the stats add (2 + EV) floats a row. (The
+// CUDA-core body ran this contract in one block a (batch row, kv head)
+// with no key split: 64 blocks on 132 SMs at decode, ~44x its byte
+// bound.)
+//
+// float32 or mixed dtypes: the CUDA-core body (attention_tile.cuh
+// attend), products in float32, for both contracts.
 #include "attention_tc.cuh"
 #include "attention_tile.cuh"
 
@@ -102,6 +114,7 @@ int by_shape(const Args& a, int E, int EV) {
 
 using attn_tc::Contig;
 using attn_tc::Params;
+using attn_tc::WinParams;
 using bf16 = __nv_bfloat16;
 
 __global__ void __launch_bounds__(mma::WG)
@@ -122,26 +135,60 @@ __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
   attn_tc::combine<128>(part, out, ns, R, sq, H);
 }
 
+// the window + stats contract
+__global__ void __launch_bounds__(mma::WG)
+    slotted_win_e64(const WinParams<Contig<64>> p) {
+  attn_tc::attend<64, true>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
+    slotted_win_e128(const WinParams<Contig<128>> p) {
+  attn_tc::attend<128, true>(p);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_stats_e64(const float* part, bf16* out, float* m, float* l,
+                      float* acc, int ns, int R, int sq, int H) {
+  attn_tc::combine<64, true>(part, out, ns, R, sq, H, m, l, acc);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_stats_e128(const float* part, bf16* out, float* m, float* l,
+                       float* acc, int ns, int R, int sq, int H) {
+  attn_tc::combine<128, true>(part, out, ns, R, sq, H, m, l, acc);
+}
+
+template <int E>
+Params<Contig<E>> params_tc(const Args& a) {
+  return {static_cast<const bf16*>(a.q),
+          static_cast<bf16*>(a.out),
+          a.part,
+          a.pos,
+          a.sq,
+          a.H,
+          a.ns,
+          a.b * a.H * a.sq,
+          a.scale,
+          {static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v), a.S,
+           a.G}};
+}
+
 template <int E, typename Kern, typename Comb>
 int run_tc(const Args& a, Kern kern, Comb comb) {
-  const Params<Contig<E>> p{static_cast<const bf16*>(a.q),
-                            static_cast<bf16*>(a.out),
-                            a.part,
-                            a.pos,
-                            a.sq,
-                            a.H,
-                            a.ns,
-                            a.b * a.H * a.sq,
-                            a.scale,
-                            {static_cast<const bf16*>(a.k),
-                             static_cast<const bf16*>(a.v), a.S, a.G}};
+  return attn_tc::launch<E>(kern, comb, params_tc<E>(a), a.b, a.stream);
+}
+template <int E, typename Kern, typename Comb>
+int run_win(const Args& a, Kern kern, Comb comb) {
+  const WinParams<Contig<E>> p{params_tc<E>(a), a.m, a.l, a.acc};
   return attn_tc::launch<E>(kern, comb, p, a.b, a.stream);
 }
 
 int by_shape_tc(const Args& a, int E, int EV) {
-  if (E == 64 && EV == 64) return run_tc<64>(a, slotted_tc_e64, combine_e64);
+  if (a.window && (a.m == nullptr || a.l == nullptr || a.acc == nullptr))
+    return -1;
+  if (E == 64 && EV == 64)
+    return a.window ? run_win<64>(a, slotted_win_e64, combine_stats_e64)
+                    : run_tc<64>(a, slotted_tc_e64, combine_e64);
   if (E == 128 && EV == 128)
-    return run_tc<128>(a, slotted_tc_e128, combine_e128);
+    return a.window ? run_win<128>(a, slotted_win_e128, combine_stats_e128)
+                    : run_tc<128>(a, slotted_tc_e128, combine_e128);
   return -1;
 }
 
@@ -149,9 +196,9 @@ int by_shape_tc(const Args& a, int E, int EV) {
 
 // dtype codes: 0 float32, 1 bfloat16 (q and cache may differ: a session's
 // kv_cache_dtype need not be its compute dtype). n_split key splits (bf16
-// causal only; > 1 needs part, float32 [n_split * b * H * sq * (EV + 2)]).
-// Returns 0, a cudaError_t, or -1 for a shape, dtype or split without an
-// instantiation.
+// q and cache only; > 1 needs part, float32 [n_split * b * H * sq * (EV +
+// 2)]). window == 1 needs m, l and acc. Returns 0, a cudaError_t, or -1
+// for a shape, dtype or split without an instantiation.
 extern "C" int slotted_attention(int q_dtype, int kv_dtype, const void* q,
                                  const void* k, const void* v, const int* pos,
                                  void* out, float* m, float* l, float* acc,
@@ -163,8 +210,7 @@ extern "C" int slotted_attention(int q_dtype, int kv_dtype, const void* q,
                static_cast<cudaStream_t>(stream)};
   if (b == 0 || sq == 0) return 0;
   if (n_split < 1 || (n_split > 1 && part == nullptr)) return -1;
-  if (q_dtype == 1 && kv_dtype == 1 && window == 0)
-    return by_shape_tc(a, E, EV);
+  if (q_dtype == 1 && kv_dtype == 1) return by_shape_tc(a, E, EV);
   if (n_split != 1) return -1;
   if (q_dtype == 0 && kv_dtype == 0) return by_shape<float, float>(a, E, EV);
   if (q_dtype == 1 && kv_dtype == 1)

@@ -20,17 +20,20 @@ plain version on the card. ``LAUNCHES`` counts the wrapper calls that
 launched a kernel, once a call, and nothing else.
 
 The C entry points pick the body by dtype. bf16 q over a bf16 cache
-(causal) or bf16/int8 pools runs the tensor-core body
-(``csrc/attention_tc.cuh``): S and P V are ``wgmma`` products with P
-rounded to bf16 in registers, so its out is held to the plain version by
-``flash_attention.bf16_excess`` (1e-2 of the largest |plain| of the
-element's row plus one bf16 ulp), as the bf16 flash kernels are. When
-the grid would hold under two blocks an SM (decode), the keys are split
-over ``n_split`` blocks a (row, kv head) (``splits``); the wrapper
-allocates their float32 scratch and the same call launches the combine
-kernel. float32 or mixed dtypes and the window + stats contract run the
-CUDA-core body, whose outputs round the same float32 values as the plain
-version (one bf16 ulp for a bf16 out).
+(causal, or the window + stats contract) or bf16/int8 pools runs the
+tensor-core body (``csrc/attention_tc.cuh``): S and P V are ``wgmma``
+products with P rounded to bf16 in registers, so its out is held to the
+plain version by ``flash_attention.bf16_excess`` (1e-2 of the largest
+|plain| of the element's row plus one bf16 ulp), as the bf16 flash
+kernels are. When the grid would hold under two blocks an SM (decode),
+the keys are split over ``n_split`` blocks a (row, kv head)
+(``splits``); the wrapper allocates their float32 scratch and the same
+call launches the combine kernel. The window contract's stats come from
+the body itself with one split, and from the combine with more: m and l
+sum float32 P (1e-4 of the largest |plain|), acc carries P's bf16
+rounding and is held by ``bf16_excess`` over its rows like out.
+float32 or mixed dtypes run the CUDA-core body, whose outputs round the
+same float32 values as the plain version (one bf16 ulp for a bf16 out).
 """
 
 from __future__ import annotations
@@ -91,6 +94,42 @@ def _scratch(q, g: int, ev: int, keys: int):
     part = torch.empty(ns * b * h * sq * (ev + 2), dtype=torch.float32,
                        device=q.device)
     return ns, part
+
+
+# the window contract's m and l against their plain versions: max |diff|
+# within this share of the largest |plain| (both sum float32 P)
+STATS_RTOL = 1e-4
+
+
+def window_excess(got, want) -> dict:
+    """The bf16 window + stats contract against its plain version
+    (``ref.decode_attention``): for out, m, l and acc the worst |diff|
+    over its limit (above 1 fails). out and acc by
+    ``flash_attention.bf16_excess`` (1e-2 of the largest |plain| of the
+    element's row, one (b, head, position), plus one bf16 ulp for the
+    bf16 out): P is rounded to bf16 before P V. m and l within
+    ``STATS_RTOL`` of their largest |plain|: l sums the float32 P. m must
+    be -inf exactly where the plain m is (rows that see no key) and is
+    compared where it is finite."""
+    from repro_torch.kernels import flash_attention as fa
+
+    (out, (m, l, acc)), (w_out, (w_m, w_l, w_acc)) = got, want
+    res = {"out": fa.bf16_excess(out, w_out),
+           "acc": fa.bf16_excess(acc, w_acc)}
+    for name, a, w in (("m", m, w_m), ("l", l, w_l)):
+        a, w = a.float(), w.float()
+        fin = torch.isfinite(w)
+        if not (torch.equal(torch.isfinite(a), fin)
+                and torch.equal(a[~fin], w[~fin])):
+            res[name] = float("inf")
+        elif not fin.any():
+            res[name] = 0.0
+        else:
+            diff = (a[fin] - w[fin]).abs().max().item()
+            scale = w[fin].abs().max().item()
+            res[name] = (diff / (STATS_RTOL * scale) if scale > 0
+                         else (float("inf") if diff > 0 else 0.0))
+    return res
 
 
 def reset_launches() -> None:
@@ -170,7 +209,7 @@ def _slotted(q, k, v, pos, window):
         acc = torch.empty((b, h, sq, ev), dtype=torch.float32, device=dev)
     if out.numel():
         p = _rows(pos, b, dev)
-        tc = not window and q.dtype == k.dtype == torch.bfloat16
+        tc = q.dtype == k.dtype == torch.bfloat16
         ns, part = _scratch(q, g, ev, S) if tc else (1, None)
         fn = build.load("slotted_attention").slotted_attention
         with torch.cuda.device(dev):

@@ -1,10 +1,13 @@
 """Selective scan (the Mamba-1 diagonal SSM): the wrapper over K5.
 
 The port's counterpart of ``repro/kernels/selective_scan.py``. Kernel:
-``csrc/selective_scan.cu``, one thread per (row, channel) walking the
-sequence with its state in registers. Unlike the TPU kernel it takes an
-initial state ``h0`` and returns the final state, which the serve path's
-prefill needs (``models/blocks.py mamba_cached``).
+``csrc/selective_scan.cu``: a channel's states split over lanes of a warp
+(8 states a lane: 2 lanes at d_state 16), each lane walking the sequence
+with its states in registers, x, dt, B and C staged through a cp.async
+ring. Unlike the TPU
+kernel it takes an initial state ``h0`` and returns the final state,
+which the serve path's prefill needs (``models/blocks.py
+mamba_cached``).
 
 ``selective_scan`` takes the plain version (``ref.selective_scan``) for a
 tensor on the CPU. For CUDA tensors it checks device, dtype (float32
@@ -71,3 +74,16 @@ def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,
         _raise_on(rc, "selective_scan")
         LAUNCHES["selective_scan"] += 1
     return (y, h) if return_state else y
+
+
+def launch_shape(n: int, d: int) -> dict:
+    """How the kernel launches for state size n over d channels on the
+    current card: blocks resident on an SM (the CUDA occupancy query),
+    threads and dynamic shared memory a block, lanes a channel."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    rc = build.load("selective_scan").selective_scan_occupancy(n, d, out)
+    _raise_on(rc, "selective_scan_occupancy")
+    return dict(blocks_per_sm=out[0], threads=out[1], smem_bytes=out[2],
+                lanes=out[3])

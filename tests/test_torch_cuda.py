@@ -24,11 +24,14 @@ are held by ``flash_attention.bf16_excess``: each element within
 one head), plus one bf16 ulp for the bf16 out
 (``tests/test_torch_train_kernels.py`` calibrates it on the CPU); their
 log-sum-exp stays within 1e-5 relative. The serving kernels' bf16 paths
-(bf16 q over a bf16 cache, causal; bf16 q over bf16 or int8 pools) run
-the same way on the tensor cores with P rounded to bf16, and their out is
-held by the same rule (``tests/test_torch_serving_kernels.py`` calibrates
-it); their float32 and mixed-dtype cases and the window + stats contract
-keep the CUDA-core body and the float32 / one-ulp rules above.
+(bf16 q over a bf16 cache, causal or the window + stats contract; bf16 q
+over bf16 or int8 pools) run the same way on the tensor cores with P
+rounded to bf16, and their out is held by the same rule
+(``tests/test_torch_serving_kernels.py`` calibrates it); the window
+contract's acc by the same per-row rule, its m and l within 1e-4 of
+their largest |plain| (``paged_attention.window_excess``). Their float32
+and mixed-dtype cases keep the CUDA-core body and the float32 / one-ulp
+rules above.
 The selective scan (float32 in and out) walks the recurrence one step at
 a time where the plain version scans each chunk in doubling steps: y and
 the final state within 1e-5 of the plain tensor's max |value|; the
@@ -85,6 +88,11 @@ def test_slotted_kernel_matches_plain(cuda, dtype, mode):
     q, k, v = (_t(a).to(cuda, dt) for a in _qkv(6, b, sq, h, g, e, S))
     pos = torch.tensor([0, 57, S - sq], dtype=torch.int32, device=cuda)
     window = mode == "window_stats"
+    if window and dt == torch.bfloat16:     # the tensor-core body
+        res = pa.window_excess(pa.decode_attention(q, k, v, pos),
+                               tref.decode_attention(q, k, v, pos))
+        assert max(res.values()) <= 1.0, res
+        return
     if window:
         got = pa.decode_attention(q, k, v, pos)
         want = tref.decode_attention(q, k, v, pos)
@@ -95,7 +103,7 @@ def test_slotted_kernel_matches_plain(cuda, dtype, mode):
     else:
         got = pa.flash_attention_slotted(q, k, v, pos=pos)
         want = tref.attention(q, k, v, q_offset=pos)
-    if dt == torch.bfloat16 and not window:
+    if dt == torch.bfloat16:
         _bf16_close(got, want)              # the tensor-core body
     else:
         _close(got, want, dt)
@@ -152,6 +160,44 @@ def test_slotted_bf16_decode_split_edges(cuda, e):
     assert fa.bf16_excess(bad, want) > 1.0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [64, 128])
+@pytest.mark.parametrize("sq", [1, 16])
+@pytest.mark.parametrize("split", [False, True])
+def test_slotted_bf16_window_stats(cuda, e, sq, split, monkeypatch):
+    """The window + stats contract on the tensor-core body, with one key
+    split or several: every row sees the keys below its batch row's
+    cache length (0, one key, a tile edge and the whole cache); m, l,
+    acc and out held by ``window_excess``; a row with no key gives m =
+    -inf and exact zeros; one wrapper call counts one launch. One extra
+    key (cache_len + 1) must fail l, K rolled over kv heads and V rolled
+    at the late keys must fail out."""
+    b, h, g, S = 4, 32, 8, 1024
+    q, k, v = (_t(a).to(cuda, torch.bfloat16)
+               for a in _qkv(23, b, sq, h, g, e, S))
+    if not split:
+        monkeypatch.setattr(pa, "_BLOCKS_AN_SM", 0)
+    ns = pa.splits(b, g, h // g * sq, S, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (ns > 1) == split
+    cl = torch.tensor([0, 1, 640, S], dtype=torch.int32, device=cuda)
+    before = pa.LAUNCHES["slotted_attention"]
+    got = pa.decode_attention(q, k, v, cl)
+    assert pa.LAUNCHES["slotted_attention"] == before + 1
+    want = tref.decode_attention(q, k, v, cl)
+    res = pa.window_excess(got, want)
+    assert max(res.values()) <= 1.0, res
+    out, (m, l, acc) = got
+    assert bool(torch.isneginf(m[0]).all())
+    assert not l[0].any() and not acc[0].any() and not out[0].any()
+    assert pa.window_excess(pa.decode_attention(q, k, v, cl + 1),
+                            want)["l"] > 1.0
+    assert pa.window_excess(pa.decode_attention(
+        q, k.roll(1, dims=2).contiguous(), v, cl), want)["out"] > 1.0
+    assert pa.window_excess(pa.decode_attention(q, k, _late_rolled(v), cl),
+                            want)["out"] > 1.0
+
+
 def _scan_case(seed, b, s, d, n, device):
     """Mamba-like inputs: dt log-uniform in [1e-3, 1e-1] and A = -(1..n)
     (S4D-real), so exp(dt A) spans short and long memory."""
@@ -166,12 +212,16 @@ def _scan_case(seed, b, s, d, n, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("n", [4, 8, 16])
 @pytest.mark.parametrize("with_h0", [False, True])
-def test_selective_scan_kernel_matches_plain(cuda, n, with_h0):
-    """K5 with s not a multiple of the staged tile or the plain chunk and
-    d not a multiple of the block; then chained over two halves."""
-    x, dt, A, B, C, D, h0 = _scan_case(12, 3, 300, 200, n, cuda)
+@pytest.mark.parametrize("s", [1, 300, 1024])
+@pytest.mark.parametrize("d", [200, 203])
+def test_selective_scan_kernel_matches_plain(cuda, n, with_h0, s, d):
+    """K5 at one step, with s not a multiple of the staged tile or the
+    plain chunk, and over several tiles of the ring; d not a multiple of
+    the block, and not of 4 (4-byte copies); then chained over two
+    parts."""
+    x, dt, A, B, C, D, h0 = _scan_case(12, 3, s, d, n, cuda)
     h0 = h0 if with_h0 else None
     before = ss.LAUNCHES["selective_scan"]
     y, h = ss.selective_scan(x, dt, A, B, C, D, h0=h0, return_state=True)
@@ -182,16 +232,18 @@ def test_selective_scan_kernel_matches_plain(cuda, n, with_h0):
     _rel_close(h, wh, 1e-5)
     assert torch.equal(ss.selective_scan(x, dt, A, B, C, D, h0=h0), y)
     first, second = ([t[:, part].contiguous() for t in (x, dt, B, C)]
-                     for part in (slice(0, 150), slice(150, None)))
+                     for part in (slice(0, s // 2), slice(s // 2, None)))
     y1, h1 = ss.selective_scan(first[0], first[1], A, first[2], first[3],
                                D, h0=h0, return_state=True)
     y2, h2 = ss.selective_scan(second[0], second[1], A, second[2],
                                second[3], D, h0=h1, return_state=True)
     assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
-    # B and C swapped must fail the check
-    bad = ss.selective_scan(x, dt, A, C, B, D, h0=h0)
-    err = (bad - wy).abs().max().item()
-    assert err > 1e-5 * wy.abs().max().item()
+    # B and C swapped must fail the check (one step from a zero state
+    # computes C . B dt x, the same with B and C swapped)
+    if s > 1 or with_h0:
+        bad = ss.selective_scan(x, dt, A, C, B, D, h0=h0)
+        err = (bad - wy).abs().max().item()
+        assert err > 1e-5 * wy.abs().max().item()
     with pytest.raises(ValueError, match="float32"):
         ss.selective_scan(x.double(), dt, A, B, C, D)
 

@@ -140,6 +140,76 @@ def test_scan_step_matches_jax_and_chains_to_the_scan():
     torch.testing.assert_close(h, h_all, **SCAN_TOL)
 
 
+# K5 on the card (csrc/selective_scan.cu) is held to the plain version at
+# 1e-5 of the plain tensor's max |value| (chip_smoke.py SCAN_RTOL)
+K5_RTOL = 1e-5
+
+
+def _fma(a, b, c):
+    """float32 fma: the float64 product of two float32 values is exact,
+    so one rounding of the float64 sum to float32 gives it."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k5_emulate(x, dt, A, B, C, D, h0, lanes):
+    """K5's order of operations in float32: A' = A log2(e) rounded once;
+    each step dx = dt x once, then per state a = 2^(dt A'), h = fma(a, h,
+    dx B); each of the ``lanes`` lanes sums h C over its N / lanes states
+    (fma, in state order), the lanes' partials meet in xor-shuffle order
+    (pairs of neighbours, then pairs of pairs) and y = fma(x, D, acc).
+    exp2 is the correctly rounded one here; the card's ex2.approx is
+    within 2 ulp of it."""
+    b, s, d = x.shape
+    n = A.shape[1]
+    a2 = A * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    h = h0.clone() if h0 is not None else torch.zeros(b, d, n)
+    ys = []
+    for t in range(s):
+        dv, xv = dt[:, t, :, None], x[:, t]
+        dx = dt[:, t] * xv
+        a = torch.exp2(dv * a2[None])
+        h = _fma(a, h, dx[..., None] * B[:, t, None, :])
+        prod = h * C[:, t, None, :]
+        parts = []
+        for j in range(lanes):
+            lo, hi = j * n // lanes, (j + 1) * n // lanes
+            acc = prod[..., lo]
+            for k in range(lo + 1, hi):
+                acc = _fma(h[..., k], C[:, t, None, k], acc)
+            parts.append(acc)
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        ys.append(_fma(xv, D[None], parts[0]))
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_k5_order_of_operations_holds_the_card_rule(n):
+    """The kernel's order of operations (states split over n / 4 lanes,
+    A log2(e) formed once, dt x once a step) stays within half of the
+    card's rule (1e-5 of max |plain|) of the port's plain version and of
+    the JAX reference, on Mamba-like inputs with long memory (dt
+    log-uniform in [1e-3, 1e-1], A = -(1..n) scaled) and an initial
+    state."""
+    rng = np.random.RandomState(40 + n)
+    b, s, d = 2, 96, 16
+    x = rng.randn(b, s, d)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(b, s, d)))
+    A = -np.arange(1, n + 1)[None] * np.exp(0.1 * rng.randn(d, n))
+    B, C = rng.randn(b, s, n), rng.randn(b, s, n)
+    D, h0 = rng.randn(d), rng.randn(b, d, n)
+    arrs = [a.astype(np.float32) for a in (x, dt, A, B, C, D, h0)]
+    y, h = _k5_emulate(*map(_t, arrs), lanes=n // 4)
+    want = tref.selective_scan(*map(_t, arrs[:6]), h0=_t(arrs[6]),
+                               return_state=True)
+    jwant = jref.selective_scan(*map(jnp.asarray, arrs[:6]),
+                                h0=jnp.asarray(arrs[6]), return_state=True)
+    for wy, wh in (want, tuple(map(_t, jwant))):
+        for got, w in ((y, wy), (h, wh)):
+            err = (got - w).abs().max().item()
+            assert err <= 0.5 * K5_RTOL * w.abs().max().item(), err
+
+
 def test_cpu_dispatch_runs_plain_versions_only():
     """CPU tensors never reach a kernel: the wrapper takes its plain
     version, and ``impl='kernel'`` on a CPU tensor raises."""

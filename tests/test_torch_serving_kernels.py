@@ -18,8 +18,14 @@ half of that limit, and the faults ``chip_smoke.py`` and
 At decode the kernels split a row's keys over several blocks, each
 writing float32 (m, l, unnormalised acc) that a second kernel combines in
 fixed order; the last tests emulate that combine and hold it to
-``ref.decode_attention``'s stats within 1e-5 relative. The plain versions
-are held to the JAX package in ``tests/test_torch_kernels.py``.
+``ref.decode_attention``'s stats within 1e-5 relative. The window + stats
+contract (``decode_attention`` in bf16) runs the same body with every row
+seeing the keys below its cache length, and returns the merged stats: its
+emulation, P rounded to bf16, must read at most half of
+``paged_attention.window_excess`` (out and acc by the bf16 row rule, m
+and l within 1e-4 of their largest |plain|), and one extra key, K rolled
+over kv heads and V rolled at the late keys must fail it. The plain
+versions are held to the JAX package in ``tests/test_torch_kernels.py``.
 """
 
 import numpy as np
@@ -280,3 +286,103 @@ def test_splits_fill_two_waves():
     assert pa.splits(8, 8, 4 * 512, 2048, 132) == 1
     assert pa.splits(1, 1, 4, 100, 132) == 2
     assert pa.splits(3, 2, 4 * 70, 200, 132) == 4
+
+
+# ---- the window + stats contract on the tensor-core body ---------------- #
+
+
+def _window_emulate(q, k, v, cache_len, ns):
+    """The bf16 body under the window contract: row b's T = ceil(cache_len
+    / 64) tiles split into ns ranges of whole tiles, each range an online
+    softmax over 64-key tiles (l sums the float32 P, P rounded to bf16
+    before P V), the ranges merged in split order. q, k, v float32
+    holding bf16 values. Returns (out in bf16, (m, l, acc)) as
+    ``decode_attention``."""
+    b, sq, h, e = q.shape
+    S, rep = k.shape[1], h // k.shape[2]
+    s = torch.einsum("bqhe,bkhe->bhqk", q,
+                     k.repeat_interleave(rep, dim=2)) / e ** 0.5
+    vr = v.repeat_interleave(rep, dim=2)
+    kpos = torch.arange(S)[None]
+    n_tiles = (cache_len + TILE - 1) // TILE
+    parts = []
+    for z in range(ns):
+        lo = z * n_tiles // ns * TILE
+        hi = torch.minimum((z + 1) * n_tiles // ns * TILE, cache_len)
+        vis = (kpos >= lo[:, None]) & (kpos < hi[:, None])
+        sv = torch.where(vis[:, None, None], s, float("-inf"))
+        m = torch.full((b, h, sq), float("-inf"))
+        l = torch.zeros((b, h, sq))
+        acc = torch.zeros((b, h, sq, e))
+        for t0 in range(0, S, TILE):
+            st = sv[..., t0:t0 + TILE]
+            mn = torch.maximum(m, st.amax(-1))
+            ms = torch.where(torch.isfinite(mn), mn, 0.0)
+            p = torch.exp(st - ms[..., None])
+            corr = torch.exp(m - ms)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhe->bhqe", p.bfloat16().float(), vr[:, t0:t0 + TILE])
+            m = mn
+        parts.append((m, l, acc))
+    m = torch.stack([pz[0] for pz in parts]).amax(0)
+    ms = torch.where(torch.isfinite(m), m, 0.0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mz, lz, az in parts:
+        w = torch.exp(mz - ms)
+        l = l + lz * w
+        acc = acc + az * w[..., None]
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).bfloat16(), (m, l, acc)
+
+
+WINDOW_CASES = [
+    dict(e=64, S=256, sq=1, cl=(0, 1, 130, 256)),    # decode, a key split
+    dict(e=128, S=192, sq=4, cl=(0, 64, 100, 191)),  # Jamba's width, sq > 1
+]
+
+
+def _window_inputs(case, seed=33):
+    b, h, g = len(case["cl"]), 8, 2
+    q, k, v = (_bf(a) for a in _qkv(seed, b, case["sq"], h, g, case["e"],
+                                     case["S"]))
+    return q, k, v, torch.tensor(case["cl"])
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("ns", [1, 3])
+def test_window_stats_bf16_rule_holds_the_kernels_rounding(case, ns):
+    """The tensor-core body's window contract, one split or three, reads
+    at most half of ``window_excess`` against ``ref.decode_attention``
+    (bf16 inputs); a row with cache_len 0 gives m = -inf and exact
+    zeros."""
+    q, k, v, cl = _window_inputs(case)
+    want = tref.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 cl)
+    got = _window_emulate(q, k, v, cl, ns)
+    res = pa.window_excess(got, want)
+    assert max(res.values()) <= 0.5, res
+    out, (m, l, acc) = got
+    assert bool(torch.isneginf(m[0]).all())
+    assert not l[0].any() and not acc[0].any() and not out[0].any()
+
+
+@pytest.mark.parametrize("probe", ["one_more_key", "kv_heads_rolled",
+                                   "late_v_rolled"])
+def test_window_stats_bf16_rule_rejects_probes(probe):
+    """One extra key (cache_len + 1, caught by l), K with its kv heads
+    rolled by one and V rolled over kv heads at the keys of the second
+    half (caught by out) exceed the window rule."""
+    q, k, v, cl = _window_inputs(WINDOW_CASES[0])
+    want = tref.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 cl)
+    field = "l" if probe == "one_more_key" else "out"
+    if probe == "one_more_key":
+        cl = cl + 1
+    elif probe == "kv_heads_rolled":
+        k = k.roll(1, dims=2)
+    else:
+        v = _late_rolled(v)
+    assert pa.window_excess(_window_emulate(q, k, v, cl, 3),
+                            want)[field] > 1.0
