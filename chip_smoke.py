@@ -13,13 +13,17 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    for the entry functions of the attention kernels, K2 and K5 their
    registers and spills (ptxas) and tensor-core instructions
    (``cuobjdump -sass``): the serving kernels' bf16 entries (the window
-   + stats contract's included) and K2's must hold HGMMA (wgmma), and
-   K2's and K5's must not spill;
+   + stats contract's included), K2's in both head layouts and K1/K1b's
+   at head dims 96 and 128 must hold HGMMA (wgmma), and those K2 and
+   K1/K1b entries and K5's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
    kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
    kernels (K1 flash forward, K1b flash backward, K2 fused cross-entropy)
-   in bf16, and the selective scan (K5) in float32 — each timed beside
+   in bf16 at llama3.2-1b's shapes, K1 and K1b at gpt-1.5B's (b 2, s
+   1024, 24 heads of 96) and at head dim 128, K2 over gpt-1.5B's untied
+   head [2304, 50304] read in place, and the selective scan (K5) in
+   float32 — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
@@ -51,7 +55,8 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    V dequantised with K's or the next kv head's scales (K4), the
    neighbouring q head's log-sum-exp and K rolled over kv heads at the
    keys of the second half (K1b), the head shifted by one vocab tile
-   and h rounded to bf16, i.e. no lo term (K2), B and C swapped (K5);
+   and h rounded to bf16, i.e. no lo term, and the untied head's bytes
+   read as a [vocab, d] table (K2), B and C swapped (K5);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -69,7 +74,11 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    five timed steps (train_step + opt_step) with the launch counters set
    to 0 before them: K1, K1b and K2 must launch 128, 64 and 8 times a
    step, no plain version may run, every loss must be finite and step
-   1's near ln(vocab);
+   1's near ln(vocab). Then the same for the paper's gpt-1.5B at full
+   width (22 layers, d_model 2304, 24 heads of 96, LayerNorm, GELU MLP,
+   untied head; 4 micro-batches of two 1024-token sequences), after
+   llama's session, params and optimizer state are freed: K1, K1b and
+   K2 176, 88 and 8 times a step, step 1's loss near ln(vocab) + 1/2;
 5. Jamba serve phase, after the training state is freed:
    jamba-v0.1-52b at its published widths cut to depth 8 (one period:
    Mamba, attention and gathered-MoE layers; 26.6 GB of bf16 weights
@@ -83,9 +92,9 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    three 512-token prefill steps in each llama serving layout and in
    Jamba (device busy share, kernels by device time, and the device
    kernels of K3/K4 with the key-split combine, and of K5, by name), and one
-   training step (device busy share, kernels by device time, launches a
-   step, and the device time of K1, K1b and K2, K2 also by pass: the
-   split, pass 1, pass 2).
+   training step of each training model on fresh params (device busy
+   share, kernels by device time, launches a step, and the device time
+   of K1, K1b and K2, K2 also by pass: the split, pass 1, pass 2).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -97,6 +106,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -116,8 +126,16 @@ N_REQ, GEN, SLOTS, MAX_SEQ, PAGE = 16, 32, 8, 2048, 16
 # the window + stats contract)
 TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "slotted_win_e64",
             "slotted_win_e128", "paged_tc_bf16", "paged_tc_int8")
-# K2's bf16 tensor-core entry functions, and its split and lse kernels
-TC_XENT = ("stats_tc", "dlog_tc", "dw_tc", "dh_tc")
+# K2's bf16 tensor-core entry functions in both head layouts (a [V, d]
+# table, a [d, V] head), and its split and lse kernels
+TC_XENT = tuple(f"{k}<{lay}>" for k in ("stats_tc", "dlog_tc", "dw_tc",
+                                         "dh_tc")
+                for lay in ("table", "head"))
+# K1's and K1b's bf16 tensor-core entries at the head widths this slice
+# added (96 runs the 128-wide body with zero pad columns)
+TC_FLASH_WIDE = tuple(f"{k}<{e},{e}>" for k in ("flash_fwd_tc", "dq_tc",
+                                                 "dkdv_tc")
+                      for e in (96, 128))
 XENT_PASSES = {"split": ("xent_split",),
                "pass 1": ("stats_tc", "lse_kernel"),
                "pass 2": ("dlog_tc", "dw_tc", "dh_tc")}
@@ -155,6 +173,19 @@ TRAIN_SEQ, TRAIN_STEPS = 2048, 5
 # of the loss per micro-batch
 TRAIN_LAUNCHES = {"flash_attention_fwd": 128, "flash_attention_bwd": 64,
                   "fused_xent": 8}
+# the training cells: llama3.2-1b (4 sequences of 2048 a step, tied
+# head) and the paper's gpt-1.5B (8 of 1024, untied head; 22 layers, so
+# 22 x 4 x 2, 22 x 4 and 8 launches a step). loss0: step 1's expected
+# loss on random weights, ln(vocab) for llama's near-zero logits (tied
+# table, std 1/sqrt(vocab)) and ln(vocab) + 1/2 for gpt's unit-variance
+# logits (final LayerNorm, a 1/sqrt(d) head: E[lse] = ln V + var / 2);
+# step 1 must land within 0.5 of it
+LLAMA = dict(arch=ARCH, seq=TRAIN_SEQ, global_batch=4, vocab=128256,
+             launches=TRAIN_LAUNCHES, loss0=math.log(128256))
+GPT = dict(arch="gpt_paper", seq=1024, global_batch=8, vocab=50304,
+           d_model=2304,
+           launches={"flash_attention_fwd": 176, "flash_attention_bwd": 88,
+                     "fused_xent": 8}, loss0=math.log(50304) + 0.5)
 # device kernels of each training kernel, by name, for the step's profile
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
@@ -300,28 +331,39 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
                                    "flash_attention_bwd",
                                    "fused_xent", "selective_scan")) -> dict:
     """Per entry function of the named libraries (keyed "library:name";
-    the float32 attention bodies' instantiations share one name; K5's
-    are named by their template arguments): registers and spill bytes
+    the serving float32 attention bodies' instantiations share one name;
+    K1/K1b's are named by their head widths, K2's by their head layout,
+    K5's by their template arguments): registers and spill bytes
     from the ptxas log of this run's build, and the tensor-core
     instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS from
     cuobjdump (None where the toolkit has no cuobjdump). Fails if a
-    serving kernel's (the window contract's included) or K2's bf16
-    tensor-core entry has no HGMMA, or a K2 or K5 entry spills."""
+    serving kernel's (the window contract's included), K2's (either head
+    layout) or a 96- or 128-wide K1/K1b bf16 tensor-core entry has no
+    HGMMA, or one of those K2 or K1/K1b entries or a K5 entry spills."""
     import os
     import re
 
     short = TC_SERVE + ("combine_e64", "combine_e128", "combine_stats_e64",
                         "combine_stats_e128", "slotted_kernel",
-                        "paged_kernel", "flash_fwd_tc", "flash_fwd_kernel",
-                        "dq_tc", "dkdv_tc", "dq_kernel", "dkdv_kernel",
-                        *TC_XENT, "xent_split", "lse_kernel", "stats_kernel",
-                        "dlog_kernel", "dw_kernel", "dh_kernel")
+                        "paged_kernel", "xent_split", "lse_kernel")
+    # K1/K1b by head widths <E,EV>; K2 by head layout <0: table, 1: head>
+    flash = re.compile(r"(flash_fwd_tc|flash_fwd_kernel|dq_tc|dkdv_tc|"
+                       r"dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E")
+    xent = re.compile(r"(stats_tc|dlog_tc|dw_tc|dh_tc|stats_kernel|"
+                      r"dlog_kernel|dw_kernel|dh_kernel)ILi([01])E")
 
     def name_of(lib, mangled):
         m = re.search(r"scan_kernelILi(\d+)ELb([01])E", mangled)
         if m:    # K5: scan_kernel<N, 16-byte copies>
             return (f"{lib}:scan_kernel<{m.group(1)},"
                     f"{'true' if m.group(2) == '1' else 'false'}>")
+        m = flash.search(mangled)
+        if m:
+            return f"{lib}:{m.group(1)}<{m.group(2)},{m.group(3)}>"
+        m = xent.search(mangled)
+        if m:
+            return (f"{lib}:{m.group(1)}"
+                    f"<{('table', 'head')[int(m.group(2))]}>")
         return f"{lib}:" + next((k for k in short if k in mangled),
                                 mangled[:60])
 
@@ -368,14 +410,16 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
             fail(f"the {lib} build has no entry function {k}")
         if r.get("hgmma") == 0:
             fail(f"{lib}:{k} has no HGMMA (wgmma) in its SASS")
-    for k in TC_XENT:
-        r = res.get(f"fused_xent:{k}")
+    for k in TC_XENT + TC_FLASH_WIDE:
+        lib = ("fused_xent" if k in TC_XENT else "flash_attention_fwd"
+               if k.startswith("flash") else "flash_attention_bwd")
+        r = res.get(f"{lib}:{k}")
         if r is None:
-            fail(f"the fused_xent build has no entry function {k}")
+            fail(f"the {lib} build has no entry function {k}")
         if r.get("hgmma") == 0:
-            fail(f"fused_xent:{k} has no HGMMA (wgmma) in its SASS")
+            fail(f"{lib}:{k} has no HGMMA (wgmma) in its SASS")
         if r.get("spill_bytes"):
-            fail(f"fused_xent:{k} spills {r['spill_bytes']} bytes")
+            fail(f"{lib}:{k} spills {r['spill_bytes']} bytes")
     scan = [k for k in res if k.startswith("selective_scan:scan_kernel")]
     if not scan:
         fail("the selective_scan build has no scan_kernel entry")
@@ -850,6 +894,169 @@ def train_kernel_phases(torch, flush):
     return results
 
 
+def flash_phases(torch, flush, results, tag, b, s, h, g, e):
+    """K1 (causal) and K1b at one shape, each against its plain version
+    under the bf16 row rule, timed beside SDPA and the bound, with the
+    probes that must fail the rule: K's kv heads rolled by one and V
+    rolled over kv heads at the keys of the second half (K1); the
+    neighbouring q head's lse and K rolled over kv heads at the keys of
+    the second half (K1b). With g == h (MHA) a roll over kv heads is a
+    roll over heads."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rep = h // g
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def rep_kv(x):
+        return x.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+    q, k, v, do = rand(b, s, h, e), rand(b, s, g, e), rand(b, s, g, e), \
+        rand(b, s, h, e)
+    n_pairs = b * s * (s + 1) // 2
+    shapes = (f"q [{b}, {s}, {h}, {e}], k/v [{b}, {s}, {g}, {e}], causal")
+    qt, kt, vt = q.transpose(1, 2), rep_kv(k), rep_kv(v)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def check(a, p):
+        rel_err(a[1], p[1], 1e-5, "lse")
+        bf16_excess(fa, lib().transpose(1, 2), p[0],
+                    "out (SDPA, for the record)")
+        return bf16_err(fa, a[0], p[0], "out")
+
+    log(f"[kernel] flash_attention_fwd:{tag} {shapes} (tolerance: out "
+        f"|diff| <= {fa.BF16_RTOL:g} max |plain| of its row + 1 bf16 ulp; "
+        "lse 1e-5 of max |plain|)")
+    record_phase(torch, flush, results, f"flash_attention_fwd:{tag}",
+                 FLASH_FWD,
+                 lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                 lambda: ref.attention(q, k, v, causal=True,
+                                       return_lse=True),
+                 lib, 2 * q.nbytes + k.nbytes + v.nbytes + b * h * s * 4,
+                 n_pairs * h * 2 * (e + e), check)
+    plain = ref.attention(q, k, v, causal=True)
+    bf16_probe(fa, fa.flash_attention_fwd(
+        q, k.roll(1, dims=2).contiguous(), v, causal=True)[:1], (plain,),
+        ("flash_attention_fwd out",), "K's kv heads rolled by one")
+    bf16_probe(fa, fa.flash_attention_fwd(q, k, late_rolled(v),
+                                          causal=True)[:1], (plain,),
+               ("flash_attention_fwd out",),
+               f"V rolled over kv heads at keys >= {s // 2}")
+
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    do_t = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(o_lib, (qg, kg, vg), do_t,
+                                   retain_graph=True)
+
+    def check_bwd(a, p):
+        gq, gk, gv = (x.float().transpose(1, 2) for x in lib_bwd())
+        sdpa = (gq, gk.reshape(b, s, g, rep, e).sum(3),
+                gv.reshape(b, s, g, rep, e).sum(3))
+        for x, y, what in zip(sdpa, p, ("dq", "dk", "dv")):
+            bf16_excess(fa, x, y, f"{what} (SDPA, for the record)")
+        return max(bf16_err(fa, x, y, what)
+                   for x, y, what in zip(a, p, ("dq", "dk", "dv")))
+
+    log(f"[kernel] flash_attention_bwd:{tag} {shapes}, fed the kernel's out "
+        f"and lse (tolerance: dq, dk, dv float32 |diff| <= "
+        f"{fa.BF16_RTOL:g} max |plain| of the row)")
+    record_phase(torch, flush, results, f"flash_attention_bwd:{tag}",
+                 FLASH_BWD,
+                 lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                                causal=True),
+                 lambda: ref.attention_bwd(q, k, v, out, do, lse,
+                                           causal=True),
+                 lib_bwd,
+                 (q.nbytes + k.nbytes + v.nbytes + out.nbytes + do.nbytes
+                  + lse.nbytes + 4 * (q.numel() + k.numel() + v.numel())),
+                 n_pairs * h * 2 * (3 * e + 2 * e), check_bwd)
+    plain = ref.attention_bwd(q, k, v, out, do, lse, causal=True)
+    whats = tuple(f"flash_attention_bwd {w}" for w in ("dq", "dk", "dv"))
+    bf16_probe(fa, fa.flash_attention_bwd(
+        q, k, v, out, do, lse.roll(1, dims=1).contiguous(), causal=True),
+        plain, whats, "the neighbouring q head's lse")
+    bf16_probe(fa, fa.flash_attention_bwd(q, late_rolled(k), v, out, do,
+                                          lse, causal=True),
+               plain, whats, f"K rolled over kv heads at keys >= {s // 2}")
+
+
+def gpt_kernel_phases(torch, flush):
+    """K1 and K1b at gpt-1.5B's attention (b 2, s 1024, 24 heads MHA, head
+    dim 96) and at head dim 128 (gpt-6.2B's 32 heads of 128), and K2 over
+    gpt-1.5B's untied head read in place as [d, vocab], each against its
+    plain version with probes that must fail its rule."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ref
+
+    results = []
+    # one micro-batch: the step's sequences over its four micro-batches
+    b, s = GPT["global_batch"] // 4, GPT["seq"]
+    flash_phases(torch, flush, results, "gpt_causal_e96", b, s, 24, 24, 96)
+    flash_phases(torch, flush, results, "causal_e128", b, s, 32, 32, 128)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, d, vocab = b * s, GPT["d_model"], GPT["vocab"]
+    hn = torch.randn((n, d), generator=gen, device=dev)
+    head = (torch.randn((d, vocab), generator=gen, device=dev)
+            / d ** 0.5).to(torch.bfloat16)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    mask = torch.ones(n, device=dev)
+    kw = dict(chunk=8192, mask=mask, denom=float(4 * n))
+    nbytes = (hn.nbytes + head.nbytes + lab.nbytes + mask.nbytes
+              + hn.nbytes + vocab * d * 4)
+
+    def lib_xent():
+        hh = hn.detach().requires_grad_()
+        ww = head.float().requires_grad_()
+        loss = F.cross_entropy(hh @ ww, lab, reduction="sum") / (4 * n)
+        return torch.autograd.grad(loss, (hh, ww))
+
+    def check_xent(a, p):
+        (la, (dha, dwa)), (lp, (dhp, dwp)) = a, p
+        if not (dwa.shape == (d, vocab) and dwa.is_contiguous()):
+            fail(f"K2's head dW is {tuple(dwa.shape)}, not a contiguous "
+                 f"[{d}, {vocab}]")
+        rel_err(la.reshape(1), lp.reshape(1), 1e-5, "loss")
+        return max(rel_err(dha, dhp, 1e-4, "dh"),
+                   rel_err(dwa, dwp, 1e-4, "dW"))
+
+    log(f"[kernel] fused_xent:gpt_head h [{n}, {d}] float32, head.w [{d}, "
+        f"{vocab}] bf16 read in place (tolerance: loss 1e-5 relative; dh, "
+        "dW max |diff| <= 1e-4 max |plain|)")
+    record_phase(torch, flush, results, "fused_xent:gpt_head", XENT,
+                 lambda: fx.softmax_xent(hn, head, lab, **kw),
+                 lambda: ref.softmax_xent(hn, head, lab, **kw),
+                 lib_xent, nbytes, 3 * 2 * n * d * vocab, check_xent,
+                 iters=3)
+    # the check must see the head's bytes read as a [vocab, d] table
+    plain = ref.softmax_xent(hn, head, lab, **kw)
+    bad = fx.softmax_xent(hn, head.reshape(vocab, d).t(), lab, **kw)
+    log("[kernel] fused_xent check, head.w's bytes read as a [vocab, d] "
+        "table:")
+    _, w_loss = rel_excess(bad[0].reshape(1), plain[0].reshape(1), 1e-5,
+                           "loss")
+    _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
+    if not (w_loss > 1.0 and w_dw > 1.0):
+        fail("the fused_xent check passes head.w read as a table")
+    return results
+
+
 def resident_warps(regs: int, threads: int, smem: int) -> int:
     """Warps an H100 SM holds of a kernel using ``regs`` registers a
     thread (ptxas), ``threads`` a block and ``smem`` bytes of shared
@@ -979,28 +1186,34 @@ def train_launches():
     return {**fa.LAUNCHES, **fx.LAUNCHES}
 
 
-def train_phase(torch):
-    """Step 1 through the kernels and the plain versions, then timed
-    steps; returns (result row, session, params, opt state)."""
-    import math
-
+def train_session(cell, **kw):
+    """The full-width train Session of a training cell on the card."""
     from repro_torch.api import session
+
+    return session(cell["arch"], mode="train", reduced=False,
+                   device="cuda", seq_len=cell["seq"],
+                   global_batch=cell["global_batch"], **kw)
+
+
+def train_phase(torch, cell):
+    """Step 1 through the kernels and the plain versions, then timed
+    steps; returns the result row (the session and its state are
+    released)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import ops
 
-    sess = session(ARCH, mode="train", reduced=False, device="cuda",
-                   seq_len=TRAIN_SEQ)
-    plain = session(ARCH, mode="train", reduced=False, device="cuda",
-                    seq_len=TRAIN_SEQ, overrides=dict(kernel_impl="ref"))
+    tag = f"[train {cell['arch']}]"
+    sess = train_session(cell)
+    plain = train_session(cell, overrides=dict(kernel_impl="ref"))
     desc = sess.describe()
     sc = sess.shape_cfg
-    log(f"[train] {desc['n_params']} params, schedule {desc['schedule']}, "
+    log(f"{tag} {desc['n_params']} params, schedule {desc['schedule']}, "
         f"batch {sc.global_batch} x {sc.seq_len}")
     t0 = time.perf_counter()
     params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[train] params ({sess.rc.param_dtype}) in "
+    log(f"{tag} params ({sess.rc.param_dtype}) in "
         f"{time.perf_counter() - t0:.2f} s")
     stream = sess.stream()
     batch = stream.batch(0)
@@ -1015,7 +1228,7 @@ def train_phase(torch):
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
     loss_k, loss_p = float(m_k["loss_sum"]), float(m_p["loss_sum"])
-    log(f"[train] step 1: loss kernels {loss_k:.6f} ({t_k:.2f} s), plain "
+    log(f"{tag} step 1: loss kernels {loss_k:.6f} ({t_k:.2f} s), plain "
         f"versions {loss_p:.6f} ({t_p:.2f} s); tolerance loss "
         f"{STEP1_LOSS_RTOL:g} relative, grads {STEP1_GRAD_RTOL:g} of the "
         "plain tensor's max |value|")
@@ -1033,14 +1246,14 @@ def train_phase(torch):
             if not math.isfinite(a.abs().max().item()):
                 fail(f"step-1 gradient {name} is not finite")
             n_t += 1
-    log(f"[train] step 1: {n_t} gradient tensors, worst max |diff| / max "
+    log(f"{tag} step 1: {n_t} gradient tensors, worst max |diff| / max "
         f"|plain| {worst:.4e} ({worst_name})")
     if not worst <= STEP1_GRAD_RTOL:
         fail(f"step-1 gradient {worst_name} off the plain versions by "
              f"{worst} of its max |value|")
-    if not abs(loss_k - math.log(128256)) <= 0.5:
-        fail(f"step-1 loss {loss_k} is not near ln(vocab) = "
-             f"{math.log(128256):.3f}")
+    if not abs(loss_k - cell["loss0"]) <= 0.5:
+        fail(f"step-1 loss {loss_k} is not near {cell['loss0']:.3f} (see "
+             "the training cells)")
     del g_k, g_p, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -1068,16 +1281,16 @@ def train_phase(torch):
                    loss=loss, grad_norm=float(om["grad_norm"]),
                    max_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
         steps.append(row)
-        log(f"[train] step {i + 1}: {row['ms']:.1f} ms, "
+        log(f"{tag} step {i + 1}: {row['ms']:.1f} ms, "
             f"{row['tok_per_s']:.1f} tok/s, loss {loss:.4f}, grad norm "
             f"{row['grad_norm']:.3f}, max memory "
             f"{row['max_memory_gb']:.2f} GiB")
     launches = train_launches()
     counters = {k: v - base.get(k, 0) for k, v in ops.kernel_counters().items()
                 if v - base.get(k, 0)}
-    log(f"[train] launches in {TRAIN_STEPS} steps: {launches}; dispatch "
+    log(f"{tag} launches in {TRAIN_STEPS} steps: {launches}; dispatch "
         f"{counters}")
-    for name, per_step in TRAIN_LAUNCHES.items():
+    for name, per_step in cell["launches"].items():
         if launches[name] != per_step * TRAIN_STEPS:
             fail(f"{name} launched {launches[name]} times in "
                  f"{TRAIN_STEPS} steps, expected {per_step} a step")
@@ -1085,20 +1298,28 @@ def train_phase(torch):
         fail(f"the timed steps reached a plain version: {counters}")
     if not all(math.isfinite(r["loss"]) for r in steps):
         fail(f"non-finite losses: {[r['loss'] for r in steps]}")
-    res = dict(step1_loss_kernels=loss_k, step1_loss_plain=loss_p,
+    res = dict(arch=cell["arch"], n_params=desc["n_params"],
+               step1_loss_kernels=loss_k, step1_loss_plain=loss_p,
                step1_worst_grad=worst, step1_worst_name=worst_name,
                step1_s_kernels=t_k, step1_s_plain=t_p, steps=steps,
                step_ms=sum(r["ms"] for r in steps) / len(steps),
                tok_per_s=sum(r["tok_per_s"] for r in steps) / len(steps),
                max_memory_gb=max(r["max_memory_gb"] for r in steps),
                launches=launches, counters=counters)
-    return res, sess, params, opt
+    del sess, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
-def profile_train(torch, sess, params, opt):
-    """One training step (train_step + opt_step) under torch.profiler."""
+def profile_train(torch, cell):
+    """One training step (train_step + opt_step) of a training cell under
+    torch.profiler, on fresh params (seed 0) and optimizer state."""
     from torch.profiler import ProfilerActivity, profile
 
+    sess = train_session(cell)
+    params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
+    opt = sess.init_opt_state(params)
     batch = sess.stream().batch(TRAIN_STEPS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1108,14 +1329,17 @@ def profile_train(torch, sess, params, opt):
         sess.opt_step(params, grads, opt)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    del grads
     cuda = torch.autograd.DeviceType.CUDA
     dev = [(e.key, e.self_device_time_total, e.count)
            for e in prof.key_averages() if e.device_type == cuda]
     busy = sum(t for _, t, _ in dev)
     n = sum(c for *_, c in dev)
-    log(f"[profile] train step: {wall_us / 1e3:.1f} ms under the profiler, "
-        f"device busy {busy / wall_us:.3f} of it, {n} kernels")
+    del grads, params, opt, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[profile] train step ({cell['arch']}): {wall_us / 1e3:.1f} ms "
+        f"under the profiler, device busy {busy / wall_us:.3f} of it, {n} "
+        "kernels")
     top = sorted(dev, key=lambda r: -r[1])[:15]
     for name, t, c in top:
         log(f"[profile]   {t / 1e3:9.3f} ms {c:6d}x {name[:90]}")
@@ -1138,8 +1362,9 @@ def profile_train(torch, sess, params, opt):
                           kernels=sum(c for _, c in rows))
         log(f"[profile]   K2 {part}: {xent[part]['ms']:.3f} ms in "
             f"{xent[part]['kernels']} kernels")
-    prof.export_chrome_trace(str(OUT / "train_trace.json"))
-    return dict(step_ms=wall_us / 1e3, busy_share=busy / wall_us,
+    prof.export_chrome_trace(str(OUT / f"train_trace_{cell['arch']}.json"))
+    return dict(arch=cell["arch"], step_ms=wall_us / 1e3,
+                busy_share=busy / wall_us,
                 kernels_per_step=n,
                 top=[dict(name=k, ms=t / 1e3, calls=c) for k, t, c in top],
                 ours={k: dict(ms=ms, launches=c)
@@ -1412,6 +1637,7 @@ def main() -> None:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = kernel_phases(torch, flush)
     train_kernels = train_kernel_phases(torch, flush)
+    gpt_kernels = gpt_kernel_phases(torch, flush)
     scan_kernels = scan_kernel_phase(torch, flush, resources)
     del flush
     gc.collect()
@@ -1431,15 +1657,18 @@ def main() -> None:
     for row in kernels:
         lay = contig if row["name"].startswith("slotted") else paged
         row["launches"] = lay["launches"][row["name"].split(":")[0]]
-    train, sess_t, params_t, opt_t = train_phase(torch)
+    # each training cell frees its session, params and optimizer state
+    # before the next phase, so that two peaks never add up
+    train = train_phase(torch, LLAMA)
     for row in train_kernels:
         row["launches"] = train["launches"][row["name"].split(":")[0]]
     kernels += train_kernels
-    # Jamba next: the optimizer state (float32 master and moments) goes,
-    # the bf16 params stay for the training profile
-    del opt_t
-    gc.collect()
-    torch.cuda.empty_cache()
+    log(f"[train] before gpt: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    train_gpt = train_phase(torch, GPT)
+    for row in gpt_kernels:
+        row["launches"] = train_gpt["launches"][row["name"].split(":")[0]]
+    kernels += gpt_kernels
     log(f"[serve] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
     jamba, _, _, params_j, sess_j = serve_phase(torch, "contiguous",
@@ -1460,12 +1689,11 @@ def main() -> None:
     del params_j, sess_j
     gc.collect()
     torch.cuda.empty_cache()
-    profiles.append(profile_train(torch, sess_t, params_t,
-                                  sess_t.init_opt_state(params_t)))
+    profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
-         "kernels": kernels,
-         "serve": serve, "train": train, "profiles": profiles,
+         "kernels": kernels, "serve": serve,
+         "train": [train, train_gpt], "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

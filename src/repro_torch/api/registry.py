@@ -20,7 +20,8 @@ class RegistryError(ValueError):
 
 
 ARCHS = {"llama3p2_1b": "repro_torch.configs.llama3p2_1b",
-         "jamba_v0p1_52b": "repro_torch.configs.jamba_v0p1_52b"}
+         "jamba_v0p1_52b": "repro_torch.configs.jamba_v0p1_52b",
+         "gpt_paper": "repro_torch.configs.gpt_paper"}
 
 
 def get_arch(name: str):

@@ -5,8 +5,8 @@ RunConfig overrides, the training shape and optimizer knobs, and the
 serving knobs, checked before any device work. The port runs on one rank,
 so the data/pod axes are 1 and pp is 1 in train mode (multi-rank: next
 slice); ``schedule="auto"``/``"auto_profiled"``, topologies, expert
-parallelism, Mamba/MoE training and checkpoints are refused with the slice
-they wait for.
+parallelism, Mamba/MoE training, serving LayerNorm / GELU models (the
+paper's GPT) and checkpoints are refused with the slice they wait for.
 """
 
 from __future__ import annotations
@@ -138,6 +138,15 @@ class SessionSpec:
                 "slice (ROADMAP.md queue 1)")
         if self.mode == "train":
             return self._validate_train()
+        mod = get_arch(self.arch)
+        cfg = (mod.reduced()[0] if self.reduced
+               else getattr(mod, "one_card_config", mod.config)())
+        if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+            raise SessionError(
+                f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}) "
+                "waits for GPT serving: LayerNorm and the GELU MLP on the "
+                "serve path and K3/K4 at head_dim 96 (ROADMAP.md queue 1 "
+                "item 2); train it with mode='train'")
         if self.max_seq is None or self.max_seq < 1:
             raise SessionError(
                 "serve sessions need max_seq=<prompt+gen+slack> (the KV "

@@ -5,6 +5,7 @@ Each config module exports:
   reduced()       -> (ModelConfig, RunConfig) tiny same-family smoke config,
                      equal to the reference's ``reduced()``
   one_card_run()  -> RunConfig for serving the published width on one GPU
+                     (where the port serves the architecture)
   one_card_train_run() -> RunConfig for training it on one GPU (where
                      the port trains the architecture)
   one_card_config() -> ModelConfig cut to what one GPU holds, where the

@@ -136,6 +136,10 @@ class Tape:
                 outs))
         return out
 
+    def elementwise(self, fn: Callable, x: TVal) -> TVal:
+        """``fn`` applied to one value (an activation), as a prim."""
+        return self.prim(fn, x)
+
     def backward(self, seeds: dict[int, torch.Tensor]
                  ) -> tuple[dict[int, torch.Tensor], dict[str, torch.Tensor],
                             list[WStash]]:

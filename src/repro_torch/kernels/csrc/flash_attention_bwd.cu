@@ -47,6 +47,16 @@
 // does. Only tiles that reach a row's causal limit are masked. 49 KB of
 // shared memory for a dQ block, 116 KB for a dK/dV block (one an SM).
 //
+// Head dims: 64, 128 and 96 (gpt-1.5B). The tiles are whole 64-column
+// blocks of the 128-byte swizzle, so e = 96 runs the 128-wide bodies with
+// the last 32 columns of every q, k, v and dO tile zero-filled by
+// cp.async from a zero source size (no extra bytes read); the products
+// add exact zeros over them, and dq, dk and dv are stored for 96 columns.
+// 4/3 of a 96-wide tile's products. At 128 (and 96) a dQ block takes
+// 97 KB and a dK/dV block splits its query tiles over two warpgroups
+// (kv_wg) in 163 KB: each holds 64 keys' dK and dV, 128 float registers a
+// thread.
+//
 // float32 inputs: the CUDA-core bodies (cc::dq_kernel, cc::dkdv_kernel):
 // scores, products and sums in float32 on the CUDA cores. No path of the
 // port runs them on the card; they serve float32 callers and tests.
@@ -74,34 +84,45 @@ struct DqSmem {
   static constexpr size_t bytes = tiles + 2 * BM * 4 + 1024;  // lse, D
 };
 
-// Warpgroups of a dK/dV block: they share the block's resident K and V
-// and split its query tiles, so the key tiles that see the most queries
-// (the first, under the causal mask) take no longer than the average
-// SM's share of the pass.
-constexpr int KV_WG = 3;
+// Warpgroups of a dK/dV block (tile widths E, EV): they share the block's
+// resident K and V and split its query tiles, so the key tiles that see
+// the most queries (the first, under the causal mask) take no longer than
+// the average SM's share of the pass. Three at a head dim of 64; two at
+// 128 (or 96, padded to it), where a warpgroup's dK and dV accumulators
+// take 128 float registers a thread and its ring 64 KB: three would need
+// more than the 168 registers a thread of 384 and the 227 KB of shared
+// memory a block can have.
+template <int E, int EV>
+__host__ __device__ constexpr int kv_wg() {
+  return E + EV > 128 ? 2 : 3;
+}
 
 template <int E, int EV>
 struct DkdvSmem {
+  static constexpr int NWG = kv_wg<E, EV>();
   static constexpr int k = BN * E * 2, v = BN * EV * 2;
   static constexpr int q = BM * E * 2;
   static constexpr int stage = BM * (E + EV) * 2;  // q then dO
   static constexpr int ring = 2 * stage;           // a warpgroup's stages
-  static constexpr int tiles = k + v + KV_WG * ring;
+  static constexpr int tiles = k + v + NWG * ring;
   // + per warpgroup and stage the tile's lse and D; + alignment
-  static constexpr size_t bytes = tiles + KV_WG * 2 * 2 * BM * 4 + 1024;
+  static constexpr size_t bytes = tiles + NWG * 2 * 2 * BM * 4 + 1024;
   // the rings then hold the partial dK, dV of warpgroups 1..
-  static_assert(KV_WG * ring >= (KV_WG - 1) * BN * (E + EV) * 4, "ring");
+  static_assert(NWG * ring >= (NWG - 1) * BN * (E + EV) * 4, "ring");
+  static_assert(bytes <= 232448, "shared memory of a block");
 };
 
-template <int E, int EV>
+// ER, EVR: the head dims of q/k and v in device memory; E, EV: the tile
+// widths, padded up to whole 64-column blocks (96 -> 128, zeros past ER).
+template <int ER, int EVR>
 __global__ void __launch_bounds__(mma::WG)
     dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ o,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
           float* __restrict__ Dg, float* __restrict__ dq, int sq, int H,
           int G, int S, int causal, int q_offset, float scale) {
-  static_assert(E % 64 == 0 && EV % 64 == 0, "head dims");
   using namespace mma;
+  constexpr int E = pad64(ER), EV = pad64(EVR);
   using L = DqSmem<E, EV>;
   extern __shared__ uint8_t smem_dq[];
   const uint32_t sQ = (smem_u32(smem_dq) + 1023) & ~1023u;
@@ -121,24 +142,24 @@ __global__ void __launch_bounds__(mma::WG)
   const int lo = rows.min_limit<BM>(m0);
   const int n_tiles = (rows.limit(min(m0 + BM, M) - 1) + BN - 1) / BN;
   const float sl2 = scale * LOG2E;
-  const int kv_stride = G * E, v_stride = G * EV;  // between keys
+  const int kv_stride = G * ER, v_stride = G * EVR;  // between keys
 
-  load_tile<BM, E>(sQ, q, [&](int r) -> const bf16* {
-    return m0 + r < M ? q + rows.row(m0 + r) * E : nullptr;
+  load_tile<BM, E, ER>(sQ, q, [&](int r) -> const bf16* {
+    return m0 + r < M ? q + rows.row(m0 + r) * ER : nullptr;
   });
-  load_tile<BM, EV>(sdO, dout, [&](int r) -> const bf16* {
-    return m0 + r < M ? dout + rows.row(m0 + r) * EV : nullptr;
+  load_tile<BM, EV, EVR>(sdO, dout, [&](int r) -> const bf16* {
+    return m0 + r < M ? dout + rows.row(m0 + r) * EVR : nullptr;
   });
   auto load_kv = [&](int t) {
     const uint32_t sK = sKV + (t & 1) * L::stage;
     const int n0 = t * BN;
     const size_t key0 = static_cast<size_t>(b) * S + n0;
-    const bf16* kt = k + (key0 * G + gi) * E;
-    const bf16* vt = v + (key0 * G + gi) * EV;
-    load_tile<BN, E>(sK, k, [&](int r) -> const bf16* {
+    const bf16* kt = k + (key0 * G + gi) * ER;
+    const bf16* vt = v + (key0 * G + gi) * EVR;
+    load_tile<BN, E, ER>(sK, k, [&](int r) -> const bf16* {
       return n0 + r < S ? kt + r * kv_stride : nullptr;
     });
-    load_tile<BN, EV>(sK + L::k, v, [&](int r) -> const bf16* {
+    load_tile<BN, EV, EVR>(sK + L::k, v, [&](int r) -> const bf16* {
       return n0 + r < S ? vt + r * v_stride : nullptr;
     });
   };
@@ -151,11 +172,11 @@ __global__ void __launch_bounds__(mma::WG)
     const int r = threadIdx.x >> 1, half = threadIdx.x & 1, m = m0 + r;
     float acc = 0.f;
     if (m < M) {
-      const size_t at = rows.row(m) * EV + half * EV / 2;
+      const size_t at = rows.row(m) * EVR + half * EVR / 2;
       const uint4* orow = reinterpret_cast<const uint4*>(o + at);
       const uint4* drow = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int u = 0; u < EV / 16; ++u) {
+      for (int u = 0; u < EVR / 16; ++u) {
         const uint4 ov = __ldg(orow + u), dv = __ldg(drow + u);
         const __nv_bfloat162* op =
             reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -263,27 +284,31 @@ __global__ void __launch_bounds__(mma::WG)
   for (int h = 0; h < 2; ++h) {
     const int m = m0 + r0 + 8 * h;
     if (m >= M) continue;
-    float* dst = dq + rows.row(m) * E;
+    float* dst = dq + rows.row(m) * ER;
 #pragma unroll
     for (int eb = 0; eb < E / 64; ++eb)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        if (eb * 64 + 8 * j >= ER) continue;  // pad columns: not stored
         *reinterpret_cast<float2*>(dst + eb * 64 + 8 * j + c0) =
             make_float2(acc[eb][4 * j + 2 * h] * scale,
                         acc[eb][4 * j + 2 * h + 1] * scale);
+      }
   }
 }
 
-template <int E, int EV>
-__global__ void __launch_bounds__(KV_WG * mma::WG)
+template <int ER, int EVR>
+__global__ void __launch_bounds__(
+    kv_wg<mma::pad64(ER), mma::pad64(EVR)>() * mma::WG)
     dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ Dg,
             float* __restrict__ dk, float* __restrict__ dv, int sq, int H,
             int G, int S, int causal, int q_offset, float scale) {
-  static_assert(E % 64 == 0 && EV % 64 == 0, "head dims");
   using namespace mma;
+  constexpr int E = pad64(ER), EV = pad64(EVR);
   using L = DkdvSmem<E, EV>;
+  constexpr int KV_WG = L::NWG;
   extern __shared__ uint8_t smem_kv[];
   const uint32_t sK = (smem_u32(smem_kv) + 1023) & ~1023u;
   const uint32_t sV = sK + L::k, sRings = sV + L::v;
@@ -304,13 +329,13 @@ __global__ void __launch_bounds__(KV_WG * mma::WG)
 
   if (wg == 0) {  // K and V, resident for the block
     const size_t key0 = static_cast<size_t>(b) * S + n0;
-    const bf16* kt = k + (key0 * G + gi) * E;
-    const bf16* vt = v + (key0 * G + gi) * EV;
-    load_tile<BN, E>(sK, k, [&](int r) -> const bf16* {
-      return n0 + r < S ? kt + r * (G * E) : nullptr;
+    const bf16* kt = k + (key0 * G + gi) * ER;
+    const bf16* vt = v + (key0 * G + gi) * EVR;
+    load_tile<BN, E, ER>(sK, k, [&](int r) -> const bf16* {
+      return n0 + r < S ? kt + r * (G * ER) : nullptr;
     });
-    load_tile<BN, EV>(sV, v, [&](int r) -> const bf16* {
-      return n0 + r < S ? vt + r * (G * EV) : nullptr;
+    load_tile<BN, EV, EVR>(sV, v, [&](int r) -> const bf16* {
+      return n0 + r < S ? vt + r * (G * EVR) : nullptr;
     });
   }
   // the query tiles that can see key n0 (causal) start at t0; warpgroup wg
@@ -321,11 +346,11 @@ __global__ void __launch_bounds__(KV_WG * mma::WG)
   auto load_q = [&](int t, int st) {
     const int m0 = t * BM;
     const uint32_t sQ = sRing + st * L::stage;
-    load_tile<BM, E>(sQ, q, [&](int r) -> const bf16* {
-      return m0 + r < M ? q + rows.row(m0 + r) * E : nullptr;
+    load_tile<BM, E, ER>(sQ, q, [&](int r) -> const bf16* {
+      return m0 + r < M ? q + rows.row(m0 + r) * ER : nullptr;
     });
-    load_tile<BM, EV>(sQ + L::q, dout, [&](int r) -> const bf16* {
-      return m0 + r < M ? dout + rows.row(m0 + r) * EV : nullptr;
+    load_tile<BM, EV, EVR>(sQ + L::q, dout, [&](int r) -> const bf16* {
+      return m0 + r < M ? dout + rows.row(m0 + r) * EVR : nullptr;
     });
     // lse and D of the tile's rows: threads 0-63 lse, 64-127 D
     const int r = tl & (BM - 1), m = m0 + r;
@@ -470,46 +495,52 @@ __global__ void __launch_bounds__(KV_WG * mma::WG)
     const int n = key[h];
     if (n >= S) continue;
     const size_t row = (static_cast<size_t>(b) * S + n) * G + gi;
+    // the pad columns (past ER, EVR) are not stored
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int eb = 0; eb < E / 64; ++eb)
-        *reinterpret_cast<float2*>(dk + row * E + eb * 64 + 8 * j + c0) =
-            make_float2(dK[eb][4 * j + 2 * h] * scale,
-                        dK[eb][4 * j + 2 * h + 1] * scale);
+        if (eb * 64 + 8 * j < ER)
+          *reinterpret_cast<float2*>(dk + row * ER + eb * 64 + 8 * j + c0) =
+              make_float2(dK[eb][4 * j + 2 * h] * scale,
+                          dK[eb][4 * j + 2 * h + 1] * scale);
 #pragma unroll
       for (int eb = 0; eb < EV / 64; ++eb)
-        *reinterpret_cast<float2*>(dv + row * EV + eb * 64 + 8 * j + c0) =
-            make_float2(dV[eb][4 * j + 2 * h], dV[eb][4 * j + 2 * h + 1]);
+        if (eb * 64 + 8 * j < EVR)
+          *reinterpret_cast<float2*>(dv + row * EVR + eb * 64 + 8 * j +
+                                     c0) =
+              make_float2(dV[eb][4 * j + 2 * h], dV[eb][4 * j + 2 * h + 1]);
     }
   }
 }
 
-template <int E, int EV>
+template <int ER, int EVR>
 int run_tc(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* D, float* dq,
            float* dk, float* dv, int b, int sq, int H, int G, int S,
            int causal, int q_offset, float scale, cudaStream_t stream) {
-  auto kq = dq_tc<E, EV>;
-  auto kkv = dkdv_tc<E, EV>;
-  cudaError_t err = mma::allow_smem(kq, DqSmem<E, EV>::bytes);
-  if (err == cudaSuccess) err = mma::allow_smem(kkv, DkdvSmem<E, EV>::bytes);
+  constexpr int E = mma::pad64(ER), EV = mma::pad64(EVR);
+  using LQ = DqSmem<E, EV>;
+  using LKV = DkdvSmem<E, EV>;
+  auto kq = dq_tc<ER, EVR>;
+  auto kkv = dkdv_tc<ER, EVR>;
+  cudaError_t err = mma::allow_smem(kq, LQ::bytes);
+  if (err == cudaSuccess) err = mma::allow_smem(kkv, LKV::bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bf16* tq = static_cast<const bf16*>(q);
   const bf16* tk = static_cast<const bf16*>(k);
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
   const int M = H / G * sq;
-  kq<<<dim3(b * G, (M + BM - 1) / BM), mma::WG, DqSmem<E, EV>::bytes,
-       stream>>>(tq, tk, tv, static_cast<const bf16*>(o), tdo, lse, D, dq,
-                 sq, H, G, S, causal, q_offset, scale);
+  kq<<<dim3(b * G, (M + BM - 1) / BM), mma::WG, LQ::bytes, stream>>>(
+      tq, tk, tv, static_cast<const bf16*>(o), tdo, lse, D, dq, sq, H, G, S,
+      causal, q_offset, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (S > 0)
-    kkv<<<dim3(b * G, (S + BN - 1) / BN), KV_WG * mma::WG,
-          DkdvSmem<E, EV>::bytes, stream>>>(tq, tk, tv, tdo, lse, D, dk, dv,
-                                            sq, H, G, S, causal, q_offset,
-                                            scale);
+    kkv<<<dim3(b * G, (S + BN - 1) / BN), LKV::NWG * mma::WG, LKV::bytes,
+          stream>>>(tq, tk, tv, tdo, lse, D, dk, dv, sq, H, G, S, causal,
+                    q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -850,10 +881,29 @@ int run(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace cc
 
+namespace {
+
+template <int E>
+int run(int dtype, const void* q, const void* k, const void* v,
+        const void* o, const void* dout, const float* lse, float* D,
+        float* dq, float* dk, float* dv, int b, int sq, int H, int G, int S,
+        int causal, int q_offset, float scale, cudaStream_t st) {
+  if (dtype == 0)
+    return cc::run<E, E>(q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H, G,
+                         S, causal, q_offset, scale, st);
+  if (dtype == 1)
+    return run_tc<E, E>(q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H, G,
+                        S, causal, q_offset, scale, st);
+  return -1;
+}
+
+}  // namespace
+
 // dtype codes: 0 float32 (CUDA-core bodies), 1 bfloat16 (tensor-core
 // bodies); q, k, v, o, dout share one. lse [b, H, sq] from
 // flash_attention_fwd; D [b, H, sq] float32 scratch; dq [b, sq, H, E],
-// dk [b, S, G, E], dv [b, S, G, EV] float32 outputs. Head dim 64 only.
+// dk [b, S, G, E], dv [b, S, G, EV] float32 outputs. Head dims E == EV in
+// {64, 96 (the 128-wide tensor-core bodies with zero pad columns), 128}.
 // Returns 0, a cudaError_t, or -1 for a shape or dtype without an
 // instantiation.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
@@ -864,13 +914,19 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    int EV, int causal, int q_offset,
                                    float scale, void* stream) {
   if (b == 0 || sq == 0) return 0;
-  if (E != 64 || EV != 64) return -1;
+  if (E != EV) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return cc::run<64, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, b,
-                                  sq, H, G, S, causal, q_offset, scale, st);
-  if (dtype == 1)
-    return run_tc<64, 64>(q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H, G,
-                          S, causal, q_offset, scale, st);
-  return -1;
+  switch (E) {
+    case 64:
+      return run<64>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H,
+                     G, S, causal, q_offset, scale, st);
+    case 96:
+      return run<96>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H,
+                     G, S, causal, q_offset, scale, st);
+    case 128:
+      return run<128>(dtype, q, k, v, o, dout, lse, D, dq, dk, dv, b, sq, H,
+                      G, S, causal, q_offset, scale, st);
+    default:
+      return -1;
+  }
 }

@@ -38,6 +38,15 @@
 // (last) rows first. 41 KB of shared memory a block, several blocks an SM
 // hiding one another's softmax behind their products.
 //
+// Head dims: 64, 128 (two 64-column blocks: 81 KB a block) and 96
+// (gpt-1.5B). The tensor-core tiles are whole 64-column blocks in the
+// 128-byte swizzle, so e = 96 runs the 128-wide body: q, K and V fill 96
+// columns from device memory and the last 32 are zero-filled by cp.async
+// with a zero source size (no extra bytes read), S and P V add exact
+// zeros over them, and only 96 output columns are stored. That spends 4/3
+// of the products of a 96-wide tile; the softmax scale is the caller's,
+// 1/sqrt(96).
+//
 // float32 inputs: the CUDA-core body shared with the serving kernels
 // (attention_tile.cuh attend), products in float32 on the CUDA cores.
 // No path of the port runs it on the card; it serves float32 callers and
@@ -59,14 +68,16 @@ struct FwdSmem {
   static constexpr size_t bytes = q + 2 * stage + 1024;  // + alignment
 };
 
-template <int E, int EV>
+// ER, EVR: the head dims of q/k and v in device memory; E, EV: the tile
+// widths, padded up to whole 64-column blocks (96 -> 128, zeros past ER).
+template <int ER, int EVR>
 __global__ void __launch_bounds__(mma::WG)
     flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
                  float* __restrict__ lse, int sq, int H, int G, int S,
                  int causal, int q_offset, float scale) {
-  static_assert(E % 64 == 0 && EV % 64 == 0, "head dims");
   using namespace mma;
+  constexpr int E = pad64(ER), EV = pad64(EVR);
   using L = FwdSmem<E, EV>;
   extern __shared__ uint8_t smem_fwd[];
   const uint32_t sQ = (smem_u32(smem_fwd) + 1023) & ~1023u;
@@ -83,21 +94,21 @@ __global__ void __launch_bounds__(mma::WG)
   const int lo = rows.min_limit<BM>(m0);
   const int n_tiles = (rows.limit(min(m0 + BM, M) - 1) + BN - 1) / BN;
   const float sl2 = scale * LOG2E;
-  const int kv_stride = G * E, v_stride = G * EV;  // between keys
+  const int kv_stride = G * ER, v_stride = G * EVR;  // between keys
 
-  load_tile<BM, E>(sQ, q, [&](int r) -> const bf16* {
-    return m0 + r < M ? q + rows.row(m0 + r) * E : nullptr;
+  load_tile<BM, E, ER>(sQ, q, [&](int r) -> const bf16* {
+    return m0 + r < M ? q + rows.row(m0 + r) * ER : nullptr;
   });
   auto load_kv = [&](int t) {
     const uint32_t sK = sKV + (t & 1) * L::stage;
     const int n0 = t * BN;
     const size_t key0 = static_cast<size_t>(b) * S + n0;
-    const bf16* kt = k + (key0 * G + gi) * E;
-    const bf16* vt = v + (key0 * G + gi) * EV;
-    load_tile<BN, E>(sK, k, [&](int r) -> const bf16* {
+    const bf16* kt = k + (key0 * G + gi) * ER;
+    const bf16* vt = v + (key0 * G + gi) * EVR;
+    load_tile<BN, E, ER>(sK, k, [&](int r) -> const bf16* {
       return n0 + r < S ? kt + r * kv_stride : nullptr;
     });
-    load_tile<BN, EV>(sK + L::k, v, [&](int r) -> const bf16* {
+    load_tile<BN, EV, EVR>(sK + L::k, v, [&](int r) -> const bf16* {
       return n0 + r < S ? vt + r * v_stride : nullptr;
     });
   };
@@ -201,14 +212,16 @@ __global__ void __launch_bounds__(mma::WG)
     const int m = m0 + r0 + 8 * h;
     if (m >= M) continue;
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    bf16* orow = out + rows.row(m) * EV;
+    bf16* orow = out + rows.row(m) * EVR;
 #pragma unroll
     for (int ob = 0; ob < EV / 64; ++ob)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        if (ob * 64 + 8 * j >= EVR) continue;  // pad columns: not stored
         *reinterpret_cast<__nv_bfloat162*>(orow + ob * 64 + 8 * j + c0) =
             __floats2bfloat162_rn(o[ob][4 * j + 2 * h] * inv,
                                   o[ob][4 * j + 2 * h + 1] * inv);
+      }
     if ((lane & 3) == 0)
       lse[rows.stat(m)] =
           lsum > 0.f ? (mx[h] + log2f(lsum)) * LN2 : -INFINITY;
@@ -220,7 +233,7 @@ int run_tc(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int sq, int H, int G, int S, int causal,
            int q_offset, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_tc<E, EV>;
-  constexpr size_t smem = FwdSmem<E, EV>::bytes;
+  constexpr size_t smem = FwdSmem<mma::pad64(E), mma::pad64(EV)>::bytes;
   cudaError_t err = mma::allow_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = H / G * sq;
@@ -266,22 +279,46 @@ int run_cuda_core(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+namespace {
+
+template <int E>
+int run(int dtype, const void* q, const void* k, const void* v, void* out,
+        float* lse, int b, int sq, int H, int G, int S, int causal,
+        int q_offset, float scale, cudaStream_t st) {
+  if (dtype == 0)
+    return run_cuda_core<E, E, 64>(q, k, v, out, lse, b, sq, H, G, S, causal,
+                                   q_offset, scale, st);
+  if (dtype == 1)
+    return run_tc<E, E>(q, k, v, out, lse, b, sq, H, G, S, causal, q_offset,
+                        scale, st);
+  return -1;
+}
+
+}  // namespace
+
 // dtype codes: 0 float32 (CUDA-core body), 1 bfloat16 (tensor-core body).
-// Head dim 64 only (llama3.2-1b). Returns 0, a cudaError_t, or -1 for a
-// shape or dtype without an instantiation.
+// Head dims E == EV in {64 (llama3.2-1b), 96 (gpt-1.5B: the 128-wide
+// tensor-core body with zero pad columns), 128}. Returns 0, a
+// cudaError_t, or -1 for a shape or dtype without an instantiation.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int b, int sq, int H, int G, int S, int E,
                                    int EV, int causal, int q_offset,
                                    float scale, void* stream) {
   if (b == 0 || sq == 0) return 0;
-  if (E != 64 || EV != 64) return -1;
+  if (E != EV) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run_cuda_core<64, 64, 64>(q, k, v, out, lse, b, sq, H, G,
-                                            S, causal, q_offset, scale, st);
-  if (dtype == 1)
-    return run_tc<64, 64>(q, k, v, out, lse, b, sq, H, G, S, causal,
-                          q_offset, scale, st);
-  return -1;
+  switch (E) {
+    case 64:
+      return run<64>(dtype, q, k, v, out, lse, b, sq, H, G, S, causal,
+                     q_offset, scale, st);
+    case 96:
+      return run<96>(dtype, q, k, v, out, lse, b, sq, H, G, S, causal,
+                     q_offset, scale, st);
+    case 128:
+      return run<128>(dtype, q, k, v, out, lse, b, sq, H, G, S, causal,
+                      q_offset, scale, st);
+    default:
+      return -1;
+  }
 }

@@ -1,23 +1,25 @@
 // Fused vocabulary cross-entropy on Hopper: loss statistics, dh and dW of
-// softmax cross-entropy over a tied head, without the [n, vocab] logits
-// ever reaching device memory.
+// softmax cross-entropy over a tied or an untied head, without the
+// [n, vocab] logits ever reaching device memory.
 //
 // Replaces the TPU kernel repro/kernels/fused_xent.py:109 softmax_xent
 // (bodies _p1_kernel :28 and _p2_kernel :64). The port reaches it from
 // the trainer's loss (core/vocab.py loss_and_dy, one-rank branch), with
-// the bf16 embedding table [V, d] read in place as the head.
+// the head read in place: the bf16 embedding table [V, d] of a tied model
+// (llama3.2-1b), or the bf16 head.w [d, V] of an untied one (gpt-1.5B).
 //
-// Contract: h [n, d] float32 (final-norm output), w [V, d] float32 or
-// bfloat16, labels int32 [n] in [0, V), scale float32 [n] (mask / denom).
-//   fused_xent_fwd: lse [n] = logsumexp_v(h w^T), labl [n] = the label's
+// Contract: h [n, d] float32 (final-norm output); w float32 or bfloat16,
+// either a table [V, d] (layout TABLE) or a head [d, V] (layout HEAD);
+// labels int32 [n] in [0, V), scale float32 [n] (mask / denom).
+//   fused_xent_fwd: lse [n] = logsumexp_v(logits), labl [n] = the label's
 //     logit; pm, pl [n, ceil(V/128)] float32 scratch; hs bf16 [2, n, d]
 //     scratch (bf16 w only: h split into two bf16 terms, kept for the
 //     backward call).
-//   fused_xent_bwd: dlog = (softmax - onehot) * scale, dh [n, d] =
-//     dlog w, dw [V, d] = dlog^T h, both float32; dlog scratch for one
-//     vocabulary chunk of Vc columns (Vc % 128 == 0): float32 [n, Vc]
+//   fused_xent_bwd: dlog = (softmax - onehot) * scale, dh [n, d] and dw,
+//     both float32, dw in w's layout ([V, d] or [d, V]); dlog scratch for
+//     one vocabulary chunk of Vc columns (Vc % 128 == 0): float32 [n, Vc]
 //     for a float32 w, bf16 [2, n, Vc] (two terms) for a bf16 w.
-// Requires d % 8 == 0.
+// Requires d % 8 == 0, and V % 8 == 0 for a head (16-byte rows).
 //
 // Bound on the H100: operations. The function is three GEMM-shaped
 // products of 2 n d V flops each (logits, dh, dW): 3.2 TFLOP a call at
@@ -66,11 +68,17 @@
 //     dh_tc: (d tile, row tile) over the chunk, adding into dh.
 //   The logits exist only as the [2, n, Vc] bf16 dlog of one chunk (64
 //   MB at n = 2048, Vc = 8192).
+//   A [d, V] head needs no transposed copy: wgmma reads either major
+//   order of a bf16 operand from shared memory, so each product takes
+//   the head's tiles in place with the other transpose flag (the logits'
+//   B operand MN-major, dh's K-major), and dw_tc computes dW^T = h^T dlog
+//   (the same three terms) so that it stores rows of the [d, V] gradient.
 //
 // float32 w: the CUDA-core body below (gemm and its five kernels), in
 // float32 throughout, as the reference computes it: 128 x 128 output
 // tiles, 8-deep k steps through shared memory, 8 x 8 outputs a thread,
-// the same pass structure (stats / lse, then dlog, dW and dh per chunk).
+// the same pass structure (stats / lse, then dlog, dW and dh per chunk);
+// a [d, V] head is read with strided float4 loads along its rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -195,8 +203,29 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// The table's layouts (the C entry's `layout`): TABLE, w [V, d] (the tied
+// embedding); HEAD, w [d, V] (an untied head; needs V % 8 == 0).
+constexpr int TABLE = 0, HEAD = 1;
+
+// logits = h w^T over every d: the block's TB x TB tile at (m0, v0);
+// w's rows from v_lo on (a chunk's first column).
+template <int LAYOUT>
+__device__ __forceinline__ void logits(const float* h, const float* w,
+                                       int n, int d, int V, int v_lo,
+                                       int m0, int v0, float (&acc)[8][8],
+                                       float* As, float* Bs) {
+  if constexpr (LAYOUT == HEAD)
+    gemm(DepthMajor{h, d, n, d}, RowMajor{w + v_lo, V, V - v_lo, d}, m0,
+         v0, d, acc, As, Bs);
+  else
+    gemm(DepthMajor{h, d, n, d},
+         DepthMajor{w + static_cast<size_t>(v_lo) * d, d, V - v_lo, d}, m0,
+         v0, d, acc, As, Bs);
+}
+
 // pass 1: per (row tile, vocab tile) max and sum of exp of the logits,
 // and the label logit of the rows whose label falls in the tile.
+template <int LAYOUT>
 __global__ void __launch_bounds__(GT)
     stats_kernel(const float* __restrict__ h, const float* __restrict__ w,
                  const int* __restrict__ labels, float* __restrict__ pm,
@@ -206,8 +235,7 @@ __global__ void __launch_bounds__(GT)
   __shared__ __align__(16) float Bs[BK * LDS];
   const int v0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor{h, d, n, d}, DepthMajor{w, d, V, d}, m0, v0, d,
-       acc, As, Bs);
+  logits<LAYOUT>(h, w, n, d, V, 0, m0, v0, acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -259,6 +287,7 @@ __global__ void __launch_bounds__(GT)
 
 // pass 2a: dlog[row, c] = (exp(logit - lse) - onehot) * scale[row] for the
 // chunk's columns c0 + c (c < Vc); columns at or past V are 0.
+template <int LAYOUT>
 __global__ void __launch_bounds__(GT)
     dlog_kernel(const float* __restrict__ h, const float* __restrict__ w,
                 const int* __restrict__ labels,
@@ -269,9 +298,7 @@ __global__ void __launch_bounds__(GT)
   __shared__ __align__(16) float Bs[BK * LDS];
   const int v0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor{h, d, n, d},
-       DepthMajor{w + static_cast<size_t>(c0) * d, d, V - c0, d}, m0, v0,
-       d, acc, As, Bs);
+  logits<LAYOUT>(h, w, n, d, V, c0, m0, v0, acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -295,17 +322,38 @@ __global__ void __launch_bounds__(GT)
   }
 }
 
-// pass 2b: dw[c0 + c, :] = sum_rows dlog[row, c] * h[row, :] for c < cw.
+// pass 2b: dw[c0 + c, :] = sum_rows dlog[row, c] * h[row, :] for c < cw
+// (TABLE); HEAD: dw[:, c0 + c], the product taken as h^T dlog so that a
+// thread stores four consecutive vocab columns of one row of d.
+template <int LAYOUT>
 __global__ void __launch_bounds__(GT)
     dw_kernel(const float* __restrict__ dlog, const float* __restrict__ h,
-              float* __restrict__ dw, int n, int d, int c0, int Vc, int cw) {
+              float* __restrict__ dw, int n, int d, int V, int c0, int Vc,
+              int cw) {
   __shared__ __align__(16) float As[BK * LDS];
   __shared__ __align__(16) float Bs[BK * LDS];
   const int e0 = blockIdx.x * TB, c_0 = blockIdx.y * TB;
   float acc[8][8];
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  if constexpr (LAYOUT == HEAD) {
+    gemm(RowMajor{h, d, d, n}, RowMajor{dlog, Vc, Vc, n}, e0, c_0, n, acc,
+         As, Bs);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = e0 + sub(ty, i);
+      if (e >= d) continue;
+      float* dst = dw + static_cast<size_t>(e) * V + c0 + c_0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        if (c_0 + half * 64 + tx * 4 < cw)
+          *reinterpret_cast<float4*>(dst + half * 64 + tx * 4) = make_float4(
+              acc[i][half * 4], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
+              acc[i][half * 4 + 3]);
+    }
+    return;
+  }
   gemm(RowMajor{dlog, Vc, Vc, n}, RowMajor{h, d, d, n}, c_0,
        e0, n, acc, As, Bs);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = c_0 + sub(ty, i);
@@ -320,18 +368,24 @@ __global__ void __launch_bounds__(GT)
   }
 }
 
-// pass 2c: dh[row, :] (+)= sum_{c < cw} dlog[row, c] * w[c0 + c, :].
+// pass 2c: dh[row, :] (+)= sum_{c < cw} dlog[row, c] * w[c0 + c, :]
+// (HEAD: w[:, c0 + c], read along its rows).
+template <int LAYOUT>
 __global__ void __launch_bounds__(GT)
     dh_kernel(const float* __restrict__ dlog, const float* __restrict__ w,
-              float* __restrict__ dh, int n, int d, int c0, int Vc, int cw,
-              int accumulate) {
+              float* __restrict__ dh, int n, int d, int V, int c0, int Vc,
+              int cw, int accumulate) {
   __shared__ __align__(16) float As[BK * LDS];
   __shared__ __align__(16) float Bs[BK * LDS];
   const int e0 = blockIdx.x * TB, m0 = blockIdx.y * TB;
   float acc[8][8];
-  gemm(DepthMajor{dlog, Vc, n, cw},
-       RowMajor{w + static_cast<size_t>(c0) * d, d, d, cw}, m0, e0, cw,
-       acc, As, Bs);
+  if constexpr (LAYOUT == HEAD)
+    gemm(DepthMajor{dlog, Vc, n, cw}, DepthMajor{w + c0, V, d, cw}, m0, e0,
+         cw, acc, As, Bs);
+  else
+    gemm(DepthMajor{dlog, Vc, n, cw},
+         RowMajor{w + static_cast<size_t>(c0) * d, d, d, cw}, m0, e0, cw,
+         acc, As, Bs);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -358,11 +412,12 @@ __global__ void __launch_bounds__(GT)
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+template <int LAYOUT>
 int fwd_cc(const float* h, const float* w, const int* labels, float* lse,
            float* labl, float* pm, float* pl, int n, int d, int V,
            cudaStream_t st) {
   const int nvt = cdiv(V, TB);
-  stats_kernel<<<dim3(nvt, cdiv(n, TB)), GT, 0, st>>>(
+  stats_kernel<LAYOUT><<<dim3(nvt, cdiv(n, TB)), GT, 0, st>>>(
       h, w, labels, pm, pl, labl, n, d, V, nvt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -370,21 +425,22 @@ int fwd_cc(const float* h, const float* w, const int* labels, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LAYOUT>
 int bwd_cc(const float* h, const float* w, const int* labels,
            const float* lse, const float* scale, float* dh, float* dw,
            float* dlog, int n, int d, int V, int Vc, cudaStream_t st) {
   for (int c0 = 0; c0 < V; c0 += Vc) {
     const int cw = V - c0 < Vc ? V - c0 : Vc;
-    dlog_kernel<<<dim3(Vc / TB, cdiv(n, TB)), GT, 0, st>>>(
+    dlog_kernel<LAYOUT><<<dim3(Vc / TB, cdiv(n, TB)), GT, 0, st>>>(
         h, w, labels, lse, scale, dlog, n, d, V, c0, Vc);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dw_kernel<<<dim3(cdiv(d, TB), cdiv(cw, TB)), GT, 0, st>>>(
-        dlog, h, dw, n, d, c0, Vc, cw);
+    dw_kernel<LAYOUT><<<dim3(cdiv(d, TB), cdiv(cw, TB)), GT, 0, st>>>(
+        dlog, h, dw, n, d, V, c0, Vc, cw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dh_kernel<<<dim3(cdiv(d, TB), cdiv(n, TB)), GT, 0, st>>>(
-        dlog, w, dh, n, d, c0, Vc, cw, c0 > 0);
+    dh_kernel<LAYOUT><<<dim3(cdiv(d, TB), cdiv(n, TB)), GT, 0, st>>>(
+        dlog, w, dh, n, d, V, c0, Vc, cw, c0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -431,12 +487,15 @@ __device__ __forceinline__ void fill(uint32_t dst, const bf16* src, int ld,
 // its 64 rows (K-major tile) or 64 columns (MN-major tile), HALF bytes
 // in.
 
-// logits = h w^T: output rows of h (m0..), columns = rows of w (v0..);
-// h_hi and h_lo over the same staged w tile, all K-major.
+// logits = h w^T: output rows of h (m0..), columns = vocab entries
+// (v0..); h_hi and h_lo over the same staged w tile. h is K-major; the
+// table's rows (TABLE) are K-major too, while a [d, V] head (HEAD) is read
+// in place as an MN-major tile of 64 rows of d by 128 vocab columns.
+template <int LAYOUT>
 struct Logits {
   static constexpr int STAGE = 3 * TILE, STAGES = 4, PROMOTE = 0;
   const bf16* hs;  // [2, n, d]: hi, lo
-  const bf16* w;   // [V, d]
+  const bf16* w;   // [V, d] (TABLE) or [d, V] (HEAD)
   int n, d, V;
   __device__ int k_tiles() const { return (d + BK - 1) / BK; }
   __device__ __forceinline__ void load(uint32_t s, int m0, int v0,
@@ -444,30 +503,39 @@ struct Logits {
     const int k0 = kt * BK;
     fill<BT, BK>(s, hs, d, m0, n, k0, d);
     fill<BT, BK>(s + TILE, hs + static_cast<size_t>(n) * d, d, m0, n, k0, d);
-    fill<BT, BK>(s + 2 * TILE, w, d, v0, V, k0, d);
+    if constexpr (LAYOUT == HEAD)
+      fill<BK, BT>(s + 2 * TILE, w, V, k0, d, v0, V);
+    else
+      fill<BT, BK>(s + 2 * TILE, w, d, v0, V, k0, d);
   }
   __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
                                       int zero) const {
+    constexpr int TB_ = LAYOUT == HEAD;  // B MN-major
     const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const uint64_t db = desc_k<BT>(b + j * HALF, kk);
-        wgmma_ss(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
-        wgmma_ss(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
+        const uint64_t db = TB_ ? desc_mn<BK>(b + j * HALF, kk)
+                                : desc_k<BT>(b + j * HALF, kk);
+        wgmma_ss_t<0, TB_>(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
+        wgmma_ss_t<0, TB_>(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
       }
   }
 };
 
 // dh = dlog w over one chunk: output rows (m0..) by columns of d (e0..);
-// dlog_hi and dlog_lo K-major (the chunk's columns are the depth), the
-// chunk's table rows MN-major (the depth runs down them, as V in P V).
+// dlog_hi and dlog_lo K-major (the chunk's columns are the depth). The
+// chunk's table rows (TABLE) are MN-major (the depth runs down them, as V
+// in P V); a [d, V] head (HEAD) holds the depth along its rows, so its
+// tile of 128 rows of d by 64 vocab columns is K-major.
+template <int LAYOUT>
 struct DH {
   static constexpr int STAGE = 3 * TILE, STAGES = 4, PROMOTE = 4;
   const bf16* dl;  // [2, n, Vc]
-  const bf16* w;   // the chunk's first table row; [cw, d]
-  int n, d, Vc, cw;
+  const bf16* w;   // the chunk's first table row [cw, d] (TABLE), or its
+                   // first column of the head [d, V] (HEAD)
+  int n, d, Vc, cw, V;
   __device__ int k_tiles() const { return (cw + BK - 1) / BK; }
   __device__ __forceinline__ void load(uint32_t s, int m0, int e0,
                                        int kt) const {
@@ -475,39 +543,53 @@ struct DH {
     fill<BT, BK>(s, dl, Vc, m0, n, k0, Vc);
     fill<BT, BK>(s + TILE, dl + static_cast<size_t>(n) * Vc, Vc, m0, n, k0,
                  Vc);
-    fill<BK, BT>(s + 2 * TILE, w, d, k0, cw, e0, d);
+    if constexpr (LAYOUT == HEAD)
+      fill<BT, BK>(s + 2 * TILE, w, V, e0, d, k0, cw);
+    else
+      fill<BK, BT>(s + 2 * TILE, w, d, k0, cw, e0, d);
   }
   __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
                                       int zero) const {
+    constexpr int TB_ = LAYOUT != HEAD;  // B MN-major
     const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const uint64_t db = desc_mn<BK>(b + j * HALF, kk);
-        wgmma_ss_t<0, 1>(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
-        wgmma_ss_t<0, 1>(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
+        const uint64_t db = TB_ ? desc_mn<BK>(b + j * HALF, kk)
+                                : desc_k<BT>(b + j * HALF, kk);
+        wgmma_ss_t<0, TB_>(acc[j], desc_k<BT>(a, kk), db, kk > 0 || !zero);
+        wgmma_ss_t<0, TB_>(acc[j], desc_k<BT>(a + TILE, kk), db, 1);
       }
   }
 };
 
-// dW = dlog^T h over all n rows: output rows = the chunk's columns
-// (c0..) by columns of d (e0..); the depth (rows of dlog and h) runs
-// down both tiles, so both are MN-major and A is transposed in the wgmma.
+// dW = dlog^T h over all n rows (TABLE): output rows = the chunk's
+// columns (c0..) by columns of d (e0..); HEAD takes dW^T = h^T dlog, rows
+// of d by the chunk's columns, so that the [d, V] gradient is stored
+// along its rows. The depth (rows of dlog and h) runs down every tile, so
+// all are MN-major and A is transposed in the wgmma. The three products
+// hi hi, hi lo and lo hi are the same terms in either order.
+template <int LAYOUT>
 struct DW {
   static constexpr int STAGE = 4 * TILE, STAGES = 3, PROMOTE = 4;
   const bf16* dl;  // [2, n, Vc]
   const bf16* hs;  // [2, n, d]
   int n, d, Vc;
   __device__ int k_tiles() const { return (n + BK - 1) / BK; }
-  __device__ __forceinline__ void load(uint32_t s, int c0, int e0,
+  // a0, b0: the output tile's first row and column
+  __device__ __forceinline__ void load(uint32_t s, int a0, int b0,
                                        int kt) const {
     const int k0 = kt * BK;
-    fill<BK, BT>(s, dl, Vc, k0, n, c0, Vc);
-    fill<BK, BT>(s + TILE, dl + static_cast<size_t>(n) * Vc, Vc, k0, n, c0,
+    const bool head = LAYOUT == HEAD;
+    const int c0 = head ? b0 : a0, e0 = head ? a0 : b0;
+    // A's two terms, then B's
+    const uint32_t sd = head ? s + 2 * TILE : s, sh = head ? s : s + 2 * TILE;
+    fill<BK, BT>(sd, dl, Vc, k0, n, c0, Vc);
+    fill<BK, BT>(sd + TILE, dl + static_cast<size_t>(n) * Vc, Vc, k0, n, c0,
                  Vc);
-    fill<BK, BT>(s + 2 * TILE, hs, d, k0, n, e0, d);
-    fill<BK, BT>(s + 3 * TILE, hs + static_cast<size_t>(n) * d, d, k0, n, e0,
+    fill<BK, BT>(sh, hs, d, k0, n, e0, d);
+    fill<BK, BT>(sh + TILE, hs + static_cast<size_t>(n) * d, d, k0, n, e0,
                  d);
   }
   __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
@@ -629,8 +711,10 @@ __global__ void __launch_bounds__(256)
 
 // pass 1: per (row tile, vocab tile) max and sum of exp of the logits,
 // and the label logit of the rows whose label falls in the tile.
+template <int LAYOUT>
 __global__ void __launch_bounds__(NT, 1)
-    stats_tc(Logits p, const int* __restrict__ labels, float* __restrict__ pm,
+    stats_tc(Logits<LAYOUT> p, const int* __restrict__ labels,
+             float* __restrict__ pm,
              float* __restrict__ pl, float* __restrict__ labl, int nvt) {
   extern __shared__ __align__(1024) uint8_t smem_x[];
   const int m0 = blockIdx.x * BT, v0 = blockIdx.y * BT;
@@ -680,8 +764,9 @@ __global__ void __launch_bounds__(NT, 1)
 // pass 2a: dlog[row, v - c0] = (exp(logit - lse) - onehot) * scale[row]
 // for the chunk's vocab tile blockIdx.y, as two bf16 terms (dl[0] = hi,
 // dl[1] = lo); columns at or past V are 0.
+template <int LAYOUT>
 __global__ void __launch_bounds__(NT, 1)
-    dlog_tc(Logits p, const int* __restrict__ labels,
+    dlog_tc(Logits<LAYOUT> p, const int* __restrict__ labels,
             const float* __restrict__ lse, const float* __restrict__ scale,
             bf16* __restrict__ dl, int c0, int Vc) {
   extern __shared__ __align__(1024) uint8_t smem_x[];
@@ -718,12 +803,33 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // pass 2b: dw[c0 + c, :] = sum_rows dlog[row, c] h[row, :] for the chunk's
-// columns c < cw of vocab tile blockIdx.y, d tile blockIdx.x.
+// columns c < cw of vocab tile blockIdx.y, d tile blockIdx.x (HEAD: dw[:,
+// c0 + c], leading dimension V).
+template <int LAYOUT>
 __global__ void __launch_bounds__(NT, 1)
-    dw_tc(DW p, float* __restrict__ dw, int c0, int cw) {
+    dw_tc(DW<LAYOUT> p, float* __restrict__ dw, int c0, int cw, int V) {
   extern __shared__ __align__(1024) uint8_t smem_x[];
   const int e0 = blockIdx.x * BT, t0 = blockIdx.y * BT;
   float acc[2][32];
+  if constexpr (LAYOUT == HEAD) {
+    mainloop(p, ring(smem_x), e0, t0, acc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int e = e0 + row0() + 8 * hh;
+      if (e >= p.d) continue;
+      float* dst = dw + static_cast<size_t>(e) * V + c0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = t0 + col0() + 64 * j + 8 * q;
+          if (c < cw)
+            *reinterpret_cast<float2*>(dst + c) = make_float2(
+                acc[j][4 * q + 2 * hh], acc[j][4 * q + 2 * hh + 1]);
+        }
+    }
+    return;
+  }
   mainloop(p, ring(smem_x), t0, e0, acc);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -744,8 +850,9 @@ __global__ void __launch_bounds__(NT, 1)
 
 // pass 2c: dh[row, :] (+)= sum_{c < cw} dlog[row, c] w[c0 + c, :] for row
 // tile blockIdx.y, d tile blockIdx.x.
+template <int LAYOUT>
 __global__ void __launch_bounds__(NT, 1)
-    dh_tc(DH p, float* __restrict__ dh, int accumulate) {
+    dh_tc(DH<LAYOUT> p, float* __restrict__ dh, int accumulate) {
   extern __shared__ __align__(1024) uint8_t smem_x[];
   const int e0 = blockIdx.x * BT, m0 = blockIdx.y * BT;
   float acc[2][32];
@@ -773,6 +880,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+template <int LAYOUT>
 int fwd(const float* h, const bf16* w, const int* labels, float* lse,
         float* labl, float* pm, float* pl, bf16* hs, int n, int d, int V,
         cudaStream_t st) {
@@ -782,39 +890,43 @@ int fwd(const float* h, const bf16* w, const int* labels, float* lse,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nvt = cdiv(V, BT);
-  constexpr size_t smem = smem_bytes<Logits>();
-  err = allow_smem(stats_tc, smem);
+  constexpr size_t smem = smem_bytes<Logits<LAYOUT>>();
+  err = allow_smem(stats_tc<LAYOUT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stats_tc<<<dim3(cdiv(n, BT), nvt), NT, smem, st>>>(Logits{hs, w, n, d, V},
-                                                    labels, pm, pl, labl,
-                                                    nvt);
+  stats_tc<LAYOUT><<<dim3(cdiv(n, BT), nvt), NT, smem, st>>>(
+      Logits<LAYOUT>{hs, w, n, d, V}, labels, pm, pl, labl, nvt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, lse, n, nvt);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LAYOUT>
 int bwd(const bf16* hs, const bf16* w, const int* labels, const float* lse,
         const float* scale, float* dh, float* dw, bf16* dl, int n, int d,
         int V, int Vc, cudaStream_t st) {
-  constexpr size_t sl = smem_bytes<Logits>(), sw = smem_bytes<DW>(),
-                   sh = smem_bytes<DH>();
-  cudaError_t err = allow_smem(dlog_tc, sl);
-  if (err == cudaSuccess) err = allow_smem(dw_tc, sw);
-  if (err == cudaSuccess) err = allow_smem(dh_tc, sh);
+  constexpr size_t sl = smem_bytes<Logits<LAYOUT>>(),
+                   sw = smem_bytes<DW<LAYOUT>>(),
+                   sh = smem_bytes<DH<LAYOUT>>();
+  cudaError_t err = allow_smem(dlog_tc<LAYOUT>, sl);
+  if (err == cudaSuccess) err = allow_smem(dw_tc<LAYOUT>, sw);
+  if (err == cudaSuccess) err = allow_smem(dh_tc<LAYOUT>, sh);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int c0 = 0; c0 < V; c0 += Vc) {
     const int cw = V - c0 < Vc ? V - c0 : Vc, ct = cdiv(cw, BT);
-    dlog_tc<<<dim3(cdiv(n, BT), ct), NT, sl, st>>>(
-        Logits{hs, w, n, d, V}, labels, lse, scale, dl, c0, Vc);
+    dlog_tc<LAYOUT><<<dim3(cdiv(n, BT), ct), NT, sl, st>>>(
+        Logits<LAYOUT>{hs, w, n, d, V}, labels, lse, scale, dl, c0, Vc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dw_tc<<<dim3(cdiv(d, BT), ct), NT, sw, st>>>(DW{dl, hs, n, d, Vc}, dw,
-                                                 c0, cw);
+    dw_tc<LAYOUT><<<dim3(cdiv(d, BT), ct), NT, sw, st>>>(
+        DW<LAYOUT>{dl, hs, n, d, Vc}, dw, c0, cw, V);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dh_tc<<<dim3(cdiv(d, BT), cdiv(n, BT)), NT, sh, st>>>(
-        DH{dl, w + static_cast<size_t>(c0) * d, n, d, Vc, cw}, dh, c0 > 0);
+    // the chunk's part of w: rows c0.. of a table, columns c0.. of a head
+    const bf16* wc = w + (LAYOUT == HEAD ? static_cast<size_t>(c0)
+                                         : static_cast<size_t>(c0) * d);
+    dh_tc<LAYOUT><<<dim3(cdiv(d, BT), cdiv(n, BT)), NT, sh, st>>>(
+        DH<LAYOUT>{dl, wc, n, d, Vc, cw, V}, dh, c0 > 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -823,42 +935,83 @@ int bwd(const bf16* hs, const bf16* w, const int* labels, const float* lse,
 
 }  // namespace xtc
 
-// w_dtype codes: 0 float32 (the CUDA-core body), 1 bfloat16 (the
-// tensor-core body, which needs the hs scratch). Returns 0, a
-// cudaError_t, or -1 for a dtype or shape without an instantiation.
-extern "C" int fused_xent_fwd(int w_dtype, const float* h, const void* w,
-                              const int* labels, float* lse, float* labl,
-                              float* pm, float* pl, void* hs, int n, int d,
-                              int V, void* stream) {
-  if (n == 0) return 0;
-  if (d % 8 != 0 || V < 1) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+template <int LAYOUT>
+int fwd_any(int w_dtype, const float* h, const void* w, const int* labels,
+            float* lse, float* labl, float* pm, float* pl, void* hs, int n,
+            int d, int V, cudaStream_t st) {
   if (w_dtype == 0)
-    return fwd_cc(h, static_cast<const float*>(w), labels, lse, labl, pm,
-                  pl, n, d, V, st);
+    return fwd_cc<LAYOUT>(h, static_cast<const float*>(w), labels, lse,
+                          labl, pm, pl, n, d, V, st);
   if (w_dtype == 1 && hs != nullptr)
-    return xtc::fwd(h, static_cast<const __nv_bfloat16*>(w), labels, lse,
-                    labl, pm, pl, static_cast<__nv_bfloat16*>(hs), n, d, V,
-                    st);
+    return xtc::fwd<LAYOUT>(h, static_cast<const __nv_bfloat16*>(w), labels,
+                            lse, labl, pm, pl,
+                            static_cast<__nv_bfloat16*>(hs), n, d, V, st);
+  return -1;
+}
+
+template <int LAYOUT>
+int bwd_any(int w_dtype, const float* h, const void* w, const int* labels,
+            const float* lse, const float* scale, float* dh, float* dw,
+            void* dlog, const void* hs, int n, int d, int V, int Vc,
+            cudaStream_t st) {
+  if (w_dtype == 0)
+    return bwd_cc<LAYOUT>(h, static_cast<const float*>(w), labels, lse,
+                          scale, dh, dw, static_cast<float*>(dlog), n, d, V,
+                          Vc, st);
+  if (w_dtype == 1 && hs != nullptr)
+    return xtc::bwd<LAYOUT>(static_cast<const __nv_bfloat16*>(hs),
+                            static_cast<const __nv_bfloat16*>(w), labels,
+                            lse, scale, dh, dw,
+                            static_cast<__nv_bfloat16*>(dlog), n, d, V, Vc,
+                            st);
+  return -1;
+}
+
+// d % 8 == 0; a [d, V] head also needs V % 8 == 0 (its 16-byte rows)
+bool shape_ok(int layout, int d, int V) {
+  return d % 8 == 0 && V >= 1 && (layout == TABLE || V % 8 == 0);
+}
+
+}  // namespace
+
+// w_dtype codes: 0 float32 (the CUDA-core body), 1 bfloat16 (the
+// tensor-core body, which needs the hs scratch). layout: 0 a [V, d]
+// table (the tied embedding), 1 a [d, V] head (an untied head.w), read in
+// place either way; dw has w's layout. Returns 0, a cudaError_t, or -1
+// for a dtype, layout or shape without an instantiation.
+extern "C" int fused_xent_fwd(int w_dtype, int layout, const float* h,
+                              const void* w, const int* labels, float* lse,
+                              float* labl, float* pm, float* pl, void* hs,
+                              int n, int d, int V, void* stream) {
+  if (n == 0) return 0;
+  if (!shape_ok(layout, d, V)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (layout == TABLE)
+    return fwd_any<TABLE>(w_dtype, h, w, labels, lse, labl, pm, pl, hs, n, d,
+                          V, st);
+  if (layout == HEAD)
+    return fwd_any<HEAD>(w_dtype, h, w, labels, lse, labl, pm, pl, hs, n, d,
+                         V, st);
   return -1;
 }
 
 // hs: the split of h that fused_xent_fwd wrote (bf16 w only).
-extern "C" int fused_xent_bwd(int w_dtype, const float* h, const void* w,
-                              const int* labels, const float* lse,
-                              const float* scale, float* dh, float* dw,
-                              void* dlog, const void* hs, int n, int d,
-                              int V, int Vc, void* stream) {
+extern "C" int fused_xent_bwd(int w_dtype, int layout, const float* h,
+                              const void* w, const int* labels,
+                              const float* lse, const float* scale,
+                              float* dh, float* dw, void* dlog,
+                              const void* hs, int n, int d, int V, int Vc,
+                              void* stream) {
   if (n == 0) return 0;
-  if (d % 8 != 0 || V < 1 || Vc < TB || Vc % TB != 0) return -1;
+  if (!shape_ok(layout, d, V) || Vc < TB || Vc % TB != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_dtype == 0)
-    return bwd_cc(h, static_cast<const float*>(w), labels, lse, scale, dh,
-                  dw, static_cast<float*>(dlog), n, d, V, Vc, st);
-  if (w_dtype == 1 && hs != nullptr)
-    return xtc::bwd(static_cast<const __nv_bfloat16*>(hs),
-                    static_cast<const __nv_bfloat16*>(w), labels, lse,
-                    scale, dh, dw, static_cast<__nv_bfloat16*>(dlog), n, d,
-                    V, Vc, st);
+  if (layout == TABLE)
+    return bwd_any<TABLE>(w_dtype, h, w, labels, lse, scale, dh, dw, dlog,
+                          hs, n, d, V, Vc, st);
+  if (layout == HEAD)
+    return bwd_any<HEAD>(w_dtype, h, w, labels, lse, scale, dh, dw, dlog,
+                         hs, n, d, V, Vc, st);
   return -1;
 }

@@ -16,7 +16,8 @@
 //   dS never go back to shared memory); B from shared memory, K-major or
 //   MN-major (the contraction runs down the rows, as for V in P.V).
 //   Wider products (a head dim of 128) are two N = 64 products over the
-//   two column blocks.
+//   two column blocks; a head dim of 96 runs as 128 with its last 32
+//   columns zero-filled in shared memory (load_tile's WV).
 // * The m64n64 float32 accumulator of thread t of a warpgroup (warp
 //   w = t/32, lane l = t%32) holds 32 values: element 4j + 2h + c is row
 //   16w + l/4 + 8h, column 8j + 2(l%4) + c. A row's values live in the
@@ -73,24 +74,35 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Fills a swizzled R x W tile at dst: row r from row(r) (W contiguous bf16,
-// 16-byte aligned), or zeros where row(r) is null. The calling warpgroup
+// Fills a swizzled R x W tile at dst: row r from row(r) (WV <= W
+// contiguous bf16, 16-byte aligned), or zeros where row(r) is null; the
+// columns past WV (a head dim padded up to the 64-column blocks) are
+// zero-filled without a read of device memory. The calling warpgroup
 // shares the copy: thread t copies chunk t % C of rows t / C + k * WG / C,
 // so neighbouring threads copy neighbouring 16-byte chunks of a row, and
 // a thread's chunks sit at one swizzled column.
-template <int R, int W, typename RowPtr>
+template <int R, int W, int WV = W, typename RowPtr>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* any,
                                           RowPtr row) {
   constexpr int C = W / 8, STEP = WG / C;
   static_assert(WG % C == 0 && R % STEP == 0 && STEP % 8 == 0, "tile");
+  static_assert(WV % 8 == 0 && WV <= W, "valid columns");
   const int t = threadIdx.x % WG, r0 = t / C, c = t % C;
+  const bool col = WV == W || c * 8 < WV;
   dst += swz<R>(r0, c);
 #pragma unroll
   for (int k = 0; k < R / STEP; ++k) {
-    const __nv_bfloat16* src = row(r0 + k * STEP);
+    const __nv_bfloat16* src = col ? row(r0 + k * STEP) : nullptr;
     cp16(dst + k * STEP * 128, src ? src + c * 8 : any, src != nullptr);
   }
+}
+
+// A head dim padded up to whole 64-column blocks of the swizzled tiles
+// (96 -> 128: the pad columns are zeros in shared memory, so every
+// product over them adds exact zeros).
+__host__ __device__ constexpr int pad64(int e) {
+  return (e + 63) / 64 * 64;
 }
 
 // ---- wgmma -------------------------------------------------------------- //

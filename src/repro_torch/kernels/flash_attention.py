@@ -37,7 +37,11 @@ the body by dtype:
   * float32: CUDA-core bodies (products in float32), for float32 callers
     and tests; no path of the port runs them on the card.
 
-Other head widths or dtypes have no instantiation and raise.
+Head widths: e == ev in ``HEAD_DIMS`` (64, 96, 128). The tensor-core
+bodies work in 64-column blocks, so e = 96 runs the 128-wide body with
+its last 32 columns zero-filled in shared memory (4/3 of the products)
+and the softmax scale 1/sqrt(96). Other head widths or dtypes have no
+instantiation and raise.
 """
 
 from __future__ import annotations
@@ -56,6 +60,9 @@ from repro_torch.kernels.paged_attention import (
 )
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+# (e == ev) head widths K1 and K1b are instantiated for: llama3.2-1b's 64,
+# gpt-1.5B's 96 and the 128 of the wider models
+HEAD_DIMS = (64, 96, 128)
 
 # Agreement of the bf16 kernels with the float32 plain versions, element
 # by element against the largest |plain| of the element's row (its last
@@ -108,7 +115,7 @@ def _check_qkv(q, k, v):
     if k.shape[0] != b or v.shape[:3] != k.shape[:3] or k.shape[3] != e:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    _check_dims(e, ev, h, g)
+    _check_dims(e, ev, h, g, HEAD_DIMS)
     return b, sq, h, e, sk, g, ev
 
 

@@ -49,8 +49,8 @@ LAUNCHES = {"slotted_attention": 0, "paged_attention": 0}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (e == ev) head widths each kernel is instantiated for: the slotted
-# kernel also at 128 (jamba-v0.1-52b's attention layer); the paged and the
-# flash kernels at 64 only
+# kernel also at 128 (jamba-v0.1-52b's attention layer); the paged kernel
+# at 64 only (the flash kernels have their own, flash_attention.HEAD_DIMS)
 _HEAD_DIMS = (64,)
 _SLOTTED_HEAD_DIMS = (64, 128)
 

@@ -7,10 +7,14 @@ controller yet (the checkpoint slice, ROADMAP.md queue 1).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt_paper \
+      --full --device cuda
 
-``--full`` trains llama3.2-1b at its published width (16 layers,
-d_model 2048, vocab 128256, bf16, random weights from seed 0); without
-it the reduced smoke config. The default device is the card.
+``--full`` trains the architecture at its published width (llama3.2-1b:
+16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
+gpt_paper: gpt-1.5B, 22 layers, d_model 2304, vocab 50304, 8 sequences
+of 1024 a step; bf16, random weights from seed 0); without it the
+reduced smoke config. The default device is the card.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import time
 import torch
 
 from repro_torch.api import session
+from repro_torch.api.registry import get_arch
 
 
 def main(argv=None) -> None:
@@ -29,8 +34,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seq", type=int, default=None,
-                    help="sequence length (default 2048 with --full, else "
-                         "32)")
+                    help="sequence length (default with --full: the "
+                         "config module's TRAIN_SEQ, else 2048; else 32)")
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--unit", type=int, default=2)
     ap.add_argument("--schedule", default="zeropp")
@@ -40,12 +45,17 @@ def main(argv=None) -> None:
                     help="the published width instead of the reduced config")
     args = ap.parse_args(argv)
 
-    seq = args.seq or (2048 if args.full else 32)
+    mod = get_arch(args.arch)
+    seq = args.seq or (getattr(mod, "TRAIN_SEQ", 2048) if args.full
+                       else 32)
+    # sequences a step: the config module's TRAIN_BATCH at full width,
+    # else one a micro-batch
+    batch = getattr(mod, "TRAIN_BATCH", None) if args.full else None
     sess = session(
         args.arch, mode="train", reduced=not args.full, device=args.device,
-        seq_len=seq, overrides=dict(schedule=args.schedule,
-                                    microbatches=args.microbatches,
-                                    unit=args.unit),
+        seq_len=seq, global_batch=batch,
+        overrides=dict(schedule=args.schedule,
+                       microbatches=args.microbatches, unit=args.unit),
         optim=dict(lr=args.lr, warmup=20, total=10_000))
     d = sess.describe()
     sc = sess.shape_cfg

@@ -2,10 +2,13 @@
 
 The port's counterpart of ``repro/models/blocks.py`` for dense attention,
 Mamba and gathered-MoE layers. Training (dense attention layers only):
-``apply_norm``, ``apply_attn`` and ``apply_ffn`` are
+``apply_norm`` (RMSNorm or LayerNorm), ``apply_attn`` and ``apply_ffn``
+(SwiGLU or the GELU MLP) are
 written against the ZeroPP tape (``core/tape.py``): every parameterised
 GEMM is a ``dense`` node (deferred dW, the W task), everything else a
-``prim`` (immediate grads in B). Serving: RMSNorm, the SwiGLU FFN,
+``prim`` (immediate grads in B). Serving (RMSNorm and SwiGLU models
+only; ``cached_layer`` and ``norm_fwd`` refuse the others): RMSNorm, the
+SwiGLU FFN,
 ``attn_cached`` with its three cache layouts (paged pool, per-slot
 positions, one scalar position), ``mamba_cached`` (prefill through the
 selective-scan kernel, decode one SSM step) and ``moe_fwd`` (the
@@ -88,7 +91,13 @@ def _write_rows(ctx: LayerCtx, b: int, device) -> torch.Tensor:
 
 
 def norm_specs(cfg: ModelConfig, pfx: str) -> dict[str, ParamSpec]:
-    return {f"{pfx}.scale": ParamSpec((cfg.d_model,), "ones", fsdp_dim=0)}
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {
+            f"{pfx}.scale": ParamSpec((d,), "ones", fsdp_dim=0),
+            f"{pfx}.bias": ParamSpec((d,), "zeros", fsdp_dim=0),
+        }
+    return {f"{pfx}.scale": ParamSpec((d,), "ones", fsdp_dim=0)}
 
 
 def attn_specs(cfg: ModelConfig, pfx: str):
@@ -103,6 +112,11 @@ def attn_specs(cfg: ModelConfig, pfx: str):
 
 def ffn_specs(cfg: ModelConfig, pfx: str):
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "gelu_mlp":
+        return {
+            f"{pfx}.wi": ParamSpec((d, f), fsdp_dim=1),
+            f"{pfx}.wd": ParamSpec((f, d), fsdp_dim=0),
+        }
     return {
         f"{pfx}.wg": ParamSpec((d, f), fsdp_dim=1),
         f"{pfx}.wu": ParamSpec((d, f), fsdp_dim=1),
@@ -115,9 +129,23 @@ def ffn_specs(cfg: ModelConfig, pfx: str):
 # --------------------------------------------------------------------------- #
 
 
+def layer_norm(v, scale, bias):
+    """LayerNorm over the last dim in float32 (eps 1e-5, the reference's),
+    cast back to v's dtype."""
+    vf = v.float()
+    mu = vf.mean(dim=-1, keepdim=True)
+    var = ((vf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (vf - mu) * torch.rsqrt(var + 1e-5)
+    return (y * scale + bias).to(v.dtype)
+
+
 def apply_norm(t: Tape, cfg: ModelConfig, pfx: str, x: TVal) -> TVal:
-    """RMSNorm in float32, cast back to x.dtype; the scale's gradient is
-    immediate."""
+    """RMSNorm (eps 1e-6) or LayerNorm (eps 1e-5) in float32, cast back to
+    x.dtype; the scale's (and bias's) gradient is immediate."""
+    if cfg.norm == "layernorm":
+        return t.prim(lambda scale, bias, v: layer_norm(v, scale, bias), x,
+                      pnames=(f"{pfx}.scale", f"{pfx}.bias"))
+
     def rms(scale, v):
         vf = v.float()
         y = vf * torch.rsqrt((vf * vf).mean(dim=-1, keepdim=True) + 1e-6)
@@ -145,8 +173,18 @@ def apply_attn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
     return t.dense(o, f"{pfx}.wo", "bshe,hed->bsd")
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_ffn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
-    """SwiGLU: three dense nodes around one element-wise prim."""
+    """SwiGLU: three dense nodes around one element-wise prim; the GELU
+    MLP: two dense nodes around the tanh GELU."""
+    if ctx.cfg.act == "gelu_mlp":
+        h = t.dense(x, f"{pfx}.wi", "bsd,df->bsf")
+        h = t.elementwise(gelu, h)
+        return t.dense(h, f"{pfx}.wd", "bsf,fd->bsd")
     g = t.dense(x, f"{pfx}.wg", "bsd,df->bsf")
     u = t.dense(x, f"{pfx}.wu", "bsd,df->bsf")
     h = t.prim(lambda a, b: F.silu(a) * b, g, u)
@@ -167,15 +205,27 @@ def _dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
     return y.reshape(*lead, *w.shape[n_in:])
 
 
+def check_serves(cfg) -> None:
+    """The serve path computes RMSNorm and SwiGLU only: refuse a config
+    that asks for anything else rather than compute the wrong function."""
+    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+        raise NotImplementedError(
+            f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}): the "
+            "serve path computes RMSNorm and the SwiGLU MLP only; LayerNorm "
+            "and GELU serving, with K3/K4 at head_dim 96, come with GPT "
+            "serving (ROADMAP.md queue 1 item 2)")
+
+
 def norm_fwd(cfg, params, pfx, x):
     """RMSNorm in float32, cast back to x.dtype."""
+    check_serves(cfg)
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
     return (y * params[f"{pfx}.scale"]).to(x.dtype)
 
 
 def ffn_fwd(ctx, params, pfx, x):
-    """SwiGLU."""
+    """SwiGLU (``cached_layer`` refuses configs with another MLP)."""
     g = _dense(x, params[f"{pfx}.wg"])
     u = _dense(x, params[f"{pfx}.wu"])
     return _dense(F.silu(g) * u, params[f"{pfx}.wd"])

@@ -7,11 +7,13 @@ Geometry and parameter stacking follow the reference exactly: stage
 and caches store it at index ``storage_index(p, v, V) = p·V + v``, so a
 reference parameter tree carries over name for name.
 
-The port has blocks for RMSNorm decoder layers with an attention or a
-Mamba mixer and a SwiGLU or a gathered-MoE FFN (``attn:dense``,
-``attn:moe``, ``mamba:dense``, ``mamba:moe``), and a tied or untied head.
-Serving runs all four kinds; training runs ``attn:dense`` with a tied
-head. Any other layer kind or variant raises ``NotImplementedError``.
+The port has blocks for decoder layers with an attention or a Mamba
+mixer and a SwiGLU, GELU-MLP or gathered-MoE FFN (``attn:dense``,
+``attn:moe``, ``mamba:dense``, ``mamba:moe``), RMSNorm or LayerNorm, and
+a tied or untied head. Serving runs all four kinds with RMSNorm and
+SwiGLU; training runs ``attn:dense`` with either norm and dense MLP and
+either head. Any other layer kind or variant raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,14 +77,13 @@ def _check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(_NOT_PORTED.format(
             what=", ".join(missing), name=cfg.name))
-    # the blocks and the final norm are RMSNorm and SwiGLU whatever the
-    # config says
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+    # the blocks and the final norm compute these two of each, whatever
+    # else a config names
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.act not in (
+            "swiglu", "gelu_mlp"):
         raise NotImplementedError(
             f"norm={cfg.norm!r}, act={cfg.act!r} of {cfg.name}: the port "
-            "computes RMSNorm and the SwiGLU MLP only; LayerNorm and the "
-            "GELU MLP arrive with the paper's GPT (ROADMAP.md queue 1 "
-            "item 2)")
+            "computes RMSNorm or LayerNorm and the SwiGLU or GELU MLP")
 
 
 def build_geometry(cfg: ModelConfig, rc: RunConfig) -> Geometry:
@@ -142,14 +143,16 @@ def stage_specs(cfg: ModelConfig, seg: Segment) -> dict[str, ParamSpec]:
 
 
 def io_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Embedding, final norm and, when untied, the head ``head.w`` [d,
-    vocab], outside the pipeline."""
+    """Embedding, final norm (with its bias for LayerNorm) and, when
+    untied, the head ``head.w`` [d, vocab], outside the pipeline."""
     _check_supported(cfg)
     sp = {
         "embed.table": ParamSpec((cfg.vocab, cfg.d_model), fsdp_dim=0,
                                  scale=1.0),
         "final_norm.scale": ParamSpec((cfg.d_model,), "ones"),
     }
+    if cfg.norm == "layernorm":
+        sp["final_norm.bias"] = ParamSpec((cfg.d_model,), "zeros")
     if not cfg.tie_embeddings:
         sp["head.w"] = ParamSpec((cfg.d_model, cfg.vocab), fsdp_dim=1)
     return sp
@@ -219,9 +222,14 @@ def reference_logits(cfg, rc, params, tokens):
         xv, aux = apply_stage(t, ctx, seg, t.value(x), s)
         x, aux_total = xv.val, aux_total + aux.val
     xf = x.float()
-    hn = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6) \
-        * io["final_norm.scale"]
-    return hn.to(dtype) @ io["embed.table"].t(), aux_total
+    if cfg.norm == "layernorm":
+        hn = blocks.layer_norm(xf, io["final_norm.scale"],
+                               io["final_norm.bias"])
+    else:
+        hn = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6) \
+            * io["final_norm.scale"]
+    w = io["embed.table"].t() if cfg.tie_embeddings else io["head.w"]
+    return hn.to(dtype) @ w, aux_total
 
 
 def reference_loss(cfg, rc, params, tokens, labels):
@@ -266,6 +274,7 @@ def cached_layer(ctx, params, kind, pfx, x, cache, pos):
     """Unified prefill (s>1) / decode (s=1) for one pre-norm layer."""
     _check_kind(ctx.cfg, kind)
     cfg = ctx.cfg
+    blocks.check_serves(cfg)
     mix, ffn = kind.split(":")
     h = blocks.norm_fwd(cfg, params, f"{pfx}.ln1", x)
     if mix == "attn":

@@ -17,10 +17,12 @@ torch = pytest.importorskip("torch")
 # workers (eight spinning OpenMP threads per worker oversubscribe them)
 torch.set_num_threads(1)
 
+from repro.configs import gpt_paper as jgpt  # noqa: E402
 from repro.configs import llama3p2_1b as jllama  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
 from repro_torch.api import SessionError, session  # noqa: E402
+from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
@@ -50,6 +52,60 @@ def test_llama_configs_equal_reference_field_by_field():
     one = tllama.one_card_run()
     assert (one.pp, one.vpp, one.microbatches, one.groups) == (1, 1, 1, 1)
     assert one.param_dtype == one.compute_dtype == "bfloat16"
+
+
+def test_gpt_configs_equal_reference_field_by_field():
+    """The paper's GPT models (Table 4): SIZES, ``config(size)`` for all
+    three sizes and ``reduced()``; the one-card training run; gpt-1.5B's
+    parameter count (22 layers of 63,710,208, an embedding and an untied
+    head of 115,900,416 each, the final LayerNorm) and its head width,
+    96."""
+    assert tgpt.SIZES == jgpt.SIZES
+    for size in jgpt.SIZES:
+        assert _fields(tgpt.config(size)) == _fields(jgpt.config(size))
+    tcfg, trc = tgpt.reduced()
+    jcfg, jrc = jgpt.reduced()
+    assert _fields(tcfg) == _fields(jcfg)
+    assert _fields(trc) == _fields(jrc)
+    cfg = tgpt.config()
+    assert (cfg.head_dim, cfg.n_kv_heads, cfg.max_seq) == (96, 24, 1024)
+    rc = tgpt.one_card_train_run()
+    assert (rc.pp, rc.vpp, rc.microbatches, rc.unit, rc.schedule) == (
+        1, 2, 4, 2, "zeropp")
+    geo = tmodel.build_geometry(cfg, rc)
+    seg = geo.segments[0]
+    layer = sum(int(np.prod(s_.shape))
+                for s_ in tmodel.stage_specs(cfg, seg).values()) // seg.k
+    io_ = {n: int(np.prod(s_.shape)) for n, s_ in tmodel.io_specs(
+        cfg).items()}
+    assert layer == 63_710_208
+    assert io_["embed.table"] == io_["head.w"] == 115_900_416
+    # with the final LayerNorm's scale and bias
+    assert layer * cfg.n_layers + sum(io_.values()) == 1_633_430_016
+    assert session("gpt_paper", mode="train", reduced=False,
+                   device="cpu").describe()["n_params"] == 1_633_430_016
+
+
+@pytest.mark.parametrize("full,pp", [(True, 1), (False, 2)])
+def test_gpt_param_specs_equal_reference(full, pp):
+    """Stage and io specs of gpt (LayerNorm scale and bias, the GELU MLP's
+    wi and wd, the untied head, the final norm's bias) name for name."""
+    cfg = jgpt.config() if full else jgpt.reduced()[0]
+    tcfg = tgpt.config() if full else tgpt.reduced()[0]
+    jrc = dataclasses.replace(jgpt.reduced()[1], pp=pp)
+    trc = dataclasses.replace(tgpt.reduced()[1], pp=pp)
+    jgeo, tgeo = jmodel.build_geometry(cfg, jrc), tmodel.build_geometry(
+        tcfg, trc)
+    for js, ts in zip(jgeo.segments, tgeo.segments):
+        assert _fields(ts) == _fields(js)
+        jspec = {n: _fields(s) for n, s in jmodel.stage_specs(cfg, js).items()}
+        tspec = {n: _fields(s)
+                 for n, s in tmodel.stage_specs(tcfg, ts).items()}
+        assert tspec == jspec
+        assert {"L0.ln1.bias", "L0.ffn.wi", "L0.ffn.wd"} <= set(tspec)
+    tio = {n: _fields(s) for n, s in tmodel.io_specs(tcfg).items()}
+    assert tio == {n: _fields(s) for n, s in jmodel.io_specs(cfg).items()}
+    assert {"final_norm.bias", "head.w"} <= set(tio)
 
 
 @pytest.mark.parametrize("full,pp", [(False, 1), (False, 2), (True, 1)])
@@ -138,14 +194,21 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
                                          ("act", "gelu_mlp")])
 def test_session_refuses_norms_and_mlps_it_does_not_compute(
         monkeypatch, field, value):
-    """The port's blocks are RMSNorm and SwiGLU whatever the config says,
-    so a config asking for LayerNorm or the GELU MLP is refused."""
+    """Training computes LayerNorm and the GELU MLP; the serve path
+    computes RMSNorm and SwiGLU only, so a serve session of a config
+    asking for LayerNorm or the GELU MLP is refused (GPT serving,
+    ROADMAP.md queue 1 item 2), and so is any norm or MLP the port has no
+    block for."""
     cfg, rc = tllama.reduced()
     monkeypatch.setattr(tllama, "reduced", lambda: (
         dataclasses.replace(cfg, **{field: value}), rc))
-    for mode in ("train", "serve"):
-        with pytest.raises(SessionError, match="queue 1 item 2"):
-            session("llama3.2-1b", mode=mode, max_seq=16, device="cpu")
+    session("llama3.2-1b", mode="train", device="cpu")
+    with pytest.raises(SessionError, match="queue 1 item 2"):
+        session("llama3.2-1b", mode="serve", max_seq=16, device="cpu")
+    monkeypatch.setattr(tllama, "reduced", lambda: (
+        dataclasses.replace(cfg, **{field: "unknown"}), rc))
+    with pytest.raises(SessionError, match="the port computes"):
+        session("llama3.2-1b", mode="train", device="cpu")
 
 
 def test_import_loads_no_jax():

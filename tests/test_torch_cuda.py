@@ -445,6 +445,74 @@ def test_flash_kernels_gqa_ratios_bf16(cuda, h, g, causal):
         _bf16_close(a, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,h,g,s", [(96, 24, 24, 256), (96, 6, 2, 141),
+                                     (128, 8, 2, 200)])
+def test_flash_kernels_wide_heads_bf16(cuda, e, h, g, s):
+    """K1 and K1b in bf16 at head dims 96 (gpt-1.5B's MHA, run through the
+    128-wide tensor-core bodies with zero pad columns) and 128, causal,
+    against the plain versions; a ragged size and GQA for the padded
+    width. The same probes as at 64 must fail: K with its kv heads rolled
+    by one and V rolled over kv heads at the keys of the second half
+    (forward); the neighbouring head's lse and K rolled over kv heads at
+    the keys of the second half (backward, each of dq, dk, dv). With
+    g == h a roll over kv heads is a roll over heads."""
+    bf = torch.bfloat16
+    b = 2
+    q, k, v = (_t(a).to(cuda, bf) for a in _qkv(17, b, s, h, g, e, s))
+    kw = dict(causal=True, q_offset=0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    assert out.shape == (b, s, h, e)
+    _bf16_close(out, want)
+    _rel_close(lse, want_lse, 1e-5)
+    for kk, vv in ((k.roll(1, dims=2).contiguous(), v),
+                   (k, _late_rolled(v))):
+        bad, _ = fa.flash_attention_fwd(q, kk, vv, **kw)
+        assert fa.bf16_excess(bad, want) > 1.0
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(18), device=cuda).to(bf)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, plain):
+        _bf16_close(a, w)
+    for kk, ll in ((k, lse.roll(1, dims=1).contiguous()),
+                   (_late_rolled(k), lse)):
+        bad = fa.flash_attention_bwd(q, kk, v, out, do, ll, **kw)
+        for a, w in zip(bad, plain):
+            assert fa.bf16_excess(a, w) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_float32_head_dim_96(cuda, causal):
+    """A float32 caller at head dim 96 runs the CUDA-core bodies (no
+    raise), within the float32 rules: out 2e-5 absolute, lse 1e-5
+    relative, dq, dk, dv 1e-4 of the plain tensor's max |value|."""
+    b, sq, h, g, e = 2, 70, 6, 3, 96
+    q, k, v = (_t(a).to(cuda) for a in _qkv(19, b, sq, h, g, e, sq))
+    kw = dict(causal=causal, q_offset=0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    _close(out, want, torch.float32)
+    _rel_close(lse, want_lse, 1e-5)
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(20), device=cuda)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, tref.attention_bwd(q, k, v, out, do, lse, **kw)):
+        _rel_close(a, w)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_head_dims_they_lack(cuda):
+    """A head width without an instantiation raises on the card; it does
+    not fall back to the plain version."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _qkv(
+        21, 1, 64, 4, 4, 80, 64))
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, k, v, causal=True)
+
+
 def _xent_case(cuda, n, w_dtype):
     gen = torch.Generator(device=cuda).manual_seed(10)
     d, vocab = 136, 1000
@@ -487,3 +555,30 @@ def test_fused_xent_bf16_computes_the_lo_term(cuda):
     _, (_, dw) = fx.softmax_xent(h.bfloat16().float(), table.t(), lab, **kw)
     err = (dw - wdw).abs().max().item()
     assert err > 1e-4 * wdw.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype,n", [("float32", 300), ("bfloat16", 300),
+                                       ("bfloat16", 64)])
+def test_fused_xent_kernel_untied_head(cuda, w_dtype, n):
+    """K2 over an untied head read in place as a contiguous [d, vocab]
+    matrix (gpt-1.5B's head.w): the same ragged rows, d and vocab as the
+    table case, under the same float32 rule (loss 1e-5 relative, dh and
+    dW 1e-4 of the plain tensor's max |value|); dW comes back contiguous
+    [d, vocab]. Probe: the same bytes read as the transposed view of a
+    [vocab, d] table must fail the check."""
+    h, table, lab, kw = _xent_case(cuda, n, w_dtype)
+    head = table.t().contiguous()                  # [d, vocab]
+    loss, (dh, dw) = fx.softmax_xent(h, head, lab, **kw)
+    wl, (wdh, wdw) = tref.softmax_xent(h, head, lab, **kw)
+    _rel_close(loss.reshape(1), wl.reshape(1), 1e-5)
+    _rel_close(dh, wdh)
+    _rel_close(dw, wdw)
+    assert dw.shape == head.shape and dw.is_contiguous()
+    bad, (_, bdw) = fx.softmax_xent(
+        h, head.reshape(head.shape[1], head.shape[0]).t(), lab, **kw)
+    assert abs(bad.item() - wl.item()) > 1e-5 * abs(wl.item())
+    assert (bdw - wdw).abs().max().item() > 1e-4 * wdw.abs().max().item()
+    # a head layout no kernel reads raises; it does not fall back
+    with pytest.raises(ValueError, match="w_head"):
+        fx.softmax_xent(h, head[:, : head.shape[1] - 4], lab, **kw)
