@@ -22,7 +22,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    kernels (K1 flash forward, K1b flash backward, K2 fused cross-entropy)
    in bf16 at llama3.2-1b's shapes, K1 and K1b at gpt-1.5B's (b 2, s
    1024, 24 heads of 96) and at head dim 128, K2 over gpt-1.5B's untied
-   head [2304, 50304] read in place, and the selective scan (K5) in
+   head [2304, 50304] read in place, K2's two passes apart over one of
+   two vocabulary shards (the sharded loss: 2048 gathered rows over
+   64,128 rows of llama's table, and over a [2304, 25152] block of
+   gpt-1.5B's head.w), and the selective scan (K5) in
    float32 — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
@@ -56,7 +59,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    neighbouring q head's log-sum-exp and K rolled over kv heads at the
    keys of the second half (K1b), the head shifted by one vocab tile
    and h rounded to bf16, i.e. no lo term, and the untied head's bytes
-   read as a [vocab, d] table (K2), B and C swapped (K5);
+   read as a [vocab, d] table (K2), labels not shifted to their shard
+   (K2 over a shard, whose shards' statistics, combined with a max and a
+   sum, must also equal the whole-vocab K2's loss, dh and dW), B and C
+   swapped (K5);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -94,7 +100,19 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    kernels of K3/K4 with the key-split combine, and of K5, by name), and one
    training step of each training model on fresh params (device busy
    share, kernels by device time, launches a step, and the device time
-   of K1, K1b and K2, K2 also by pass: the split, pass 1, pass 2).
+   of K1, K1b and K2, K2 also by pass: the split, pass 1, pass 2);
+7. multi-rank train phase, last, with the card otherwise empty:
+   llama3.2-1b at full width and depth on data 2 x pp 2 — four ranks,
+   spawned by ``python -m repro_torch.launch.train --full --data 2 --pp
+   2 --seq 1024 --backend gloo --steps 3`` as a subprocess, all on this
+   card, collectives staged through host memory (gloo); seq cut from
+   2048 to 1024 for four ranks' memory. Before it, one one-rank step of
+   the same params and batch runs here; rank 0's step-1 loss must agree
+   with it within 2e-3 relative and its pre-clip grad norm within 1e-2,
+   every rank must have launched K1 and K1b and the last stage's ranks
+   K2 over their vocabulary shard, no plain version may run, and the
+   subprocess must exit 0. Steps 2-3 (ms, tokens/s: no throughput claim,
+   gloo sets it) and each rank's peak memory are logged.
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -104,10 +122,13 @@ number, profiler traces) go to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
+import signal
 import subprocess
 import sys
 import time
@@ -190,6 +211,18 @@ GPT = dict(arch="gpt_paper", seq=1024, global_batch=8, vocab=50304,
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
                  "K2 fused_xent": sum(XENT_PASSES.values(), ())}
+# the multi-rank train phase: llama3.2-1b at full width and depth on data
+# 2 x pp 2 (4 ranks, one process each, all on this card over gloo), seq
+# 1024 for four ranks' memory on one card; zeropp, vpp 2, 4 micro-batches
+# of one sequence in units of 2 a data rank: 8 x 1024 tokens a step
+MULTI = dict(arch=ARCH, data=2, pp=2, seq=1024, global_batch=8, steps=3,
+             backend="gloo")
+# rank 0's step 1 against one one-rank step of the same params and batch
+# (pp 1, vpp 2, micro-batches of 2 sequences): bf16 compute in other
+# micro-batch shapes and stage boundaries, and the reductions in another
+# order, so the loss agrees to about a bf16 rounding of the logits and
+# the norm of 1.24 B gradient elements to about a percent
+MULTI_LOSS_RTOL, MULTI_NORM_RTOL = 2e-3, 1e-2
 # kernel vs plain versions on step 1: loss within 1e-3 relative; each
 # gradient within 5e-2 of the plain tensor's largest value. Both paths
 # round the same float32 values to bf16 up to summation order, so their
@@ -1057,6 +1090,139 @@ def gpt_kernel_phases(torch, flush):
     return results
 
 
+def vocab_shard_phase(torch, flush, results, name, n, d, vocab, layout,
+                      seed):
+    """K2's two passes apart over one of two vocabulary shards (what a
+    data rank of the sharded loss runs a micro-batch: pass 1 over its
+    shard for all gathered rows, then pass 2 with the lse combined over
+    the shards). Checks: each shard's pass 1 against its plain version;
+    the shards' statistics combined with a max and a sum against the
+    whole-vocab K2's lse, label logit and loss; pass 2 with the combined
+    lse against the whole-vocab dh (the sum over the shards) and dW (the
+    concatenation), by K2's float32 rule; probe: labels not shifted to
+    the second shard must fail it."""
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, vloc = 2, vocab // 2
+    hn = torch.randn((n, d), generator=gen, device=dev)
+    if layout == "table":     # a tied table [vocab, d]; shards of rows
+        full = (0.02 * torch.randn((vocab, d), generator=gen, device=dev)
+                ).to(torch.bfloat16)
+        shards = [full[r * vloc:(r + 1) * vloc].contiguous().t()
+                  for r in range(D)]
+        w_full = full.t()
+    else:                     # an untied head [d, vocab]; column blocks
+        w_full = (torch.randn((d, vocab), generator=gen, device=dev)
+                  / d ** 0.5).to(torch.bfloat16)
+        shards = [w_full[:, r * vloc:(r + 1) * vloc].contiguous()
+                  for r in range(D)]
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    mask = torch.ones(n, device=dev)
+    mask[torch.randperm(n, generator=gen, device=dev)[: n // 8]] = 0.0
+    denom = float(4 * n)
+    scale = mask / denom
+
+    def local(r, shift=True):
+        inw = (lab >= r * vloc) & (lab < (r + 1) * vloc)
+        return torch.where(inw, lab - r * vloc if shift else lab, -1)
+
+    def combine(stats):
+        lses = torch.stack([a for a, _ in stats])
+        m = lses.max(0).values
+        lse = m + torch.log(torch.exp(lses - m).sum(0))
+        labl = sum(b for _, b in stats)
+        return lse, labl, ((lse - labl) * mask).sum() / denom
+
+    log(f"[kernel] fused_xent:{name}: h [{n}, {d}] float32 (the gathered "
+        f"rows), {D} shards of {vloc} of a bf16 "
+        f"{'table read as [d, vloc]' if layout == 'table' else 'head'}, "
+        "labels -1 outside the shard (tolerance: lse, label logit and loss "
+        "1e-5 relative; dh, dW max |diff| <= 1e-4 max |plain|)")
+    stats = []
+    for r in range(D):
+        got = fx.xent_stats(hn, shards[r], local(r))
+        want = ref.xent_stats(hn, shards[r], local(r))
+        rel_err(got[0], want[0], 1e-5, f"shard {r} lse")
+        rel_err(got[1], want[1], 1e-5, f"shard {r} label logit")
+        if not bool((got[1][local(r) < 0] == 0).all()):
+            fail(f"shard {r}'s pass 1 left a label logit of another shard "
+                 "non-zero")
+        stats.append(got)
+    lse, labl, loss = combine(stats)
+    whole = fx.xent_stats(hn, w_full, lab)
+    wl, (wdh, wdw) = fx.softmax_xent(hn, w_full, lab, mask=mask,
+                                     denom=denom)
+    rel_err(lse, whole[0], 1e-5, "combined lse vs whole-vocab K2")
+    rel_err(labl, whole[1], 1e-5, "combined label logit vs whole-vocab K2")
+    rel_err(loss.reshape(1), wl.reshape(1), 1e-5,
+            "combined loss vs whole-vocab K2")
+    parts = [fx.xent_grads(hn, shards[r], local(r), lse, scale)
+             for r in range(D)]
+    rel_err(parts[0][0] + parts[1][0], wdh, 1e-4,
+            "dh (sum over shards) vs whole-vocab K2")
+    rel_err(torch.cat([p[1] for p in parts], 1), wdw, 1e-4,
+            "dW (shards concatenated) vs whole-vocab K2")
+    del parts, wdh, wdw
+    bad = [stats[0], fx.xent_stats(hn, shards[1], local(1, shift=False))]
+    log(f"[kernel] fused_xent:{name} check, labels not shifted to shard 1:")
+    if not rel_excess(combine(bad)[2].reshape(1), wl.reshape(1), 1e-5,
+                      "loss")[1] > 1.0:
+        fail(f"the fused_xent:{name} check passes labels not shifted to "
+             "the shard")
+
+    w0, l0 = shards[0], local(0)
+
+    def kern():
+        return (fx.xent_stats(hn, w0, l0),
+                fx.xent_grads(hn, w0, l0, lse, scale))
+
+    def plain():
+        return (ref.xent_stats(hn, w0, l0),
+                ref.xent_grads(hn, w0, l0, lse, scale))
+
+    def lib():
+        # the float32 product and logsumexp over the shard, then dlog's
+        # products
+        lg = hn @ w0.float()
+        lse_l = torch.logsumexp(lg, 1)
+        hit = l0 >= 0
+        labl_l = lg.gather(1, l0.clamp(min=0)[:, None])[:, 0] * hit
+        p = torch.exp(lg - lse[:, None])
+        p[hit, l0[hit]] -= 1.0
+        p *= scale[:, None]
+        return (lse_l, labl_l), (p @ w0.float().t(), hn.t() @ p)
+
+    def check(a, p):
+        (sa, ga), (sp, gp) = a, p
+        rel_err(sa[0], sp[0], 1e-5, "lse")
+        rel_err(sa[1], sp[1], 1e-5, "label logit")
+        return max(rel_err(ga[0], gp[0], 1e-4, "dh"),
+                   rel_err(ga[1], gp[1], 1e-4, "dW"))
+
+    # read h, the shard, labels, lse and scale; write lse, label logit, dh
+    # and dW (float32); the least work: the logits, dh and dW products
+    nbytes = (hn.nbytes + w0.nbytes + l0.nbytes + 2 * n * 4 + 2 * n * 4
+              + hn.nbytes + vloc * d * 4)
+    record_phase(torch, flush, results, f"fused_xent:{name}", XENT, kern,
+                 plain, lib, nbytes, 3 * 2 * n * d * vloc, check, iters=3)
+
+
+def shard_kernel_phases(torch, flush):
+    """K2 over a vocabulary shard at the sharded loss's shapes: llama's
+    2048 gathered rows (2 data ranks x one 1024-token micro-batch) over
+    64,128 rows of the tied table, and gpt-1.5B's over a [2304, 25152]
+    block of head.w."""
+    results = []
+    vocab_shard_phase(torch, flush, results, "vocab_shard", 2 * 1024, 2048,
+                      128256, "table", 5)
+    vocab_shard_phase(torch, flush, results, "gpt_vocab_shard", 2 * 1024,
+                      GPT["d_model"], GPT["vocab"], "head", 6)
+    return results
+
+
 def resident_warps(regs: int, threads: int, smem: int) -> int:
     """Warps an H100 SM holds of a kernel using ``regs`` registers a
     thread (ptxas), ``threads`` a block and ``smem`` bytes of shared
@@ -1310,6 +1476,118 @@ def train_phase(torch, cell):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def multirank_phase(torch):
+    """llama3.2-1b at full width on data 2 x pp 2: four ranks, spawned by
+    ``python -m repro_torch.launch.train`` as a subprocess, all on this
+    card over gloo (host-staged collectives). First one one-rank step of
+    the same params (the same seed, its layers re-stacked for pp 1) and
+    batch in this process; then rank 0's step-1 loss and pre-clip grad
+    norm must agree with it, every rank must have launched K1 and K1b and
+    the last stage's ranks K2 (over their vocabulary shard), and the
+    subprocess must exit 0."""
+    from repro_torch import params as tparams
+    from repro_torch.api import session
+    from repro_torch.optim import adamw
+
+    c = MULTI
+    ranks = c["data"] * c["pp"]
+    tag = "[multirank]"
+    log(f"{tag} backend {c['backend']} (host-staged), {ranks} ranks on 1 "
+        f"device: {c['arch']} data {c['data']} x pp {c['pp']}, seq "
+        f"{c['seq']} (cut from 2048 for four ranks' memory on one card), "
+        f"batch {c['global_batch']} x {c['seq']}")
+    sess = session(c["arch"], mode="train", reduced=False, device="cuda",
+                   seq_len=c["seq"], global_batch=c["global_batch"])
+    rc_mesh = dataclasses.replace(sess.rc, pp=c["pp"])
+    full = tparams.init_all_params(
+        sess.cfg, rc_mesh, torch.Generator(device="cuda").manual_seed(0),
+        "cuda")
+    params = tparams.relayout(full, sess.cfg, rc_mesh, sess.rc)
+    del full
+    t0 = time.perf_counter()
+    grads, m = sess.train_step(params, sess.stream().batch(0))
+    loss1 = float(m["loss_sum"])
+    norm1 = float(adamw.global_norm(grads))
+    torch.cuda.synchronize()
+    log(f"{tag} one-rank step 1 (pp 1, vpp 2, 4 micro-batches of 2): loss "
+        f"{loss1:.6f}, grad norm {norm1:.6f} ({time.perf_counter() - t0:.2f}"
+        " s)")
+    del grads, params, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    report = OUT / "multirank.json"
+    report.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--full",
+           "--arch", c["arch"], "--data", str(c["data"]), "--pp",
+           str(c["pp"]), "--seq", str(c["seq"]), "--backend", c["backend"],
+           "--steps", str(c["steps"]), "--report", str(report)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in env.get("PYTHONPATH", "").split(
+            os.pathsep) if x])
+    log(f"{tag} {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    # its own process group, so that a timeout stops the ranks it spawned
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("the multi-rank run did not finish in 900 s")
+    wall = time.perf_counter() - t0
+    (OUT / "multirank.log").write_text(out + "\n--- stderr ---\n" + err)
+    for line in out.splitlines():
+        log(f"{tag}   {line}")
+    if proc.returncode != 0:
+        fail(f"the multi-rank run exited {proc.returncode}: {err[-2000:]}")
+    rep = json.loads(report.read_text())
+    steps = rep["steps"]
+    lr, nr = steps[0]["loss"], steps[0]["grad_norm"]
+    d_loss, d_norm = abs(lr - loss1) / abs(loss1), abs(nr - norm1) / norm1
+    log(f"{tag} step 1, rank 0 vs one rank: loss {lr:.6f} vs {loss1:.6f} "
+        f"(relative {d_loss:.3e}, rule {MULTI_LOSS_RTOL:g}); grad norm "
+        f"{nr:.6f} vs {norm1:.6f} (relative {d_norm:.3e}, rule "
+        f"{MULTI_NORM_RTOL:g})")
+    if not d_loss <= MULTI_LOSS_RTOL:
+        fail(f"multi-rank step-1 loss {lr} off the one-rank {loss1}")
+    if not d_norm <= MULTI_NORM_RTOL:
+        fail(f"multi-rank step-1 grad norm {nr} off the one-rank {norm1}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"non-finite multi-rank losses: {[r['loss'] for r in steps]}")
+    for r in rep["ranks"]:
+        la = r["launches"]
+        p = r["rank"] % c["pp"]          # rank = d * pp + p (one group)
+        need = ["flash_attention_fwd", "flash_attention_bwd"] + (
+            ["fused_xent"] if p == c["pp"] - 1 else [])
+        missing = [k for k in need if not la.get(k)]
+        if missing:
+            fail(f"rank {r['rank']} launched no {missing}: {la}")
+        if any(k.startswith("ref_") for k in r["counters"]):
+            fail(f"rank {r['rank']} reached a plain version: "
+                 f"{r['counters']}")
+        log(f"{tag} rank {r['rank']} ({r['device']}, stage rank {p}): "
+            f"launches {la}, peak {r['max_memory_gb']:.2f} GiB allocated; "
+            f"mem_get_info after a step: {r['min_free_gb']:.2f} GiB free "
+            "at the least")
+    for r in steps[1:]:
+        log(f"{tag} step {r['step']}: {r['ms']:.1f} ms, "
+            f"{r['tok_per_s']:.1f} tok/s, loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.3f} (no throughput claim: gloo's host "
+            "staging sets it)")
+    launches = {k: sum(r["launches"].get(k, 0) for r in rep["ranks"])
+                for k in ("flash_attention_fwd", "flash_attention_bwd",
+                          "fused_xent")}
+    log(f"{tag} {wall:.1f} s in all; launches over the ranks {launches}")
+    return dict(backend=c["backend"], ranks=ranks, wall_s=wall,
+                one_rank_loss=loss1, one_rank_grad_norm=norm1,
+                loss_rel=d_loss, norm_rel=d_norm, steps=steps,
+                per_rank=rep["ranks"], launches=launches)
 
 
 def profile_train(torch, cell):
@@ -1638,6 +1916,7 @@ def main() -> None:
     kernels = kernel_phases(torch, flush)
     train_kernels = train_kernel_phases(torch, flush)
     gpt_kernels = gpt_kernel_phases(torch, flush)
+    shard_kernels = shard_kernel_phases(torch, flush)
     scan_kernels = scan_kernel_phase(torch, flush, resources)
     del flush
     gc.collect()
@@ -1690,10 +1969,18 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: four ranks share the card, with nothing else on it
+    multirank = multirank_phase(torch)
+    for row in shard_kernels:
+        row["launches"] = multirank["launches"]["fused_xent"]
+    kernels += shard_kernels
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
-         "train": [train, train_gpt], "profiles": profiles,
+         "train": [train, train_gpt], "multirank": multirank,
+         "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -20,16 +20,31 @@ serves Jamba's published widths at depth 8 (``one_card_config()``) the
 same way, with Mamba, attention and gathered-MoE layers; Jamba trains in
 a later slice (a train session raises ``SessionError``).
 
-It runs on one rank and one device: ``device="cuda"`` (the default, which
-raises when no GPU is present) or ``device="cpu"`` (the tests). Batches
-arrive as numpy arrays and move to the device here; serve tokens and
-logits come back as CPU tensors, which ``np.asarray`` reads. Caches stay
-on the device and are updated in place (``core/serve.py``).
+Training on a mesh of ranks runs the same calls in every rank's process,
+after ``torch.distributed.init_process_group`` (world size data x groups
+x pp; ``repro_torch.launch.train`` spawns the ranks and does it)::
+
+    sess = repro_torch.api.session("llama3.2-1b", mode="train",
+                                   reduced=False, data=2,
+                                   overrides=dict(pp=2))
+
+Each rank draws the same full tree from the seed and keeps its part
+(``params.shard_for_rank``); ``train_step`` takes the same global batch
+on every rank and returns this rank's grads; ``opt_step`` clips by the
+global norm. Serving runs on one rank.
+
+The device is ``device="cuda"`` (the default, which raises when no GPU is
+present; on a mesh, card ``local rank % device count``) or
+``device="cpu"`` (the tests). Batches arrive as numpy arrays and move to
+the device here; serve tokens and logits come back as CPU tensors, which
+``np.asarray`` reads. Caches stay on the device and are updated in place
+(``core/serve.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import types
 
 import numpy as np
@@ -37,13 +52,14 @@ import torch
 
 from repro_torch.api.spec import SessionError, SessionSpec
 from repro_torch.core import serve as CS
+from repro_torch.core.comm import Mesh
 from repro_torch.core.pipeline import Runtime, make_train_step
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models.common import ShapeConfig
 from repro_torch.optim import adamw
-from repro_torch.params import init_all_params
+from repro_torch.params import init_all_params, shard_for_rank
 
 _OPT_FIELDS = {f.name for f in dataclasses.fields(adamw.AdamWConfig)}
 _CKPT = ("checkpoints (ckpt/checkpoint.py) and the fault-tolerance "
@@ -57,6 +73,15 @@ def session(arch: str, *, mode: str = "serve", overrides=None,
                                overrides=dict(overrides or {}), **kw))
 
 
+def _rank_card() -> torch.device:
+    """This rank's card: local rank modulo the host's device count."""
+    dist = torch.distributed
+    rank = os.environ.get("LOCAL_RANK")
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return torch.device("cuda", int(rank) % torch.cuda.device_count())
+
+
 class Session:
     """A bound (arch × RunConfig × device) with its train or serve
     steps."""
@@ -68,11 +93,20 @@ class Session:
             raise SessionError(
                 "device='cuda' but torch finds no GPU; pass device='cpu' "
                 "to run the plain PyTorch versions on the CPU")
+        self.data_size = spec.data or 1
+        world = self.data_size * self.rc.groups * self.rc.pp
         self.device = torch.device(spec.device)
-        if self.rc.groups != 1:
-            raise SessionError(
-                f"groups={self.rc.groups}: one rank holds one pipeline "
-                "group; several groups need several ranks")
+        mesh = None
+        if spec.mode == "train" and world > 1:
+            if spec.device == "cuda":
+                self.device = _rank_card()
+                torch.cuda.set_device(self.device)
+            try:
+                mesh = Mesh(self.data_size, self.rc.pp, self.rc.groups,
+                            self.device)
+            except ValueError as e:
+                raise SessionError(str(e)) from e
+        self.mesh = mesh
         try:
             self.geo = M.build_geometry(self.cfg, self.rc)
         except NotImplementedError as e:    # unported model features
@@ -87,7 +121,7 @@ class Session:
         self._train_step = None
         if spec.mode == "train":
             try:
-                self.rt = Runtime(self.cfg, self.rc, self.device)
+                self.rt = Runtime(self.cfg, self.rc, self.device, mesh)
             except ValueError as e:
                 raise SessionError(str(e)) from e
         else:
@@ -102,7 +136,6 @@ class Session:
     # Geometry the engine reads
     # ------------------------------------------------------------------ #
 
-    data_size = 1
     pods_size = 1
 
     def _max_seq(self) -> int:
@@ -145,8 +178,12 @@ class Session:
 
     def init_params(self, generator: torch.Generator | None = None):
         """Fresh params on the session's device (seed 0 when no
-        generator is given)."""
-        return init_all_params(self.cfg, self.rc, generator, self.device)
+        generator is given); on a mesh, this rank's part of the full tree
+        that every rank draws alike."""
+        full = init_all_params(self.cfg, self.rc, generator, self.device)
+        if self.mesh is None:
+            return full
+        return shard_for_rank(self.rt, full, self.mesh.rank)
 
     def init_caches(self):
         return CS.init_serve_caches(
@@ -174,12 +211,14 @@ class Session:
     @property
     def shape_cfg(self) -> ShapeConfig:
         """The train shape: ``seq_len`` (default 32) by ``global_batch``
-        (default one sequence per micro-batch)."""
+        (default one sequence per micro-batch of every pipeline group of
+        every data rank)."""
         if self._shape_cfg is None:
             sp = self.spec
             self._shape_cfg = ShapeConfig(
                 "train", sp.seq_len or 32,
-                sp.global_batch or self.rc.microbatches, "train")
+                sp.global_batch or (self.data_size * self.rc.groups
+                                    * self.rc.microbatches), "train")
         return self._shape_cfg
 
     def _need_train(self, what: str) -> None:
@@ -188,8 +227,10 @@ class Session:
 
     def train_step(self, params, batch):
         """One pipeline step on the schedule's tick table; returns (grads,
-        metrics): float32 grads shaped like params, metrics ``loss_sum``
-        (the step's mean token loss), ``aux_sum`` and ``emb_dropped``."""
+        metrics): float32 grads shaped like params (this rank's), metrics
+        ``loss_sum`` (the step's mean token loss), ``aux_sum`` and
+        ``emb_dropped`` (summed over the mesh). ``batch`` is the global
+        batch, the same on every rank."""
         self._need_train("train_step")
         if self._train_step is None:
             try:
@@ -218,12 +259,17 @@ class Session:
 
     def opt_step(self, params, grads, opt_state):
         """One AdamW update (in place); returns (params, opt_state,
-        metrics) with ``grad_norm`` and ``lr``."""
+        metrics) with ``grad_norm`` (of the global gradient) and ``lr``."""
         cfg, use_sched, warmup, total = self.opt_config()
         scale = adamw.lr_schedule(opt_state["step"], base_lr=1.0,
                                   warmup=warmup, total=total) \
             if use_sched else 1.0
-        return adamw.apply_updates(params, grads, opt_state, cfg, scale)
+        mesh = {}
+        if self.mesh is not None:
+            mesh = dict(owned=self.rt.owned(),
+                        all_reduce=self.mesh.world_comm.all_reduce)
+        return adamw.apply_updates(params, grads, opt_state, cfg, scale,
+                                   **mesh)
 
     def stream(self, seed: int = 0) -> SyntheticStream:
         """The deterministic synthetic token stream of the train shape."""
@@ -341,6 +387,7 @@ class Session:
             "device": str(self.device),
             "geometry": {
                 "pp": rc.pp, "vpp": rc.vpp, "groups": rc.groups,
+                "data": self.data_size,
                 "segments": [{"name": sg.name, "layers": sg.n_layers,
                               "stages": geo.seg_stages(sg), "k": sg.k}
                              for sg in geo.segments],
@@ -353,6 +400,12 @@ class Session:
             },
             "n_params": n_params,
         }
+        if self.mesh is not None:
+            m = self.mesh
+            out["mesh"] = {"rank": m.rank, "world": m.world,
+                           "backend": m.backend, "data_rank": m.d_rank,
+                           "group": m.g_rank, "stage_rank": m.p_rank,
+                           "vocab_shard": self.rt.vloc}
         if self.spec.mode == "train":
             plan = self.rt.plans["main"]
             pt = plan.packed

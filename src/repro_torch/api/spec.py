@@ -2,11 +2,15 @@
 
 The port's slice of ``repro/api/spec.py``: architecture resolution,
 RunConfig overrides, the training shape and optimizer knobs, and the
-serving knobs, checked before any device work. The port runs on one rank,
-so the data/pod axes are 1 and pp is 1 in train mode (multi-rank: next
-slice); ``schedule="auto"``/``"auto_profiled"``, topologies, expert
-parallelism, Mamba/MoE training, serving LayerNorm / GELU models (the
-paper's GPT) and checkpoints are refused with the slice they wait for.
+serving knobs, checked before any device work. Training runs on a data x
+(groups x pp) mesh of ranks (``data``, ``overrides["pp"]``,
+``overrides["groups"]``; the session checks them against the process
+group) with flat coalescing and one pod; serving runs on one rank.
+``schedule="auto"``/``"auto_profiled"``, topologies, expert parallelism,
+Mamba/MoE training, serving LayerNorm / GELU models (the paper's GPT),
+checkpoints, and the pod axis, int8 gradient compression,
+``coalesce="none"`` and multi-rank serving are refused with the slice
+they wait for.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ class SessionError(ValueError):
     """Invalid session specification (message says how to fix it)."""
 
 
+LATER = "ROADMAP.md queue 1 item 1b"
+
+
 _RC_FIELDS = {f.name for f in dataclasses.fields(RunConfig)}
 
 
@@ -42,8 +49,8 @@ class SessionSpec:
     optim: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     seq_len: int | None = None      # train: sequence length (default 32)
     topology: Any = None            # hardware topology (refused: one card)
-    data: int | None = None         # data-axis size (one rank: 1)
-    pods: int | None = None         # pod axis (one rank: 1)
+    data: int | None = None         # data-axis size (train; default 1)
+    pods: int | None = None         # pod axis (one pod: 1)
     max_seq: int | None = None      # serving cache length
     max_slots: int | None = None    # continuous-batching slot count
     global_batch: int | None = None  # serve: same quantity as max_slots;
@@ -113,18 +120,20 @@ class SessionSpec:
                     "kv_cache_dtype='int8' quantizes *pages* (per-page "
                     "scales live beside the page pool); pass "
                     "page_size=<tokens per page>")
-        for axis in ("data", "pods"):
-            if getattr(self, axis) not in (None, 1):
-                raise SessionError(
-                    f"{axis}={getattr(self, axis)}: repro_torch runs on "
-                    "one rank (multi-rank: next slice, ROADMAP.md queue 1)")
+        if self.pods not in (None, 1):
+            raise SessionError(
+                f"pods={self.pods}: the pod axis (gradients all-reduced "
+                f"across pods) waits for {LATER}")
+        if self.data is not None and self.data < 1:
+            raise SessionError(f"data must be >= 1, got {self.data}")
         if self.device not in ("cuda", "cpu"):
             raise SessionError(
                 f"device={self.device!r}: pick 'cuda' or 'cpu'")
         if self.topology is not None:
             raise SessionError(
-                "topology presets lay a model over a cluster; the port runs "
-                "on one card until the multi-rank slice (ROADMAP.md queue 1)")
+                "topology presets lay a model over a cluster; the port takes "
+                "the mesh as data= and overrides pp / groups (a multi-rank "
+                "slice beyond ROADMAP.md queue 1 item 1)")
         moe = self.overrides.get("moe_mode", "gathered")
         if moe != "gathered":
             raise SessionError(
@@ -138,6 +147,10 @@ class SessionSpec:
                 "slice (ROADMAP.md queue 1)")
         if self.mode == "train":
             return self._validate_train()
+        if (self.data or 1) > 1 or self.overrides.get("groups", 1) != 1:
+            raise SessionError(
+                "serving runs on one rank: multi-rank serving on the tick "
+                f"engine waits for {LATER}")
         mod = get_arch(self.arch)
         cfg = (mod.reduced()[0] if self.reduced
                else getattr(mod, "one_card_config", mod.config)())
@@ -207,15 +220,23 @@ class SessionSpec:
             except RegistryError as e:
                 raise SessionError(str(e)) from e
         for knob in ("pp", "groups"):
-            if self.overrides.get(knob, 1) != 1:
+            if self.overrides.get(knob, 1) < 1:
                 raise SessionError(
-                    f"{knob}={self.overrides[knob]}: the port trains on one "
-                    "rank, pp = groups = 1 (multi-rank: next slice, "
-                    "ROADMAP.md queue 1)")
+                    f"{knob} must be >= 1, got {self.overrides[knob]}")
+        g = self.overrides.get("groups", 1)
+        if g & (g - 1):
+            raise SessionError(
+                f"groups={g}: the cross-group gradient butterfly needs a "
+                "power of two")
         if self.overrides.get("grad_compress", "none") != "none":
             raise SessionError(
-                "grad_compress='int8' compresses the cross-rank "
-                "reduce-scatter (multi-rank: next slice)")
+                "grad_compress='int8' (the cross-rank reduce-scatter in int8 "
+                f"with error feedback) waits for {LATER}")
+        if self.overrides.get("coalesce", "flat") != "flat":
+            raise SessionError(
+                f"coalesce={self.overrides['coalesce']!r}: the port packs "
+                "each stage into one flat slab; per-tensor collectives "
+                f"wait for {LATER}")
         if self.seq_len is not None and self.seq_len < 1:
             raise SessionError(f"seq_len must be >= 1, got {self.seq_len}")
         if self.global_batch is not None and self.global_batch < 1:
@@ -226,9 +247,10 @@ class SessionSpec:
     def resolve_configs(self):
         """Returns (arch_module, ModelConfig, RunConfig) post-overrides.
 
-        Train mode runs on one rank: the reduced RunConfig's pp (2, the
-        reference's multi-device smoke layout) becomes 1, and the full
-        width takes the module's ``one_card_train_run()``. The full width
+        Train mode: the reduced RunConfig's pp (2, the reference's
+        multi-device smoke layout) becomes 1 unless ``overrides`` set it,
+        and the full width takes the module's ``one_card_train_run()``
+        (pp, groups from ``overrides``). The full width
         is the module's ``one_card_config()`` where it defines one (a
         model cut in depth to fit one card), else ``config()``."""
         mod = get_arch(self.arch)

@@ -1,21 +1,29 @@
 """The tick engine and its training handlers, as an eager loop.
 
 The port's counterpart of ``repro/core/executor.py`` (``TickEngine``,
-``validate_unit_stash_packed``, ``segment_train_scan``, ``train_body``).
-The JAX engine scans a ``PackedTable`` with ``lax.scan`` inside
-``shard_map``; here one rank walks the table's rows in Python. Each tick:
+``validate_unit_stash_packed``, ``make_tok_slice``, ``segment_train_scan``,
+``train_body``). The JAX engine scans a ``PackedTable`` with ``lax.scan``
+inside ``shard_map``; here each rank walks its column of the table in
+Python. Each tick:
 
   1. stores the wires that arrived at the end of the previous tick
      (activations forward, input grads backward) per the plan's receive
      maps;
   2. starts this tick's blockwise FSDP gather of a stage block's flat
-     slab into a two-slot buffer;
+     slab (one all-gather over the data axis) into a two-slot buffer;
   3. runs this rank's cell: NOP, F, B or W;
-  4. reduce-scatters a finished stage block's gradients (once per
-     scheduling unit, §3.3);
+  4. reduce-scatters a finished stage block's gradients over the data
+     axis (once per scheduling unit, §3.3); tensors the data axis does
+     not divide are all-reduced instead;
   5. hands the boundary activations on around the stage ring. At pp = 1
      the ring is a local hand-off that arrives on the next tick, as the
-     reference's one-device ``ppermute`` does.
+     reference's one-device ``ppermute`` does. At pp > 1 the hand-off is a
+     send to stage rank p + 1 (activations) and p - 1 (input grads) of the
+     same pipeline group and data index. Where the reference permutes a
+     fixed buffer every tick on every rank, each rank here posts exactly
+     the sends its neighbours' rows of the next tick receive, and the
+     receives of its own row: both sides read the same ``PackedTable``, so
+     every receive has its send and nothing else is posted.
 
 Stashes live in dicts keyed by micro-batch (wires) or (stage slot,
 micro-batch) (F->B activations, B->W ``(x, dy)`` pairs), and each entry
@@ -27,7 +35,11 @@ before the first tick, and the engine checks the bound as it stores.
 F runs the stage under ``no_grad`` and stashes its input (remat); B
 recomputes the stage on a ``bwd`` tape, seeds the loss at the last stage
 through ``loss_and_dy``, and accumulates float32 grads per stage slot; W
-replays the stashed dW GEMMs.
+replays the stashed dW GEMMs. After the walk, ``train_body`` runs the
+reference's cross-rank reductions: the butterfly of stage grads across
+pipeline groups, the io grads summed over the model axis and, unless
+vocabulary-sharded, over the data axis, and the metrics summed over the
+whole mesh. On one rank every one of them is a sum over that rank.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import torch
 
 from repro_torch.core import fsdp
 from repro_torch.core import vocab as Vb
+from repro_torch.core.comm import TAG_B, TAG_F
 from repro_torch.core.plan import PackedTable
 from repro_torch.core.schedules import B as KB
 from repro_torch.core.schedules import F as KF
@@ -48,6 +61,14 @@ from repro_torch.core.tape import Tape
 from repro_torch.models import blocks
 from repro_torch.models import model as M
 from repro_torch.models.common import torch_dtype
+
+
+def make_tok_slice(g_rank: int, Btot: int, mbs: int):
+    """This rank's micro-batch slice of its data shard [n_local, ...]."""
+    def tok_slice(arr, u):
+        start = (g_rank * Btot + u) * mbs
+        return arr[start:start + mbs]
+    return tok_slice
 
 
 def validate_unit_stash_packed(pt: PackedTable) -> None:
@@ -99,36 +120,51 @@ class TickEngine:
     """Walks one PackedTable with the gather / reduce / wire plumbing.
 
     Handlers receive ``(engine, row)``; they read stage parameters via
-    :meth:`stage_params` and the engine's ``state`` dict. Every stage
-    tensor lives in the flat layout ``flat``: on one rank each tensor is
-    gatherable, and the per-tensor collectives of the reference's
-    ``coalesce="none"`` come with the multi-rank slice.
+    :meth:`stage_params` and the engine's ``state`` dict. The stage's
+    gatherable tensors live in the flat layout ``flat`` (one collective a
+    tick); the others (``specs`` minus the layout: a dim the data axis
+    does not divide) stay replicated in ``seg_p``, are read in place and
+    have their grads all-reduced over the data axis. ``mesh`` (a live
+    :class:`repro_torch.core.comm.Mesh`, or None on one rank) carries the
+    stage ring at pp > 1; ``act`` is the wire's (shape, dtype).
     """
 
     pt: PackedTable
     specs: dict
     seg_p: dict
-    flat: Any                   # FlatLayout covering every stage tensor
-    comm: Any
+    flat: Any                   # FlatLayout of the gatherable tensors
+    comm: Any                   # the data axis (LocalComm on one rank)
     cdt: torch.dtype
     rs_dtype: torch.dtype
     p_rank: int = 0
+    mesh: Any = None
+    act: Any = None
     state: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         validate_unit_stash_packed(self.pt)
-        if set(self.flat.names) != set(self.specs):
-            raise ValueError("the flat layout must cover every stage tensor")
+        flat_names = set(self.flat.names) if self.flat is not None else set()
+        self.replicated = sorted(set(self.specs) - flat_names)
+        if self.replicated and self.comm.size == 1:
+            raise ValueError("on one rank the flat layout must cover every "
+                             f"stage tensor, not {self.replicated}")
         # packed once per step: a gather tick indexes a row
-        self.seg_flat = fsdp.pack_flat_stack(self.seg_p, self.flat)
+        self.seg_flat = (fsdp.pack_flat_stack(self.seg_p, self.flat)
+                         if self.flat is not None else None)
         self.gbuf: list = [None, None]
+        self.ring = self.mesh is not None and self.pt.Pe > 1
 
-    def stage_params(self, use_slot: int) -> dict:
-        """Params of the stage block held in gather slot ``use_slot``."""
-        return fsdp.unpack_flat(self.gbuf[use_slot], self.flat)
+    def stage_params(self, v: int, use_slot: int) -> dict:
+        """Params of local stage slot ``v``: the gathered slab in slot
+        ``use_slot``, and the replicated tensors in place."""
+        out = (fsdp.unpack_flat(self.gbuf[use_slot], self.flat)
+               if self.flat is not None else {})
+        for n in self.replicated:
+            out[n] = self.seg_p[n][v]
+        return out
 
     def _gather_step(self, row) -> None:
-        if row["gather_v"] >= 0:
+        if row["gather_v"] >= 0 and self.flat is not None:
             full = fsdp.all_gather_flat(self.seg_flat[row["gather_v"]],
                                         self.flat, self.comm)
             self.gbuf[row["gather_slot"]] = full.to(self.cdt)
@@ -138,15 +174,41 @@ class TickEngine:
         if rv < 0:
             return
         full, shard = self.state["acc_full"], self.state["acc_shard"]
-        red = fsdp.reduce_scatter_flat({n: full[n][rv] for n in full},
-                                       self.flat, self.rs_dtype, self.comm)
-        for n, r in red.items():
-            shard[n][rv] += r.float()
+        if self.flat is not None:
+            red = fsdp.reduce_scatter_flat(
+                {n: full[n][rv] for n in self.flat.names}, self.flat,
+                self.rs_dtype, self.comm)
+            for n, r in red.items():
+                shard[n][rv] += r.float()
+                full[n][rv].zero_()
+        for n in self.replicated:
+            shard[n][rv] += self.comm.all_reduce(
+                full[n][rv].to(self.rs_dtype)).float()
             full[n][rv].zero_()
 
-    def _boundary(self) -> None:
+    def _boundary(self, t: int) -> None:
         s = self.state
-        s["recv_f"], s["recv_b"] = s.get("send_f"), s.get("send_b")
+        if not self.ring:
+            s["recv_f"], s["recv_b"] = s.get("send_f"), s.get("send_b")
+            return
+        pt, p, mesh = self.pt, self.p_rank, self.mesh
+        if t + 1 >= pt.T:
+            return
+        nxt, prv = (p + 1) % pt.Pe, (p - 1) % pt.Pe
+        # F-wire messages before B-wire ones, on both sides
+        sends, recvs, into = [], [], []
+        if pt.recv_f_u[t + 1, nxt] >= 0:
+            sends.append((s["send_f"], mesh.ring_rank(nxt), TAG_F))
+        if pt.recv_b_u[t + 1, prv] >= 0:
+            sends.append((s["send_b"], mesh.ring_rank(prv), TAG_B))
+        if pt.recv_f_u[t + 1, p] >= 0:
+            recvs.append((mesh.ring_rank(prv), TAG_F))
+            into.append("recv_f")
+        if pt.recv_b_u[t + 1, p] >= 0:
+            recvs.append((mesh.ring_rank(nxt), TAG_B))
+            into.append("recv_b")
+        for w, x in zip(into, mesh.exchange(sends, recvs, *self.act)):
+            s[w] = x
 
     def run(self, branches: dict) -> None:
         """Walk the ticks, dispatching cells to ``branches`` {kind: fn}."""
@@ -162,7 +224,7 @@ class TickEngine:
             if fn is not None:
                 fn(self, row)
             self._reduce_step(row)
-            self._boundary()
+            self._boundary(t)
 
 
 # --------------------------------------------------------------------------- #
@@ -173,13 +235,16 @@ class TickEngine:
 def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
                        seq, denom, io_g, metrics):
     """Run one segment's plan on the tick engine; accumulates into io_g
-    and metrics in place and returns the stage grads {name: [V, ...]}."""
+    and metrics in place and returns this rank's stage grads {name: [V,
+    *local shape]} (reduced over the data axis, not yet across
+    groups)."""
     cfg, rc = rt.cfg, rt.rc
     cdt = torch_dtype(rc.compute_dtype)
     V, Pe, U = seg.vpp, rt.Pe, pt.U
-    p_rank = 0
+    p_rank = rt.p_rank
     specs = rt.stage_specs[seg.name]
     dev = rt.device
+    vloc, comm = rt.vloc, rt.comm
     # fused-backward baselines have no W tasks: every dense dW is
     # computed inside B (classic 1F1B / GPipe semantics)
     no_defer = set() if pt.has_w else set(specs)
@@ -193,19 +258,18 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
 
     eng = TickEngine(
         pt=pt, specs=specs, seg_p=seg_p, flat=rt.flat_layouts[seg.name],
-        comm=rt.comm, cdt=cdt, rs_dtype=torch_dtype(rc.grad_rs_dtype),
-        p_rank=p_rank)
+        comm=comm, cdt=cdt, rs_dtype=torch_dtype(rc.grad_rs_dtype),
+        p_rank=p_rank, mesh=rt.mesh, act=((mbs, seq, d), cdt))
     eng.state.update(
         xbuf=_Stash(U, "fwd wire"), bbuf=_Stash(U, "bwd wire"),
         fstash=_Stash(U, "F->B"), wstash=_Stash(U, "B->W"),
         acc_full={n: torch.zeros((V, *specs[n].shape), dtype=torch.float32,
                                  device=dev) for n in specs},
-        acc_shard={n: torch.zeros((V, *specs[n].shape), dtype=torch.float32,
-                                  device=dev) for n in specs})
+        acc_shard={n: torch.zeros((V, *fsdp.local_shape(specs[n], rt.dsize)),
+                                  dtype=torch.float32, device=dev)
+                   for n in specs})
     st = eng.state
-
-    def tok_slice(arr, u):
-        return arr[u * mbs:(u + 1) * mbs]
+    tok_slice = make_tok_slice(rt.g_rank, pt.n_mb, mbs)
 
     def ctx():
         return blocks.LayerCtx(cfg=cfg, rc=rc, rope=rope, causal=seg.causal)
@@ -214,10 +278,10 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
         u, v = row["mb"], row["v"]
         if p_rank == 0 and v == 0:
             x = Vb.embed_lookup(io_p["embed.table"], tok_slice(tokens, u),
-                                None, cdt)
+                                vloc, cdt, comm)
         else:
             x = st["xbuf"].pop(u)
-        t = Tape(eng.stage_params(row["use_slot"]), mode="fwd",
+        t = Tape(eng.stage_params(v, row["use_slot"]), mode="fwd",
                  no_defer=no_defer)
         y, _ = M.apply_stage(t, ctx(), seg, t.value(x), v * Pe + p_rank)
         st["fstash"].put((v, u), x)
@@ -226,7 +290,7 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
     def b_branch(eng, row):
         u, v = row["mb"], row["v"]
         x = st["fstash"].pop((v, u))
-        t = Tape(eng.stage_params(row["use_slot"]), mode="bwd",
+        t = Tape(eng.stage_params(v, row["use_slot"]), mode="bwd",
                  no_defer=no_defer)
         xin = t.value(x)
         out, aux = M.apply_stage(t, ctx(), seg, xin, v * Pe + p_rank)
@@ -234,7 +298,7 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
             h = out.val.reshape(mbs * seq, d)
             lab = tok_slice(labels, u).reshape(mbs * seq)
             loss, dh, iog = Vb.loss_and_dy(cfg, rc, io_p, h, lab, denom,
-                                           None)
+                                           vloc, rt.dsize, comm=comm)
             for n, g in iog.items():
                 io_g[n] += g
             metrics["loss_sum"] += loss.detach().float()
@@ -250,7 +314,8 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
             st["acc_full"][n][v] += g.float()
         if p_rank == 0 and v == 0:
             _, dropped = Vb.embed_grad(tok_slice(tokens, u), dx.float(),
-                                       None, cfg.vocab, io_g["embed.table"])
+                                       vloc, cfg.vocab, io_g["embed.table"],
+                                       comm)
             metrics["emb_dropped"] += dropped
         metrics["aux_sum"] += aux.val.float()
 
@@ -268,7 +333,8 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
 
 
 def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
-    """One rank's training step: (grads, metrics), grads in float32."""
+    """One rank's training step: (grads, metrics), grads in float32 in
+    this rank's local shapes; ``batch`` is this rank's data shard."""
     io_p = params["io"]
     dev = rt.device
     io_g = {n: torch.zeros(a.shape, dtype=torch.float32, device=dev)
@@ -280,6 +346,25 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
     seg_grads = segment_train_scan(
         rt, seg, rt.tables["main"], params["segments"]["main"], io_p, batch,
         mbs, shape_cfg.seq_len, denom, io_g, metrics)
-    # one rank: the cross-group, cross-pod and data reductions of the
-    # reference are sums over a single rank
+    mesh = rt.mesh
+    if mesh is None:
+        # one rank: the cross-group and data reductions of the reference
+        # are sums over a single rank
+        return {"io": io_g, "segments": {"main": seg_grads}}, metrics
+    # ---- cross-group gradient reduction (stage rows duplicated across
+    # groups), then the io grads over the model axis and, unless their
+    # vocabulary shard is local and complete, over the data axis -------- #
+    seg_grads = {n: fsdp.group_allreduce(g, mesh)
+                 for n, g in seg_grads.items()}
+    for n in io_g:
+        g = mesh.model_comm.all_reduce(io_g[n])
+        if rt.vloc is None or n not in Vb.SHARDED:
+            g = mesh.data_comm.all_reduce(g)
+        io_g[n] = g
+    w = mesh.world_comm
+    dropped = torch.tensor(metrics["emb_dropped"], dtype=torch.int64,
+                           device=dev)
+    metrics = {"loss_sum": w.all_reduce(metrics["loss_sum"]),
+               "aux_sum": w.all_reduce(metrics["aux_sum"]),
+               "emb_dropped": int(w.all_reduce(dropped))}
     return {"io": io_g, "segments": {"main": seg_grads}}, metrics

@@ -2,18 +2,23 @@
 
 The port's copy of the flat-segment half of ``repro/core/fsdp.py``
 (DESIGN: one collective per stage block per tick). Every gatherable tensor
-of a stage is packed into one flat slab, shard-major: each rank's local
-slab is the entry-order concatenation of its local shards
-(``FlatLayout.local_size`` long) and the gathered segment is the
-rank-order concatenation of slabs, so ``FlatEntry.offset/size`` are static
-LOCAL offsets.
+of a stage (its fsdp dim divides the data axis) is packed into one flat
+slab, shard-major: each rank's local slab is the entry-order
+concatenation of its local shards (``FlatLayout.local_size`` long) and
+the gathered segment is the rank-order concatenation of slabs, so
+``FlatEntry.offset/size`` are static LOCAL offsets. A tensor whose fsdp
+dim does not divide the data axis stays replicated beside the slab, and
+its gradient is summed over the data axis (the reference's
+``reduce_scatter_grad`` with ``d is None``).
 
-The collectives go through a communicator with two operations on a flat
-tensor: ``all_gather`` (rank-order concatenation over the data axis) and
-``reduce_scatter`` (sum over ranks, then this rank's 1/size chunk). This
-slice runs on one rank: :class:`LocalComm` (world size 1), where both are
-the identity. A ``torch.distributed`` communicator (gloo, NCCL) comes with
-the multi-rank slice.
+The collectives go through a communicator over the data axis with two
+operations on a flat tensor: ``all_gather`` (rank-order concatenation)
+and ``reduce_scatter`` (sum over ranks, then this rank's 1/size chunk),
+and ``all_reduce`` for the replicated tensors. :class:`LocalComm` is the
+one-rank communicator, where all three are the identity; several ranks
+use :class:`repro_torch.core.comm.DistComm` (gloo or NCCL).
+:func:`group_allreduce` is the reference's butterfly across pipeline
+groups.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ from repro_torch.models.common import FlatEntry, FlatLayout, ParamSpec
 
 
 class LocalComm:
-    """The one-rank communicator: gather and reduce-scatter of a flat
-    tensor over a data axis of size 1 return it unchanged."""
+    """The one-rank communicator: gather, reduce-scatter and all-reduce
+    over a data axis of size 1 return the tensor unchanged."""
 
     size = 1
 
@@ -36,12 +41,47 @@ class LocalComm:
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return x
+
 
 def local_dim(spec: ParamSpec, dsize: int) -> int | None:
     """Which (unstacked) dim is data-sharded locally, or None."""
     if spec.shape and spec.shape[spec.fsdp_dim] % dsize == 0:
         return spec.fsdp_dim
     return None
+
+
+def local_shape(spec: ParamSpec, dsize: int) -> tuple[int, ...]:
+    """This rank's shard shape of a tensor (its full shape if
+    replicated)."""
+    ld = local_dim(spec, dsize)
+    sh = list(spec.shape)
+    if ld is not None:
+        sh[ld] //= dsize
+    return tuple(sh)
+
+
+def group_allreduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Butterfly all-reduce across the pipeline groups of ``mesh``.
+
+    The reference's ``group_allreduce``: partners differ in one bit of
+    the group index (same data index and stage rank), and each step adds
+    the partner's running sum, so every group ends with the same values
+    in the same order of additions. groups must be a power of two."""
+    G = mesh.groups
+    if G == 1:
+        return x
+    if G & (G - 1):
+        raise ValueError(f"groups={G}: the butterfly needs a power of two")
+    step = 1
+    while step < G:
+        partner = mesh.rank_of(mesh.d_rank, mesh.g_rank ^ step, mesh.p_rank)
+        got, = mesh.exchange([(x, partner, 0)], [(partner, 0)], x.shape,
+                             x.dtype)
+        x = x + got
+        step *= 2
+    return x
 
 
 def build_flat_layout(specs: dict, gatherable, dsize: int

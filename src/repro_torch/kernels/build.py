@@ -40,7 +40,8 @@ SIGNATURES = {
         [_I] + [_P] * 10 + [_I] * 9 + [_F, _P])},
     "fused_xent": {
         "fused_xent_fwd": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
-        "fused_xent_bwd": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P]},
+        "fused_xent_bwd": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
+        "fused_xent_split": [_P, _P, ctypes.c_longlong, _P]},
     "selective_scan": {"selective_scan": [_P] * 9 + [_I] * 4 + [_P],
                        "selective_scan_occupancy": [_I, _I, _P]},
 }

@@ -4,18 +4,28 @@
 //
 // Replaces the TPU kernel repro/kernels/fused_xent.py:109 softmax_xent
 // (bodies _p1_kernel :28 and _p2_kernel :64). The port reaches it from
-// the trainer's loss (core/vocab.py loss_and_dy, one-rank branch), with
-// the head read in place: the bf16 embedding table [V, d] of a tied model
-// (llama3.2-1b), or the bf16 head.w [d, V] of an untied one (gpt-1.5B).
+// the trainer's loss (core/vocab.py loss_and_dy), with the head read in
+// place: the bf16 embedding table [V, d] of a tied model (llama3.2-1b),
+// or the bf16 head.w [d, V] of an untied one (gpt-1.5B) — the whole head,
+// or one data rank's vocabulary shard of it (its own contiguous tensor),
+// whose two passes run apart around a combine of lse over the shards.
 //
 // Contract: h [n, d] float32 (final-norm output); w float32 or bfloat16,
 // either a table [V, d] (layout TABLE) or a head [d, V] (layout HEAD);
-// labels int32 [n] in [0, V), scale float32 [n] (mask / denom).
+// labels int32 [n] in [0, V), or outside it (-1: the row's label lies in
+// another vocabulary shard when w is one shard of a sharded head), scale
+// float32 [n] (mask / denom).
 //   fused_xent_fwd: lse [n] = logsumexp_v(logits), labl [n] = the label's
-//     logit; pm, pl [n, ceil(V/128)] float32 scratch; hs bf16 [2, n, d]
+//     logit, 0 for a label outside [0, V) (written by lse_kernel, after
+//     the stats kernels, which write only the labels they see); pm, pl
+//     [n, ceil(V/128)] float32 scratch; hs bf16 [2, n, d]
 //     scratch (bf16 w only: h split into two bf16 terms, kept for the
 //     backward call).
-//   fused_xent_bwd: dlog = (softmax - onehot) * scale, dh [n, d] and dw,
+//   fused_xent_split: hs from h alone (a bwd call after another call's
+//     fwd: the sharded loss combines lse across shards between the two).
+//   fused_xent_bwd: dlog = (softmax - onehot) * scale (lse given: this
+//     call's fwd output or a combination over shards; a label outside
+//     [0, V) adds no one-hot), dh [n, d] and dw,
 //     both float32, dw in w's layout ([V, d] or [d, V]); dlog scratch for
 //     one vocabulary chunk of Vc columns (Vc % 128 == 0): float32 [n, Vc]
 //     for a float32 w, bf16 [2, n, Vc] (two terms) for a bf16 w.
@@ -263,10 +273,13 @@ __global__ void __launch_bounds__(GT)
   }
 }
 
-// lse[row] from the per-tile (max, sum) pairs; one warp a row.
+// lse[row] from the per-tile (max, sum) pairs; one warp a row. A row whose
+// label lies outside [0, V) (another shard's) gets label logit 0: no
+// stats tile wrote it.
 __global__ void __launch_bounds__(GT)
     lse_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-               float* __restrict__ lse, int n, int nvt) {
+               const int* __restrict__ labels, float* __restrict__ lse,
+               float* __restrict__ labl, int n, int nvt, int V) {
   const int row = blockIdx.x * (GT / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
@@ -282,7 +295,11 @@ __global__ void __launch_bounds__(GT)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) lse[row] = mx + logf(fmaxf(s, 1e-30f));
+  if (lane == 0) {
+    lse[row] = mx + logf(fmaxf(s, 1e-30f));
+    const int lab = labels[row];
+    if (lab < 0 || lab >= V) labl[row] = 0.f;
+  }
 }
 
 // pass 2a: dlog[row, c] = (exp(logit - lse) - onehot) * scale[row] for the
@@ -421,7 +438,8 @@ int fwd_cc(const float* h, const float* w, const int* labels, float* lse,
       h, w, labels, pm, pl, labl, n, d, V, nvt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, lse, n, nvt);
+  lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, labels, lse, labl,
+                                              n, nvt, V);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -897,7 +915,8 @@ int fwd(const float* h, const bf16* w, const int* labels, float* lse,
       Logits<LAYOUT>{hs, w, n, d, V}, labels, pm, pl, labl, nvt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, lse, n, nvt);
+  lse_kernel<<<cdiv(n, GT / 32), GT, 0, st>>>(pm, pl, labels, lse, labl,
+                                              n, nvt, V);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -997,7 +1016,20 @@ extern "C" int fused_xent_fwd(int w_dtype, int layout, const float* h,
   return -1;
 }
 
-// hs: the split of h that fused_xent_fwd wrote (bf16 w only).
+// hs bf16 [2, count]: hi and lo terms of h float32 [count] (count % 4 ==
+// 0), as fused_xent_fwd writes them for a bf16 w.
+extern "C" int fused_xent_split(const float* h, void* hs, long long count,
+                                void* stream) {
+  if (count <= 0) return 0;
+  if (count % 4) return -1;
+  xtc::xent_split<<<static_cast<unsigned>((count / 4 + 255) / 256), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      h, static_cast<__nv_bfloat16*>(hs), static_cast<size_t>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hs: the split of h that fused_xent_fwd (or fused_xent_split) wrote
+// (bf16 w only).
 extern "C" int fused_xent_bwd(int w_dtype, int layout, const float* h,
                               const void* w, const int* labels,
                               const float* lse, const float* scale,

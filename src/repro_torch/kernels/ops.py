@@ -14,9 +14,10 @@ serving) goes to the slotted kernel (K3), a static Python int (training,
 causal or bidirectional) to the flash kernels (K1 forward, K1b backward)
 through a differentiable ``torch.autograd.Function``. ``softmax_xent``
 goes to the fused cross-entropy kernel (K2), ``selective_scan`` to the
-selective-scan kernel (K5). ``selective_scan_step``, one decode step of
-the scan, is plain PyTorch on every device, as in the reference (which
-has no kernel for it either); it is not counted.
+selective-scan kernel (K5); ``xent_stats`` / ``xent_grads``, K2's two
+passes apart, serve the vocabulary-sharded loss. ``selective_scan_step``,
+one decode step of the scan, is plain PyTorch on every device, as in the
+reference (which has no kernel for it either); it is not counted.
 
 Every call bumps a process-wide counter (``kernel_counters``), one count
 per executed call — the port runs eagerly, so there is no trace-time
@@ -104,6 +105,26 @@ def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None,
         return ref.softmax_xent(h, w_head, labels, **kw)
     _count("kernel_xent")
     return fx.softmax_xent(h, w_head, labels, **kw)
+
+
+def xent_stats(h, w_head, labels, *, chunk=8192, impl=None):
+    """K2's pass 1 over a (vocabulary-sharded) head: (lse, label logit);
+    see ``ref.xent_stats``."""
+    if not _use_kernel(h, impl):
+        _count("ref_xent_stats")
+        return ref.xent_stats(h, w_head, labels, chunk=chunk)
+    _count("kernel_xent_stats")
+    return fx.xent_stats(h, w_head, labels, chunk=chunk)
+
+
+def xent_grads(h, w_head, labels, lse, scale, *, chunk=8192, impl=None):
+    """K2's pass 2 for a given lse and per-row scale: (dh, dW); see
+    ``ref.xent_grads``."""
+    if not _use_kernel(h, impl):
+        _count("ref_xent_grads")
+        return ref.xent_grads(h, w_head, labels, lse, scale, chunk=chunk)
+    _count("kernel_xent_grads")
+    return fx.xent_grads(h, w_head, labels, lse, scale, chunk=chunk)
 
 
 def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,

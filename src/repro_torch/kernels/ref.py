@@ -13,7 +13,9 @@ versions by kernel: slotted — ``attention`` with a ``[b]`` ``q_offset``
 (causal) and ``decode_attention`` (window, with stats); paged —
 ``paged_attention``; flash forward — ``attention`` with an int offset and
 ``return_lse``; flash backward — ``attention_bwd``; fused cross-entropy —
-``softmax_xent``; selective scan — ``selective_scan``.
+``softmax_xent``, the composition of its two passes ``xent_stats`` and
+``xent_grads`` (the vocabulary-sharded loss runs them apart); selective
+scan — ``selective_scan``.
 ``selective_scan_step`` (one decode step of the scan) has no kernel on
 either side and runs as plain PyTorch on every device.
 """
@@ -145,29 +147,16 @@ def attention_bwd(q, k, v, o, do, lse, *, causal=True, q_offset=0,
     return dq, dk, dv
 
 
-def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
-    """Returns (loss, (dh, dW)) without materializing [n, vocab] logits.
-
-    h [n, d] final hiddens; w_head [d, vocab] (a transposed view of the
-    tied [vocab, d] table is read in place, one chunk upcast at a time);
-    labels [n] int; mask [n] (1.0 = count this token). loss =
-    sum((lse - label logit) * mask) / denom with ``denom`` the reference's
-    max(sum(mask), 1) when None (the trainer passes the step's global
-    token count). dlog = (softmax - onehot) * mask / denom is streamed over
-    vocab chunks: dh = dlog W^T, dW = h^T dlog, in float32 (h and W are
-    upcast), returned as dh in h.dtype and dW [d, vocab] in float32 (the
-    reference casts dW to the head's dtype; the trainer accumulates it in
-    float32).
-    """
-    n, d = h.shape
+def xent_stats(h, w_head, labels, *, chunk=8192):
+    """Pass 1 of K2: (lse [n], label logit [n]) of the logits h @ w_head,
+    both float32, streamed over vocab chunks. h [n, d]; w_head [d, vocab]
+    (upcast one chunk at a time); labels [n] int, where a label outside
+    [0, vocab) — -1 for a row whose label lies in another vocabulary
+    shard — has label logit 0."""
+    n = h.shape[0]
     vocab = w_head.shape[1]
     dev = h.device
     hf = h.float()
-    if mask is None:
-        mask = torch.ones((n,), dtype=torch.float32, device=dev)
-    mask = mask.float()
-    if denom is None:
-        denom = torch.clamp_min(mask.sum(), 1.0)
     lab = labels.long()
     m = torch.full((n,), float("-inf"), device=dev)
     l = torch.zeros((n,), device=dev)
@@ -183,9 +172,19 @@ def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
         inc = (lab >= lo) & (lab < hi)
         got = logits[rows, (lab - lo).clamp(0, hi - lo - 1)]
         lab_logit = torch.where(inc, got, lab_logit)
-    lse = m + torch.log(torch.clamp_min(l, 1e-30))
-    loss = ((lse - lab_logit) * mask).sum() / denom
-    sc = mask / denom
+    return m + torch.log(torch.clamp_min(l, 1e-30)), lab_logit
+
+
+def xent_grads(h, w_head, labels, lse, scale, *, chunk=8192):
+    """Pass 2 of K2: dlog = (exp(logit - lse) - onehot) * scale[:, None]
+    streamed over vocab chunks; returns (dh = dlog W^T [n, d], dW = h^T
+    dlog [d, vocab]), both float32. ``lse`` may be combined over several
+    vocabulary shards; a label outside [0, vocab) adds no one-hot."""
+    n, d = h.shape
+    vocab = w_head.shape[1]
+    dev = h.device
+    hf = h.float()
+    lab = labels.long()
     dh = torch.zeros((n, d), dtype=torch.float32, device=dev)
     dw = torch.empty((d, vocab), dtype=torch.float32, device=dev)
     for lo in range(0, vocab, chunk):
@@ -193,9 +192,35 @@ def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
         wc = w_head[:, lo:hi].float()
         p = torch.exp(hf @ wc - lse[:, None])
         onehot = (lab[:, None] == torch.arange(lo, hi, device=dev)[None])
-        dlog = (p - onehot.float()) * sc[:, None]
+        dlog = (p - onehot.float()) * scale[:, None]
         dh += dlog @ wc.t()
         dw[:, lo:hi] = hf.t() @ dlog
+    return dh, dw
+
+
+def softmax_xent(h, w_head, labels, *, chunk=8192, mask=None, denom=None):
+    """Returns (loss, (dh, dW)) without materializing [n, vocab] logits.
+
+    h [n, d] final hiddens; w_head [d, vocab] (a transposed view of the
+    tied [vocab, d] table is read in place, one chunk upcast at a time);
+    labels [n] int; mask [n] (1.0 = count this token). loss =
+    sum((lse - label logit) * mask) / denom with ``denom`` the reference's
+    max(sum(mask), 1) when None (the trainer passes the step's global
+    token count). dlog = (softmax - onehot) * mask / denom is streamed over
+    vocab chunks: dh = dlog W^T, dW = h^T dlog, in float32 (h and W are
+    upcast), returned as dh in h.dtype and dW [d, vocab] in float32 (the
+    reference casts dW to the head's dtype; the trainer accumulates it in
+    float32). The composition of :func:`xent_stats` and :func:`xent_grads`.
+    """
+    n = h.shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.float32, device=h.device)
+    mask = mask.float()
+    if denom is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    lse, lab_logit = xent_stats(h, w_head, labels, chunk=chunk)
+    loss = ((lse - lab_logit) * mask).sum() / denom
+    dh, dw = xent_grads(h, w_head, labels, lse, mask / denom, chunk=chunk)
     return loss, (dh.to(h.dtype), dw)
 
 

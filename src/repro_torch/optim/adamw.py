@@ -9,6 +9,12 @@ of operations (``torch.optim.AdamW`` orders its update differently).
 Unlike the reference, :func:`apply_updates` updates the state and the
 parameters in place (each leaf is rewritten once, so the step never holds
 two copies of the master weights and moments); it returns the same trees.
+
+On a mesh of ranks each rank holds its shards; the update is elementwise
+on them, and the clipping norm is that of the GLOBAL gradient: each rank
+sums the squares of the leaves it owns (``owned``: every element of the
+global gradient counted once — see ``Runtime.owns``) and ``all_reduce``
+sums those over the mesh.
 """
 
 from __future__ import annotations
@@ -62,19 +68,32 @@ def init_state(params, cfg: AdamWConfig):
     }
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, owned=None, all_reduce=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient element. ``owned``
+    {keystr path: bool} keeps a rank's leaves that count (all when None);
+    ``all_reduce`` sums the partial over the mesh."""
     total = None
-    for _, g in _leaves(grads):
+    for path, g in _leaves(grads):
+        if owned is not None and not owned[path]:
+            continue
         s = (g.float() ** 2).sum()
         total = s if total is None else total + s
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=next(_leaves(grads))[1].device)
+    if all_reduce is not None:
+        total = all_reduce(total)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """One AdamW step. Returns (params, state, metrics), updated in place."""
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0,
+                  owned=None, all_reduce=None):
+    """One AdamW step. Returns (params, state, metrics), updated in place.
+    ``owned`` and ``all_reduce`` make ``grad_norm`` the global norm over a
+    mesh (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, owned, all_reduce)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                            1.0)
     f32 = dict(dtype=torch.float32, device=gnorm.device)

@@ -1,8 +1,17 @@
-"""Parameter trees of the port: initialiser and the bridge to the reference.
+"""Parameter trees of the port: initialiser, the bridge to the reference,
+and the cut of a tree into the ranks' parts.
 
-A tree is ``{"io": {name: tensor}, "segments": {"main": {"L{j}.<...>":
-[P·V, ...]}}}`` with the reference's names and stage stacking, so
-``from_reference`` is a name-for-name copy of ``repro``'s tree.
+A full tree is ``{"io": {name: tensor}, "segments": {"main":
+{"L{j}.<...>": [P·V, ...]}}}`` with the reference's names and stage
+stacking (row ``storage_index(p, v, V) = p * V + v`` holds logical stage
+``v * P + p``), so ``from_reference`` is a name-for-name copy of
+``repro``'s tree. One rank of a data x (groups x pp) mesh holds its part
+(:func:`shard_for_rank`): the V stage rows of its stage rank p (every
+pipeline group holds the same rows), each tensor cut along its fsdp dim
+into the data rank's shard where the data axis divides it, and the
+embedding table / untied head cut into the data rank's vocabulary shard.
+:func:`unshard` re-assembles the full tree (group 0's copy), as the
+reference's tests do.
 """
 
 from __future__ import annotations
@@ -10,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import fsdp
 from repro_torch.models import model as M
 from repro_torch.models.common import (
     init_param,
@@ -76,3 +86,98 @@ def init_all_params(cfg, rc, generator: torch.Generator | None = None,
                                            device)
         segments[seg.name] = stacked
     return {"io": io, "segments": segments}
+
+
+def _stage_rows(rt, p: int) -> list[int]:
+    V = rt.rc.vpp
+    return [M.storage_index(p, v, V) for v in range(V)]
+
+
+def shard_for_rank(rt, full, rank: int):
+    """``rank``'s part of a full tree, as tensors of their own (the full
+    tree can be freed). ``rt`` is a Runtime (its ``shape`` gives the
+    mesh)."""
+    d, _, p = rt.shape.coords(rank)
+    D, vloc = rt.dsize, rt.vloc
+    io = {}
+    for n, a in full["io"].items():
+        if rt.io_sharded(n):
+            a = a.narrow(rt.io_specs[n].fsdp_dim, d * vloc, vloc)
+        io[n] = a.contiguous().clone()
+    segs = {}
+    for sname, st in full["segments"].items():
+        specs, rows = rt.stage_specs[sname], _stage_rows(rt, p)
+        out = {}
+        for n, a in st.items():
+            a = a[rows]
+            ld = fsdp.local_dim(specs[n], D)
+            if ld is not None and D > 1:
+                k = a.shape[ld + 1] // D
+                a = a.narrow(ld + 1, d * k, k)
+            out[n] = a.contiguous().clone()
+        segs[sname] = out
+    return {"io": io, "segments": segs}
+
+
+def unshard(rt, trees):
+    """The full tree from every rank's part (``trees[rank]``): group 0's
+    copy, data shards concatenated; the inverse of :func:`shard_for_rank`
+    for params, and the global gradient for grads."""
+    sh, D = rt.shape, rt.dsize
+    io = {}
+    for n in trees[0]["io"]:
+        if rt.io_sharded(n):
+            io[n] = torch.cat([trees[sh.rank_of(d, 0, 0)]["io"][n]
+                               for d in range(D)], rt.io_specs[n].fsdp_dim)
+        else:
+            io[n] = trees[0]["io"][n]
+    segs = {}
+    for sname in trees[0]["segments"]:
+        specs = rt.stage_specs[sname]
+        out = {}
+        for n in trees[0]["segments"][sname]:
+            ld = fsdp.local_dim(specs[n], D)
+            full = [None] * (rt.Pe * rt.rc.vpp)
+            for p in range(rt.Pe):
+                parts = [trees[sh.rank_of(d, 0, p)]["segments"][sname][n]
+                         for d in range(D if ld is not None else 1)]
+                blk = torch.cat(parts, ld + 1) if len(parts) > 1 \
+                    else parts[0]
+                for v, row in enumerate(_stage_rows(rt, p)):
+                    full[row] = blk[v]
+            out[n] = torch.stack(full)
+        segs[sname] = out
+    return {"io": io, "segments": segs}
+
+
+def relayout(tree, cfg, src, dst):
+    """A full tree laid out for RunConfig ``src`` (its pp, vpp) re-stacked
+    for ``dst``: the same layers, each moved to its stage and slot under
+    ``dst`` (layer j sits in logical stage j // k, slot L{j % k}, at row
+    ``storage_index``). Used to hold a mesh's step to the one-rank step of
+    the same model."""
+    def layers(rc):
+        seg = M.build_geometry(cfg, rc).segments[0]
+        if seg.k * rc.pp * rc.vpp != cfg.n_layers:
+            raise ValueError(f"{cfg.n_layers} layers do not fill pp="
+                             f"{rc.pp} x vpp={rc.vpp} stages evenly")
+        return seg.k, rc.pp, rc.vpp
+
+    (k0, p0, v0), (k1, p1, v1) = layers(src), layers(dst)
+    out = {}
+    for n, a in tree["segments"]["main"].items():
+        slot, rest = n.split(".", 1)
+        if slot != "L0":
+            continue      # every slot's names repeat L0's
+        for j in range(cfg.n_layers):
+            s0, s1 = j // k0, j // k1
+            row0 = M.storage_index(s0 % p0, s0 // p0, v0)
+            row1 = M.storage_index(s1 % p1, s1 // p1, v1)
+            name1 = f"L{j % k1}.{rest}"
+            if name1 not in out:
+                out[name1] = [None] * (p1 * v1)
+            out[name1][row1] = tree["segments"]["main"][
+                f"L{j % k0}.{rest}"][row0]
+    return {"io": dict(tree["io"]),
+            "segments": {"main": {n: torch.stack(r)
+                                  for n, r in out.items()}}}

@@ -171,11 +171,12 @@ def test_init_all_params_follows_param_specs():
 
 
 def test_session_refuses_what_the_slice_lacks(monkeypatch):
-    # training runs on one rank: wider layouts wait for the next slice
-    with pytest.raises(SessionError, match="multi-rank: next slice"):
+    # wider layouts train on several ranks: one process without a
+    # process group is refused
+    with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", mode="train", device="cpu",
                 overrides=dict(pp=2))
-    with pytest.raises(SessionError, match="multi-rank: next slice"):
+    with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", mode="train", device="cpu", data=2)
     with pytest.raises(SessionError, match="unknown architecture"):
         session("qwen2-moe-a2.7b", max_seq=16, device="cpu")

@@ -582,3 +582,59 @@ def test_fused_xent_kernel_untied_head(cuda, w_dtype, n):
     # a head layout no kernel reads raises; it does not fall back
     with pytest.raises(ValueError, match="w_head"):
         fx.softmax_xent(h, head[:, : head.shape[1] - 4], lab, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["table", "head"])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_fused_xent_over_vocab_shards(cuda, w_dtype, layout):
+    """K2's two passes apart over two vocabulary shards of 512 (each its
+    own contiguous tensor: [512, d] table rows or a [d, 512] head block),
+    labels local to the shard and -1 elsewhere: each shard's pass 1
+    against its plain version (rows of the other shard get label logit 0
+    exactly); the shards' statistics combined with a max and a sum
+    against the whole-vocab kernel's loss; pass 2 with the combined lse
+    against the whole-vocab dh (the sum over shards) and dW (the
+    concatenation), by K2's float32 rule. Probe: labels not shifted to
+    the second shard must fail it."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n, d, vocab, vloc = 300, 136, 1024, 512
+    h = torch.randn((n, d), generator=gen, device=cuda)
+    table = (0.3 * torch.randn((vocab, d), generator=gen, device=cuda)).to(
+        getattr(torch, w_dtype))
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=cuda)
+    mask = (torch.rand((n,), generator=gen, device=cuda) > 0.25).float()
+    denom = float(n)
+
+    def shard(r):
+        rows = table[r * vloc:(r + 1) * vloc].contiguous()
+        return rows.t() if layout == "table" else rows.t().contiguous()
+
+    def local(r, shift=True):
+        inw = (lab >= r * vloc) & (lab < (r + 1) * vloc)
+        return torch.where(inw, lab - r * vloc if shift else lab, -1)
+
+    stats = []
+    for r in range(2):
+        got = fx.xent_stats(h, shard(r), local(r), chunk=256)
+        want = tref.xent_stats(h, shard(r), local(r), chunk=256)
+        _rel_close(got[0], want[0], 1e-5)
+        _rel_close(got[1], want[1], 1e-5)
+        assert bool((got[1][local(r) < 0] == 0).all())
+        stats.append(got)
+    lses = torch.stack([s_[0] for s_ in stats])
+    m = lses.max(0).values
+    lse = m + torch.log(torch.exp(lses - m).sum(0))
+    labl = stats[0][1] + stats[1][1]
+    loss = ((lse - labl) * mask).sum() / denom
+    w_full = table.t() if layout == "table" else table.t().contiguous()
+    wl, (wdh, wdw) = fx.softmax_xent(h, w_full, lab, chunk=256, mask=mask,
+                                     denom=denom)
+    _rel_close(loss.reshape(1), wl.reshape(1), 1e-5)
+    parts = [fx.xent_grads(h, shard(r), local(r), lse, mask / denom,
+                           chunk=256) for r in range(2)]
+    _rel_close(parts[0][0] + parts[1][0], wdh)
+    _rel_close(torch.cat([p[1] for p in parts], 1), wdw)
+    bad = fx.xent_stats(h, shard(1), local(1, shift=False), chunk=256)
+    assert (bad[1] - stats[1][1]).abs().max().item() > \
+        1e-5 * stats[1][1].abs().max().item()

@@ -182,10 +182,16 @@ def test_engine_refuses_packed_table_deeper_than_its_unit(V):
     (dict(schedule="auto"), "auto slice"),
     (dict(schedule="autogen_gated"), "auto slice"),
     (dict(overrides=dict(moe_mode="ep")), "MoE slice"),
-    (dict(overrides=dict(groups=2)), "multi-rank: next slice"),
-    (dict(overrides=dict(grad_compress="int8")), "multi-rank: next slice"),
-    (dict(overrides=dict(coalesce="none")), "multi-rank slice"),
+    # several ranks train since the multi-rank slice; one process without
+    # a process group is refused (ids kept from before that slice)
+    pytest.param(dict(overrides=dict(groups=2)), "process group",
+                 id="kw3-multi-rank: next slice"),
+    pytest.param(dict(overrides=dict(grad_compress="int8")), "item 1b",
+                 id="kw4-multi-rank: next slice"),
+    pytest.param(dict(overrides=dict(coalesce="none")), "item 1b",
+                 id="kw5-multi-rank slice"),
     (dict(topology="gpu_cluster"), "multi-rank slice"),
+    (dict(pods=2), "item 1b"),
 ])
 def test_train_session_refuses_what_later_slices_bring(kw, match):
     with pytest.raises(SessionError, match=match):

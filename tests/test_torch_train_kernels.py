@@ -2,7 +2,8 @@
 
 The same seeded numpy inputs go through the port's plain versions
 (``repro_torch.kernels.ref``: attention with a static offset and its
-log-sum-exp, the written-out attention backward, ``softmax_xent``; and
+log-sum-exp, the written-out attention backward, ``softmax_xent`` and its
+two passes over vocabulary shards, combined; and
 ``core/vocab.loss_and_dy``) and through ``repro``'s jnp references, its
 Pallas kernels in interpret mode (as ``tests/test_kernels.py`` runs them)
 and ``jax.vjp``. ``tests/test_torch_cuda.py`` holds the CUDA kernels
@@ -170,6 +171,54 @@ def test_loss_and_dy_matches_jax():
     assert set(tg) == set(jg)
     for k in jg:
         _close(tg[k], jg[k])
+
+
+def _shard_combine(h, w, lab, mask, denom, shards, chunk):
+    """K2's plain passes over ``shards`` vocabulary shards: pass 1 per
+    shard (labels local, -1 outside), lse and label logit combined with a
+    max and a sum, pass 2 per shard with the combined lse; dh summed, dW
+    concatenated."""
+    vocab = w.shape[1]
+    cuts = np.linspace(0, vocab, shards + 1).astype(int)
+    parts = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        loc = torch.where((lab >= lo) & (lab < hi), lab - lo, -1)
+        parts.append((w[:, lo:hi], loc) + tref.xent_stats(
+            h, w[:, lo:hi], loc, chunk=chunk))
+    lses = torch.stack([p[2] for p in parts])
+    m = lses.max(0).values
+    lse = m + torch.log(torch.exp(lses - m).sum(0))
+    lab_logit = sum(p[3] for p in parts)
+    loss = ((lse - lab_logit) * mask).sum() / denom
+    grads = [tref.xent_grads(h, ws, loc, lse, mask / denom, chunk=chunk)
+             for ws, loc, _, _ in parts]
+    return loss, sum(g[0] for g in grads), torch.cat([g[1] for g in grads],
+                                                     1)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_xent_passes_over_vocab_shards_combine_to_softmax_xent(shards):
+    """The sharded loss's arithmetic: ``xent_stats`` / ``xent_grads`` over
+    2 and 3 vocabulary shards (a shard of 100 spans chunks of 64; labels
+    of the other shards go in as -1), combined, equal the plain
+    whole-vocab ``softmax_xent`` and the JAX one."""
+    rng = np.random.RandomState(16)
+    n, d, vocab = 37, 16, 300
+    h = rng.randn(n, d).astype(np.float32)
+    w = (rng.randn(d, vocab) * 0.5).astype(np.float32)
+    lab = rng.randint(0, vocab, n).astype(np.int32)
+    mask = (rng.rand(n) > 0.3).astype(np.float32)
+    denom = float(mask.sum())       # the JAX function's own denominator
+    got = _shard_combine(_t(h), _t(w), torch.from_numpy(lab).long(),
+                         _t(mask), denom, shards, 64)
+    loss, (dh, dw) = tref.softmax_xent(_t(h), _t(w), torch.from_numpy(lab),
+                                       chunk=64, mask=_t(mask))
+    jl, (jdh, jdw) = jref.softmax_xent(jnp.asarray(h), jnp.asarray(w),
+                                       jnp.asarray(lab), chunk=64,
+                                       mask=jnp.asarray(mask))
+    for want in ((loss, dh, dw), (jl, jdh, jdw)):
+        for g, w_ in zip(got, want):
+            _close(g, w_ if not hasattr(w_, "detach") else w_.detach())
 
 
 # ---- the bf16 tolerance of the tensor-core flash kernels ------------------ #
