@@ -101,18 +101,26 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    training step of each training model on fresh params (device busy
    share, kernels by device time, launches a step, and the device time
    of K1, K1b and K2, K2 also by pass: the split, pass 1, pass 2);
-7. multi-rank train phase, last, with the card otherwise empty:
-   llama3.2-1b at full width and depth on data 2 x pp 2 — four ranks,
-   spawned by ``python -m repro_torch.launch.train --full --data 2 --pp
-   2 --seq 1024 --backend gloo --steps 3`` as a subprocess, all on this
-   card, collectives staged through host memory (gloo); seq cut from
-   2048 to 1024 for four ranks' memory. Before it, one one-rank step of
-   the same params and batch runs here; rank 0's step-1 loss must agree
-   with it within 2e-3 relative and its pre-clip grad norm within 1e-2,
-   every rank must have launched K1 and K1b and the last stage's ranks
-   K2 over their vocabulary shard, no plain version may run, and the
-   subprocess must exit 0. Steps 2-3 (ms, tokens/s: no throughput claim,
-   gloo sets it) and each rank's peak memory are logged.
+7. multi-rank train phases, last, with the card otherwise empty, each
+   four ranks spawned by ``python -m repro_torch.launch.train`` as a
+   subprocess, all on this card, collectives staged through host memory
+   (gloo), gathers and reduce-scatters issued asynchronously and waited
+   on late: first llama3.2-1b at full width and depth on data 2 x pp 2
+   (``--full --data 2 --pp 2 --seq 1024 --backend gloo --steps 3``; seq
+   cut from 2048 to 1024 for four ranks' memory), then llama3.2-1b at
+   full width cut to 8 layers on pods 2 x data 2 x pp 1 with the stage
+   grads reduced in int8 with error feedback (``--full --pods 2 --data
+   2 --pp 1 --layers 8 --seq 1024 --grad-compress int8``: flat slabs,
+   gathers a tick ahead; the pods all-reduce in float32). Before each,
+   one one-rank step of the same params and batch runs here; rank 0's
+   step-1 loss must agree with it within 2e-3 relative and its pre-clip
+   grad norm within 1e-2, every rank must have launched K1 and K1b and
+   the last stage's ranks K2 over their vocabulary shard, no plain
+   version may run, at pods 2 the two pods' params must be equal bit for
+   bit after the last step (each rank reports a sha256 of its params),
+   and the subprocess must exit 0. Steps 2-3 (ms, tokens/s: no
+   throughput claim, gloo sets it) and each rank's peak memory are
+   logged.
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -211,17 +219,30 @@ GPT = dict(arch="gpt_paper", seq=1024, global_batch=8, vocab=50304,
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
                  "K2 fused_xent": sum(XENT_PASSES.values(), ())}
-# the multi-rank train phase: llama3.2-1b at full width and depth on data
-# 2 x pp 2 (4 ranks, one process each, all on this card over gloo), seq
-# 1024 for four ranks' memory on one card; zeropp, vpp 2, 4 micro-batches
-# of one sequence in units of 2 a data rank: 8 x 1024 tokens a step
-MULTI = dict(arch=ARCH, data=2, pp=2, seq=1024, global_batch=8, steps=3,
-             backend="gloo")
+# the multi-rank train phases, each four ranks (one process each, all on
+# this card over gloo), seq 1024 for four ranks' memory on one card;
+# zeropp, vpp 2, 4 micro-batches of one sequence in units of 2 a batch
+# shard. "multirank": llama3.2-1b at full width and depth on data 2 x pp
+# 2, float32 reduces: 8 x 1024 tokens a step. "pods": llama3.2-1b at
+# full width cut to 8 layers on pods 2 x data 2 x pp 1, the stage grads
+# reduced in int8 with error feedback, flat slabs, gathers issued a tick
+# ahead: 16 x 1024 tokens a step
+MULTI = dict(name="multirank", arch=ARCH, data=2, pp=2, seq=1024,
+             global_batch=8, steps=3, backend="gloo",
+             cuts="seq 2048 -> 1024 for four ranks' memory on one card")
+PODS = dict(name="pods", arch=ARCH, pods=2, data=2, pp=1, layers=8,
+            seq=1024, global_batch=16, steps=3, backend="gloo",
+            flags=("--grad-compress", "int8"),
+            cuts="seq 2048 -> 1024 and depth 16 -> 8 layers for four "
+                 "ranks' memory on one card (about 95 GB at 16 layers)")
 # rank 0's step 1 against one one-rank step of the same params and batch
-# (pp 1, vpp 2, micro-batches of 2 sequences): bf16 compute in other
+# (pp 1, vpp 2, micro-batches of 2 or 4 sequences): bf16 compute in other
 # micro-batch shapes and stage boundaries, and the reductions in another
 # order, so the loss agrees to about a bf16 rounding of the logits and
-# the norm of 1.24 B gradient elements to about a percent
+# the norm of 1.24 B gradient elements to about a percent. The pods
+# phase reduces its stage grads in int8: the loss of step 1 is computed
+# before any reduce, and its norm keeps the same 1e-2 (the CPU runs of
+# tests/test_torch_multirank.py read 2.6e-4 flat, 1.0e-5 per tensor)
 MULTI_LOSS_RTOL, MULTI_NORM_RTOL = 2e-3, 1e-2
 # kernel vs plain versions on step 1: loss within 1e-3 relative; each
 # gradient within 5e-2 of the plain tensor's largest value. Both paths
@@ -1478,28 +1499,30 @@ def train_phase(torch, cell):
     return res
 
 
-def multirank_phase(torch):
-    """llama3.2-1b at full width on data 2 x pp 2: four ranks, spawned by
+def multirank_phase(torch, c):
+    """A multi-rank train cell ``c`` (MULTI, PODS): four ranks, spawned by
     ``python -m repro_torch.launch.train`` as a subprocess, all on this
     card over gloo (host-staged collectives). First one one-rank step of
     the same params (the same seed, its layers re-stacked for pp 1) and
     batch in this process; then rank 0's step-1 loss and pre-clip grad
     norm must agree with it, every rank must have launched K1 and K1b and
-    the last stage's ranks K2 (over their vocabulary shard), and the
-    subprocess must exit 0."""
+    the last stage's ranks K2 (over their vocabulary shard), the pods'
+    params must be equal bit for bit, and the subprocess must exit 0."""
     from repro_torch import params as tparams
     from repro_torch.api import session
     from repro_torch.optim import adamw
 
-    c = MULTI
-    ranks = c["data"] * c["pp"]
-    tag = "[multirank]"
+    pods, name = c.get("pods", 1), c["name"]
+    ranks = pods * c["data"] * c["pp"]
+    tag = f"[{name}]"
+    mesh = (f"pods {pods} x " if pods > 1 else "") + \
+        f"data {c['data']} x pp {c['pp']}"
     log(f"{tag} backend {c['backend']} (host-staged), {ranks} ranks on 1 "
-        f"device: {c['arch']} data {c['data']} x pp {c['pp']}, seq "
-        f"{c['seq']} (cut from 2048 for four ranks' memory on one card), "
-        f"batch {c['global_batch']} x {c['seq']}")
+        f"device: {c['arch']} {mesh}, batch {c['global_batch']} x "
+        f"{c['seq']} {' '.join(c.get('flags', ()))}; cut: {c['cuts']}")
     sess = session(c["arch"], mode="train", reduced=False, device="cuda",
-                   seq_len=c["seq"], global_batch=c["global_batch"])
+                   seq_len=c["seq"], global_batch=c["global_batch"],
+                   layers=c.get("layers"))
     rc_mesh = dataclasses.replace(sess.rc, pp=c["pp"])
     full = tparams.init_all_params(
         sess.cfg, rc_mesh, torch.Generator(device="cuda").manual_seed(0),
@@ -1511,19 +1534,22 @@ def multirank_phase(torch):
     loss1 = float(m["loss_sum"])
     norm1 = float(adamw.global_norm(grads))
     torch.cuda.synchronize()
-    log(f"{tag} one-rank step 1 (pp 1, vpp 2, 4 micro-batches of 2): loss "
-        f"{loss1:.6f}, grad norm {norm1:.6f} ({time.perf_counter() - t0:.2f}"
-        " s)")
+    log(f"{tag} one-rank step 1 ({sess.cfg.n_layers} layers, pp 1, vpp 2, "
+        f"4 micro-batches of {c['global_batch'] // 4}): loss {loss1:.6f}, "
+        f"grad norm {norm1:.6f} ({time.perf_counter() - t0:.2f} s)")
     del grads, params, sess
     gc.collect()
     torch.cuda.empty_cache()
 
-    report = OUT / "multirank.json"
+    report = OUT / f"{name}.json"
     report.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--full",
-           "--arch", c["arch"], "--data", str(c["data"]), "--pp",
-           str(c["pp"]), "--seq", str(c["seq"]), "--backend", c["backend"],
-           "--steps", str(c["steps"]), "--report", str(report)]
+           "--arch", c["arch"], "--pods", str(pods), "--data",
+           str(c["data"]), "--pp", str(c["pp"]), "--seq", str(c["seq"]),
+           "--backend", c["backend"], "--steps", str(c["steps"]),
+           "--report", str(report), *c.get("flags", ())]
+    if c.get("layers"):
+        cmd += ["--layers", str(c["layers"])]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + [x for x in env.get("PYTHONPATH", "").split(
@@ -1539,13 +1565,13 @@ def multirank_phase(torch):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        fail("the multi-rank run did not finish in 900 s")
+        fail(f"the {name} run did not finish in 900 s")
     wall = time.perf_counter() - t0
-    (OUT / "multirank.log").write_text(out + "\n--- stderr ---\n" + err)
+    (OUT / f"{name}.log").write_text(out + "\n--- stderr ---\n" + err)
     for line in out.splitlines():
         log(f"{tag}   {line}")
     if proc.returncode != 0:
-        fail(f"the multi-rank run exited {proc.returncode}: {err[-2000:]}")
+        fail(f"the {name} run exited {proc.returncode}: {err[-2000:]}")
     rep = json.loads(report.read_text())
     steps = rep["steps"]
     lr, nr = steps[0]["loss"], steps[0]["grad_norm"]
@@ -1555,26 +1581,35 @@ def multirank_phase(torch):
         f"{nr:.6f} vs {norm1:.6f} (relative {d_norm:.3e}, rule "
         f"{MULTI_NORM_RTOL:g})")
     if not d_loss <= MULTI_LOSS_RTOL:
-        fail(f"multi-rank step-1 loss {lr} off the one-rank {loss1}")
+        fail(f"{name} step-1 loss {lr} off the one-rank {loss1}")
     if not d_norm <= MULTI_NORM_RTOL:
-        fail(f"multi-rank step-1 grad norm {nr} off the one-rank {norm1}")
+        fail(f"{name} step-1 grad norm {nr} off the one-rank {norm1}")
     if not all(math.isfinite(r["loss"]) for r in steps):
-        fail(f"non-finite multi-rank losses: {[r['loss'] for r in steps]}")
+        fail(f"non-finite {name} losses: {[r['loss'] for r in steps]}")
+    replicas = {}
     for r in rep["ranks"]:
-        la = r["launches"]
-        p = r["rank"] % c["pp"]          # rank = d * pp + p (one group)
+        la, co = r["launches"], r["coords"]
         need = ["flash_attention_fwd", "flash_attention_bwd"] + (
-            ["fused_xent"] if p == c["pp"] - 1 else [])
+            ["fused_xent"] if co["stage"] == c["pp"] - 1 else [])
         missing = [k for k in need if not la.get(k)]
         if missing:
             fail(f"rank {r['rank']} launched no {missing}: {la}")
         if any(k.startswith("ref_") for k in r["counters"]):
             fail(f"rank {r['rank']} reached a plain version: "
                  f"{r['counters']}")
-        log(f"{tag} rank {r['rank']} ({r['device']}, stage rank {p}): "
-            f"launches {la}, peak {r['max_memory_gb']:.2f} GiB allocated; "
-            f"mem_get_info after a step: {r['min_free_gb']:.2f} GiB free "
-            "at the least")
+        key = (co["data"], co["group"], co["stage"])
+        replicas.setdefault(key, set()).add(r["params_sha256"])
+        log(f"{tag} rank {r['rank']} ({r['device']}, {co}): launches {la}, "
+            f"peak {r['max_memory_gb']:.2f} GiB allocated; mem_get_info "
+            f"after a step: {r['min_free_gb']:.2f} GiB free at the least; "
+            f"params sha256 {r['params_sha256'][:16]}")
+    split = {k: v for k, v in replicas.items() if len(v) != 1}
+    if split:
+        fail(f"the pods' params differ after step {len(steps)}: {split}")
+    if pods > 1:
+        log(f"{tag} after step {len(steps)} the {pods} pods hold equal "
+            f"params on each of {len(replicas)} (data, group, stage) "
+            "ranks (sha256)")
     for r in steps[1:]:
         log(f"{tag} step {r['step']}: {r['ms']:.1f} ms, "
             f"{r['tok_per_s']:.1f} tok/s, loss {r['loss']:.4f}, grad norm "
@@ -1584,7 +1619,8 @@ def multirank_phase(torch):
                 for k in ("flash_attention_fwd", "flash_attention_bwd",
                           "fused_xent")}
     log(f"{tag} {wall:.1f} s in all; launches over the ranks {launches}")
-    return dict(backend=c["backend"], ranks=ranks, wall_s=wall,
+    return dict(name=name, backend=c["backend"], ranks=ranks, wall_s=wall,
+                mesh=mesh, flags=list(c.get("flags", ())), cuts=c["cuts"],
                 one_rank_loss=loss1, one_rank_grad_norm=norm1,
                 loss_rel=d_loss, norm_rel=d_norm, steps=steps,
                 per_rank=rep["ranks"], launches=launches)
@@ -1965,16 +2001,20 @@ def main() -> None:
                                   (sess_p, params, "paged"),
                                   (sess_j, params_j, "jamba"))
                 for kind, steps in (("decode", 5), ("prefill", 3))]
-    del params_j, sess_j
+    del params_j, sess_j, params, sess_c, sess_p
     gc.collect()
     torch.cuda.empty_cache()
     profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
     gc.collect()
     torch.cuda.empty_cache()
     # last: four ranks share the card, with nothing else on it
-    multirank = multirank_phase(torch)
-    for row in shard_kernels:
-        row["launches"] = multirank["launches"]["fused_xent"]
+    log(f"[multirank] before: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated here, {torch.cuda.mem_get_info()[0] / 2**30:.2f} "
+        "GiB of the card free")
+    multirank = [multirank_phase(torch, c) for c in (MULTI, PODS)]
+    for row in shard_kernels:    # both runs: K2 over a 64,128-row shard
+        row["launches"] = sum(r["launches"]["fused_xent"]
+                              for r in multirank)
     kernels += shard_kernels
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,

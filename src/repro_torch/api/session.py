@@ -21,17 +21,21 @@ same way, with Mamba, attention and gathered-MoE layers; Jamba trains in
 a later slice (a train session raises ``SessionError``).
 
 Training on a mesh of ranks runs the same calls in every rank's process,
-after ``torch.distributed.init_process_group`` (world size data x groups
-x pp; ``repro_torch.launch.train`` spawns the ranks and does it)::
+after ``torch.distributed.init_process_group`` (world size pods x data x
+groups x pp; ``repro_torch.launch.train`` spawns the ranks and does it)::
 
     sess = repro_torch.api.session("llama3.2-1b", mode="train",
                                    reduced=False, data=2,
                                    overrides=dict(pp=2))
+    sess = repro_torch.api.session("llama3.2-1b", mode="train",
+                                   reduced=False, pods=2, data=2,
+                                   overrides=dict(grad_compress="int8"))
 
 Each rank draws the same full tree from the seed and keeps its part
-(``params.shard_for_rank``); ``train_step`` takes the same global batch
-on every rank and returns this rank's grads; ``opt_step`` clips by the
-global norm. Serving runs on one rank.
+(``params.shard_for_rank``; every pod keeps the same); ``train_step``
+takes the same global batch on every rank and returns this rank's grads
+(summed over the pods); ``opt_step`` clips by the global norm. Serving
+runs on one rank.
 
 The device is ``device="cuda"`` (the default, which raises when no GPU is
 present; on a mesh, card ``local rank % device count``) or
@@ -94,7 +98,9 @@ class Session:
                 "device='cuda' but torch finds no GPU; pass device='cpu' "
                 "to run the plain PyTorch versions on the CPU")
         self.data_size = spec.data or 1
-        world = self.data_size * self.rc.groups * self.rc.pp
+        self.pods_size = spec.pods or 1
+        world = self.pods_size * self.data_size * self.rc.groups \
+            * self.rc.pp
         self.device = torch.device(spec.device)
         mesh = None
         if spec.mode == "train" and world > 1:
@@ -103,7 +109,7 @@ class Session:
                 torch.cuda.set_device(self.device)
             try:
                 mesh = Mesh(self.data_size, self.rc.pp, self.rc.groups,
-                            self.device)
+                            self.device, pods=self.pods_size)
             except ValueError as e:
                 raise SessionError(str(e)) from e
         self.mesh = mesh
@@ -135,8 +141,6 @@ class Session:
     # ------------------------------------------------------------------ #
     # Geometry the engine reads
     # ------------------------------------------------------------------ #
-
-    pods_size = 1
 
     def _max_seq(self) -> int:
         return self.spec.max_seq
@@ -212,12 +216,13 @@ class Session:
     def shape_cfg(self) -> ShapeConfig:
         """The train shape: ``seq_len`` (default 32) by ``global_batch``
         (default one sequence per micro-batch of every pipeline group of
-        every data rank)."""
+        every data rank of every pod)."""
         if self._shape_cfg is None:
             sp = self.spec
             self._shape_cfg = ShapeConfig(
                 "train", sp.seq_len or 32,
-                sp.global_batch or (self.data_size * self.rc.groups
+                sp.global_batch or (self.pods_size * self.data_size
+                                    * self.rc.groups
                                     * self.rc.microbatches), "train")
         return self._shape_cfg
 
@@ -387,7 +392,7 @@ class Session:
             "device": str(self.device),
             "geometry": {
                 "pp": rc.pp, "vpp": rc.vpp, "groups": rc.groups,
-                "data": self.data_size,
+                "data": self.data_size, "pods": self.pods_size,
                 "segments": [{"name": sg.name, "layers": sg.n_layers,
                               "stages": geo.seg_stages(sg), "k": sg.k}
                              for sg in geo.segments],
@@ -403,7 +408,8 @@ class Session:
         if self.mesh is not None:
             m = self.mesh
             out["mesh"] = {"rank": m.rank, "world": m.world,
-                           "backend": m.backend, "data_rank": m.d_rank,
+                           "backend": m.backend, "pod": m.pod_rank,
+                           "data_rank": m.d_rank,
                            "group": m.g_rank, "stage_rank": m.p_rank,
                            "vocab_shard": self.rt.vloc}
         if self.spec.mode == "train":
@@ -414,7 +420,7 @@ class Session:
                 "name": plan.name, "microbatches": rc.microbatches,
                 "unit": pt.U, "vpp": rc.vpp, "ticks": pt.T,
                 "prefetch": pt.prefetch, "counts": plan.table.counts(),
-                "coalesce": rc.coalesce}
+                "coalesce": rc.coalesce, "grad_compress": rc.grad_compress}
             out["shape"] = {"seq_len": sc.seq_len,
                             "global_batch": sc.global_batch}
         if self._engine_stats is not None:

@@ -2,15 +2,16 @@
 
 The port's slice of ``repro/api/spec.py``: architecture resolution,
 RunConfig overrides, the training shape and optimizer knobs, and the
-serving knobs, checked before any device work. Training runs on a data x
-(groups x pp) mesh of ranks (``data``, ``overrides["pp"]``,
-``overrides["groups"]``; the session checks them against the process
-group) with flat coalescing and one pod; serving runs on one rank.
+serving knobs, checked before any device work. Training runs on a pods x
+data x (groups x pp) mesh of ranks (``pods``, ``data``,
+``overrides["pp"]``, ``overrides["groups"]``; the session checks them
+against the process group), with flat or per-tensor collectives
+(``coalesce``) and float32 or int8 gradient reduces
+(``grad_compress``); serving runs on one rank.
 ``schedule="auto"``/``"auto_profiled"``, topologies, expert parallelism,
 Mamba/MoE training, serving LayerNorm / GELU models (the paper's GPT),
-checkpoints, and the pod axis, int8 gradient compression,
-``coalesce="none"`` and multi-rank serving are refused with the slice
-they wait for.
+checkpoints and multi-rank serving are refused with the slice they wait
+for.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ class SessionSpec:
     seq_len: int | None = None      # train: sequence length (default 32)
     topology: Any = None            # hardware topology (refused: one card)
     data: int | None = None         # data-axis size (train; default 1)
-    pods: int | None = None         # pod axis (one pod: 1)
+    pods: int | None = None         # pod axis (train; default 1)
+    layers: int | None = None       # train: the model cut to this depth
+    #                                 (its widths kept; default: all)
     max_seq: int | None = None      # serving cache length
     max_slots: int | None = None    # continuous-batching slot count
     global_batch: int | None = None  # serve: same quantity as max_slots;
@@ -120,12 +123,10 @@ class SessionSpec:
                     "kv_cache_dtype='int8' quantizes *pages* (per-page "
                     "scales live beside the page pool); pass "
                     "page_size=<tokens per page>")
-        if self.pods not in (None, 1):
-            raise SessionError(
-                f"pods={self.pods}: the pod axis (gradients all-reduced "
-                f"across pods) waits for {LATER}")
-        if self.data is not None and self.data < 1:
-            raise SessionError(f"data must be >= 1, got {self.data}")
+        for knob in ("pods", "data", "layers"):
+            val = getattr(self, knob)
+            if val is not None and val < 1:
+                raise SessionError(f"{knob} must be >= 1, got {val}")
         if self.device not in ("cuda", "cpu"):
             raise SessionError(
                 f"device={self.device!r}: pick 'cuda' or 'cpu'")
@@ -147,7 +148,11 @@ class SessionSpec:
                 "slice (ROADMAP.md queue 1)")
         if self.mode == "train":
             return self._validate_train()
-        if (self.data or 1) > 1 or self.overrides.get("groups", 1) != 1:
+        if self.layers is not None:
+            raise SessionError("layers= cuts a model for training; serving "
+                               "takes the config's depth")
+        if ((self.data or 1) > 1 or (self.pods or 1) > 1
+                or self.overrides.get("groups", 1) != 1):
             raise SessionError(
                 "serving runs on one rank: multi-rank serving on the tick "
                 f"engine waits for {LATER}")
@@ -228,15 +233,16 @@ class SessionSpec:
             raise SessionError(
                 f"groups={g}: the cross-group gradient butterfly needs a "
                 "power of two")
-        if self.overrides.get("grad_compress", "none") != "none":
+        gc = self.overrides.get("grad_compress", "none")
+        if gc not in ("none", "int8"):
             raise SessionError(
-                "grad_compress='int8' (the cross-rank reduce-scatter in int8 "
-                f"with error feedback) waits for {LATER}")
-        if self.overrides.get("coalesce", "flat") != "flat":
+                f"grad_compress={gc!r}: pick 'none' (float32 reduces) or "
+                "'int8' (int8 reduces with error feedback)")
+        co = self.overrides.get("coalesce", "flat")
+        if co not in ("flat", "none"):
             raise SessionError(
-                f"coalesce={self.overrides['coalesce']!r}: the port packs "
-                "each stage into one flat slab; per-tensor collectives "
-                f"wait for {LATER}")
+                f"coalesce={co!r}: pick 'flat' (one collective a stage "
+                "block) or 'none' (one a tensor)")
         if self.seq_len is not None and self.seq_len < 1:
             raise SessionError(f"seq_len must be >= 1, got {self.seq_len}")
         if self.global_batch is not None and self.global_batch < 1:
@@ -252,7 +258,8 @@ class SessionSpec:
         and the full width takes the module's ``one_card_train_run()``
         (pp, groups from ``overrides``). The full width
         is the module's ``one_card_config()`` where it defines one (a
-        model cut in depth to fit one card), else ``config()``."""
+        model cut in depth to fit one card), else ``config()``; a train
+        spec's ``layers`` cuts its depth."""
         mod = get_arch(self.arch)
         if self.reduced:
             cfg, rc = mod.reduced()
@@ -264,4 +271,6 @@ class SessionSpec:
                   else mod.one_card_run())
         if self.overrides:
             rc = dataclasses.replace(rc, **self.overrides)
+        if self.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=self.layers)
         return mod, cfg, rc

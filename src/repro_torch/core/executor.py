@@ -9,12 +9,19 @@ Python. Each tick:
   1. stores the wires that arrived at the end of the previous tick
      (activations forward, input grads backward) per the plan's receive
      maps;
-  2. starts this tick's blockwise FSDP gather of a stage block's flat
-     slab (one all-gather over the data axis) into a two-slot buffer;
+  2. issues this tick's blockwise FSDP gather of a stage block (one
+     all-gather of its flat slab over the data axis, or one a tensor
+     with ``coalesce="none"``) for a slot of a two-slot buffer; the cell
+     that first reads the slot waits for it (the §3.3 prefetch places
+     the gather up to ``gather_prefetch`` ticks ahead, so it overlaps
+     the cells between);
   3. runs this rank's cell: NOP, F, B or W;
-  4. reduce-scatters a finished stage block's gradients over the data
-     axis (once per scheduling unit, §3.3); tensors the data axis does
-     not divide are all-reduced instead;
+  4. issues the reduce-scatter of a finished stage block's gradients
+     over the data axis (once per scheduling unit, §3.3; in int8 with
+     error feedback under ``grad_compress="int8"``); tensors the data
+     axis does not divide are all-reduced instead. A reduce is added
+     into the shard once it has completed (on one rank at once), at the
+     latest when the walk ends; the shards are read only after it;
   5. hands the boundary activations on around the stage ring. At pp = 1
      the ring is a local hand-off that arrives on the next tick, as the
      reference's one-device ``ppermute`` does. At pp > 1 the hand-off is a
@@ -37,8 +44,9 @@ recomputes the stage on a ``bwd`` tape, seeds the loss at the last stage
 through ``loss_and_dy``, and accumulates float32 grads per stage slot; W
 replays the stashed dW GEMMs. After the walk, ``train_body`` runs the
 reference's cross-rank reductions: the butterfly of stage grads across
-pipeline groups, the io grads summed over the model axis and, unless
-vocabulary-sharded, over the data axis, and the metrics summed over the
+pipeline groups, then their float32 all-reduce across pods; the io
+grads summed over the model axis, across pods and, unless
+vocabulary-sharded, over the data axis; and the metrics summed over the
 whole mesh. On one rank every one of them is a sum over that rank.
 """
 
@@ -121,12 +129,26 @@ class TickEngine:
 
     Handlers receive ``(engine, row)``; they read stage parameters via
     :meth:`stage_params` and the engine's ``state`` dict. The stage's
-    gatherable tensors live in the flat layout ``flat`` (one collective a
-    tick); the others (``specs`` minus the layout: a dim the data axis
-    does not divide) stay replicated in ``seg_p``, are read in place and
-    have their grads all-reduced over the data axis. ``mesh`` (a live
+    gatherable tensors (their fsdp dim divides the data axis) are
+    gathered a tick at a time: with a flat layout ``flat`` as one slab
+    (one collective a tick), without one (``coalesce="none"``) one
+    collective a tensor. The others (a dim the data axis does not divide)
+    stay replicated in ``seg_p``, are read in place and have their grads
+    all-reduced over the data axis. ``mesh`` (a live
     :class:`repro_torch.core.comm.Mesh`, or None on one rank) carries the
     stage ring at pp > 1; ``act`` is the wire's (shape, dtype).
+
+    The collectives overlap the cells. A gather is issued at its table
+    tick into a receive buffer of its own and waited on when
+    :meth:`stage_params` first reads its slot; a reduce packs and zeroes
+    the block's ``acc_full`` at its tick, issues the reduce-scatter, and
+    is added into ``acc_shard``, in issue order, once it has completed
+    (checked at each reduce tick) or when the walk ends (:meth:`drain`)
+    — the shards are read only after it, as in the reference. With
+    ``grad_compress="int8"`` the gatherable gradients go through the
+    int8 reduce with error feedback; its float32 buffer (``[V,
+    full_size]`` flat, else ``[V, *shape]`` a tensor) starts each step at
+    zero and is carried across the step's reduce units.
     """
 
     pt: PackedTable
@@ -139,52 +161,131 @@ class TickEngine:
     p_rank: int = 0
     mesh: Any = None
     act: Any = None
+    grad_compress: str = "none"
     state: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         validate_unit_stash_packed(self.pt)
-        flat_names = set(self.flat.names) if self.flat is not None else set()
-        self.replicated = sorted(set(self.specs) - flat_names)
-        if self.replicated and self.comm.size == 1:
-            raise ValueError("on one rank the flat layout must cover every "
-                             f"stage tensor, not {self.replicated}")
+        D = self.comm.size
+        self.ld = {n: fsdp.local_dim(sp, D) for n, sp in self.specs.items()}
+        self.replicated = sorted(n for n, d in self.ld.items() if d is None)
+        self.gatherable = sorted(set(self.specs) - set(self.replicated))
+        if self.replicated and D == 1:
+            raise ValueError("on one rank every stage tensor is gathered, "
+                             f"not {self.replicated}")
         # packed once per step: a gather tick indexes a row
         self.seg_flat = (fsdp.pack_flat_stack(self.seg_p, self.flat)
                          if self.flat is not None else None)
         self.gbuf: list = [None, None]
+        self.pending: list = [None, None]   # issued gathers, by slot
+        self.reduces: list = []             # issued reduces, in order
+        self.tick = -1
         self.ring = self.mesh is not None and self.pt.Pe > 1
+        V = self.pt.V
+        self.gerr = None
+        if self.grad_compress == "int8" and self.gatherable:
+            dev = next(iter(self.seg_p.values())).device
+            self.gerr = (
+                torch.zeros((V, self.flat.full_size), dtype=torch.float32,
+                            device=dev) if self.flat is not None else
+                {n: torch.zeros((V, *self.specs[n].shape),
+                                dtype=torch.float32, device=dev)
+                 for n in self.gatherable})
 
     def stage_params(self, v: int, use_slot: int) -> dict:
-        """Params of local stage slot ``v``: the gathered slab in slot
-        ``use_slot``, and the replicated tensors in place."""
-        out = (fsdp.unpack_flat(self.gbuf[use_slot], self.flat)
-               if self.flat is not None else {})
+        """Params of local stage slot ``v``: the gathered tensors in slot
+        ``use_slot`` (waiting for its gather if it is still in flight),
+        and the replicated tensors in place."""
+        if self.pending[use_slot] is not None:
+            self._land(use_slot)
+        buf = self.gbuf[use_slot]
+        out = (fsdp.unpack_flat(buf, self.flat) if self.flat is not None
+               else dict(buf or {}))
         for n in self.replicated:
             out[n] = self.seg_p[n][v]
         return out
 
+    def _land(self, slot: int) -> None:
+        pend, self.pending[slot] = self.pending[slot], None
+        if self.flat is not None:
+            self.gbuf[slot] = pend.wait().to(self.cdt)
+        else:
+            self.gbuf[slot] = {n: p.wait().to(self.cdt)
+                               for n, p in pend.items()}
+
     def _gather_step(self, row) -> None:
-        if row["gather_v"] >= 0 and self.flat is not None:
-            full = fsdp.all_gather_flat(self.seg_flat[row["gather_v"]],
-                                        self.flat, self.comm)
-            self.gbuf[row["gather_slot"]] = full.to(self.cdt)
+        gv, slot = row["gather_v"], row["gather_slot"]
+        if gv < 0 or not self.gatherable:
+            return
+        if self.pending[slot] is not None:   # issued, never read
+            self._land(slot)
+        if self.flat is not None:
+            self.pending[slot] = self.comm.all_gather_async(
+                self.seg_flat[gv])
+        else:
+            self.pending[slot] = {
+                n: fsdp.gather_param_async(self.seg_p[n][gv], self.ld[n],
+                                           self.comm)
+                for n in self.gatherable}
+        self.gbuf[slot] = None
 
     def _reduce_step(self, row) -> None:
         rv = row["reduce_v"]
         if rv < 0:
             return
-        full, shard = self.state["acc_full"], self.state["acc_shard"]
+        full, comm = self.state["acc_full"], self.comm
+        int8 = self.gerr is not None
+        issued = {}
         if self.flat is not None:
-            red = fsdp.reduce_scatter_flat(
-                {n: full[n][rv] for n in self.flat.names}, self.flat,
-                self.rs_dtype, self.comm)
-            for n, r in red.items():
-                shard[n][rv] += r.float()
-                full[n][rv].zero_()
-        for n in self.replicated:
-            shard[n][rv] += self.comm.all_reduce(
-                full[n][rv].to(self.rs_dtype)).float()
+            grads = {n: full[n][rv] for n in self.flat.names}
+            if int8:
+                pend, err = fsdp.reduce_scatter_flat_int8_async(
+                    grads, self.gerr[rv], self.flat, comm)
+                self.gerr[rv] = err
+            else:
+                pend = fsdp.reduce_scatter_flat_async(
+                    grads, self.flat, self.rs_dtype, comm)
+            issued[None] = pend
+        for n in self.specs:
+            if self.flat is not None and n in self.flat.names:
+                continue
+            g = full[n][rv]
+            if int8 and n in self.gerr:
+                issued[n], self.gerr[n][rv] = \
+                    fsdp.reduce_scatter_grad_int8_async(
+                        g, self.gerr[n][rv], self.ld[n], comm)
+            else:
+                # a copy of its own: acc_full is zeroed below
+                issued[n] = fsdp.reduce_scatter_grad_async(
+                    g.to(self.rs_dtype, copy=True), self.ld[n], comm)
+        for n in self.specs:
             full[n][rv].zero_()
+        self.reduces.append((rv, issued))
+        # what has completed (at once on one rank) is added now, so that
+        # its buffers are not held to the end of the walk
+        self._add_reduces(wait=False)
+
+    def _add_reduces(self, wait: bool) -> None:
+        """Add issued reduces into ``acc_shard`` in issue order: every one
+        (``wait``), or those up to the first still in flight."""
+        shard = self.state["acc_shard"]
+        while self.reduces:
+            rv, issued = self.reduces[0]
+            if not wait and not all(p.ready() for p in issued.values()):
+                return
+            self.reduces.pop(0)
+            for n, pend in issued.items():
+                red = pend.wait()
+                for m, r in (red.items() if n is None else ((n, red),)):
+                    shard[m][rv] += r.float()
+
+    def drain(self) -> None:
+        """Wait for every gather still in flight and add every issued
+        reduce into ``acc_shard``, in issue order."""
+        for slot in (0, 1):
+            if self.pending[slot] is not None:
+                self._land(slot)
+        self._add_reduces(wait=True)
 
     def _boundary(self, t: int) -> None:
         s = self.state
@@ -213,6 +314,7 @@ class TickEngine:
     def run(self, branches: dict) -> None:
         """Walk the ticks, dispatching cells to ``branches`` {kind: fn}."""
         for t in range(self.pt.T):
+            self.tick = t
             row = self.pt.row(t, self.p_rank)
             s = self.state
             if row["recv_f_u"] >= 0:
@@ -225,6 +327,7 @@ class TickEngine:
                 fn(self, row)
             self._reduce_step(row)
             self._boundary(t)
+        self.drain()
 
 
 # --------------------------------------------------------------------------- #
@@ -259,7 +362,8 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
     eng = TickEngine(
         pt=pt, specs=specs, seg_p=seg_p, flat=rt.flat_layouts[seg.name],
         comm=comm, cdt=cdt, rs_dtype=torch_dtype(rc.grad_rs_dtype),
-        p_rank=p_rank, mesh=rt.mesh, act=((mbs, seq, d), cdt))
+        p_rank=p_rank, mesh=rt.mesh, act=((mbs, seq, d), cdt),
+        grad_compress=rc.grad_compress)
     eng.state.update(
         xbuf=_Stash(U, "fwd wire"), bbuf=_Stash(U, "bwd wire"),
         fstash=_Stash(U, "F->B"), wstash=_Stash(U, "B->W"),
@@ -352,12 +456,14 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
         # are sums over a single rank
         return {"io": io_g, "segments": {"main": seg_grads}}, metrics
     # ---- cross-group gradient reduction (stage rows duplicated across
-    # groups), then the io grads over the model axis and, unless their
-    # vocabulary shard is local and complete, over the data axis -------- #
-    seg_grads = {n: fsdp.group_allreduce(g, mesh)
+    # groups) and the float32 sum across pods; then the io grads over the
+    # model axis, across pods and, unless their vocabulary shard is local
+    # and complete, over the data axis ---------------------------------- #
+    pod = mesh.pod_comm
+    seg_grads = {n: pod.all_reduce(fsdp.group_allreduce(g, mesh))
                  for n, g in seg_grads.items()}
     for n in io_g:
-        g = mesh.model_comm.all_reduce(io_g[n])
+        g = pod.all_reduce(mesh.model_comm.all_reduce(io_g[n]))
         if rt.vloc is None or n not in Vb.SHARDED:
             g = mesh.data_comm.all_reduce(g)
         io_g[n] = g

@@ -2,13 +2,16 @@
 
 The port's counterpart of the train side of ``repro/core/pipeline.py``:
 ``Runtime`` builds the segment's ``SchedulePlan``, the parameter specs,
-the gatherable sets, the flat FSDP layouts and the vocabulary shard for
-one rank of a data x (groups x pp) mesh; ``make_train_step`` wraps the
-executor's ``train_body`` into ``step(params, batch) -> (grads,
-metrics)``. Without a mesh one rank holds one pipeline group (pp = data
-= groups = 1) and the data axis is :class:`repro_torch.core.fsdp.LocalComm`;
-with a live :class:`repro_torch.core.comm.Mesh` it is the mesh's data
-communicator. A :class:`repro_torch.core.comm.MeshShape` alone gives the
+the gatherable sets, the flat FSDP layouts (``coalesce="flat"``; none
+for ``"none"``) and the vocabulary shard for one rank of a pods x data
+x (groups x pp) mesh; ``make_train_step`` wraps the executor's
+``train_body`` into ``step(params, batch) -> (grads, metrics)``. The
+batch is sharded over (pod, data): a rank takes shard ``pod * data +
+d`` of ``pods * data``. Without a mesh one rank holds one pipeline
+group (pp = data = groups = pods = 1) and the data axis is
+:class:`repro_torch.core.fsdp.LocalComm`; with a live
+:class:`repro_torch.core.comm.Mesh` it is the mesh's data communicator
+(the D ranks of one pod). A :class:`repro_torch.core.comm.MeshShape` alone gives the
 layout without collectives (cutting and re-assembling trees,
 ``repro_torch.params``).
 """
@@ -31,7 +34,8 @@ from repro_torch.core.plan import (
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig, RunConfig
 
-_LATER = "ROADMAP.md queue 1 item 1b"
+GRAD_COMPRESS = ("none", "int8")
+COALESCE = ("flat", "none")
 
 
 class Runtime:
@@ -55,11 +59,12 @@ class Runtime:
                 f"{self.shape.pp}, groups={self.shape.groups}: several "
                 "ranks need a mesh of the same shape (torch.distributed; "
                 "repro_torch.launch.train spawns one)")
-        if rc.coalesce != "flat":
-            raise ValueError(
-                f"coalesce={rc.coalesce!r}: the port packs each stage into "
-                "one flat slab; per-tensor collectives wait for "
-                f"{_LATER}")
+        if rc.coalesce not in COALESCE:
+            raise ValueError(f"coalesce={rc.coalesce!r}: pick one of "
+                             f"{COALESCE}")
+        if rc.grad_compress not in GRAD_COMPRESS:
+            raise ValueError(f"grad_compress={rc.grad_compress!r}: pick "
+                             f"one of {GRAD_COMPRESS}")
         self.comm = (self.mesh.data_comm if self.mesh is not None
                      else fsdp.LocalComm())
         self.rank = self.mesh.rank if self.mesh is not None else 0
@@ -82,8 +87,10 @@ class Runtime:
                           if fsdp.local_dim(sp_, self.dsize) is not None)
             for sname, sps in self.stage_specs.items()}
         self.flat_layouts = {
-            sname: fsdp.build_flat_layout(self.stage_specs[sname],
-                                          self.gatherable[sname], self.dsize)
+            sname: (fsdp.build_flat_layout(self.stage_specs[sname],
+                                           self.gatherable[sname],
+                                           self.dsize)
+                    if rc.coalesce == "flat" else None)
             for sname in self.stage_specs}
 
     @property
@@ -96,19 +103,20 @@ class Runtime:
 
     def owned(self) -> dict[str, bool]:
         """{keystr path: whether this rank's copy counts in the global
-        norm}: every element of the global gradient exactly once. Stage
-        rows are duplicated across groups (group 0 counts) and replicated
-        over the data axis when not gatherable (data index 0 counts); io
-        params are replicated over the model axis (model index 0 counts)
-        and, unless vocabulary-sharded, over the data axis."""
+        norm}: every element of the global gradient exactly once. Pods
+        replicate everything (pod 0 counts); stage rows are duplicated
+        across groups (group 0 counts) and replicated over the data axis
+        when not gatherable (data index 0 counts); io params are
+        replicated over the model axis (model index 0 counts) and, unless
+        vocabulary-sharded, over the data axis."""
         d, g, p = self.shape.coords(self.rank)
-        out = {f"['io']['{n}']": g == p == 0 and (d == 0
-                                                  or self.io_sharded(n))
-               for n in self.io_specs}
+        first = self.shape.pod_of(self.rank) == 0
+        out = {f"['io']['{n}']": first and g == p == 0 and (
+            d == 0 or self.io_sharded(n)) for n in self.io_specs}
         for sname, sps in self.stage_specs.items():
             for n in sps:
-                out[f"['segments']['{sname}']['{n}']"] = g == 0 and (
-                    d == 0 or n in self.gatherable[sname])
+                out[f"['segments']['{sname}']['{n}']"] = first and g == 0 \
+                    and (d == 0 or n in self.gatherable[sname])
         return out
 
 
@@ -116,24 +124,25 @@ def make_train_step(rt: Runtime, shape_cfg):
     """Returns step(params, batch) -> (grads, metrics). ``batch`` holds
     the global ``tokens`` and ``labels`` [global_batch, seq] (numpy or
     tensors), the same on every rank; each rank takes its data shard.
-    Grads are float32 trees shaped like this rank's params; metrics are
-    ``loss_sum`` (the step's mean token loss), ``aux_sum`` and
-    ``emb_dropped``, summed over the mesh."""
+    Grads are float32 trees shaped like this rank's params, summed over
+    the pods; metrics are ``loss_sum`` (the step's mean token loss),
+    ``aux_sum`` and ``emb_dropped``, summed over the mesh."""
     rc = rt.rc
     if rt.shape.world > 1 and rt.mesh is None:
         raise ValueError(f"a step on a {rt.shape.world}-rank mesh needs the "
                          "live Mesh of this rank's process")
     seq, gb = shape_cfg.seq_len, shape_cfg.global_batch
     Btot = rc.microbatches
-    n_local = gb // rt.dsize
+    shards = rt.shape.pods * rt.dsize
+    n_local = gb // shards
     mbs = max(n_local // (rt.G * Btot), 1)
-    if mbs * rt.G * Btot * rt.dsize != gb:
-        raise ValueError(f"global_batch {gb} must split into data * groups "
-                         f"* microbatches ({rt.dsize} * {rt.G} * {Btot}) "
-                         "micro-batches")
+    if mbs * rt.G * Btot * shards != gb:
+        raise ValueError(f"global_batch {gb} must split into pods * data * "
+                         f"groups * microbatches ({rt.shape.pods} * "
+                         f"{rt.dsize} * {rt.G} * {Btot}) micro-batches")
     denom = float(gb * seq)   # the global token count
-    d_rank = rt.shape.coords(rt.rank)[0]
-    rows = slice(d_rank * n_local, (d_rank + 1) * n_local)
+    shard = rt.shape.shard_of(rt.rank)
+    rows = slice(shard * n_local, (shard + 1) * n_local)
 
     def to_dev(a):
         if isinstance(a, torch.Tensor):

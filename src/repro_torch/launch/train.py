@@ -1,5 +1,6 @@
 """Training entry point of the port: synthetic stream -> ZeroPP tick
-engine -> AdamW, on one card or on a data x (groups x pp) mesh of ranks.
+engine -> AdamW, on one card or on a pods x data x (groups x pp) mesh of
+ranks.
 
 Prints one line a step (loss, grad norm, step ms, tokens/s) and
 ``TRAIN_OK`` at the end. There is no checkpointing or fault-tolerance
@@ -13,6 +14,10 @@ controller yet (the checkpoint slice, ROADMAP.md queue 1).
       --backend gloo --data 2 --pp 2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --data 2 \\
       --pp 2 --seq 1024 --backend gloo --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --backend gloo --pods 2 --data 2
+  PYTHONPATH=src python -m repro_torch.launch.train --full --pods 2 \\
+      --data 2 --layers 8 --seq 1024 --grad-compress int8 --backend gloo
 
 ``--full`` trains the architecture at its published width (llama3.2-1b:
 16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
@@ -20,23 +25,29 @@ gpt_paper: gpt-1.5B, 22 layers, d_model 2304, vocab 50304, 8 sequences
 of 1024 a step; bf16, random weights from seed 0); without it the
 reduced smoke config. The default device is the card.
 
-``--data D --pp P [--groups G]`` trains on D * G * P ranks: this process
-spawns one process a rank (``torch.multiprocessing``, spawn start
+``--data D --pp P [--groups G] [--pods Q]`` trains on Q * D * G * P
+ranks (pods replicate the parameters and all-reduce the gradients):
+this process spawns one process a rank (``torch.multiprocessing``, spawn start
 method), each joins ``torch.distributed`` over ``--backend`` on a free
 localhost port, draws the same full tree from the seed and keeps its
 part, and trains on its data shard of the same global batch (one
-sequence a micro-batch of every pipeline group of every data rank, unless
-the config module sets ``TRAIN_BATCH``). Rank 0 prints the lines; any
+sequence a micro-batch of every pipeline group of every data rank of
+every pod, unless the config module sets ``TRAIN_BATCH``). Rank 0 prints
+the lines; any
 failing rank makes this process exit non-zero. The backend is always the
 caller's: ``nccl`` needs a card a rank, ``gloo`` stages collectives
 through host memory and runs any number of ranks on one card (each rank
-on card ``rank % device count``). ``--report FILE`` writes rank 0's JSON
-summary (steps, and each rank's kernel launches and peak memory).
+on card ``rank % device count``). ``--grad-compress int8`` reduces the
+stage gradients in int8 with error feedback; ``--layers L`` cuts the
+model to L layers at its widths. ``--report FILE`` writes rank 0's JSON summary
+(steps, and each rank's kernel launches, peak memory and a sha256 of
+its parameters after the last step).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -70,6 +81,12 @@ def _args(argv=None):
                     help="pipeline stages a group (default: the config's)")
     ap.add_argument("--groups", type=int, default=1,
                     help="pipeline groups")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods (replicas of the data x model mesh)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers")
+    ap.add_argument("--grad-compress", default=None, choices=("none", "int8"),
+                    help="stage-gradient reduces (default: the config's)")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="torch.distributed backend (needed for >1 rank)")
     ap.add_argument("--report", default=None,
@@ -78,7 +95,22 @@ def _args(argv=None):
 
 
 def _world(args) -> int:
-    return args.data * args.groups * (args.pp or 1)
+    return args.pods * args.data * args.groups * (args.pp or 1)
+
+
+def params_sha256(params) -> str:
+    """sha256 of a parameter tree's bytes, leaves in sorted-key order."""
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            h.update(t.detach().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    walk(params)
+    return h.hexdigest()
 
 
 def train(args, rank: int = 0) -> None:
@@ -96,23 +128,31 @@ def train(args, rank: int = 0) -> None:
         ov["pp"] = args.pp
     if args.groups != 1:
         ov["groups"] = args.groups
+    if args.grad_compress is not None:
+        ov["grad_compress"] = args.grad_compress
     sess = session(
         args.arch, mode="train", reduced=not args.full, device=args.device,
-        seq_len=seq, global_batch=batch, data=args.data, overrides=ov,
+        seq_len=seq, global_batch=batch, data=args.data, pods=args.pods,
+        layers=args.layers, overrides=ov,
         optim=dict(lr=args.lr, warmup=1, total=10_000))
     out = print if rank == 0 else (lambda *a, **k: None)
     d = sess.describe()
     sc = sess.shape_cfg
     mesh = sess.mesh
+    pods = f"pods {mesh.pods} x " if mesh is not None and mesh.pods > 1 \
+        else ""
     where = (f"{d['device']}" if mesh is None else
-             f"{mesh.world} ranks (data {mesh.data} x groups {mesh.groups} "
-             f"x pp {mesh.pp}), backend {mesh.backend}, rank 0 on "
-             f"{d['device']}")
+             f"{mesh.world} ranks ({pods}data {mesh.data} x groups "
+             f"{mesh.groups} x pp {mesh.pp}), backend {mesh.backend}, "
+             f"rank 0 on {d['device']}")
     out(f"{d['arch']} on {where}: {d['n_params']} params, schedule "
         f"{d['schedule']['name']} (vpp {d['schedule']['vpp']}, "
         f"{d['schedule']['microbatches']} micro-batches, unit "
-        f"{d['schedule']['unit']}, {d['schedule']['ticks']} ticks), "
-        f"batch {sc.global_batch} x {sc.seq_len}", flush=True)
+        f"{d['schedule']['unit']}, {d['schedule']['ticks']} ticks, "
+        f"prefetch {d['schedule']['prefetch']}, coalesce "
+        f"{d['schedule']['coalesce']}, grad_compress "
+        f"{d['schedule']['grad_compress']}), batch {sc.global_batch} x "
+        f"{sc.seq_len}", flush=True)
     cuda = sess.device.type == "cuda"
     gen = torch.Generator(device=sess.device).manual_seed(0)
     params = sess.init_params(gen)
@@ -153,7 +193,11 @@ def train(args, rank: int = 0) -> None:
                 counters=sess.describe()["kernels"]["counters"],
                 max_memory_gb=(torch.cuda.max_memory_allocated(sess.device)
                                / 2**30 if cuda else None),
-                min_free_gb=(min_free / 2**30 if cuda else None))
+                min_free_gb=(min_free / 2**30 if cuda else None),
+                coords=(None if mesh is None else dict(
+                    pod=mesh.pod_rank, data=mesh.d_rank, group=mesh.g_rank,
+                    stage=mesh.p_rank)),
+                params_sha256=params_sha256(params))
     ranks = [mine]
     if mesh is not None:
         ranks = [None] * mesh.world

@@ -5,9 +5,9 @@ A full tree is ``{"io": {name: tensor}, "segments": {"main":
 {"L{j}.<...>": [P·V, ...]}}}`` with the reference's names and stage
 stacking (row ``storage_index(p, v, V) = p * V + v`` holds logical stage
 ``v * P + p``), so ``from_reference`` is a name-for-name copy of
-``repro``'s tree. One rank of a data x (groups x pp) mesh holds its part
-(:func:`shard_for_rank`): the V stage rows of its stage rank p (every
-pipeline group holds the same rows), each tensor cut along its fsdp dim
+``repro``'s tree. One rank of a pods x data x (groups x pp) mesh holds
+its part (:func:`shard_for_rank`): the V stage rows of its stage rank p
+(every pipeline group and every pod holds the same rows), each tensor cut along its fsdp dim
 into the data rank's shard where the data axis divides it, and the
 embedding table / untied head cut into the data rank's vocabulary shard.
 :func:`unshard` re-assembles the full tree (group 0's copy), as the
@@ -120,8 +120,8 @@ def shard_for_rank(rt, full, rank: int):
 
 
 def unshard(rt, trees):
-    """The full tree from every rank's part (``trees[rank]``): group 0's
-    copy, data shards concatenated; the inverse of :func:`shard_for_rank`
+    """The full tree from every rank's part (``trees[rank]``): pod 0's
+    and group 0's copy, data shards concatenated; the inverse of :func:`shard_for_rank`
     for params, and the global gradient for grads."""
     sh, D = rt.shape, rt.dsize
     io = {}

@@ -7,8 +7,15 @@ One spawn of four single-threaded gloo processes
 * reduced llama3.2-1b at pp 2 x groups 2 (cross-group butterfly);
 * reduced gpt_paper at data 2 x pp 2 (untied, vocabulary-sharded
   ``head.w``; LayerNorm, GELU MLP, vpp 2);
+* reduced llama3.2-1b at pods 2 x data 2 (pp 1, vpp 2: the pods
+  replicate the parameters and all-reduce the gradients);
+* variants of the llama data 2 x pp 2 case on its params and batch:
+  per-tensor collectives (``coalesce="none"``), ``grad_compress="int8"``
+  flat and per-tensor, and ``gather_prefetch`` 0 and 2 (the base case
+  runs 1);
 * the sharded embedding lookup and grad at data 4, on ids that overflow
-  the all-to-all's capacity.
+  the all-to-all's capacity;
+* the int8 reduces with error feedback, flat and per tensor, at data 4.
 
 The train cases use zeropp, 4 micro-batches in units of 2, seq 16 (as the
 reference's ``case_train_equiv``), float32, params and batch drawn with
@@ -26,11 +33,22 @@ numpy. Each is held:
   ceil(2 n / dsize))`` per micro-batch and destination);
 * one AdamW step: the re-assembled params and ``grad_norm`` against
   ``repro.optim.adamw.apply_updates`` on the full tree, fed the same
-  re-assembled grads (norm 1e-5 relative, params 1e-4 of max |ref|).
+  re-assembled grads (norm 1e-5 relative, params 1e-4 of max |ref|);
+  at pods 2, the two pods' grads and updated params bit for bit.
+
+The variants: per-tensor collectives and every prefetch distance give
+grads equal bit for bit to the base case's (each data-axis sum has two
+terms, which commute exactly; gathers are exact); int8 grads are finite
+and within 2% of the float32 run's global max |g| (the reference's
+``flat_int8`` rule, ``tests/spmd_case.py``). The int8 reduces equal the
+JAX package's ``reduce_scatter_flat_int8`` / ``reduce_scatter_grad_int8``
+under ``jax.vmap(..., axis_name="data")`` on the same per-rank inputs,
+bit for bit: shards and new error buffers.
 
 The launcher: the four-rank CPU CLI prints ``TRAIN_OK`` with a falling
 loss; a rank that fails makes it exit non-zero; ``nccl`` with ranks
-sharing a device is refused, naming ``--backend gloo``.
+sharing a device is refused, naming ``--backend gloo``; ``--pods``
+multiplies the world size.
 """
 
 import dataclasses
@@ -45,6 +63,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro.core import fsdp as jfsdp  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
@@ -55,6 +75,7 @@ from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.core.comm import MeshShape  # noqa: E402
 from repro_torch.core.pipeline import Runtime  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 import torch_multirank_worker as worker  # noqa: E402
@@ -62,13 +83,29 @@ import torch_multirank_worker as worker  # noqa: E402
 WORLD, SEQ, MB, UNIT = 4, 16, 4, 2
 GRAD_RTOL, STEP_RTOL, LOSS_RTOL = 1e-4, 1e-5, 1e-5
 OPTIM = dict(lr=1e-2)
-TRAIN = {   # name: (arch, data, pp, groups)
-    "llama_d2_pp2": ("llama3.2-1b", 2, 2, 1),
-    "llama_pp2_g2": ("llama3.2-1b", 1, 2, 2),
-    "gpt_d2_pp2": ("gpt_paper", 2, 2, 1),
+TRAIN = {   # name: (arch, data, pp, groups, pods, RunConfig overrides)
+    "llama_d2_pp2": ("llama3.2-1b", 2, 2, 1, 1, {}),
+    "llama_pp2_g2": ("llama3.2-1b", 1, 2, 2, 1, {}),
+    "gpt_d2_pp2": ("gpt_paper", 2, 2, 1, 1, {}),
+    "llama_q2_d2": ("llama3.2-1b", 2, 1, 1, 2, dict(vpp=2)),
 }
+# variants of a TRAIN case on its params and batch: (base, overrides)
+VARIANT = {
+    "none": ("llama_d2_pp2", dict(coalesce="none")),
+    "int8": ("llama_d2_pp2", dict(grad_compress="int8")),
+    "int8_none": ("llama_d2_pp2", dict(grad_compress="int8",
+                                       coalesce="none")),
+    "prefetch0": ("llama_d2_pp2", dict(gather_prefetch=0)),
+    "prefetch2": ("llama_d2_pp2", dict(gather_prefetch=2)),
+}
+# the int8 rule of the reference's flat_int8 case: max |int8 - float32|
+# over every gradient, over the float32 run's global max |g|
+INT8_RULE = 0.02
 EMBED = dict(name="embed_d4", kind="embed", data=4, vocab=256, d=8,
              b=2, s=16)
+INT8 = dict(name="int8_d4", kind="int8", data=4,
+            # a: ld 0; b: ld 1 (its dim 0 does not divide 4); c: replicated
+            shapes={"a": ((8, 6), 0), "b": ((3, 8), 1), "c": ((6, 5), 0)})
 
 
 def _rel(got, want) -> float:
@@ -119,20 +156,25 @@ def _numpy_params(cfg, rc, rng):
 
 
 def _train_case(name):
-    arch, data, pp, groups = TRAIN[name]
+    arch, data, pp, groups, pods, extra = TRAIN[name]
     cfg, rc = tllama.reduced() if arch.startswith("llama") \
         else tgpt.reduced()
     rc = dataclasses.replace(rc, pp=pp, groups=groups, schedule="zeropp",
-                             microbatches=MB, unit=UNIT)
-    gb = data * groups * MB
+                             microbatches=MB, unit=UNIT, **extra)
+    gb = pods * data * groups * MB
     rng = np.random.RandomState(7)
     batch = {k: rng.randint(0, cfg.vocab, (gb, SEQ)).astype(np.int32)
              for k in ("tokens", "labels")}
     ov = dict(pp=pp, groups=groups, vpp=rc.vpp, schedule="zeropp",
               microbatches=MB, unit=UNIT)
     return cfg, rc, dict(name=name, kind="train", arch=arch, data=data,
-                         seq=SEQ, overrides=ov, optim=OPTIM,
+                         pods=pods, seq=SEQ, overrides=ov, optim=OPTIM,
                          params=_numpy_params(cfg, rc, rng), batch=batch)
+
+
+def _variant_case(name, base):
+    src, ov = VARIANT[name]
+    return dict(base, name=name, overrides=dict(base["overrides"], **ov))
 
 
 def _embed_case():
@@ -149,6 +191,28 @@ def _embed_case():
         np.float32)) for _ in range(D)]
     c["table"] = torch.from_numpy(rng.randn(vocab, c["d"]).astype(
         np.float32))
+    return c
+
+
+def _int8_case():
+    """Per-rank gradients and non-zero feedback buffers drawn with numpy
+    (the buffers at a tenth of the gradients' scale, as after a reduce),
+    as float32 tensors; each rank's rows [D, ...]."""
+    c = dict(INT8)
+    rng = np.random.RandomState(13)
+    D = c["data"]
+    c["specs"] = {n: tcommon.ParamSpec(sh, fsdp_dim=fd)
+                  for n, (sh, fd) in c["shapes"].items()}
+    c["flat"] = ["a", "b"]
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(D, *shape)).astype(
+            np.float32))
+
+    c["grads"] = {n: draw(sh) for n, (sh, _) in c["shapes"].items()}
+    c["err"] = {n: draw(sh, 0.1) for n, (sh, _) in c["shapes"].items()}
+    full = sum(int(np.prod(c["shapes"][n][0])) for n in c["flat"])
+    c["flat_err"] = draw((full,), 0.1)
     return c
 
 
@@ -221,8 +285,12 @@ _jax_adamw = jax.jit(jadamw.apply_updates, static_argnums=3)
 def results(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("multirank"))
     built = {n: _train_case(n) for n in TRAIN}
-    ctx = _spawn([c for _, _, c in built.values()] + [_embed_case()], tmp)
-    out = {}
+    variants = [_variant_case(n, built[b][2])
+                for n, (b, _) in VARIANT.items()]
+    int8 = _int8_case()
+    ctx = _spawn([c for _, _, c in built.values()] + variants
+                 + [_embed_case(), int8], tmp)
+    out = {INT8["name"]: {"ref": _jax_int8(int8)}}
     # the reference and the one-rank steps while the ranks run
     for name, (cfg, rc, case) in built.items():
         b = case["batch"]
@@ -234,7 +302,8 @@ def results(tmp_path_factory):
                          one_rank=_one_rank(cfg, rc, case))
     while not ctx.join():
         pass
-    for name in list(TRAIN) + [EMBED["name"]]:
+    for name in list(TRAIN) + list(VARIANT) + [EMBED["name"],
+                                               INT8["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -242,8 +311,9 @@ def results(tmp_path_factory):
 
 
 def _rt(r):
-    arch, data, pp, groups = TRAIN[r["case"]["name"]]
-    return Runtime(r["cfg"], r["rc"], "cpu", MeshShape(data, pp, groups))
+    arch, data, pp, groups, pods, _ = TRAIN[r["case"]["name"]]
+    return Runtime(r["cfg"], r["rc"], "cpu",
+                   MeshShape(data, pp, groups, pods))
 
 
 @pytest.mark.parametrize("name", list(TRAIN))
@@ -283,10 +353,10 @@ def test_multirank_emb_dropped_follows_the_capacity_rule(results, name):
     destinations' capacity max(8, ceil(2 n / D)) cannot hold: none at
     data <= 2 (cap >= n)."""
     r = results[name]
-    arch, data, pp, groups = TRAIN[name]
+    arch, data, pp, groups, pods, _ = TRAIN[name]
     toks = r["case"]["batch"]["tokens"]
     vloc = r["cfg"].vocab // data if data > 1 else None
-    mbs = toks.shape[0] // (data * groups * MB)
+    mbs = toks.shape[0] // (pods * data * groups * MB)
     want = 0
     if vloc is not None:   # each micro-batch: mbs consecutive rows
         for u in toks.reshape(-1, mbs * SEQ):
@@ -330,6 +400,114 @@ def test_multirank_embed_grad_drops_by_the_reference_rule(results):
                                       c["table"].numpy()[ids[r]])
 
 
+def _pod_peer(rank: int, r) -> int:
+    """The rank of the same (d, g, p) in pod 1."""
+    arch, data, pp, groups, pods, _ = TRAIN[r["case"]["name"]]
+    return rank + data * pp * groups
+
+
+def test_multirank_pods_hold_bit_identical_replicas(results):
+    """At pods 2 x data 2 the two pods' grads (summed across the pods)
+    and their params after the AdamW step are equal bit for bit, and
+    every rank reads the same global grad norm."""
+    r = results["llama_q2_d2"]
+    ranks = r["ranks"]
+    assert [g["ranks"] for g in ranks] == [(0, 0, 0), (1, 0, 0)] * 2
+    n = 0
+    for rank in (0, 1):
+        a, b = ranks[rank], ranks[_pod_peer(rank, r)]
+        for key in ("grads", "params"):
+            for path, t in _leaves(a[key]):
+                assert torch.equal(t, _get(b[key], path)), (rank, key,
+                                                            path)
+                n += 1
+    assert n > 0
+    assert len({g["grad_norm"] for g in ranks}) == 1
+
+
+def _bit_equal(a, b) -> list:
+    """Paths of the leaves of two grad trees that differ in any bit."""
+    return [path for path, t in _leaves(a)
+            if not torch.equal(t, _get(b, path))]
+
+
+@pytest.mark.parametrize("name", ["none", "prefetch0", "prefetch2"])
+def test_multirank_variant_grads_bit_identical_to_flat(results, name):
+    """Per-tensor collectives and prefetch distances 0 and 2 against the
+    flat, prefetch-1 base run on the same params and batch: every rank's
+    grads, loss and grad norm equal bit for bit."""
+    base = results[VARIANT[name][0]]["ranks"]
+    got = results[name]["ranks"]
+    for a, b in zip(got, base):
+        assert _bit_equal(a["grads"], b["grads"]) == []
+        assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+
+
+@pytest.mark.parametrize("name", ["int8", "int8_none"])
+def test_multirank_int8_grads_within_the_reference_rule(results, name):
+    """int8 reduces with error feedback (4 micro-batches in units of 2:
+    the second unit's reduce carries the first's error), flat and per
+    tensor: every grad finite and within 2% of the float32 run's global
+    max |g|; the loss (computed before any reduce) equal bit for bit."""
+    base = results[VARIANT[name][0]]["ranks"]
+    got = results[name]["ranks"]
+    gmax = max(float(t.abs().max()) for b in base
+               for _, t in _leaves(b["grads"]))
+    worst = 0.0
+    for a, b in zip(got, base):
+        assert a["loss"] == b["loss"]
+        for path, t in _leaves(a["grads"]):
+            assert torch.isfinite(t).all(), path
+            worst = max(worst, float((t - _get(b["grads"], path)).abs()
+                                     .max()) / gmax)
+    assert 0.0 < worst < INT8_RULE, worst
+
+
+def _jax_int8(c):
+    """The JAX package's int8 reduces on the case's per-rank inputs,
+    under ``jax.vmap(axis_name="data")``: ({"flat": shards, "flat_err",
+    "tensor", "tensor_err"}, each [D, ...])."""
+    D = c["data"]
+    jspecs = {n: jcommon.ParamSpec(sh, fsdp_dim=fd)
+              for n, (sh, fd) in c["shapes"].items()}
+    jfl = jfsdp.build_flat_layout(jspecs, c["flat"], D, False)
+    host = {n: jnp.asarray(g.numpy()) for n, g in c["grads"].items()}
+    red, err = jax.vmap(
+        lambda g, e: jfsdp.reduce_scatter_flat_int8(g, e, jfl),
+        axis_name="data")({n: host[n] for n in c["flat"]},
+                          jnp.asarray(c["flat_err"].numpy()))
+    out = {"flat": red, "flat_err": err, "tensor": {}, "tensor_err": {}}
+    for n, sp in jspecs.items():
+        out["tensor"][n], out["tensor_err"][n] = jax.vmap(
+            lambda g, e, sp=sp: jfsdp.reduce_scatter_grad_int8(
+                g, e, sp, D, False), axis_name="data")(
+            host[n], jnp.asarray(c["err"][n].numpy()))
+    return jax.tree.map(np.asarray, out)
+
+
+def test_multirank_int8_reduces_equal_the_reference(results):
+    """The port's int8 reduces over four gloo ranks against the JAX
+    package's, run under ``jax.vmap(axis_name="data")`` on the same
+    per-rank inputs: reduced shards and new feedback buffers bit for
+    bit, flat (a ld = 0 and a ld = 1 tensor) and per tensor (those two
+    and a replicated one, summed whole)."""
+    r = results[INT8["name"]]
+    want = r["ref"]
+    for rank, got in enumerate(r["ranks"]):
+        np.testing.assert_array_equal(got["flat_err"].numpy(),
+                                      want["flat_err"][rank])
+        for n in want["flat"]:
+            np.testing.assert_array_equal(got["flat"][n].numpy(),
+                                          want["flat"][n][rank], err_msg=n)
+        for n in want["tensor"]:
+            np.testing.assert_array_equal(got["tensor"][n].numpy(),
+                                          want["tensor"][n][rank],
+                                          err_msg=n)
+            np.testing.assert_array_equal(got["tensor_err"][n].numpy(),
+                                          want["tensor_err"][n][rank],
+                                          err_msg=n)
+
+
 # --------------------------------------------------------------------------- #
 # The launcher
 # --------------------------------------------------------------------------- #
@@ -361,6 +539,12 @@ def test_launch_train_refuses_nccl_ranks_sharing_a_device():
                       "2", "--steps", "1"])
     with pytest.raises(SystemExit, match="--backend gloo"):
         tlaunch.main(["--device", "cpu", "--data", "2", "--steps", "1"])
+    # --pods multiplies the world: pods x data x groups x pp ranks
+    with pytest.raises(SystemExit, match="8 ranks on 0 cpu"):
+        tlaunch.main(["--device", "cpu", "--backend", "nccl", "--pods",
+                      "2", "--data", "2", "--pp", "2", "--steps", "1"])
+    assert tlaunch._world(tlaunch._args(["--pods", "2", "--data", "2"])) \
+        == 4
 
 
 def test_multirank_session_needs_a_process_group():

@@ -186,12 +186,14 @@ def test_engine_refuses_packed_table_deeper_than_its_unit(V):
     # a process group is refused (ids kept from before that slice)
     pytest.param(dict(overrides=dict(groups=2)), "process group",
                  id="kw3-multi-rank: next slice"),
-    pytest.param(dict(overrides=dict(grad_compress="int8")), "item 1b",
-                 id="kw4-multi-rank: next slice"),
-    pytest.param(dict(overrides=dict(coalesce="none")), "item 1b",
-                 id="kw5-multi-rank slice"),
+    # int8 reduces, per-tensor collectives and pods train since the
+    # slice after it: on several ranks, which need a process group
+    pytest.param(dict(overrides=dict(grad_compress="int8"), data=2),
+                 "process group", id="kw4-multi-rank: next slice"),
+    pytest.param(dict(overrides=dict(coalesce="none"), data=2),
+                 "process group", id="kw5-multi-rank slice"),
     (dict(topology="gpu_cluster"), "multi-rank slice"),
-    (dict(pods=2), "item 1b"),
+    pytest.param(dict(pods=2), "process group", id="kw7-item 1b"),
 ])
 def test_train_session_refuses_what_later_slices_bring(kw, match):
     with pytest.raises(SessionError, match=match):

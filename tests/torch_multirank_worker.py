@@ -12,6 +12,11 @@ of ``world`` CPU ranks and runs the cases of ``case_file`` (a
   the metrics, ``grad_norm`` and the params after the update.
 * ``embed``: the vocabulary-sharded ``embed_lookup`` and ``embed_grad``
   on this rank's ids over a data axis of every rank.
+* ``int8``: the int8 reduces with error feedback over a data axis of
+  every rank: ``reduce_scatter_flat_int8_async`` on this rank's
+  gradients and flat feedback buffer, and
+  ``reduce_scatter_grad_int8_async`` on each tensor; it saves the
+  reduced shards and the new feedback buffers.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ def _train(case, rank):
     from repro_torch.api import session
 
     sess = session(case["arch"], mode="train", seq_len=case["seq"],
-                   device="cpu", data=case["data"],
+                   device="cpu", data=case["data"], pods=case["pods"],
                    overrides=case["overrides"], optim=case["optim"])
     full = tparams.from_reference(case["params"], device="cpu")
     p = tparams.shard_for_rank(sess.rt, full, sess.mesh.rank)
@@ -64,13 +69,35 @@ def _embed(case, rank):
     return {"emb": emb, "acc": acc, "dropped": dropped}
 
 
+def _int8(case, rank):
+    from repro_torch.core import fsdp
+    from repro_torch.core.comm import Mesh
+
+    comm = Mesh(case["data"], 1, 1, "cpu").data_comm
+    specs = case["specs"]
+    grads = {n: g[rank] for n, g in case["grads"].items()}
+    fl = fsdp.build_flat_layout(specs, case["flat"], comm.size)
+    pend, flat_err = fsdp.reduce_scatter_flat_int8_async(
+        {n: grads[n] for n in case["flat"]}, case["flat_err"][rank], fl,
+        comm)
+    out = {"flat": pend.wait(), "flat_err": flat_err, "tensor": {},
+           "tensor_err": {}}
+    for n, g in grads.items():
+        pend, err = fsdp.reduce_scatter_grad_int8_async(
+            g, case["err"][n][rank], fsdp.local_dim(specs[n], comm.size),
+            comm)
+        out["tensor"][n], out["tensor_err"][n] = pend.wait(), err
+    return out
+
+
 def main(rank, world, port, case_file, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     try:
         for case in torch.load(case_file, weights_only=False):
-            fn = {"train": _train, "embed": _embed}[case["kind"]]
+            fn = {"train": _train, "embed": _embed,
+                  "int8": _int8}[case["kind"]]
             torch.save(fn(case, rank),
                        os.path.join(out_dir, f"{case['name']}.{rank}.pt"))
     finally:
