@@ -136,6 +136,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import signal
 import subprocess
 import sys
@@ -219,6 +220,21 @@ GPT = dict(arch="gpt_paper", seq=1024, global_batch=8, vocab=50304,
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
                  "K2 fused_xent": sum(XENT_PASSES.values(), ())}
+# the checkpoint phase: gpt-1.5B's train cell (full width and depth) for
+# 4 steps under the fault-tolerance controller, a checkpoint every 2
+# steps (async, keep 1), a failure injected before step 3 (index), so the
+# restart resumes at 2. A checkpoint holds bf16 params and float32
+# master, m and v: 14 bytes a parameter. The phase needs free disk for
+# two of them (the previous step stays until the next is renamed) and
+# host memory for one, with margins; where either is short it cuts the
+# depth (never skips). Step 2's loss after the restart must equal the
+# one before it bit for bit (the forward has no atomics); its grad norm
+# agrees within CKPT_NORM_RTOL only, since the embedding's gradient
+# (core/vocab.py, index_add_) sums with float atomics on the card
+CKPT = dict(steps=4, every=2, keep=1, inject_at=3, resume=[2])
+CKPT_BYTES_PER_PARAM = 2 + 4 + 4 + 4
+CKPT_DISK_MARGIN, CKPT_RAM_MARGIN = 2.2, 1.2
+CKPT_NORM_RTOL = 1e-5
 # the multi-rank train phases, each four ranks (one process each, all on
 # this card over gloo), seq 1024 for four ranks' memory on one card;
 # zeropp, vpp 2, 4 micro-batches of one sequence in units of 2 a batch
@@ -1499,6 +1515,170 @@ def train_phase(torch, cell):
     return res
 
 
+def _mem_available() -> int:
+    """Host memory available to a new allocation, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def ckpt_phase(torch, cell, card):
+    """gpt-1.5B's train cell under the fault-tolerance controller, the
+    checkpoints in a directory of this run that the phase removes."""
+    d = OUT / "ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    try:
+        return _ckpt_run(torch, cell, card, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _ckpt_run(torch, cell, card, d):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    tag = f"[ckpt {cell['arch']}]"
+    sess = train_session(cell)
+    n = sess.describe()["n_params"]
+    nbytes = n * CKPT_BYTES_PER_PARAM
+    disk, ram = shutil.disk_usage(d).free, _mem_available()
+    log(f"{tag} {n} params: {nbytes / 1e9:.3f} GB a checkpoint (bf16 "
+        f"params, float32 master, m, v); disk free {disk / 1e9:.1f} GB "
+        f"(needs {CKPT_DISK_MARGIN}x), host memory available "
+        f"{ram / 1e9:.1f} GB (needs {CKPT_RAM_MARGIN}x)")
+    cut = None
+    if disk < CKPT_DISK_MARGIN * nbytes or ram < CKPT_RAM_MARGIN * nbytes:
+        L = sess.cfg.n_layers
+        io = sum(math.prod(sp.shape) for sp in M.io_specs(sess.cfg).values())
+        fit = min(disk / CKPT_DISK_MARGIN, ram / CKPT_RAM_MARGIN) \
+            / CKPT_BYTES_PER_PARAM
+        layers = int((fit - io) // ((n - io) / L)) // 2 * 2
+        if layers < 2:
+            fail(f"{tag} disk {disk} B / host memory {ram} B hold no "
+                 "two-layer checkpoint")
+        cut = (f"depth {L} -> {layers} layers: disk free {disk / 1e9:.1f} "
+               f"GB, host memory {ram / 1e9:.1f} GB for "
+               f"{nbytes / 1e9:.3f} GB checkpoints")
+        log(f"{tag} cut: {cut}")
+        del sess
+        sess = train_session(cell, layers=layers)
+        n = sess.describe()["n_params"]
+        nbytes = n * CKPT_BYTES_PER_PARAM
+    ctl = sess.checkpointing(str(d), every=CKPT["every"], keep=CKPT["keep"],
+                             async_save=True, digest=True)
+    runs, adopt_s = [], []
+
+    def build(restored, manifest):
+        if restored is None:
+            params = sess.init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            st = {"params": params, "opt": sess.init_opt_state(params)}
+        else:
+            t0 = time.perf_counter()
+            st = sess.adopt_state(restored)
+            torch.cuda.synchronize()
+            adopt_s.append(time.perf_counter() - t0)
+            log(f"{tag} restart {ctl.failures}: resumed at step "
+                f"{manifest['extra']['step']}, state on the card in "
+                f"{adopt_s[-1]:.2f} s")
+        stream = sess.stream()
+
+        def run_one(st, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, m = sess.train_step(st["params"], stream.batch(step))
+            p, o, om = sess.opt_step(st["params"], g, st["opt"])
+            del g
+            row = dict(step=step, loss=float(m["loss_sum"]),
+                       grad_norm=float(om["grad_norm"]))
+            torch.cuda.synchronize()
+            row["ms"] = (time.perf_counter() - t0) * 1e3
+            runs.append(row)
+            log(f"{tag} step {step}: loss {row['loss']!r}, grad norm "
+                f"{row['grad_norm']!r}, {row['ms']:.1f} ms")
+            return {"params": p, "opt": o}, {"loss": row["loss"]}
+
+        return st, run_one, lambda s: s
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    fx.reset_launches()
+    base = ops.kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _ = ctl.run(build, CKPT["steps"],
+                       inject_failure_at=CKPT["inject_at"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = train_launches()
+    counters = {k: v - base.get(k, 0) for k, v in
+                ops.kernel_counters().items() if v - base.get(k, 0)}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ev = {(e["op"], e["step"]): e for e in ctl.mgr.events}
+    saves = [e for e in ctl.mgr.events if e["op"] == "save"]
+    rest = ev.get(("restore", CKPT["resume"][0]))
+    for e in saves:
+        log(f"{tag} save of step {e['step']}: {e['bytes']} bytes; host "
+            f"snapshot {e['snapshot_s']:.2f} s, disk write "
+            f"{e['write_s']:.2f} s (on a thread, beside the steps)")
+    if rest is None:
+        fail(f"{tag} no restore of step {CKPT['resume'][0]}: "
+             f"{ctl.mgr.events}")
+    log(f"{tag} restore of step {rest['step']}: {rest['bytes']} bytes read "
+        f"in {rest['read_s']:.2f} s (with its sha256), to the card in "
+        f"{adopt_s[0]:.2f} s; peak {peak:.2f} GiB allocated over the "
+        f"phase; resume_steps {ctl.resume_steps}; {wall:.1f} s in all; "
+        f"{card}")
+    L, mb = sess.cfg.n_layers, sess.rc.microbatches
+    per_step = {"flash_attention_fwd": 2 * L * mb,
+                "flash_attention_bwd": L * mb, "fused_xent": 2 * mb}
+    log(f"{tag} launches in {len(runs)} steps: {launches}; dispatch "
+        f"{counters}")
+    if ctl.resume_steps != CKPT["resume"]:
+        fail(f"{tag} resume_steps {ctl.resume_steps}, expected "
+             f"{CKPT['resume']}")
+    if [r["step"] for r in runs] != [0, 1, 2, 2, 3]:
+        fail(f"{tag} steps run {[r['step'] for r in runs]}")
+    for k, per in per_step.items():
+        if launches[k] != per * len(runs):
+            fail(f"{tag} {k} launched {launches[k]} times in {len(runs)} "
+                 f"steps, expected {per} a step")
+    if any(k.startswith("ref_") for k in counters):
+        fail(f"{tag} the steps reached a plain version: {counters}")
+    if not all(math.isfinite(r["loss"]) for r in runs):
+        fail(f"{tag} non-finite losses: {[r['loss'] for r in runs]}")
+    before, after = runs[2], runs[3]
+    d_norm = abs(after["grad_norm"] - before["grad_norm"]) / \
+        before["grad_norm"]
+    log(f"{tag} step 2 before / after the restart: loss {before['loss']!r}"
+        f" / {after['loss']!r} (must be equal); grad norm relative diff "
+        f"{d_norm:.3e} (rule {CKPT_NORM_RTOL:g}); sha256 saved "
+        f"{ev[('save', 2)]['sha256'][:16]}, restored "
+        f"{rest['sha256'][:16]}")
+    if after["loss"] != before["loss"]:
+        fail(f"{tag} step 2 loss {after['loss']!r} after the restart, "
+             f"{before['loss']!r} before")
+    if not d_norm <= CKPT_NORM_RTOL:
+        fail(f"{tag} step 2 grad norm {after['grad_norm']} after the "
+             f"restart, {before['grad_norm']} before")
+    if rest["sha256"] != ev[("save", 2)]["sha256"]:
+        fail(f"{tag} the restored state's sha256 differs from the saved")
+    return dict(arch=cell["arch"], n_params=n, layers=L, cut=cut,
+                ckpt_bytes=saves[0]["bytes"], saves=saves, restore=rest,
+                adopt_s=adopt_s[0], peak_gb=peak, wall_s=wall,
+                resume_steps=ctl.resume_steps, steps=runs,
+                norm_rel=d_norm, launches=launches, counters=counters)
+
+
 def multirank_phase(torch, c):
     """A multi-rank train cell ``c`` (MULTI, PODS): four ranks, spawned by
     ``python -m repro_torch.launch.train`` as a subprocess, all on this
@@ -1984,6 +2164,7 @@ def main() -> None:
     for row in gpt_kernels:
         row["launches"] = train_gpt["launches"][row["name"].split(":")[0]]
     kernels += gpt_kernels
+    ckpt = ckpt_phase(torch, GPT, card)
     log(f"[serve] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
     jamba, _, _, params_j, sess_j = serve_phase(torch, "contiguous",
@@ -2019,7 +2200,7 @@ def main() -> None:
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
-         "train": [train, train_gpt], "multirank": multirank,
+         "train": [train, train_gpt], "ckpt": ckpt, "multirank": multirank,
          "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

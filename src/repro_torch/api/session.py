@@ -37,6 +37,19 @@ takes the same global batch on every rank and returns this rank's grads
 (summed over the pods); ``opt_step`` clips by the global norm. Serving
 runs on one rank.
 
+Checkpoints, in the reference's on-disk format (``ckpt/checkpoint.py``):
+``checkpointing(dir, every=50)`` gives the fault-tolerance
+``TrainController`` (on a mesh it saves collectively and restores this
+rank's part), ``adopt_state`` puts its restored ``{"params", "opt"}``
+on the device, and ``restore_params(dir)`` / ``adopt_params(tree)``
+boot params from a train checkpoint, e.g. a serve session's::
+
+    ctl = sess.checkpointing("ckpt", every=50)
+    state, history = ctl.run(build, total_steps)
+    params = repro_torch.api.session("llama3.2-1b", max_seq=2048,
+                                     overrides=dict(pp=1)
+                                     ).restore_params("ckpt")
+
 The device is ``device="cuda"`` (the default, which raises when no GPU is
 present; on a mesh, card ``local rank % device count``) or
 ``device="cpu"`` (the tests). Batches arrive as numpy arrays and move to
@@ -55,19 +68,43 @@ import numpy as np
 import torch
 
 from repro_torch.api.spec import SessionError, SessionSpec
+from repro_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    MeshLayout,
+    flatten,
+    unflatten,
+)
 from repro_torch.core import serve as CS
 from repro_torch.core.comm import Mesh
 from repro_torch.core.pipeline import Runtime, make_train_step
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
-from repro_torch.models.common import ShapeConfig
+from repro_torch.models.common import ShapeConfig, torch_dtype
 from repro_torch.optim import adamw
-from repro_torch.params import init_all_params, shard_for_rank
+from repro_torch.params import (
+    from_reference,
+    init_all_params,
+    shard_for_rank,
+)
+from repro_torch.runtime.fault_tolerance import (
+    FaultToleranceConfig,
+    TrainController,
+)
 
 _OPT_FIELDS = {f.name for f in dataclasses.fields(adamw.AdamWConfig)}
-_CKPT = ("checkpoints (ckpt/checkpoint.py) and the fault-tolerance "
-         "controller wait for the checkpoint slice (ROADMAP.md queue 1)")
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A leaf as a tensor (numpy arrays, bfloat16 ones too, as their
+    bits)."""
+    return a if isinstance(a, torch.Tensor) else from_reference(a, "cpu")
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def session(arch: str, *, mode: str = "serve", overrides=None,
@@ -135,6 +172,7 @@ class Session:
             self.rt = types.SimpleNamespace(G=self.rc.groups)
         self._rope = None
         self._engine_stats = None   # serving EngineStats (engine attaches)
+        self._fault_tolerance = None  # a TrainController (attach())
         # baseline for the per-session dispatch counters (process-wide)
         self._kernel_counter_base = ops.kernel_counters()
 
@@ -283,11 +321,114 @@ class Session:
             seq_len=sc.seq_len, global_batch=sc.global_batch,
             vocab=self.cfg.vocab, seed=seed))
 
-    def checkpointing(self, ckpt_dir: str, **kw):
-        raise SessionError(_CKPT)
+    # ------------------------------------------------------------------ #
+    # Checkpoints
+    # ------------------------------------------------------------------ #
 
-    def restore_params(self, ckpt_dir: str, **kw):
-        raise SessionError(_CKPT)
+    def checkpointing(self, ckpt_dir: str, *, every: int = 50,
+                      digest: bool = False, **kw) -> TrainController:
+        """A fault-tolerance TrainController over this checkpoint dir
+        (``kw``: the other :class:`FaultToleranceConfig` fields; ``digest``
+        records each saved and restored state's sha256). On a mesh it
+        saves collectively and restores this rank's part
+        (:class:`MeshLayout`)."""
+        try:
+            cfg = FaultToleranceConfig(ckpt_every=every, **kw)
+        except TypeError as e:
+            raise SessionError(f"checkpointing: {e}") from e
+        layout = None if self.mesh is None else MeshLayout(self.rt,
+                                                           self.mesh)
+        return TrainController(ckpt_dir, cfg, layout=layout, digest=digest)
+
+    def param_shapes(self, part: bool = False) -> dict:
+        """{leaf path: shape} of this session's params: the global tree,
+        or with ``part`` this rank's part of it."""
+        full = {"io": {n: torch.empty(sp.shape, device="meta")
+                       for n, sp in M.io_specs(self.cfg).items()},
+                "segments": {}}
+        for seg in self.geo.segments:
+            S = self.geo.seg_stages(seg)
+            full["segments"][seg.name] = {
+                n: torch.empty((S,) + sp.shape, device="meta")
+                for n, sp in M.stage_specs(self.cfg, seg).items()}
+        if part and self.mesh is not None:
+            full = shard_for_rank(self.rt, full, self.mesh.rank)
+        return {k: tuple(t.shape) for k, t in flatten(full).items()}
+
+    @staticmethod
+    def _checked(tree, want: dict, what: str) -> dict:
+        """The leaves of ``tree`` at ``want``'s paths ({path: shape}); a
+        missing leaf or one of another shape raises, naming it."""
+        got = flatten(tree)
+        missing = sorted(set(want) - set(got))
+        if missing:
+            raise SessionError(
+                f"checkpoint is missing {what} leaves {missing[:5]}"
+                f"{'...' if len(missing) > 5 else ''}; was it written by "
+                "another architecture?")
+        for k, shape in want.items():
+            if tuple(got[k].shape) != shape:
+                raise SessionError(
+                    f"{what} {k} has shape {tuple(got[k].shape)} in the "
+                    f"checkpoint but this session needs {shape}: the mesh "
+                    "and pipeline geometry (data, pp, vpp) must match the "
+                    "trainer's")
+        return {k: got[k] for k in want}
+
+    def restore_params(self, ckpt_dir: str, *, step: int | None = None):
+        """Boot this session's params from a train checkpoint (the
+        train -> serve handoff): the tree is the params tree or nests it
+        under ``"params"`` (the controller's state); the optimizer's
+        leaves are not read. See :meth:`adopt_params`."""
+        mgr = CheckpointManager(ckpt_dir)
+        tree, _ = mgr.restore(step, select=lambda k: not k.startswith(
+            "opt/"))
+        if tree is None:
+            raise SessionError(
+                f"no checkpoint found under {ckpt_dir!r} "
+                f"(steps: {mgr.list_steps()})")
+        return self.adopt_params(tree)
+
+    def adopt_params(self, tree):
+        """A global params tree (host or device tensors or numpy arrays,
+        bare or nested under ``"params"``) as this session's params:
+        every leaf's shape checked against this session's geometry (a
+        mismatch names the leaf), cast to the param dtype, cut to this
+        rank's part on a mesh, on this session's device."""
+        if "params" in tree and "io" not in tree:
+            tree = tree["params"]
+        if not ("io" in tree and "segments" in tree):
+            raise SessionError(
+                f"params tree has keys {sorted(tree)}; expected 'io' and "
+                "'segments' (or a tree nested under 'params')")
+        got = self._checked({"io": tree["io"], "segments": tree["segments"]},
+                            self.param_shapes(), "param")
+        dtype = torch_dtype(self.rc.param_dtype)
+        full = unflatten({k: _as_tensor(a).to(dtype=dtype)
+                          for k, a in got.items()})
+        if self.mesh is not None:
+            full = shard_for_rank(self.rt, full, self.mesh.rank)
+        return _map(full, lambda t: t.to(self.device))
+
+    def adopt_state(self, tree):
+        """The controller's restored ``{"params", "opt"}`` tree (already
+        this rank's part when restored by :meth:`checkpointing`'s) as
+        this session's state on its device: params in the param dtype,
+        ``master`` in float32, moments in the moment dtype, ``step`` an
+        int; leaf shapes checked against this rank's parts."""
+        want = self.param_shapes(part=True)
+        mdt = torch_dtype(self.opt_config()[0].moment_dtype)
+        opt = tree["opt"]
+        out = {"opt": {"step": int(opt["step"])}}
+        for name, sub, dtype in (
+                ("params", tree["params"], torch_dtype(self.rc.param_dtype)),
+                ("master", opt["master"], torch.float32),
+                ("m", opt["m"], mdt), ("v", opt["v"], mdt)):
+            got = self._checked(sub, want, name)
+            dev = unflatten({k: t.to(self.device, dtype)
+                             for k, t in got.items()})
+            (out if name == "params" else out["opt"])[name] = dev
+        return out
 
     # ------------------------------------------------------------------ #
     # Serve steps
@@ -425,6 +566,8 @@ class Session:
                             "global_batch": sc.global_batch}
         if self._engine_stats is not None:
             out["serving"] = dataclasses.asdict(self._engine_stats)
+        if self._fault_tolerance is not None:
+            out["fault_tolerance"] = self._fault_tolerance.summary()
         return out
 
     def __repr__(self):

@@ -9,9 +9,8 @@ against the process group), with flat or per-tensor collectives
 (``coalesce``) and float32 or int8 gradient reduces
 (``grad_compress``); serving runs on one rank.
 ``schedule="auto"``/``"auto_profiled"``, topologies, expert parallelism,
-Mamba/MoE training, serving LayerNorm / GELU models (the paper's GPT),
-checkpoints and multi-rank serving are refused with the slice they wait
-for.
+Mamba/MoE training, serving LayerNorm / GELU models (the paper's GPT)
+and multi-rank serving are refused with the slice they wait for.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ class SessionError(ValueError):
     """Invalid session specification (message says how to fix it)."""
 
 
-LATER = "ROADMAP.md queue 1 item 1b"
+LATER = "ROADMAP.md queue 1 item 4"
 
 
 _RC_FIELDS = {f.name for f in dataclasses.fields(RunConfig)}
@@ -164,7 +163,7 @@ class SessionSpec:
                 f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}) "
                 "waits for GPT serving: LayerNorm and the GELU MLP on the "
                 "serve path and K3/K4 at head_dim 96 (ROADMAP.md queue 1 "
-                "item 2); train it with mode='train'")
+                "item 3); train it with mode='train'")
         if self.max_seq is None or self.max_seq < 1:
             raise SessionError(
                 "serve sessions need max_seq=<prompt+gen+slack> (the KV "

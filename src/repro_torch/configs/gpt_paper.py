@@ -8,7 +8,7 @@ The port trains the 1.5B model at its published width on one card
 (``one_card_train_run()``: 1,633,430,016 parameters, about 29.4 GB of
 bf16 params, float32 master, moments and grads). Serving it waits for
 K3/K4 at head_dim 96 and a LayerNorm / GELU serve path (ROADMAP.md
-queue 1 item 2), so this module has no ``one_card_run()``.
+queue 1 item 3), so this module has no ``one_card_run()``.
 """
 
 from repro_torch.configs._base import one_card_train

@@ -60,7 +60,7 @@ import torch
 from repro_torch.core import fsdp
 from repro_torch.core import vocab as Vb
 from repro_torch.core.comm import TAG_B, TAG_F
-from repro_torch.core.plan import PackedTable
+from repro_torch.core.plan import PackedTable, slot_violations
 from repro_torch.core.schedules import B as KB
 from repro_torch.core.schedules import F as KF
 from repro_torch.core.schedules import W as KW
@@ -85,8 +85,14 @@ def validate_unit_stash_packed(pt: PackedTable) -> None:
     Micro-batch ``u + U`` takes micro-batch ``u``'s stash slot, so a
     table where a postponed W (or a late B) outlives its slot would
     replay the wrong micro-batch. The same window rules as
-    ``schedules.stash_window_violations``.
+    ``schedules.stash_window_violations``. A table whose F or B cells read
+    a gather slot that does not hold their stage block
+    (``plan.slot_violations``) is refused too, at any depth.
     """
+    bad = slot_violations(pt)
+    if bad:
+        raise ValueError(f"packed table reads evicted stage blocks: "
+                         f"{len(bad)} cell(s), first: {bad[0]}")
     U, n_mb = pt.U, pt.n_mb
     if not (0 < U < n_mb):
         return
@@ -177,6 +183,7 @@ class TickEngine:
         self.seg_flat = (fsdp.pack_flat_stack(self.seg_p, self.flat)
                          if self.flat is not None else None)
         self.gbuf: list = [None, None]
+        self.held: list = [None, None]      # stage block of each slot
         self.pending: list = [None, None]   # issued gathers, by slot
         self.reduces: list = []             # issued reduces, in order
         self.tick = -1
@@ -195,7 +202,12 @@ class TickEngine:
     def stage_params(self, v: int, use_slot: int) -> dict:
         """Params of local stage slot ``v``: the gathered tensors in slot
         ``use_slot`` (waiting for its gather if it is still in flight),
-        and the replicated tensors in place."""
+        and the replicated tensors in place. Raises if the slot does
+        not hold block ``v`` (a table that reads an evicted block)."""
+        if self.held[use_slot] != v:
+            raise RuntimeError(
+                f"tick {self.tick}: stage block {v} read from gather slot "
+                f"{use_slot}, which holds block {self.held[use_slot]}")
         if self.pending[use_slot] is not None:
             self._land(use_slot)
         buf = self.gbuf[use_slot]
@@ -215,7 +227,10 @@ class TickEngine:
 
     def _gather_step(self, row) -> None:
         gv, slot = row["gather_v"], row["gather_slot"]
-        if gv < 0 or not self.gatherable:
+        if gv < 0:
+            return
+        self.held[slot] = gv
+        if not self.gatherable:
             return
         if self.pending[slot] is not None:   # issued, never read
             self._land(slot)

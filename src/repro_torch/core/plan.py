@@ -2,7 +2,13 @@
 
 The port's copy of the runnable half of ``repro/core/plan.py``: the
 ``PackedTable`` the tick engine (``core/executor.py``) walks, ``pack_table``
-(with the §3.3 gather prefetch) and ``SchedulePlan``. The simulator
+(with the §3.3 gather prefetch) and ``SchedulePlan``. Unlike the
+reference's, ``pack_table`` tracks which stage block each of the two
+gather slots holds: at vpp > 2 a gather can evict a block that a later F
+or B cell still reads, and such a block is gathered again before that
+cell (or the table is refused); wherever the reference's table reads
+only resident blocks (every table at vpp <= 2) the two are equal field
+for field. The simulator
 analyses, the cost presets and ``select_plan`` (``schedule="auto"``)
 arrive with the ``auto`` slice.
 """
@@ -16,6 +22,7 @@ import numpy as np
 from repro_torch.core.generators import SchedParams, generate
 from repro_torch.core.schedules import B as KB
 from repro_torch.core.schedules import F as KF
+from repro_torch.core.schedules import KIND_NAMES as KIND
 from repro_torch.core.schedules import W as KW
 from repro_torch.core.schedules import (
     TickTable,
@@ -59,6 +66,117 @@ class PackedTable:
     def has_w(self) -> bool:
         """False for fused-backward baselines (dW computed inside B)."""
         return bool((self.kind == KW).any())
+
+
+def _assign_slots(kind, v, gv, forced):
+    """One rank's slots: gathers alternate between the two slots (a
+    re-gather in ``forced`` {tick: slot} takes its slot, and the next
+    gather the other); an F or B cell reads the slot holding its block.
+    Returns (gather_slot, use_slot, first tick whose F or B block is in
+    neither slot, or None). A W cell reads no params and keeps the
+    reference's slot: the one its block was last gathered into, else 0."""
+    T = len(kind)
+    gather_slot = -np.ones(T, np.int32)
+    use_slot = np.zeros(T, np.int32)
+    nxt, last, held, bad = 0, {}, [-1, -1], None
+    for t in range(T):
+        if gv[t] >= 0:
+            s = forced.get(t, nxt)
+            gather_slot[t] = s
+            last[int(gv[t])] = s
+            held[s] = int(gv[t])
+            nxt = 1 - s
+        if kind[t] in (KF, KB, KW):
+            blk = int(v[t])
+            s = last.get(blk, 0)
+            if kind[t] != KW and held[s] != blk:
+                if held[1 - s] == blk:
+                    s = 1 - s
+                elif bad is None:
+                    bad = t
+            use_slot[t] = s
+    return gather_slot, use_slot, bad
+
+
+def _next_use(kind, v, t, blk) -> int:
+    """The first tick after ``t`` whose F or B cell reads ``blk``."""
+    for u in range(t + 1, len(kind)):
+        if kind[u] in (KF, KB) and v[u] == blk:
+            return u
+    return len(kind)
+
+
+def _regather(kind, v, mb, gv, prefetch: int, p: int):
+    """Slots of one rank's column, re-gathering every block that an F or
+    B cell reads after a later gather evicted it (``gv`` is updated in
+    place). Each re-gather goes at the earliest gather-free tick at most
+    ``prefetch`` ticks before its cell, into the slot whose block is
+    needed latest, where no cell between the re-gather and its own cell
+    loses its block; the block's next gather is dropped when that keeps
+    every cell up to the re-gathered one right (it would gather a block
+    already held). Raises ValueError naming the first cell that no such
+    re-gather can serve."""
+    T = len(kind)
+    forced: dict[int, int] = {}
+    gs, us, bad = _assign_slots(kind, v, gv, forced)
+    while bad is not None:
+        blk, placed = int(v[bad]), False
+        for c in range(max(0, bad - prefetch), bad + 1):
+            if gv[c] >= 0:
+                continue
+            # the slot state just before tick c, to rank the victims
+            held = [-1, -1]
+            for t in range(c):
+                if gv[t] >= 0:
+                    held[gs[t]] = int(gv[t])
+            victims = sorted((0, 1), key=lambda s: -_next_use(
+                kind, v, c - 1, held[s]) if held[s] >= 0 else -T)
+            later = [t for t in range(c + 1, T) if gv[t] == blk][:1]
+            for s in victims:
+                for drop in (later, []):
+                    tgv = gv.copy()
+                    tgv[c] = blk
+                    tgv[drop] = -1
+                    trial = {t: x for t, x in forced.items()
+                             if t not in drop}
+                    trial[c] = s
+                    tgs, tus, tbad = _assign_slots(kind, v, tgv, trial)
+                    if tbad is None or tbad > bad:
+                        gv[:] = tgv
+                        forced, gs, us, placed = trial, tgs, tus, True
+                        break
+                if placed:
+                    break
+            if placed:
+                bad = tbad
+                break
+        if not placed:
+            raise ValueError(
+                f"no tick free to re-gather stage block {blk} for "
+                f"{KIND[int(kind[bad])]}(u{mb[bad]}) at tick {bad} on stage "
+                f"rank {p} "
+                f"(prefetch {prefetch}): its gather slot was reused")
+    return gs, us, bad
+
+
+def slot_violations(pt: "PackedTable") -> list[str]:
+    """The F and B cells of a packed table whose ``use_slot`` does not
+    hold their stage block at their tick (empty when every cell reads its
+    own block; W cells read no params)."""
+    out = []
+    for p in range(pt.Pe):
+        held = [-1, -1]
+        for t in range(pt.T):
+            if pt.gather_v[t, p] >= 0:
+                held[pt.gather_slot[t, p]] = int(pt.gather_v[t, p])
+            k = int(pt.kind[t, p])
+            if k in (KF, KB) and held[pt.use_slot[t, p]] != pt.v[t, p]:
+                out.append(
+                    f"{KIND[k]}(u{pt.mb[t, p]}) of stage block "
+                    f"{pt.v[t, p]} at tick {t} on stage rank {p} reads "
+                    f"slot {pt.use_slot[t, p]}, which holds block "
+                    f"{held[pt.use_slot[t, p]]}")
+    return out
 
 
 def pack_table(tt: TickTable, prefetch: int = 0) -> PackedTable:
@@ -112,20 +230,14 @@ def pack_table(tt: TickTable, prefetch: int = 0) -> PackedTable:
                     gather_v[tgt, p_] = gather_v[t, p_]
                     gather_v[t, p_] = -1
 
-    # Rotating two-slot gather buffer assignment.
+    # Two-slot gather buffer assignment, alternating as the reference's;
+    # a block evicted before a cell reads it is gathered again.
     gather_slot = -np.ones((T, Pe), np.int32)
     use_slot = np.zeros((T, Pe), np.int32)
     for p in range(Pe):
-        nxt = 0
-        holds = {}  # v -> slot
-        for t in range(T):
-            if gather_v[t, p] >= 0:
-                gather_slot[t, p] = nxt
-                holds[gather_v[t, p]] = nxt
-                nxt = 1 - nxt
-            if kind[t, p] in (KF, KB, KW):
-                use_slot[t, p] = holds.get(v[t, p], 0)
-
+        col = _regather(kind[:, p], v[:, p], mb[:, p], gather_v[:, p],
+                        prefetch, p)
+        gather_slot[:, p], use_slot[:, p], _ = col
     # Receive maps: what lands on each wire at the END of tick t-1 (i.e. is
     # available at tick t). Sender of fwd wire for rank p is p-1 (ring).
     recv_f_u = -np.ones((T, Pe), np.int32)
@@ -183,6 +295,10 @@ class SchedulePlan:
     @classmethod
     def from_table(cls, name: str, sp: SchedParams, tt: TickTable, *,
                    prefetch: int = 0) -> "SchedulePlan":
-        return cls(name=name, params=sp, table=tt,
-                   packed=pack_table(tt, prefetch=prefetch),
+        try:
+            packed = pack_table(tt, prefetch=prefetch)
+        except ValueError as e:
+            raise ValueError(f"schedule {name!r} at pp={sp.P}, vpp={sp.V}, "
+                             f"{sp.n_mb} micro-batches: {e}") from e
+        return cls(name=name, params=sp, table=tt, packed=packed,
                    prefetch=prefetch)

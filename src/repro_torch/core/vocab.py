@@ -60,7 +60,7 @@ def _replicated(vloc):
     if vloc is not None:
         raise NotImplementedError(
             "serving runs on one rank with the head replicated (vloc=None); "
-            "multi-rank serving is ROADMAP.md queue 1 item 1b")
+            "multi-rank serving is ROADMAP.md queue 1 item 4")
 
 
 # --------------------------------------------------------------------------- #

@@ -15,6 +15,12 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --full --device cuda --slots 8
 
+``--ckpt DIR`` boots the params from a train checkpoint (the latest step
+in DIR, written by ``launch/train.py --ckpt-dir`` or by the reference)
+instead of drawing them; its pipeline stacking must match this
+session's, so a checkpoint of the one-rank trainer (pp 1) serves with
+``--pp 1``.
+
 ``--full`` serves the published width on one card (llama3.2-1b: 16
 layers, d_model 2048; jamba-v0.1-52b: d_model 4096 at depth 8, one
 period of its layer pattern, as ``one_card_config()`` cuts it; bf16);
@@ -38,8 +44,6 @@ from repro_torch.serving.engine import check_layout
 _LATER = {
     "--replicas": "data-parallel replicas behind a router arrive with the "
                   "elasticity slice",
-    "--ckpt": "booting from a train checkpoint arrives with the training "
-              "slice (checkpoint format shared with repro)",
     "--moe-mode": "MoE layers are routed in the gathered mode only; ep "
                   "and auto arrive with the expert-parallel MoE slice",
     "--moe-stats": "expert-load statistics arrive with the "
@@ -127,6 +131,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=None,
                     help="per-request sampling seed base: request i "
                          "draws from seed+i")
+    ap.add_argument("--ckpt", default=None,
+                    help="boot the params from this train checkpoint "
+                         "directory (its latest step; the geometry must "
+                         "match the trainer's: see --pp)")
+    ap.add_argument("--pp", type=int, default=None,
+                    help="pipeline stages the params are stacked in "
+                         "(default: the config's)")
     for flag in _LATER:
         ap.add_argument(flag, default=None, nargs="?", const=True)
     args = ap.parse_args(argv)
@@ -148,12 +159,13 @@ def main(argv=None):
     if args.page_size:
         max_seq = -(-max_seq // args.page_size) * args.page_size
 
+    ov = {} if args.pp is None else {"pp": args.pp}
     sess = session(
         args.arch, reduced=not args.full, device=args.device,
         max_slots=args.slots, max_seq=max_seq,
         prefill_chunk=args.prefill_chunk, page_size=args.page_size,
         max_pages=args.max_pages, prefix_sharing=args.prefix_sharing,
-        kv_cache_dtype=args.kv_cache_dtype)
+        kv_cache_dtype=args.kv_cache_dtype, overrides=ov)
     print(f"serving {sess.cfg.name} on {sess.device} "
           f"({sess.describe()['n_params']} params, "
           f"{sess.rc.compute_dtype}); {args.slots} slots, max_seq {max_seq}"
@@ -162,8 +174,14 @@ def main(argv=None):
         check_layout(sess, args.prefill_chunk)   # before any weights
     except NotImplementedError as e:
         raise SystemExit(f"{args.arch}: {e}") from e
-    gen = torch.Generator(device=sess.device).manual_seed(0)
-    eng = sess.serve_engine(sess.init_params(gen))
+    if args.ckpt:
+        params = sess.restore_params(args.ckpt)
+        print(f"params restored from train checkpoint {args.ckpt}")
+    else:
+        gen = torch.Generator(device=sess.device).manual_seed(0)
+        params = sess.init_params(gen)
+    eng = sess.serve_engine(params)
+    del params
     t0 = time.time()
     with eng:
         handles = [

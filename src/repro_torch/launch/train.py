@@ -3,8 +3,7 @@ engine -> AdamW, on one card or on a pods x data x (groups x pp) mesh of
 ranks.
 
 Prints one line a step (loss, grad norm, step ms, tokens/s) and
-``TRAIN_OK`` at the end. There is no checkpointing or fault-tolerance
-controller yet (the checkpoint slice, ROADMAP.md queue 1).
+``TRAIN_OK`` at the end.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --device cuda
@@ -18,6 +17,8 @@ controller yet (the checkpoint slice, ROADMAP.md queue 1).
       --backend gloo --pods 2 --data 2
   PYTHONPATH=src python -m repro_torch.launch.train --full --pods 2 \\
       --data 2 --layers 8 --seq 1024 --grad-compress int8 --backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 6 --ckpt-dir build/ckpt --ckpt-every 2 --inject-failure-at 3
 
 ``--full`` trains the architecture at its published width (llama3.2-1b:
 16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
@@ -42,6 +43,20 @@ stage gradients in int8 with error feedback; ``--layers L`` cuts the
 model to L layers at its widths. ``--report FILE`` writes rank 0's JSON summary
 (steps, and each rank's kernel launches, peak memory and a sha256 of
 its parameters after the last step).
+
+``--ckpt-dir DIR`` trains under the fault-tolerance controller
+(``repro_torch.runtime.fault_tolerance``): it resumes from DIR's latest
+verified checkpoint (a checkpoint at or past ``--steps`` leaves nothing
+to train), saves every ``--ckpt-every`` steps and at the end in the
+reference's format (asynchronously; on a mesh, collectively),
+``--inject-failure-at N`` raises a failure before step N on every rank
+once, and the controller restores the last checkpoint and resumes, up to
+``--max-failures``. Restarts stay on the same mesh (the reference
+halves its data axis on each; that elastic re-mesh waits for ROADMAP.md
+queue 1 item 8). ``TRAIN_OK`` then also prints ``failures=``,
+``resume_steps=`` and ``straggler_flags=``, and the report holds the
+controller's summary and each save's and restore's bytes and seconds
+(``ckpt_events``). Without ``--ckpt-dir`` nothing is saved.
 """
 
 from __future__ import annotations
@@ -91,6 +106,15 @@ def _args(argv=None):
                     help="torch.distributed backend (needed for >1 rank)")
     ap.add_argument("--report", default=None,
                     help="write rank 0's JSON summary here")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="train under the fault-tolerance controller, "
+                         "checkpointing here (and resuming from its "
+                         "latest verified step)")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--inject-failure-at", type=int, default=None,
+                    help="raise a failure before this step (every rank), "
+                         "once: the controller restores and resumes")
+    ap.add_argument("--max-failures", type=int, default=3)
     return ap.parse_args(argv)
 
 
@@ -113,10 +137,7 @@ def params_sha256(params) -> str:
     return h.hexdigest()
 
 
-def train(args, rank: int = 0) -> None:
-    """Build the session and run the steps in this process (one rank of
-    the mesh when ``torch.distributed`` is initialised)."""
-    mod = get_arch(args.arch)
+def _session(args, mod):
     seq = args.seq or (getattr(mod, "TRAIN_SEQ", 2048) if args.full
                        else 32)
     # sequences a step: the config module's TRAIN_BATCH at full width,
@@ -130,11 +151,19 @@ def train(args, rank: int = 0) -> None:
         ov["groups"] = args.groups
     if args.grad_compress is not None:
         ov["grad_compress"] = args.grad_compress
-    sess = session(
+    return session(
         args.arch, mode="train", reduced=not args.full, device=args.device,
         seq_len=seq, global_batch=batch, data=args.data, pods=args.pods,
         layers=args.layers, overrides=ov,
         optim=dict(lr=args.lr, warmup=1, total=10_000))
+
+
+def train(args, rank: int = 0) -> None:
+    """Build the session and run the steps in this process (one rank of
+    the mesh when ``torch.distributed`` is initialised); with
+    ``--ckpt-dir``, under the fault-tolerance controller."""
+    mod = get_arch(args.arch)
+    sess = _session(args, mod)
     out = print if rank == 0 else (lambda *a, **k: None)
     d = sess.describe()
     sc = sess.shape_cfg
@@ -154,27 +183,22 @@ def train(args, rank: int = 0) -> None:
         f"{d['schedule']['grad_compress']}), batch {sc.global_batch} x "
         f"{sc.seq_len}", flush=True)
     cuda = sess.device.type == "cuda"
-    gen = torch.Generator(device=sess.device).manual_seed(0)
-    params = sess.init_params(gen)
-    opt = sess.init_opt_state(params)
-    stream = sess.stream()
     tokens = sc.global_batch * sc.seq_len
     if cuda:
         torch.cuda.reset_peak_memory_stats(sess.device)
-    steps, min_free = [], None
-    for step in range(args.steps):
-        batch = stream.batch(step)
+    steps, free = [], []
+
+    def run_step(s, params, opt, batch, step):
         t0 = time.perf_counter()
-        grads, metrics = sess.train_step(params, batch)
-        params, opt, om = sess.opt_step(params, grads, opt)
+        grads, metrics = s.train_step(params, batch)
+        params, opt, om = s.opt_step(params, grads, opt)
         loss = float(metrics["loss_sum"])
         if cuda:
-            torch.cuda.synchronize(sess.device)
+            torch.cuda.synchronize(s.device)
         dt = time.perf_counter() - t0
         del grads
         if cuda:
-            free = torch.cuda.mem_get_info(sess.device)[0]
-            min_free = free if min_free is None else min(min_free, free)
+            free.append(torch.cuda.mem_get_info(s.device)[0])
         row = dict(step=step + 1, loss=loss,
                    grad_norm=float(om["grad_norm"]), ms=dt * 1e3,
                    tok_per_s=tokens / dt,
@@ -183,6 +207,51 @@ def train(args, rank: int = 0) -> None:
         out(f"step {step:4d} loss {loss:.6f} gnorm "
             f"{row['grad_norm']:.6f} step {row['ms']:.1f} ms "
             f"{row['tok_per_s']:.1f} tok/s", flush=True)
+        return params, opt
+
+    ctl = None
+    if args.ckpt_dir is None:
+        gen = torch.Generator(device=sess.device).manual_seed(0)
+        params = sess.init_params(gen)
+        opt = sess.init_opt_state(params)
+        stream = sess.stream()
+        for step in range(args.steps):
+            params, opt = run_step(sess, params, opt, stream.batch(step),
+                                   step)
+    else:
+        ctl = sess.checkpointing(args.ckpt_dir, every=args.ckpt_every,
+                                 max_failures=args.max_failures)
+        box = {"sess": sess}
+        del sess
+
+        def build(restored, manifest):
+            # a restart builds a fresh session on the same mesh
+            s = box["sess"] if not ctl.failures else _session(args, mod)
+            box["sess"] = s
+            ctl.attach(s)
+            if restored is None:
+                gen = torch.Generator(device=s.device).manual_seed(0)
+                params = s.init_params(gen)
+                state = {"params": params,
+                         "opt": s.init_opt_state(params)}
+            else:
+                state = s.adopt_state(restored)
+                out(f"restart {ctl.failures}/{ctl.cfg.max_failures} "
+                    f"resumed at step {manifest['extra']['step']} from "
+                    f"{args.ckpt_dir}", flush=True)
+            stream = s.stream()
+
+            def run_one(st, step):
+                p, o = run_step(s, st["params"], st["opt"],
+                                stream.batch(step), step)
+                return {"params": p, "opt": o}, {"loss": steps[-1]["loss"]}
+
+            return state, run_one, lambda st: st
+
+        state, _ = ctl.run(build, args.steps,
+                           inject_failure_at=args.inject_failure_at)
+        sess, params = box["sess"], state["params"]
+        del state
     losses = [r["loss"] for r in steps]
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"non-finite loss: {losses}")
@@ -193,7 +262,7 @@ def train(args, rank: int = 0) -> None:
                 counters=sess.describe()["kernels"]["counters"],
                 max_memory_gb=(torch.cuda.max_memory_allocated(sess.device)
                                / 2**30 if cuda else None),
-                min_free_gb=(min_free / 2**30 if cuda else None),
+                min_free_gb=(min(free) / 2**30 if free else None),
                 coords=(None if mesh is None else dict(
                     pod=mesh.pod_rank, data=mesh.d_rank, group=mesh.g_rank,
                     stage=mesh.p_rank)),
@@ -207,9 +276,17 @@ def train(args, rank: int = 0) -> None:
                    backend=None if mesh is None else mesh.backend,
                    global_batch=sc.global_batch, seq=sc.seq_len,
                    steps=steps, ranks=ranks)
-    out(f"TRAIN_OK steps={len(losses)} first_loss={losses[0]:.4f} "
-        f"last_loss={losses[-1]:.4f} kernels={mine['counters']}",
-        flush=True)
+    tail = ""
+    if ctl is not None:
+        ft = summary["fault_tolerance"] = ctl.summary()
+        summary["ckpt_events"] = ctl.mgr.events
+        tail = (f" failures={ft['failures']} "
+                f"resume_steps={ft['resume_steps']} "
+                f"straggler_flags={ft['straggler_flags']}")
+    first = f"{losses[0]:.4f}" if losses else "none"
+    last = f"{losses[-1]:.4f}" if losses else "none"
+    out(f"TRAIN_OK steps={len(losses)} first_loss={first} "
+        f"last_loss={last} kernels={mine['counters']}{tail}", flush=True)
     if rank == 0 and args.report:
         with open(args.report, "w") as f:
             json.dump(summary, f, indent=1)

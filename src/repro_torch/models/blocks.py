@@ -213,7 +213,7 @@ def check_serves(cfg) -> None:
             f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}): the "
             "serve path computes RMSNorm and the SwiGLU MLP only; LayerNorm "
             "and GELU serving, with K3/K4 at head_dim 96, come with GPT "
-            "serving (ROADMAP.md queue 1 item 2)")
+            "serving (ROADMAP.md queue 1 item 3)")
 
 
 def norm_fwd(cfg, params, pfx, x):

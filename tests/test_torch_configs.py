@@ -198,13 +198,13 @@ def test_session_refuses_norms_and_mlps_it_does_not_compute(
     """Training computes LayerNorm and the GELU MLP; the serve path
     computes RMSNorm and SwiGLU only, so a serve session of a config
     asking for LayerNorm or the GELU MLP is refused (GPT serving,
-    ROADMAP.md queue 1 item 2), and so is any norm or MLP the port has no
+    ROADMAP.md queue 1 item 3), and so is any norm or MLP the port has no
     block for."""
     cfg, rc = tllama.reduced()
     monkeypatch.setattr(tllama, "reduced", lambda: (
         dataclasses.replace(cfg, **{field: value}), rc))
     session("llama3.2-1b", mode="train", device="cpu")
-    with pytest.raises(SessionError, match="queue 1 item 2"):
+    with pytest.raises(SessionError, match="queue 1 item 3"):
         session("llama3.2-1b", mode="serve", max_seq=16, device="cpu")
     monkeypatch.setattr(tllama, "reduced", lambda: (
         dataclasses.replace(cfg, **{field: "unknown"}), rc))

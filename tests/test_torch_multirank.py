@@ -15,7 +15,14 @@ One spawn of four single-threaded gloo processes
   runs 1);
 * the sharded embedding lookup and grad at data 4, on ids that overflow
   the all-to-all's capacity;
-* the int8 reduces with error feedback, flat and per tensor, at data 4.
+* the int8 reduces with error feedback, flat and per tensor, at data 4;
+* checkpoints on the mesh: the llama data 2 x pp 2 and pods 2 x data 2
+  cases run two steps under the fault-tolerance controller, saving after
+  each step, with a failure injected before the second: every rank
+  restores on the same mesh and its state equals two uninterrupted steps
+  bit for bit; the step-2 files hold the global leaves
+  (``params.unshard`` of the ranks' parts, params and optimizer state),
+  and the two pods' restored replicas are equal.
 
 The train cases use zeropp, 4 micro-batches in units of 2, seq 16 (as the
 reference's ``case_train_equiv``), float32, params and batch drawn with
@@ -70,6 +77,7 @@ from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
 from repro_torch.api import SessionError  # noqa: E402
 from repro_torch.api import session as tsession  # noqa: E402
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.core.comm import MeshShape  # noqa: E402
@@ -98,6 +106,9 @@ VARIANT = {
     "prefetch0": ("llama_d2_pp2", dict(gather_prefetch=0)),
     "prefetch2": ("llama_d2_pp2", dict(gather_prefetch=2)),
 }
+# checkpoint cases on a TRAIN case's session, params and batches: two
+# steps under the controller, a failure injected before the second
+CKPT = {"ckpt_d2_pp2": "llama_d2_pp2", "ckpt_q2_d2": "llama_q2_d2"}
 # the int8 rule of the reference's flat_int8 case: max |int8 - float32|
 # over every gradient, over the float32 run's global max |g|
 INT8_RULE = 0.02
@@ -252,9 +263,10 @@ def _spawn(cases, tmp):
 
 
 def _one_rank(cfg, rc, case):
-    """The port's one-rank step on the same model: pp = 1, vpp = 2 (both
-    packages' engines leave reference_loss at pp = 1, vpp = 4; ROADMAP.md
-    queue 3), the layers re-stacked."""
+    """The port's one-rank step on the same model: pp = 1, vpp = 2, the
+    layers re-stacked. (At vpp 4 the port's step also equals
+    reference_loss since its tables gather evicted stage blocks again,
+    ``tests/test_torch_slots.py``; the JAX engine's does not.)"""
     rc1 = dataclasses.replace(rc, pp=1, vpp=2, groups=1)
     ov = dict(case["overrides"], pp=1, groups=1, vpp=2)
     gb = case["batch"]["tokens"].shape[0]
@@ -287,9 +299,11 @@ def results(tmp_path_factory):
     built = {n: _train_case(n) for n in TRAIN}
     variants = [_variant_case(n, built[b][2])
                 for n, (b, _) in VARIANT.items()]
+    ckpts = [dict(built[b][2], name=n, kind="ckpt",
+                  dir=os.path.join(tmp, n)) for n, b in CKPT.items()]
     int8 = _int8_case()
     ctx = _spawn([c for _, _, c in built.values()] + variants
-                 + [_embed_case(), int8], tmp)
+                 + [_embed_case(), int8] + ckpts, tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)}}
     # the reference and the one-rank steps while the ranks run
     for name, (cfg, rc, case) in built.items():
@@ -303,10 +317,12 @@ def results(tmp_path_factory):
     while not ctx.join():
         pass
     for name in list(TRAIN) + list(VARIANT) + [EMBED["name"],
-                                               INT8["name"]]:
+                                               INT8["name"]] + list(CKPT):
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
+    for c in ckpts:
+        out[c["name"]]["dir"] = c["dir"]
     return out
 
 
@@ -506,6 +522,63 @@ def test_multirank_int8_reduces_equal_the_reference(results):
             np.testing.assert_array_equal(got["tensor_err"][n].numpy(),
                                           want["tensor_err"][n][rank],
                                           err_msg=n)
+
+
+# --------------------------------------------------------------------------- #
+# Checkpoints on the mesh
+# --------------------------------------------------------------------------- #
+
+
+def _state_leaves(st):
+    for part in ("params", "master", "m", "v"):
+        for path, t in _leaves(st[part]):
+            yield (part,) + path, t
+
+
+@pytest.mark.parametrize("name", list(CKPT))
+def test_multirank_restart_equals_uninterrupted_steps(results, name):
+    """Every rank saves after step 1, fails before step 2, restores step
+    1's checkpoint on the same mesh and takes step 2: its params, master
+    weights, moments and losses equal two uninterrupted steps bit for
+    bit."""
+    for got in results[name]["ranks"]:
+        assert got["resume_steps"] == [1]
+        assert got["ckpt_steps"] == [1, 2]
+        assert got["events"] == ["save", "restore", "save"]
+        assert got["losses"] == got["plain_losses"]
+        assert got["state"]["step"] == got["plain"]["step"] == 2
+        bad = [p for p, t in _state_leaves(got["state"])
+               if not torch.equal(t, _get(got["plain"], p))]
+        assert bad == []
+
+
+@pytest.mark.parametrize("name", list(CKPT))
+def test_multirank_checkpoint_files_are_the_unsharded_parts(results,
+                                                            name):
+    """The last checkpoint's global files (read without a layout) equal
+    ``params.unshard`` of the ranks' parts, for the params and for the
+    optimizer's master weights and moments; at pods 2 the two pods'
+    restored replicas are equal bit for bit."""
+    base = results[CKPT[name]]
+    ranks = results[name]["ranks"]
+    rt = _rt(base)
+    tree, manifest = CheckpointManager(results[name]["dir"]).restore(2)
+    assert manifest["extra"] == {"step": 2}
+    assert int(tree["opt"]["step"]) == 2
+    for part in ("params", "master", "m", "v"):
+        want = tparams.unshard(rt, [g["state"][part] for g in ranks])
+        got = tree["params"] if part == "params" else tree["opt"][part]
+        n = 0
+        for path, t in _leaves(want):
+            assert torch.equal(_get(got, path), t), (part, path)
+            n += 1
+        assert n == sum(1 for _ in _leaves(got))
+    arch, data, pp, groups, pods, _ = TRAIN[CKPT[name]]
+    for rank in range(WORLD // pods):
+        for peer in range(rank + WORLD // pods, WORLD, WORLD // pods):
+            a, b = ranks[rank]["state"], ranks[peer]["state"]
+            assert all(torch.equal(t, _get(b, p))
+                       for p, t in _state_leaves(a)), (rank, peer)
 
 
 # --------------------------------------------------------------------------- #

@@ -181,8 +181,12 @@ def test_train_session_accepts_the_multi_rank_knobs():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="serve", max_seq=32, pods=2), "item 1b"),
-    (dict(mode="serve", max_seq=32, data=2), "item 1b"),
+    # multi-rank serving is ROADMAP.md queue 1 item 4 (ids kept from when
+    # it was item 1b)
+    pytest.param(dict(mode="serve", max_seq=32, pods=2), "item 4",
+                 id="kw0-item 1b"),
+    pytest.param(dict(mode="serve", max_seq=32, data=2), "item 4",
+                 id="kw1-item 1b"),
     (dict(mode="train", overrides=dict(moe_mode="ep")), "MoE slice"),
     (dict(mode="train", overrides=dict(grad_compress="int4")), "int8"),
     (dict(mode="train", overrides=dict(coalesce="tensor")), "'none'"),

@@ -2,12 +2,14 @@
 
 * the tape's B + W split vs full torch autograd on one stage;
 * the copied schedules: ``pack_table(generate(name, sp))`` array for array
-  (or the same refusal) in both packages;
+  (or the same refusal) in both packages, except where the reference's
+  table reads an evicted stage block: there the port's gathers it again;
 * ``Session(mode="train").train_step`` vs the JAX pipeline's
   ``make_train_step`` on one JAX device (pp = 1), same params and batch;
 * the single-device reference loss (the plain oracle) vs the JAX one and
   vs the train step's loss;
 * AdamW with the lr schedule vs ``repro.optim.adamw``;
+* the facade's checkpoints (``checkpointing``, ``restore_params``);
 * the training CLI.
 
 Reduced llama3.2-1b in float32; params cross in one process
@@ -48,12 +50,16 @@ from repro_torch.core.executor import (  # noqa: E402
 from repro_torch.core.generators import SchedParams as TSP  # noqa: E402
 from repro_torch.core.generators import generate as tgenerate  # noqa: E402
 from repro_torch.core.plan import pack_table as tpack  # noqa: E402
+from repro_torch.core.plan import slot_violations  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.common import apply_rope  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    TrainController,
+)
 
 GRAD_RTOL = 1e-4
 
@@ -156,7 +162,15 @@ def test_packed_tables_equal_reference(name, P, V, unit):
     got = tpack(tgenerate(name, TSP(**kw)), prefetch=1)
     for f in ("T", "Pe", "V", "U", "n_mb", "prefetch"):
         assert getattr(got, f) == getattr(want, f), f
-    for f in got.FIELDS:
+    # where the reference's table reads a stage block a later gather
+    # evicted (interleaved at unit 2 here), the port's gathers it again:
+    # the same cells and wires, more gathers, none of them read stale
+    fields = got.FIELDS
+    if slot_violations(want):
+        assert slot_violations(got) == []
+        assert (got.gather_v >= 0).sum() > (want.gather_v >= 0).sum()
+        fields = ("kind", "mb", "v", "reduce_v", "recv_f_u", "recv_b_u")
+    for f in fields:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
                                       err_msg=f)
 
@@ -200,12 +214,29 @@ def test_train_session_refuses_what_later_slices_bring(kw, match):
         tsession("llama3.2-1b", mode="train", device="cpu", **kw)
 
 
-def test_train_session_refuses_checkpoints():
+def test_train_session_checkpoints_and_restores(tmp_path):
+    """The facade's checkpoint half: ``checkpointing`` returns the
+    fault-tolerance controller; ``restore_params`` reads the params of its
+    checkpoint back (bare or nested under "params"), refuses an empty
+    directory and a tree of another geometry, naming the leaf."""
     s = tsession("llama3.2-1b", mode="train", device="cpu")
-    for call in (lambda: s.checkpointing("ckpt"),
-                 lambda: s.restore_params("ckpt")):
-        with pytest.raises(SessionError, match="checkpoint slice"):
-            call()
+    with pytest.raises(SessionError, match="no checkpoint found"):
+        s.restore_params(str(tmp_path))
+    ctl = s.checkpointing(str(tmp_path), every=3, keep=1)
+    assert isinstance(ctl, TrainController)
+    assert (ctl.cfg.ckpt_every, ctl.cfg.keep) == (3, 1)
+    with pytest.raises(SessionError, match="checkpointing"):
+        s.checkpointing(str(tmp_path), evry=3)
+    p = s.init_params(torch.Generator().manual_seed(0))
+    ctl.mgr.save(1, {"params": p, "opt": s.init_opt_state(p)},
+                 extra={"step": 1})
+    for got in (s.restore_params(str(tmp_path)), s.adopt_params(p)):
+        for path, t in tadamw._leaves(p):
+            assert torch.equal(dict(tadamw._leaves(got))[path], t), path
+    s2 = tsession("llama3.2-1b", mode="train", device="cpu",
+                  overrides=dict(vpp=2))
+    with pytest.raises(SessionError, match="segments/main/L0"):
+        s2.restore_params(str(tmp_path))
 
 
 # --------------------------------------------------------------------------- #

@@ -17,6 +17,11 @@ of ``world`` CPU ranks and runs the cases of ``case_file`` (a
   gradients and flat feedback buffer, and
   ``reduce_scatter_grad_int8_async`` on each tensor; it saves the
   reduced shards and the new feedback buffers.
+* ``ckpt``: a train case's session run for two steps under the
+  fault-tolerance controller (a checkpoint after each step in the
+  case's directory, a failure injected before the second), then the
+  same two steps uninterrupted; it saves both states, the losses and
+  the controller's resume steps.
 """
 
 from __future__ import annotations
@@ -51,6 +56,56 @@ def _train(case, rank):
     out["grad_norm"] = float(om["grad_norm"])
     out["params"] = _host(p)
     return out
+
+
+def _ckpt(case, rank):
+    """Two steps under the fault-tolerance controller, checkpointing after
+    each, with a failure injected before step 2 (index 1): every rank
+    restores step 1's checkpoint and takes step 2 again; then the same two
+    steps uninterrupted from the same params."""
+    from repro_torch import params as tparams
+    from repro_torch.api import session
+
+    sess = session(case["arch"], mode="train", seq_len=case["seq"],
+                   device="cpu", data=case["data"], pods=case["pods"],
+                   overrides=case["overrides"], optim=case["optim"])
+    full = tparams.from_reference(case["params"], device="cpu")
+    stream = sess.stream(seed=1)
+
+    def build(losses):
+        def fn(restored, manifest):
+            if restored is None:
+                p = tparams.shard_for_rank(sess.rt, full, sess.mesh.rank)
+                st = {"params": p, "opt": sess.init_opt_state(p)}
+            else:
+                st = sess.adopt_state(restored)
+
+            def run_one(st, step):
+                g, m = sess.train_step(st["params"], stream.batch(step))
+                p, o, _ = sess.opt_step(st["params"], g, st["opt"])
+                losses.append(float(m["loss_sum"]))
+                return {"params": p, "opt": o}, {}
+
+            return st, run_one, lambda s: s
+        return fn
+
+    ctl = sess.checkpointing(case["dir"], every=1)
+    losses, plain_losses = [], []
+    state, _ = ctl.run(build(losses), 2, inject_failure_at=1)
+    plain, run_one, _ = build(plain_losses)(None, None)
+    for step in range(2):
+        plain, _ = run_one(plain, step)
+
+    def host(st):
+        o = st["opt"]
+        return {"params": _host(st["params"]), "step": o["step"],
+                "master": _host(o["master"]), "m": _host(o["m"]),
+                "v": _host(o["v"])}
+
+    return {"state": host(state), "plain": host(plain), "losses": losses,
+            "plain_losses": plain_losses, "resume_steps": ctl.resume_steps,
+            "ckpt_steps": ctl.mgr.list_steps(),
+            "events": [e["op"] for e in ctl.mgr.events]}
 
 
 def _embed(case, rank):
@@ -96,8 +151,8 @@ def main(rank, world, port, case_file, out_dir):
                             world_size=world, rank=rank)
     try:
         for case in torch.load(case_file, weights_only=False):
-            fn = {"train": _train, "embed": _embed,
-                  "int8": _int8}[case["kind"]]
+            fn = {"train": _train, "embed": _embed, "int8": _int8,
+                  "ckpt": _ckpt}[case["kind"]]
             torch.save(fn(case, rank),
                        os.path.join(out_dir, f"{case['name']}.{rank}.pt"))
     finally:
