@@ -120,7 +120,25 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    bit after the last step (each rank reports a sha256 of its params),
    and the subprocess must exit 0. Steps 2-3 (ms, tokens/s: no
    throughput claim, gloo sets it) and each rank's peak memory are
-   logged.
+   logged;
+8. the auto phase, last: the paper's §4 plan selection for gpt-1.5B at
+   full width and depth on pp 2 x data 1 (vpp 1, 8 micro-batches of one
+   1024-token sequence in units of 4), two ranks spawned on this card by
+   ``python3 chip_smoke.py --auto-ranks CONF`` as a subprocess, gloo.
+   After one one-rank step of the same params and batch here, each rank
+   builds the ``schedule="auto"`` session (a800 preset; every
+   candidate's simulated makespan and peak memory are logged, every rank
+   must hold the same winner and table), then a second session of the
+   same key, which must be a persisted hit of the plan cache with no
+   simulation and no measurement; then 3 steps under the winner, under
+   ``autogen_gated`` and under ``zeropp``, each from the same params and
+   batches: step 1's loss and pre-clip grad norm against the one-rank
+   step by the multi-rank rules, K1 and K1b launched on every rank, K2
+   on the drain rank, no plain version, per-rank peak memory and step ms
+   logged (no claim: the ranks share the card); last
+   ``schedule="auto_profiled"`` times the 2 best candidates on both
+   ranks, which must agree on the times and the winner. The makespans
+   are seconds of the a800 cost model, not times of this card.
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -251,6 +269,22 @@ PODS = dict(name="pods", arch=ARCH, pods=2, data=2, pp=1, layers=8,
             flags=("--grad-compress", "int8"),
             cuts="seq 2048 -> 1024 and depth 16 -> 8 layers for four "
                  "ranks' memory on one card (about 95 GB at 16 layers)")
+# the auto phase: the paper's §4 plan selection for gpt-1.5B at full
+# width and depth on pp 2 x data 1 (two ranks, one process each, on this
+# card over gloo; vpp 1, since 22 layers do not split into 4 stages), 8
+# micro-batches of one 1024-token sequence in units of 4, bf16 params and
+# compute with float32 master and moments: schedule="auto" under the a800
+# preset (each candidate's simulated makespan and peak memory logged),
+# then a second session of the same key (a persisted hit: no simulation,
+# no measurement), 3 steps under the winner, autogen_gated and zeropp
+# from the same params and batches (step 1 held to one one-rank step by
+# the multi-rank rules below), and last schedule="auto_profiled" timing
+# the 2 best
+AUTO = dict(name="auto", arch="gpt_paper", pp=2, data=1, vpp=1, seq=1024,
+            global_batch=8, microbatches=8, unit=4, steps=3,
+            backend="gloo", preset="a800", top_k=2,
+            compare=("autogen_gated", "zeropp"),
+            cuts="none (22 layers at full width; seq 1024, the paper's)")
 # rank 0's step 1 against one one-rank step of the same params and batch
 # (pp 1, vpp 2, micro-batches of 2 or 4 sequences): bf16 compute in other
 # micro-batch shapes and stage boundaries, and the reductions in another
@@ -1806,6 +1840,293 @@ def multirank_phase(torch, c):
                 per_rank=rep["ranks"], launches=launches)
 
 
+def auto_phase(torch, c):
+    """The §4 plan selection on two ranks sharing this card (AUTO): one
+    one-rank step of the same params and batch here first, then
+    ``python3 chip_smoke.py --auto-ranks`` as a subprocess of its own
+    process group, which spawns the ranks (``auto_rank``); its report is
+    checked here."""
+    from repro_torch import params as tparams
+    from repro_torch.api import session
+    from repro_torch.optim import adamw
+
+    tag = f"[auto {c['arch']}]"
+    log(f"{tag} backend {c['backend']} (host-staged), {c['pp']} ranks on 1 "
+        f"device: {c['arch']} pp {c['pp']} x data {c['data']}, vpp "
+        f"{c['vpp']}, {c['microbatches']} micro-batches of "
+        f"{c['global_batch'] // c['microbatches']} x {c['seq']} in units of "
+        f"{c['unit']}; cut: {c['cuts']}")
+    sess = session(c["arch"], mode="train", reduced=False, device="cuda",
+                   seq_len=c["seq"], global_batch=c["global_batch"],
+                   overrides=dict(microbatches=c["microbatches"],
+                                  unit=c["unit"]))
+    rc_mesh = dataclasses.replace(sess.rc, pp=c["pp"], vpp=c["vpp"])
+    full = tparams.init_all_params(
+        sess.cfg, rc_mesh, torch.Generator(device="cuda").manual_seed(0),
+        "cuda")
+    params = tparams.relayout(full, sess.cfg, rc_mesh, sess.rc)
+    del full
+    grads, m = sess.train_step(params, sess.stream().batch(0))
+    loss1 = float(m["loss_sum"])
+    norm1 = float(adamw.global_norm(grads))
+    log(f"{tag} one-rank step 1 (pp 1, vpp {sess.rc.vpp}, zeropp): loss "
+        f"{loss1:.6f}, grad norm {norm1:.6f}")
+    del grads, params, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    conf = OUT / "auto_conf.json"
+    report = OUT / "auto.json"
+    cache = OUT / "auto_plans.json"
+    for f in (report, cache):
+        f.unlink(missing_ok=True)
+    conf.write_text(json.dumps(dict(c, report=str(report))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in env.get("PYTHONPATH", "").split(
+            os.pathsep) if x])
+    env["REPRO_TORCH_PLAN_CACHE"] = str(cache)
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--auto-ranks",
+           str(conf)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("the auto run did not finish in 900 s")
+    wall = time.perf_counter() - t0
+    (OUT / "auto.log").write_text(out + "\n--- stderr ---\n" + err)
+    for line in out.splitlines():
+        log(f"{tag}   {line}")
+    if proc.returncode != 0:
+        fail(f"the auto run exited {proc.returncode}: {err[-2000:]}")
+    rep = json.loads(report.read_text())
+    r0 = rep["ranks"][0]
+    sel = r0["selection"]
+    win = sel["auto"]["selected"]
+    for name, cand in sorted(
+            sel["auto"]["candidates"].items(),
+            key=lambda kv: (isinstance(kv[1], str), kv[1]["makespan"]
+                            if isinstance(kv[1], dict) else 0)):
+        if isinstance(cand, str):
+            log(f"{tag} candidate {name}: {cand}")
+            continue
+        log(f"{tag} candidate {name}: simulated makespan "
+            f"{cand['makespan']:.6f} s, peak memory "
+            f"{cand['peak_mem'] / 2**30:.3f} GiB, stash depth "
+            f"{cand['stash_depth']} (a800 cost model){' <- selected' if name == win else ''}")
+    for r in rep["ranks"]:
+        if r["schedule"] != win or r["table"] != r0["table"]:
+            fail(f"rank {r['rank']} selected {r['schedule']} "
+                 f"({r['table'][:16]}), rank 0 {win} ({r0['table'][:16]})")
+        again = r["again"]
+        if (again["this_session"], again["simulate_calls"],
+                again["measure_calls"], again["table"]) != (
+                "persisted-hit", 0, 0, r0["table"]):
+            fail(f"rank {r['rank']}: the second session of the same key "
+                 f"was not a persisted hit of the same plan: {again}")
+    log(f"{tag} second session of the same key: a persisted hit on every "
+        "rank, 0 simulate and 0 measure calls, the same table")
+    runs = {}
+    for name in rep["schedules"]:
+        rows = [r["runs"][name] for r in rep["ranks"]]
+        steps = rows[0]["steps"]
+        lr, nr = steps[0]["loss"], steps[0]["grad_norm"]
+        d_loss, d_norm = abs(lr - loss1) / abs(loss1), \
+            abs(nr - norm1) / norm1
+        log(f"{tag} {name}: step 1 vs one rank: loss {lr:.6f} (relative "
+            f"{d_loss:.3e}, rule {MULTI_LOSS_RTOL:g}); grad norm {nr:.6f} "
+            f"(relative {d_norm:.3e}, rule {MULTI_NORM_RTOL:g})")
+        if not d_loss <= MULTI_LOSS_RTOL:
+            fail(f"auto {name} step-1 loss {lr} off the one-rank {loss1}")
+        if not d_norm <= MULTI_NORM_RTOL:
+            fail(f"auto {name} step-1 grad norm {nr} off the one-rank "
+                 f"{norm1}")
+        for r, row in zip(rep["ranks"], rows):
+            if not all(math.isfinite(x["loss"]) for x in row["steps"]):
+                fail(f"auto {name}: non-finite losses on rank {r['rank']}")
+            la = row["launches"]
+            need = ["flash_attention_fwd", "flash_attention_bwd"] + (
+                ["fused_xent"] if r["stage"] == c["pp"] - 1 else [])
+            missing = [k for k in need if not la.get(k)]
+            if missing:
+                fail(f"auto {name}: rank {r['rank']} launched no "
+                     f"{missing}: {la}")
+            if any(k.startswith("ref_") for k in row["counters"]):
+                fail(f"auto {name}: rank {r['rank']} reached a plain "
+                     f"version: {row['counters']}")
+            log(f"{tag} {name} rank {r['rank']} (stage {r['stage']}): "
+                "steps " + ", ".join(f"{x['ms']:.1f}" for x in row["steps"])
+                + f" ms, peak {row['max_memory_gb']:.2f} GiB allocated, "
+                f"launches {la} (no claim: the ranks share the card and "
+                "gloo stages on the host)")
+        runs[name] = dict(
+            loss_rel=d_loss, norm_rel=d_norm,
+            makespan=sel["auto"]["candidates"][name]["makespan"],
+            ms=[[x["ms"] for x in row["steps"]] for row in rows],
+            max_memory_gb=[row["max_memory_gb"] for row in rows],
+            launches=[row["launches"] for row in rows])
+    prof = r0["profiled"]
+    measured = prof["auto"]["measured"]
+    survivors = prof["auto"]["profile"]["survivors"]
+    order = sorted(measured, key=measured.get)
+    for r in rep["ranks"]:
+        if r["profiled"]["auto"]["measured"] != measured or \
+                r["profiled"]["name"] != prof["name"]:
+            fail(f"rank {r['rank']} measured {r['profiled']}, rank 0 "
+                 f"{prof}")
+    log(f"{tag} auto_profiled (top 2): measured us/step " + ", ".join(
+        f"{n}={measured[n]:.1f}" for n in order) + f"; simulated order "
+        f"{survivors}; winner {prof['name']}; the measured order "
+        f"{'agrees with' if order == survivors else 'differs from'} the "
+        "simulated one")
+    log(f"{tag} {wall:.1f} s in all")
+    return dict(name=c["name"], cuts=c["cuts"], wall_s=wall,
+                one_rank_loss=loss1, one_rank_grad_norm=norm1,
+                selected=win, candidates=sel["auto"]["candidates"],
+                runs=runs, profiled=dict(
+                    measured=measured, survivors=survivors,
+                    winner=prof["name"], agrees=order == survivors),
+                per_rank=rep["ranks"])
+
+
+def auto_ranks_main(conf_path: str) -> None:
+    """``--auto-ranks CONF``: spawn AUTO's ranks, one process each."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    c = json.loads(pathlib.Path(conf_path).read_text())
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    ctx = mp.start_processes(auto_rank, args=(c, port), nprocs=c["pp"],
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join():
+            pass
+    except mp.ProcessRaisedException as e:
+        print(f"a rank failed:\n{e}", file=sys.stderr, flush=True)
+        sys.exit(1)
+    except mp.ProcessExitedException as e:
+        print(f"a rank exited: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def auto_rank(rank: int, c: dict, port: int) -> None:
+    """One rank of the auto phase: the selection, its persisted hit, the
+    steps under each schedule and the profiled selection; rank 0 writes
+    every rank's results to the report."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import session
+    from repro_torch.core import plan as tplan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ops
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(c["backend"],
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=c["pp"] * c["data"], rank=rank)
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    def make(schedule, **kw):
+        return session(
+            c["arch"], mode="train", reduced=False, device="cuda",
+            seq_len=c["seq"], global_batch=c["global_batch"],
+            data=c["data"], optim=dict(lr=1e-2, warmup=1, total=10_000),
+            overrides=dict(pp=c["pp"], vpp=c["vpp"], schedule=schedule,
+                           microbatches=c["microbatches"], unit=c["unit"]),
+            **kw)
+
+    def table_sha(sess):
+        return tplan.table_digest(sess.rt.plans["main"].table)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        t0 = time.perf_counter()
+        sess = make("auto", cost_preset=c["preset"])
+        mine = dict(rank=rank, stage=sess.mesh.p_rank,
+                    schedule=sess.rc.schedule, table=table_sha(sess),
+                    selection=sess.describe()["schedule"], runs={})
+        say(f"selection: {sess.rc.schedule} in "
+            f"{time.perf_counter() - t0:.2f} s", flush=True)
+        tplan.clear_plan_cache()     # in memory: the file stays
+        again = make("auto", cost_preset=c["preset"])
+        d = again.describe()["schedule"]
+        mine["again"] = dict(this_session=d["auto"]["provenance"][
+            "this_session"], simulate_calls=d["cache"]["simulate_calls"],
+            measure_calls=d["cache"]["measure_calls"],
+            table=table_sha(again))
+        del again
+        names = [sess.rc.schedule] + [n for n in c["compare"]
+                                      if n != sess.rc.schedule]
+        for name in names:
+            s = sess if name == sess.rc.schedule else make(name)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = s.init_params(gen)
+            opt = s.init_opt_state(params)
+            stream = s.stream()
+            base = dict(ops.kernel_counters())
+            fa.reset_launches()
+            fx.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for i in range(c["steps"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                grads, m = s.train_step(params, stream.batch(i))
+                params, opt, om = s.opt_step(params, grads, opt)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                del grads
+                steps.append(dict(step=i + 1, ms=dt * 1e3,
+                                  loss=float(m["loss_sum"]),
+                                  grad_norm=float(om["grad_norm"])))
+                say(f"{name} step {i + 1}: {dt * 1e3:.1f} ms, loss "
+                    f"{steps[-1]['loss']:.6f}", flush=True)
+            mine["runs"][name] = dict(
+                steps=steps, launches={**fa.LAUNCHES, **fx.LAUNCHES},
+                counters={k: v - base.get(k, 0)
+                          for k, v in ops.kernel_counters().items()
+                          if v - base.get(k, 0)},
+                max_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+            del params, opt, s
+            release()
+        del sess
+        release()
+        t0 = time.perf_counter()
+        prof = make("auto_profiled", cost_preset=c["preset"],
+                    profile_top_k=c["top_k"])
+        d = prof.describe()["schedule"]
+        mine["profiled"] = dict(name=prof.rc.schedule, auto=d["auto"],
+                                cache=d["cache"],
+                                seconds=time.perf_counter() - t0)
+        say(f"auto_profiled: {prof.rc.schedule} in "
+            f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del prof
+        release()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            pathlib.Path(c["report"]).write_text(json.dumps(
+                dict(schedules=names, ranks=every), indent=1,
+                default=str))
+    finally:
+        dist.destroy_process_group()
+
+
 def profile_train(torch, cell):
     """One training step (train_step + opt_step) of a training cell under
     torch.profiler, on fresh params (seed 0) and optimizer state."""
@@ -2193,6 +2514,9 @@ def main() -> None:
         f"GiB allocated here, {torch.cuda.mem_get_info()[0] / 2**30:.2f} "
         "GiB of the card free")
     multirank = [multirank_phase(torch, c) for c in (MULTI, PODS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    auto = auto_phase(torch, AUTO)
     for row in shard_kernels:    # both runs: K2 over a 64,128-row shard
         row["launches"] = sum(r["launches"]["fused_xent"]
                               for r in multirank)
@@ -2201,6 +2525,7 @@ def main() -> None:
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
          "train": [train, train_gpt], "ckpt": ckpt, "multirank": multirank,
+         "auto": auto,
          "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2213,4 +2538,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--auto-ranks"]:
+        auto_ranks_main(sys.argv[2])
+    else:
+        main()

@@ -68,9 +68,7 @@ class _ScheduleRegistry:
         if name not in self._entries:
             raise RegistryError(
                 f"unknown schedule {name!r}; the port knows: "
-                f"{', '.join(self.names())} (auto, auto_profiled, autogen "
-                "and autogen_gated arrive with the auto slice, ROADMAP.md "
-                "queue 1)")
+                f"{', '.join(self.names())}")
         return self._entries[name]
 
     def names(self) -> list[str]:

@@ -31,6 +31,23 @@ groups x pp; ``repro_torch.launch.train`` spawns the ranks and does it)::
                                    reduced=False, pods=2, data=2,
                                    overrides=dict(grad_compress="int8"))
 
+``schedule="auto"`` runs the paper's §4 plan selection before the
+runtime is built: every registered schedule and the two autogen
+heuristics simulated under ``cost_preset`` (``"a800"``, the paper's
+testbed), the minimum simulated makespan winning (under ``mem_budget``
+when given); ``"auto_profiled"`` then times the ``profile_top_k`` best on
+this session's device and mesh. The winner's table runs as it is
+(``Runtime(plan=...)``); ``describe()["schedule"]`` reports its simulated
+makespan, bubble ratio and collective profile and, for an auto session,
+every candidate and the plan cache (``core/plan_cache.py``,
+``~/.cache/repro_torch/plans.json``; ``REPRO_TORCH_PLAN_CACHE`` moves it,
+``off`` disables it)::
+
+    sess = repro_torch.api.session("gpt_paper", mode="train",
+                                   reduced=False, schedule="auto",
+                                   overrides=dict(pp=2, microbatches=8,
+                                                  unit=4))
+
 Each rank draws the same full tree from the seed and keeps its part
 (``params.shard_for_rank``; every pod keeps the same); ``train_step``
 takes the same global batch on every rank and returns this rank's grads
@@ -62,12 +79,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 import types
 
 import numpy as np
 import torch
 
-from repro_torch.api.spec import SessionError, SessionSpec
+from repro_torch.api.spec import AUTO_MODES, SessionError, SessionSpec
 from repro_torch.ckpt.checkpoint import (
     CheckpointManager,
     MeshLayout,
@@ -77,6 +95,15 @@ from repro_torch.ckpt.checkpoint import (
 from repro_torch.core import serve as CS
 from repro_torch.core.comm import Mesh
 from repro_torch.core.pipeline import Runtime, make_train_step
+from repro_torch.core.plan import (
+    COLLECTIVE_ALPHA_BETA,
+    PlanAnalysis,
+    fused_cost_model,
+    plan_cache_info,
+    preset_cost_model,
+    select_plan,
+    table_digest,
+)
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -162,9 +189,25 @@ class Session:
             M.stage_specs(self.cfg, seg)
         self._shape_cfg = None
         self._train_step = None
+        # schedule="auto" / "auto_profiled": the §4 plan selection runs
+        # here, so the runtime and the rest of the session see a concrete
+        # schedule name and its plan
+        self.plan_selection = None
+        self._plan_key = None
+        self._plan_source = None   # memory-hit | persisted-hit | search |
+        #                            search+measured: THIS construction's
+        #                            lookup outcome, for describe()
+        if spec.mode == "train" and self.rc.schedule in AUTO_MODES:
+            self.plan_selection = self._auto_select(
+                profiled=self.rc.schedule == "auto_profiled")
+            self.rc = dataclasses.replace(
+                self.rc, schedule=self.plan_selection.selected.name)
         if spec.mode == "train":
             try:
-                self.rt = Runtime(self.cfg, self.rc, self.device, mesh)
+                self.rt = Runtime(
+                    self.cfg, self.rc, self.device, mesh,
+                    plan=(self.plan_selection.selected
+                          if self.plan_selection is not None else None))
             except ValueError as e:
                 raise SessionError(str(e)) from e
         else:
@@ -175,6 +218,178 @@ class Session:
         self._fault_tolerance = None  # a TrainController (attach())
         # baseline for the per-session dispatch counters (process-wide)
         self._kernel_counter_base = ops.kernel_counters()
+
+    # ------------------------------------------------------------------ #
+    # Schedule-plan selection (schedule="auto" / "auto_profiled")
+    # ------------------------------------------------------------------ #
+
+    def _cost_shape(self) -> tuple[int, int, int]:
+        """(seq, mbs, dp) for the cost model. The port always knows its
+        data axis (``data=``, default 1), so dp is that, not the
+        reference's guess of 8 for a session whose mesh is not built
+        yet; mbs is the train shape's sequences a micro-batch."""
+        sc, rc = self.shape_cfg, self.rc
+        per_mb = self.pods_size * self.data_size * rc.groups \
+            * rc.microbatches
+        return sc.seq_len, max(sc.global_batch // per_mb, 1), \
+            self.data_size
+
+    def _coll_counts(self, seg) -> tuple[int, int]:
+        """(per-gather-tick, per-reduce-tick) collective counts for the
+        α–β cost model — 1 each under the flat-segment layout, the
+        gatherable tensor count under per-tensor collectives (the
+        reference's rule: a tensor whose FSDP dim divides by dp)."""
+        _, _, dp = self._cost_shape()
+        n_gath = n_repl = 0
+        for sp in M.stage_specs(self.cfg, seg).values():
+            if sp.shape and sp.shape[sp.fsdp_dim] % dp == 0:
+                n_gath += 1
+            else:
+                n_repl += 1   # replicated: summed per tensor on reduce
+        if n_gath == 0:
+            return 0, n_repl
+        if self.rc.coalesce == "flat":
+            return 1, 1 + n_repl
+        return n_gath, n_gath + n_repl
+
+    def _cost_model(self, vpp: int):
+        seq, mbs, dp = self._cost_shape()
+        n_g, n_r = self._coll_counts(self.geo.segments[-1])
+        return preset_cost_model(
+            self.spec.cost_preset, self.cfg, P=self.rc.pp, V=vpp,
+            seq=seq, mbs=mbs, dp=dp, n_coll_gather=n_g, n_coll_reduce=n_r)
+
+    def _sync_max(self):
+        """x -> its maximum over the mesh's ranks (None on one rank)."""
+        if self.mesh is None:
+            return None
+        comm = self.mesh.world_comm
+
+        def sync(x: float) -> float:
+            t = torch.tensor([x], dtype=torch.float64, device=self.device)
+            return float(comm.all_reduce(t, op="max")[0])
+        return sync
+
+    def _auto_select(self, profiled: bool = False):
+        """Simulate every registered schedule (+ the §4 autogen
+        heuristics) for this (arch × shape × mesh) and pick the
+        minimum-makespan plan — or, ``profiled``, the minimum *measured*
+        step among the top-K simulated survivors. Selections are cached
+        process-wide on the key below and persisted on disk by rank 0
+        (``core/plan_cache.py``). The arch component names the depth and
+        width too, since ``layers=`` cuts a config of the same name. On a
+        mesh every rank selects alike and the ranks then check that they
+        hold the same winner and table."""
+        rc = self.rc
+        seg = self.geo.segments[-1]
+        seq, mbs, dp = self._cost_shape()
+        preset = self.spec.cost_preset
+        cfg = self.cfg
+        # component order mirrors plan.SELECT_KEY_SCHEMA
+        key = (f"{cfg.name}/L{cfg.n_layers}/d{cfg.d_model}", rc.pp,
+               seg.vpp, rc.groups, rc.microbatches, rc.unit_size,
+               rc.gather_prefetch, seq, mbs, dp, self.pods_size, preset,
+               rc.coalesce, rc.grad_compress, rc.moe_mode,
+               self.spec.mem_budget, rc.schedule,
+               self.spec.profile_top_k if profiled else None)
+        self._plan_key = key
+        sync = self._sync_max()
+        measure = self._build_measure_fn(sync) if profiled else None
+        before = plan_cache_info()
+        try:
+            sel = select_plan(
+                rc.pp, seg.vpp, rc.microbatches, rc.unit_size,
+                self._cost_model(seg.vpp), preset=preset,
+                prefetch=rc.gather_prefetch, cache_key=key,
+                mem_budget=self.spec.mem_budget, measure_fn=measure,
+                top_k=self.spec.profile_top_k,
+                profile_budget_s=self.spec.profile_budget_s,
+                persist=True,
+                store=self.mesh is None or self.mesh.rank == 0, sync=sync)
+        except RuntimeError as e:
+            raise SessionError(str(e)) from e
+        after = plan_cache_info()
+        if after["hits"].get(key, 0) > before["hits"].get(key, 0):
+            self._plan_source = "memory-hit"
+        elif after["disk_hits"].get(key, 0) > \
+                before["disk_hits"].get(key, 0):
+            self._plan_source = "persisted-hit"
+        else:
+            self._plan_source = sel.provenance
+        if self.mesh is not None:
+            self._check_same_plan(sel)
+        return sel
+
+    def _check_same_plan(self, sel) -> None:
+        """Every rank holds the same winner: its name and a sha256 of its
+        table's arrays, all-gathered over the mesh."""
+        mine = (sel.selected.name, table_digest(sel.selected.table))
+        every = [None] * self.mesh.world
+        torch.distributed.all_gather_object(every, mine)
+        if any(x != mine for x in every):
+            raise SessionError(
+                f"the ranks selected different plans: {every} (name, "
+                "table sha256 by rank)")
+
+    def _build_measure_fn(self, sync=None):
+        """The auto_profiled fine pass: ``measure_fn(plan) -> us/step``.
+
+        Each candidate gets its own Runtime (same mesh, same params and
+        batch — the parameter layout does not depend on the schedule)
+        with the plan injected: one warm-up step, then the median of 3
+        timed ``train_step`` calls (CUDA events after a synchronize on
+        the card, ``time.perf_counter`` on the CPU). On a mesh the time
+        is the maximum over the ranks and a failure on any rank fails
+        the candidate on every rank (``sync``), so that all ranks go on
+        measuring the same candidates. Only called on a cache miss."""
+        state: dict = {}
+        cuda = self.device.type == "cuda"
+
+        def once(plan) -> float:
+            rc = dataclasses.replace(self.rc, schedule=plan.name)
+            rt = Runtime(self.cfg, rc, self.device, self.mesh, plan=plan)
+            step = make_train_step(rt, self.shape_cfg)
+            if "params" not in state:
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                full = init_all_params(self.cfg, rc, gen, self.device)
+                state["params"] = full if self.mesh is None else \
+                    shard_for_rank(rt, full, self.mesh.rank)
+                state["batch"] = self.stream(seed=0).batch(0)
+            run = lambda: step(state["params"], state["batch"])  # noqa
+            run()   # warm-up
+            times = []
+            for _ in range(3):
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                    t0 = torch.cuda.Event(enable_timing=True)
+                    t1 = torch.cuda.Event(enable_timing=True)
+                    t0.record()
+                    run()
+                    t1.record()
+                    t1.synchronize()
+                    times.append(t0.elapsed_time(t1) * 1e3)
+                else:
+                    t0 = time.perf_counter()
+                    run()
+                    times.append((time.perf_counter() - t0) * 1e6)
+            return float(np.median(times))
+
+        def measure(plan) -> float:
+            err, us = None, 0.0
+            try:
+                us = once(plan)
+            except Exception as e:  # noqa: BLE001 — agreed on below
+                err = e
+            failed = err is not None
+            if sync is not None:
+                us, failed = sync(us), sync(float(failed)) > 0
+            if failed:
+                raise RuntimeError(
+                    f"{plan.name}: {err}" if err is not None else
+                    f"{plan.name}: the step failed on another rank")
+            return us
+
+        return measure
 
     # ------------------------------------------------------------------ #
     # Geometry the engine reads
@@ -554,14 +769,8 @@ class Session:
                            "group": m.g_rank, "stage_rank": m.p_rank,
                            "vocab_shard": self.rt.vloc}
         if self.spec.mode == "train":
-            plan = self.rt.plans["main"]
-            pt = plan.packed
             sc = self.shape_cfg
-            out["schedule"] = {
-                "name": plan.name, "microbatches": rc.microbatches,
-                "unit": pt.U, "vpp": rc.vpp, "ticks": pt.T,
-                "prefetch": pt.prefetch, "counts": plan.table.counts(),
-                "coalesce": rc.coalesce, "grad_compress": rc.grad_compress}
+            out["schedule"] = self._describe_schedule()
             out["shape"] = {"seq_len": sc.seq_len,
                             "global_batch": sc.global_batch}
         if self._engine_stats is not None:
@@ -569,6 +778,98 @@ class Session:
         if self._fault_tolerance is not None:
             out["fault_tolerance"] = self._fault_tolerance.summary()
         return out
+
+    def _describe_schedule(self) -> dict:
+        """The plan this session runs and its simulated cost under the
+        session's preset (seconds of the cost model, not of a card); for
+        an auto session also every candidate and the plan cache's
+        state, with the reference's keys."""
+        rc = self.rc
+        plan = self.rt.plans["main"]
+        pt = plan.packed
+        if self.plan_selection is not None:
+            ana = self.plan_selection.analysis
+        else:
+            cm = self._cost_model(rc.vpp)
+            ana = plan.analyze(cm if plan.has_w else fused_cost_model(cm),
+                               preset=self.spec.cost_preset)
+        alpha, beta = COLLECTIVE_ALPHA_BETA[self.spec.cost_preset]
+        a2a_alpha, a2a_beta = COLLECTIVE_ALPHA_BETA[
+            f"{self.spec.cost_preset}:a2a"]
+        n_g, n_r = self._coll_counts(self.geo.segments[-1])
+        sched = {
+            "name": plan.name, "microbatches": rc.microbatches,
+            "unit": pt.U, "vpp": rc.vpp, "ticks": pt.T,
+            "prefetch": pt.prefetch, "counts": plan.table.counts(),
+            "coalesce": rc.coalesce, "grad_compress": rc.grad_compress,
+            "preset": ana.preset,
+            "makespan": ana.makespan,
+            "bubble_ratio": ana.bubble_frac,
+            "peak_mem": ana.peak_mem,
+            "gathers_per_rank": ana.gathers_per_rank,
+            "reduces": ana.n_reduce,
+            "comm_frac": ana.comm_frac,
+            # the stash depth this plan's tables claim (U for
+            # zeropp/autogen_gated, n_mb for full-depth schedules)
+            "stash_depth": plan.table.unit,
+            "rs_overlap": {"exposed_s": ana.rs_exposed,
+                           "saved_s": ana.rs_overlap_saved},
+            # α–β collective profile; the EP all-to-all terms stay 0
+            # until expert parallelism (ROADMAP.md queue 1 item 7)
+            "collectives": {
+                "coalesce": rc.coalesce,
+                "per_gather_tick": n_g,
+                "per_reduce_tick": n_r,
+                "alpha_s": alpha,
+                "beta_s_per_byte": beta,
+                "moe_mode": rc.moe_mode,
+                "a2a_per_f_tick": 0,
+                "a2a_per_b_tick": 0,
+                "a2a_bytes": 0.0,
+                "a2a_alpha_s": a2a_alpha,
+                "a2a_beta_s_per_byte": a2a_beta,
+                "a2a_t_event_s": ana.t_a2a,
+                "a2a_total_s": ana.a2a_total,
+            },
+        }
+        sel = self.plan_selection
+        if sel is None:
+            return sched
+
+        def cand(a):
+            if not isinstance(a, PlanAnalysis):
+                return str(a)
+            d = {"makespan": a.makespan, "peak_mem": a.peak_mem,
+                 "stash_depth": a.stash_depth,
+                 "rs_overlap_saved": a.rs_overlap_saved}
+            if a.measured_us is not None:
+                d["measured_us"] = a.measured_us
+            return d
+
+        sched["auto"] = {
+            "selected": sel.selected.name,
+            "mem_budget": sel.mem_budget,
+            "provenance": {"selection": sel.provenance,
+                           "this_session": self._plan_source},
+            "candidates": {n: cand(a) for n, a in sel.candidates.items()},
+        }
+        if sel.measured:
+            sched["auto"]["measured"] = dict(sel.measured)
+        if sel.profile:
+            sched["auto"]["profile"] = dict(sel.profile)
+        info = plan_cache_info()
+        key = self._plan_key
+        sched["cache"] = {
+            "key": repr(key),
+            "hits": info["hits"].get(key, 0),
+            "disk_hits": info["disk_hits"].get(key, 0),
+            "misses": info["misses"],
+            "simulate_calls": info["simulate_calls"],
+            "measure_calls": info["measure_calls"],
+            "entries": info["entries"],
+            "persisted": info["persisted"],
+        }
+        return sched
 
     def __repr__(self):
         return (f"Session({self.cfg.name!r}, mode={self.spec.mode!r}, "

@@ -7,10 +7,14 @@ data x (groups x pp) mesh of ranks (``pods``, ``data``,
 ``overrides["pp"]``, ``overrides["groups"]``; the session checks them
 against the process group), with flat or per-tensor collectives
 (``coalesce``) and float32 or int8 gradient reduces
-(``grad_compress``); serving runs on one rank.
-``schedule="auto"``/``"auto_profiled"``, topologies, expert parallelism,
-Mamba/MoE training, serving LayerNorm / GELU models (the paper's GPT)
-and multi-rank serving are refused with the slice they wait for.
+(``grad_compress``); serving runs on one rank. Train sessions take any
+registered schedule, the §4 ``autogen`` / ``autogen_gated``, or
+``schedule="auto"`` / ``"auto_profiled"`` (the plan selection under
+``cost_preset``, ``mem_budget``, ``profile_top_k`` and
+``profile_budget_s``, with the reference's checks). Topologies, expert
+parallelism, Mamba/MoE training, serving LayerNorm / GELU models (the
+paper's GPT), multi-rank serving and a serve session's ``"auto"`` are
+refused with the roadmap item they wait for.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class SessionError(ValueError):
 
 
 LATER = "ROADMAP.md queue 1 item 4"
+AUTO_MODES = ("auto", "auto_profiled")
 
 
 _RC_FIELDS = {f.name for f in dataclasses.fields(RunConfig)}
@@ -45,6 +50,17 @@ class SessionSpec:
     reduced: bool = True            # reduced() smoke config vs the
     #                                 published width on one card
     schedule: str | None = None     # shorthand for overrides["schedule"]
+    #                                 (a registered name, "auto" for the
+    #                                 §4 simulated selection, or
+    #                                 "auto_profiled" to also time the
+    #                                 top-K survivors; train only)
+    cost_preset: str = "a800"       # simulator preset of the selection
+    profile_top_k: int = 3          # auto_profiled: survivors measured
+    profile_budget_s: float | None = None  # auto_profiled: seconds cap
+    #                                 on measuring (the simulated-best
+    #                                 survivor is always measured)
+    mem_budget: float | None = None  # auto: simulated peak-memory cap
+    #                                  (bytes under the preset)
     overrides: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     optim: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     seq_len: int | None = None      # train: sequence length (default 32)
@@ -132,19 +148,20 @@ class SessionSpec:
         if self.topology is not None:
             raise SessionError(
                 "topology presets lay a model over a cluster; the port takes "
-                "the mesh as data= and overrides pp / groups (a multi-rank "
-                "slice beyond ROADMAP.md queue 1 item 1)")
+                "the mesh as data= and overrides pp / groups (topologies "
+                "arrive with elasticity, ROADMAP.md queue 1 item 8)")
         moe = self.overrides.get("moe_mode", "gathered")
         if moe != "gathered":
             raise SessionError(
                 f"moe_mode={moe!r}: the port routes MoE layers in the "
                 "gathered mode only; 'ep' and 'auto' wait for the "
-                "expert-parallel MoE slice (ROADMAP.md queue 1)")
+                "expert-parallel MoE slice (ROADMAP.md queue 1 item 7)")
         if self.overrides.get("moe_stats"):
             raise SessionError(
                 "moe_stats: the per-layer expert-load histograms and "
                 "capacity-drop counters wait for the expert-parallel MoE "
-                "slice (ROADMAP.md queue 1)")
+                "slice (ROADMAP.md queue 1 item 7)")
+        self._validate_selection()
         if self.mode == "train":
             return self._validate_train()
         if self.layers is not None:
@@ -203,6 +220,67 @@ class SessionSpec:
                     f"max_pages must be >= 1, got {self.max_pages}")
         return self
 
+    def _validate_selection(self) -> None:
+        """The schedule name and the plan-selection knobs (the
+        reference's checks, ``repro/api/spec.py``)."""
+        sched = self.overrides.get("schedule")
+        if sched is not None and sched not in AUTO_MODES:
+            try:
+                SCHEDULE_REGISTRY.get(sched)
+            except RegistryError as e:
+                raise SessionError(
+                    str(e) + " (or pass schedule='auto' to search the "
+                    "registered schedules, 'auto_profiled' to also time "
+                    "the finalists on the live mesh)") from e
+        if sched == "auto_profiled" and self.mode != "train":
+            raise SessionError(
+                "schedule='auto_profiled' measures real *train* steps "
+                f"during selection; this session is mode={self.mode!r} — "
+                "use schedule='auto' (simulated-only) here, or tune in a "
+                "train session and pass the winning schedule explicitly")
+        if sched == "auto" and self.mode != "train":
+            raise SessionError(
+                "schedule='auto' selects a pipeline plan; a one-rank serve "
+                "session has one stage, so there is nothing to select "
+                f"until multi-rank serving ({LATER})")
+        if self.profile_top_k < 1:
+            raise SessionError(
+                f"profile_top_k must be >= 1 (at least the simulated-best "
+                f"candidate gets measured), got {self.profile_top_k}")
+        if self.profile_budget_s is not None and self.profile_budget_s < 0:
+            raise SessionError(
+                f"profile_budget_s must be >= 0 (0 still measures the "
+                f"simulated-best candidate), got {self.profile_budget_s}")
+        if sched != "auto_profiled" and (
+                self.profile_top_k != 3 or self.profile_budget_s
+                is not None):
+            raise SessionError(
+                "profile_top_k/profile_budget_s only steer the "
+                "schedule='auto_profiled' measured refinement; pass "
+                "schedule='auto_profiled' (or drop them)")
+        from repro_torch.core.plan import PRESETS
+        if self.cost_preset == "tpu_v5e":
+            raise SessionError(
+                "cost_preset='tpu_v5e': the port does not carry the "
+                "reference's TPU preset — it runs on NVIDIA cards and "
+                "states no rate taken on or for a TPU; known presets: "
+                f"{', '.join(sorted(PRESETS))}")
+        if self.cost_preset not in PRESETS:
+            raise SessionError(
+                f"unknown cost_preset {self.cost_preset!r}; known "
+                f"presets: {', '.join(sorted(PRESETS))}")
+        if self.mem_budget is not None:
+            if self.mem_budget <= 0:
+                raise SessionError(
+                    f"mem_budget must be a positive simulated-peak-memory "
+                    f"cap (bytes under the {self.cost_preset!r} preset), "
+                    f"got {self.mem_budget}")
+            if sched not in AUTO_MODES:
+                raise SessionError(
+                    "mem_budget only steers the schedule='auto'/"
+                    "'auto_profiled' selection; pass one of those (or "
+                    "drop mem_budget)")
+
     def _validate_train(self) -> "SessionSpec":
         cfg = get_arch(self.arch).config()
         if cfg.mamba is not None or cfg.moe is not None:
@@ -211,18 +289,6 @@ class SessionSpec:
                 "Jamba training slice: apply_mamba and apply_moe on the "
                 "tape, the selective-scan backward and the router aux "
                 "loss (ROADMAP.md queue 1); serve it with mode='serve'")
-        sched = self.overrides.get("schedule")
-        if sched in ("auto", "auto_profiled", "autogen", "autogen_gated"):
-            raise SessionError(
-                f"schedule={sched!r}: the simulated plan selection and the "
-                "§4 auto-generated schedules wait for the auto slice "
-                "(ROADMAP.md queue 1); pick one of "
-                f"{', '.join(SCHEDULE_REGISTRY.names())}")
-        if sched is not None:
-            try:
-                SCHEDULE_REGISTRY.get(sched)
-            except RegistryError as e:
-                raise SessionError(str(e)) from e
         for knob in ("pp", "groups"):
             if self.overrides.get(knob, 1) < 1:
                 raise SessionError(

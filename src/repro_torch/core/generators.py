@@ -1,10 +1,10 @@
 """Schedule generators: ZeroPP + every baseline the paper compares against.
 
 The port's copy of ``repro/core/generators.py``: zeropp, gpipe, 1f1b,
-bfs, interleaved and fwd_only, with ``retick`` (from
-``repro/core/autogen.py``) for the explicit interleaved construction. The
-§4 auto-generated schedules (``autogen``, ``autogen_gated``) arrive with
-the ``auto`` slice.
+bfs, interleaved, fwd_only and the §4 auto-generated ``autogen`` and
+``autogen_gated`` (``core/autogen.py``, under the abstract unit-cost
+model), with ``retick`` (from ``repro/core/autogen.py``) for the explicit
+interleaved construction and the §4 loop.
 
 All schedules are produced by one greedy list scheduler driven by
 per-method task priorities and gating rules, then packed into a TickTable.
@@ -356,6 +356,43 @@ def _gen_interleaved(sp: SchedParams) -> TickTable:
 def _gen_fwd_only(sp: SchedParams) -> TickTable:
     return greedy_schedule(sp, _prio_fwd_only, name="fwd_only",
                            fwd_only=True)
+
+
+@register_schedule("autogen")
+def _gen_autogen(sp: SchedParams) -> TickTable:
+    """§4 heuristic auto-generation under the abstract unit-cost model.
+
+    ``schedule="auto"`` sessions instead profile with a hardware preset
+    (core.plan.select_plan passes the preset CostModel to autogen), but
+    registering the abstract variant makes ``schedule="autogen"`` usable
+    anywhere a schedule name is (RunConfig, generate, ...).
+
+    W postponement crosses unit boundaries, so the table keeps the whole
+    batch live (unit = n_mb) — unit-depth stash buffers would be
+    overwritten before the postponed W tasks replay them. The
+    ``"autogen_gated"`` sibling below keeps the §3.1 unit gating instead.
+    """
+    from repro_torch.core.autogen import autogen
+    from repro_torch.core.simulator import CostModel
+
+    return autogen(dataclasses.replace(sp, unit=sp.n_mb), CostModel()).table
+
+
+@register_schedule("autogen_gated")
+def _gen_autogen_gated(sp: SchedParams) -> TickTable:
+    """Unit-gated §4 auto-generation under the abstract unit-cost model.
+
+    Same bubble-filling loop as ``"autogen"``, but W passes are postponed
+    only inside their own scheduling unit's live window and every
+    insertion is checked against the unit-depth stash (B→W distance ≤ U),
+    so the table keeps ``unit = sp.U`` and the paper's O(U) activation-
+    memory bound — the trade the full-depth variant forfeits. With
+    ``unit >= n_mb`` this degenerates to the full-depth search space.
+    """
+    from repro_torch.core.autogen import autogen
+    from repro_torch.core.simulator import CostModel
+
+    return autogen(sp, CostModel(), unit_gated=True).table
 
 
 # --------------------------------------------------------------------------- #

@@ -1,7 +1,8 @@
 """Runtime and the train-step builder of the port.
 
 The port's counterpart of the train side of ``repro/core/pipeline.py``:
-``Runtime`` builds the segment's ``SchedulePlan``, the parameter specs,
+``Runtime`` builds the segment's ``SchedulePlan`` (or adopts an
+injected one, e.g. the winner of ``schedule="auto"``), the parameter specs,
 the gatherable sets, the flat FSDP layouts (``coalesce="flat"``; none
 for ``"none"``) and the vocabulary shard for one rank of a pods x data
 x (groups x pp) mesh; ``make_train_step`` wraps the executor's
@@ -40,10 +41,17 @@ COALESCE = ("flat", "none")
 
 class Runtime:
     """Plans, specs, flat layouts and the vocabulary shard for one
-    (ModelConfig, RunConfig) on one rank of ``mesh``."""
+    (ModelConfig, RunConfig) on one rank of ``mesh``.
+
+    ``plan`` (optional) injects a pre-selected :class:`SchedulePlan` —
+    e.g. the winner of ``schedule="auto"``, whose table was generated
+    under a cost preset — which is used as it is (re-packed only for
+    another gather prefetch), never regenerated from its name; its
+    table's unit sets the stash depth."""
 
     def __init__(self, cfg: ModelConfig, rc: RunConfig, device,
-                 mesh: MeshShape | None = None):
+                 mesh: MeshShape | None = None,
+                 plan: SchedulePlan | None = None):
         self.cfg, self.rc = cfg, rc
         self.device = torch.device(device)
         self.geo = M.build_geometry(cfg, rc)
@@ -72,13 +80,17 @@ class Runtime:
         self.vloc = Vb.vocab_shard(cfg.vocab, self.dsize)
         self.segs = {s.name: s for s in self.geo.segments}
         # scheduling units only gate ZeroPP-family schedules; the others
-        # keep the whole batch live, so their stashes are n_mb deep
+        # keep the whole batch live, so their stashes are n_mb deep. The
+        # engine sizes its stashes by the plan's own table (packed.U), so
+        # an injected plan keeps the unit it was generated at
         unit = (rc.unit_size if rc.schedule in UNIT_GATED_SCHEDULES
                 else rc.microbatches)
         sp = SchedParams(P=rc.pp, V=rc.vpp, n_mb=rc.microbatches,
                          unit=unit)
-        self.plans = {"main": SchedulePlan.build(
-            rc.schedule, sp, prefetch=rc.gather_prefetch)}
+        self.plans = {"main": (
+            self._adopt(plan, sp) if plan is not None else
+            SchedulePlan.build(rc.schedule, sp,
+                               prefetch=rc.gather_prefetch))}
         self.io_specs = M.io_specs(cfg)
         self.stage_specs = {s.name: M.stage_specs(cfg, s)
                             for s in self.geo.segments}
@@ -92,6 +104,17 @@ class Runtime:
                                            self.dsize)
                     if rc.coalesce == "flat" else None)
             for sname in self.stage_specs}
+
+    def _adopt(self, plan: SchedulePlan, sp: SchedParams) -> SchedulePlan:
+        """Validate an injected plan against this runtime's geometry and
+        re-pack it for this runtime's gather-prefetch depth."""
+        pp = plan.params
+        if (pp.P, pp.V, pp.n_mb) != (sp.P, sp.V, sp.n_mb):
+            raise ValueError(
+                f"injected plan {plan.name!r} was built for "
+                f"(P={pp.P}, V={pp.V}, B={pp.n_mb}) but this runtime "
+                f"needs (P={sp.P}, V={sp.V}, B={sp.n_mb})")
+        return plan.with_prefetch(self.rc.gather_prefetch)
 
     @property
     def tables(self) -> dict[str, PackedTable]:

@@ -8,14 +8,22 @@ gather slots holds: at vpp > 2 a gather can evict a block that a later F
 or B cell still reads, and such a block is gathered again before that
 cell (or the table is refused); wherever the reference's table reads
 only resident blocks (every table at vpp <= 2) the two are equal field
-for field. The simulator
-analyses, the cost presets and ``select_plan`` (``schedule="auto"``)
-arrive with the ``auto`` slice.
+for field.
+
+The selection half follows ``repro/core/plan.py``: per-preset
+``PlanAnalysis`` (the discrete-event simulator, ``core/simulator.py``),
+the A800 cost preset (the reference's TPU preset is not carried),
+``select_plan`` — the §4 selection behind ``schedule="auto"`` and, with a
+``measure_fn``, ``"auto_profiled"`` — and its in-memory and persisted
+(``core/plan_cache.py``) caches. On a mesh of ranks ``select_plan`` runs
+on every rank alike (it is deterministic); ``sync`` makes the profiling
+budget's clock the same on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -28,6 +36,12 @@ from repro_torch.core.schedules import (
     TickTable,
     to_arrays,
     unit_stash_violations,
+)
+from repro_torch.core.simulator import (
+    A800,
+    CostModel,
+    cost_model_for,
+    simulate,
 )
 
 # --------------------------------------------------------------------------- #
@@ -268,22 +282,76 @@ def pack_table(tt: TickTable, prefetch: int = 0) -> PackedTable:
 # --------------------------------------------------------------------------- #
 
 
-# Schedules whose tables gate micro-batches into §3.1 scheduling units:
-# their buffers only need unit depth; every other schedule keeps the
-# whole batch live (unit = n_mb).
+
+
+def table_digest(tt: TickTable) -> str:
+    """sha256 of a table's arrays (``to_arrays``): the ranks of a mesh
+    compare it to check that they run the same plan."""
+    h = hashlib.sha256()
+    for k, a in sorted(to_arrays(tt).items()):
+        h.update(k.encode() + np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+# Schedules whose tables gate micro-batches into §3.1 scheduling units —
+# their buffers only need unit depth. Everything else keeps the whole
+# batch live (unit = n_mb); notably the full-depth §4 "autogen" schedule
+# postpones W tasks across unit boundaries, which is incompatible with
+# unit-depth stash reuse. Its "autogen_gated" sibling constrains the §4
+# insertion loop to each unit's live window (B→W distance ≤ U, enforced
+# by the stash-legality gate in retick/pack_table), so it keeps the
+# requested unit depth and the O(U) activation bound.
 UNIT_GATED_SCHEDULES = {"zeropp", "autogen_gated"}
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanAnalysis:
+    """Discrete-event-simulated properties of one plan under one preset."""
+
+    preset: str
+    makespan: float
+    bubble_frac: float
+    peak_mem: float
+    n_gather: int
+    n_reduce: int
+    gathers_per_rank: float
+    comm_frac: float       # mean per-rank collective time / makespan
+    prefetch: int = 0      # gather issue distance the analysis assumed
+    coll_alpha: float = 0.0      # per-collective latency of the cost model
+    n_coll_gather: int = 1       # collectives per gather tick (1 = flat)
+    n_coll_reduce: int = 1
+    stash_depth: int = 0         # unit depth the executor buffers need
+    #                              (U for unit-gated tables, n_mb else)
+    rs_exposed: float = 0.0      # reduce-scatter time on the critical path
+    rs_overlap_saved: float = 0.0  # worst rank's reduce time hidden under
+    #                                the next unit's B/W compute
+    measured_us: float | None = None  # profiled real-step time
+    #                                   (auto_profiled refinement; None =
+    #                                   simulated-only candidate)
+    # EP MoE all-to-all terms of the reference's cost model; the port has
+    # no expert parallelism yet (ROADMAP.md queue 1 item 7), so they stay 0
+    t_a2a: float = 0.0           # one a2a event's α–β time (s)
+    n_a2a_f: int = 0             # a2a events inside one F tick
+    n_a2a_b: int = 0             # a2a events inside one B tick
+    a2a_bytes: float = 0.0       # wire bytes of one a2a event
+    a2a_total: float = 0.0       # simulated a2a time summed over the step
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass
 class SchedulePlan:
-    """A runnable schedule: the TickTable and the PackedTable the tick
-    engine walks, derived from exactly that table."""
+    """A runnable + analyzable schedule: the TickTable, the PackedTable the
+    tick engine walks (derived from exactly that table) and its
+    per-preset analyses."""
 
     name: str
     params: SchedParams
     table: TickTable
     packed: PackedTable
     prefetch: int = 0
+    analyses: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, name: str, sp: SchedParams, *,
@@ -302,3 +370,455 @@ class SchedulePlan:
                              f"{sp.n_mb} micro-batches: {e}") from e
         return cls(name=name, params=sp, table=tt, packed=packed,
                    prefetch=prefetch)
+
+    def with_prefetch(self, prefetch: int) -> "SchedulePlan":
+        """Same table, re-packed for a different gather-prefetch depth.
+
+        Analyses are NOT carried over: the simulation models prefetch
+        (prefetch=0 gathers block at use; ≥1 overlap), so cached numbers
+        would be stale for the new depth.
+        """
+        if prefetch == self.prefetch:
+            return self
+        return SchedulePlan.from_table(self.name, self.params, self.table,
+                                       prefetch=prefetch)
+
+    @property
+    def has_w(self) -> bool:
+        return self.packed.has_w
+
+    def validate(self) -> None:
+        self.table.validate()
+
+    def analyze(self, cm: CostModel, preset: str = "abstract"
+                ) -> PlanAnalysis:
+        """Simulate this plan under ``cm``; cached per preset name and
+        collective profile.
+
+        Prefetch-aware: a plan packed with ``prefetch == 0`` gathers at
+        use time, so its collectives are simulated blocking
+        (``overlap_comm=False``); ``prefetch >= 1`` keeps the async
+        overlapped issue the engine performs.
+        """
+        key = (preset, cm.n_coll_gather, cm.n_coll_reduce, cm.coll_alpha,
+               cm.n_a2a_f, cm.n_a2a_b, cm.t_a2a)
+        if key not in self.analyses:
+            cm_eff = (cm if self.prefetch > 0 else
+                      dataclasses.replace(cm, overlap_comm=False))
+            res = simulate(self.table, cm_eff)
+            # reduce-scatter overlap accounting: the worst rank's total
+            # reduce time is what fully-serial charging would add to it;
+            # whatever the simulator did not expose on the critical path
+            # overlapped the next unit's B/W compute.
+            if self.table.reduce is not None and cm_eff.t_reduce > 0:
+                rs_total = float(
+                    (self.table.reduce >= 0).sum(axis=0).max()
+                    * cm_eff.t_reduce)
+            else:
+                rs_total = 0.0
+            self.analyses[key] = PlanAnalysis(
+                preset=preset,
+                makespan=res.makespan,
+                bubble_frac=res.bubble_frac,
+                peak_mem=res.peak_mem,
+                n_gather=res.n_gather,
+                n_reduce=res.n_reduce,
+                gathers_per_rank=res.n_gather / self.table.P,
+                comm_frac=float(res.comm_busy.mean()
+                                / max(res.makespan, 1e-12)),
+                prefetch=self.prefetch,
+                coll_alpha=cm.coll_alpha,
+                n_coll_gather=cm.n_coll_gather,
+                n_coll_reduce=cm.n_coll_reduce,
+                stash_depth=self.table.unit,
+                rs_exposed=res.rs_exposed,
+                rs_overlap_saved=max(0.0, rs_total - res.rs_exposed),
+                t_a2a=cm_eff.t_a2a,
+                n_a2a_f=cm_eff.n_a2a_f,
+                n_a2a_b=cm_eff.n_a2a_b,
+                a2a_bytes=cm_eff.a2a_bytes,
+                a2a_total=cm_eff.t_a2a * sum(
+                    cm_eff.n_a2a_f if task.kind == KF
+                    else cm_eff.n_a2a_b if task.kind == KB else 0
+                    for _, _, task in self.table.tasks()),
+            )
+        return self.analyses[key]
+
+
+# --------------------------------------------------------------------------- #
+# Hardware cost presets
+# --------------------------------------------------------------------------- #
+
+PRESETS = {"a800": A800}
+
+#: Calibrated α–β collective constants per preset: (alpha, beta) with
+#: t_collective(n, bytes) = n·α + bytes·β.  α is the per-collective launch
+#: latency (the term a per-tensor gather tick pays #tensors times and the
+#: flat-segment tick pays once): the published small-message latency of
+#: an NCCL intra-node all-gather on A800 NVSwitch (≈ 8 µs).  β is the
+#: inverse *effective* collective bandwidth on the FSDP (data) axis: the
+#: preset's intra-node peak at ~90% efficiency.  The EP all-to-all row
+#: doubles α (a pairwise exchange) over the same β.
+COLLECTIVE_ALPHA_BETA: dict[str, tuple[float, float]] = {
+    "a800": (8.0e-06, 1.0 / 180e9),     # NVSwitch intra-node DP axis
+    "a800:a2a": (1.6e-05, 1.0 / 180e9),
+}
+
+
+def fused_cost_model(cm: CostModel) -> CostModel:
+    """Fold W into B for schedules without split backward (baselines)."""
+    return dataclasses.replace(cm, t_b=cm.t_b + cm.t_w, t_w=0.0,
+                               m_wstash=0.0)
+
+
+def preset_cost_model(preset: str, cfg=None, *, P: int, V: int,
+                      seq: int = 1024, mbs: int = 1, dp: int = 1,
+                      mfu: float = 0.5, n_coll_gather: int = 1,
+                      n_coll_reduce: int | None = None,
+                      n_a2a_f: int = 0, n_a2a_b: int = 0,
+                      a2a_bytes: float = 0.0,
+                      extra_stage_param_bytes: float = 0.0) -> CostModel:
+    """CostModel for a hardware preset and a (model × shape) workload.
+
+    With a ModelConfig, per-task durations come from transformer napkin
+    math (GEMM flops at an assumed MFU, stage-boundary activation bytes,
+    blockwise FSDP gather bytes) via ``cost_model_for``; without one, the
+    abstract unit-cost model (F=1, B=2, W=1) is returned so device-free
+    callers still get a simulatable preset.
+
+    Collective ticks are costed α–β style with the calibrated
+    ``COLLECTIVE_ALPHA_BETA`` constants: ``n_coll_gather`` /
+    ``n_coll_reduce`` are the collectives issued per gather/reduce tick —
+    1 under the flat-segment layout (``coalesce="flat"``), the gatherable
+    tensor count under per-tensor collectives (``coalesce="none"``).
+    ``n_a2a_f``/``n_a2a_b``/``a2a_bytes`` are the EP all-to-all terms
+    (0 in the port, which has no expert parallelism yet).
+    """
+    if preset not in PRESETS:
+        raise ValueError(
+            f"unknown cost preset {preset!r}; known: "
+            f"{', '.join(sorted(PRESETS))}")
+    if cfg is None:
+        return CostModel()
+    hw = PRESETS[preset]
+    alpha, beta = COLLECTIVE_ALPHA_BETA[preset]
+    d = cfg.d_model
+    L = max(cfg.n_layers, 1)
+    layers_per_stage = max(L / (P * V), 1e-9)
+    layer_flops = 2 * (12 * d * d) * seq * mbs + 2 * seq * seq * d * mbs
+    act_bytes = seq * mbs * d * 2
+    stage_param_bytes = (12 * d * d * layers_per_stage * 2
+                         + max(extra_stage_param_bytes, 0.0))
+    a2a_alpha, a2a_beta = COLLECTIVE_ALPHA_BETA.get(
+        f"{preset}:a2a", (2 * alpha, beta))
+    return cost_model_for(
+        hw, layer_flops_f=layer_flops, layers_per_stage=layers_per_stage,
+        act_bytes=act_bytes, stage_param_bytes=stage_param_bytes,
+        dp=max(dp, 1), mfu=mfu, alpha=alpha, beta=beta,
+        n_coll_gather=max(n_coll_gather, 0),
+        n_coll_reduce=max(n_coll_reduce if n_coll_reduce is not None
+                          else n_coll_gather, 0),
+        a2a_alpha=a2a_alpha, a2a_beta=a2a_beta, a2a_bytes=a2a_bytes,
+        n_a2a_f=max(n_a2a_f, 0), n_a2a_b=max(n_a2a_b, 0))
+
+
+# --------------------------------------------------------------------------- #
+# §4 plan selection (schedule="auto")
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class PlanSelection:
+    """Outcome of one auto-selection: winner + every candidate's analysis."""
+
+    selected: SchedulePlan
+    analysis: PlanAnalysis
+    preset: str
+    candidates: dict    # name -> PlanAnalysis | "failed: ..." str
+    key: tuple | None = None
+    mem_budget: float | None = None   # peak-mem cap the ranking honoured
+    # how this selection came to be: "search" (simulated screen only),
+    # "search+measured" (auto_profiled coarse→fine refinement), or
+    # "cache:disk" (rebuilt from the persisted plan cache — zero
+    # simulate, zero measure). In-memory hits return the original
+    # object, so its provenance stays whatever produced it; per-lookup
+    # hit/miss accounting lives in plan_cache_info().
+    provenance: str = "search"
+    measured: dict | None = None      # name -> measured us/step for the
+    #                                   refined survivors (profiled mode)
+    profile: dict | None = None       # measurement metadata: top_k,
+    #                                   budget_s, seconds spent,
+    #                                   simulated-best name + its us
+
+    def ranking(self) -> list[tuple[str, float]]:
+        ok = [(n, a.makespan) for n, a in self.candidates.items()
+              if isinstance(a, PlanAnalysis)]
+        return sorted(ok, key=lambda x: x[1])
+
+    def measured_ranking(self) -> list[tuple[str, float]]:
+        """(name, measured us/step) for the profiled survivors, best
+        first."""
+        return sorted((self.measured or {}).items(), key=lambda x: x[1])
+
+
+_PLAN_CACHE: dict[tuple, PlanSelection] = {}
+# process-wide selection accounting: per-key hit counts + the work
+# counters the persisted-cache tests assert on ("zero simulate calls on
+# a warm hit" is checked against simulate_calls/measure_calls deltas).
+_CACHE_STATS: dict = {
+    "hits": {},        # key -> in-memory hit count
+    "disk_hits": {},   # key -> persisted-cache hit count
+    "misses": 0,       # full searches run
+    "simulate_calls": 0,   # candidate discrete-event simulations
+    "measure_calls": 0,    # real-step measurements (auto_profiled)
+}
+
+
+def clear_plan_cache(persisted: bool = False) -> None:
+    """Reset the in-memory selection cache and its counters;
+    ``persisted=True`` also deletes the on-disk cache file."""
+    _PLAN_CACHE.clear()
+    _CACHE_STATS["hits"] = {}
+    _CACHE_STATS["disk_hits"] = {}
+    _CACHE_STATS["misses"] = 0
+    _CACHE_STATS["simulate_calls"] = 0
+    _CACHE_STATS["measure_calls"] = 0
+    if persisted:
+        from repro_torch.core import plan_cache
+
+        plan_cache.clear_disk()
+
+
+def plan_cache_info() -> dict:
+    """Selection-cache state: entries, per-key hit counts, and the
+    simulate/measure work counters (reset by ``clear_plan_cache``)."""
+    from repro_torch.core import plan_cache
+
+    return {
+        "entries": len(_PLAN_CACHE),
+        # keys mix None/float/str at the same position (mem_budget,
+        # profile_top_k), so sort on repr — tuple order would TypeError
+        "keys": sorted(_PLAN_CACHE, key=repr),
+        "hits": dict(_CACHE_STATS["hits"]),
+        "disk_hits": dict(_CACHE_STATS["disk_hits"]),
+        "misses": _CACHE_STATS["misses"],
+        "simulate_calls": _CACHE_STATS["simulate_calls"],
+        "measure_calls": _CACHE_STATS["measure_calls"],
+        "persisted": plan_cache.info(),
+    }
+
+
+def candidate_schedules() -> list[str]:
+    """Registered schedules eligible for auto-selection (trainable ones)."""
+    from repro_torch.api.registry import SCHEDULE_REGISTRY
+
+    return [n for n in SCHEDULE_REGISTRY.names() if n != "fwd_only"]
+
+
+#: Ordered component names of the Session-level selection cache key —
+#: folded into the persisted-cache fingerprint, so *adding a selection
+#: knob* in a later version invalidates every stored entry.
+SELECT_KEY_SCHEMA = (
+    "arch", "pp", "vpp", "groups", "microbatches", "unit",
+    "gather_prefetch", "seq", "mbs", "dp", "pods", "preset", "coalesce",
+    "grad_compress", "moe_mode", "mem_budget", "select_mode",
+    "profile_top_k",
+)
+
+
+def select_plan(P: int, V: int, n_mb: int, unit: int, cm: CostModel, *,
+                preset: str = "abstract", prefetch: int = 0,
+                candidates: list[str] | None = None,
+                cache_key: tuple | None = None,
+                mem_budget: float | None = None,
+                measure_fn=None, top_k: int = 3,
+                profile_budget_s: float | None = None,
+                persist: bool = False, store: bool = True,
+                sync=None) -> PlanSelection:
+    """Build + simulate every candidate schedule; the minimum simulated
+    makespan wins (ties keep the earlier candidate). Unit-gated schedules
+    (UNIT_GATED_SCHEDULES: zeropp and the gated §4 heuristic
+    ``autogen_gated``) use the requested unit; all others — including
+    full-depth autogen, whose postponed W passes cross unit boundaries
+    and therefore need full-depth stash buffers — keep the whole batch
+    live (unit = n_mb). Fused-backward candidates are costed with W
+    folded into B so total work is identical across candidates. A
+    candidate whose table cannot be built or packed (the port's
+    ``pack_table`` refuses a table with no tick free to gather an
+    evicted stage block again) is recorded as ``"failed: ..."``.
+
+    ``mem_budget`` (same units as the cost model's memory terms — bytes
+    under the hardware presets) makes the ranking a memory/makespan
+    trade-off: candidates whose simulated peak memory exceeds the budget
+    are ranked only among themselves if *nothing* fits (min peak memory
+    wins then).
+
+    ``measure_fn`` turns the search coarse→fine (``auto_profiled``): the
+    simulated screen above still runs every candidate, but then the
+    ``top_k`` budget-respecting survivors (best simulated makespan
+    first) are *measured* — ``measure_fn(plan) -> us/step`` times real
+    steps — and the minimum measured time wins. The simulated-best
+    survivor is always measured first. ``profile_budget_s`` caps the
+    seconds spent measuring (at least one candidate is always measured);
+    a candidate whose measurement raises is excluded from the measured
+    ranking but keeps its simulated numbers.
+
+    ``persist=True`` (with a ``cache_key``) reads the on-disk plan cache
+    (``core/plan_cache.py``) and, with ``store``, writes it: a
+    fingerprint-valid disk hit rebuilds the whole selection — winner
+    table included — with zero simulate and zero measure calls.
+
+    On a mesh of ranks every rank calls ``select_plan`` alike, with
+    ``sync(x)`` mapping a float of this process to its maximum over the
+    ranks (a collective; the identity by default) and ``store`` on one
+    rank only. The ranks then agree on a search where any of them misses
+    its caches (after every rank has read the file, so the storing rank
+    cannot write it first), and on the seconds spent measuring, so that
+    every rank measures the same candidates in the same steps."""
+    from repro_torch.core import plan_cache
+
+    fp = plan_cache.fingerprint(cm, SELECT_KEY_SCHEMA)
+    sel, where = None, "miss"
+    if cache_key is not None and cache_key in _PLAN_CACHE:
+        sel, where = _PLAN_CACHE[cache_key], "hits"
+    elif persist and cache_key is not None:
+        rec = plan_cache.load_entry(cache_key, fp)
+        if rec is not None:
+            try:
+                sel = plan_cache.selection_from_record(rec, cache_key)
+                where = "disk_hits"
+            except Exception:  # noqa: BLE001 — corrupt record: clean search
+                sel = None
+    if sync is not None and sync(0.0 if sel is not None else 1.0) > 0:
+        sel, where = None, "miss"     # another rank searches: all do
+    if sel is not None:
+        _CACHE_STATS[where][cache_key] = \
+            _CACHE_STATS[where].get(cache_key, 0) + 1
+        # seed the in-memory cache: repeated sessions in this process
+        # must share the identical PlanSelection object
+        _PLAN_CACHE[cache_key] = sel
+        return sel
+
+    _CACHE_STATS["misses"] += 1
+    names = list(candidates) if candidates is not None \
+        else candidate_schedules()
+    cm_fused = fused_cost_model(cm)
+    results: dict = {}
+    plans: dict[str, SchedulePlan] = {}
+    fits: tuple[SchedulePlan, PlanAnalysis] | None = None   # within budget
+    slim: tuple[SchedulePlan, PlanAnalysis] | None = None   # min peak_mem
+    for name in names:
+        sp = SchedParams(
+            P=P, V=V, n_mb=n_mb,
+            unit=(unit if name in UNIT_GATED_SCHEDULES else n_mb),
+            split_bw=True)
+        try:
+            if name in ("autogen", "autogen_gated"):
+                # §4 heuristic profiles with the *preset* cost model, not
+                # the abstract default the registry builder would use.
+                from repro_torch.core.autogen import autogen
+
+                tt = autogen(sp, cm,
+                             unit_gated=(name == "autogen_gated")).table
+                plan = SchedulePlan.from_table(name, sp, tt,
+                                               prefetch=prefetch)
+            else:
+                plan = SchedulePlan.build(name, sp, prefetch=prefetch)
+        except Exception as e:  # noqa: BLE001 — skip broken candidates
+            results[name] = f"failed: {e}"
+            continue
+        ana = plan.analyze(cm if plan.has_w else cm_fused, preset=preset)
+        _CACHE_STATS["simulate_calls"] += 1
+        results[name] = ana
+        plans[name] = plan
+        if mem_budget is None or ana.peak_mem <= mem_budget:
+            if fits is None or ana.makespan < fits[1].makespan - 1e-12:
+                fits = (plan, ana)
+        if slim is None or ana.peak_mem < slim[1].peak_mem - 1e-12:
+            slim = (plan, ana)
+    best = fits or slim
+    if best is None:
+        raise RuntimeError(
+            f"no schedule candidate could be built for P={P} V={V} "
+            f"n_mb={n_mb} unit={unit}: {results}")
+
+    provenance, measured, profile = "search", None, None
+    if measure_fn is not None:
+        best, measured, profile = _measured_refine(
+            plans, results, fits, best, measure_fn,
+            mem_budget=mem_budget, top_k=top_k,
+            profile_budget_s=profile_budget_s, sync=sync)
+        provenance = "search+measured"
+    sel = PlanSelection(selected=best[0], analysis=best[1], preset=preset,
+                        candidates=results, key=cache_key,
+                        mem_budget=mem_budget, provenance=provenance,
+                        measured=measured, profile=profile)
+    if cache_key is not None:
+        _PLAN_CACHE[cache_key] = sel
+        if persist and store:
+            try:
+                plan_cache.store_entry(
+                    cache_key, fp, plan_cache.selection_record(sel))
+            except Exception:  # noqa: BLE001 — persistence is best-effort
+                pass
+    return sel
+
+
+def _measured_refine(plans: dict, results: dict, fits, best, measure_fn, *,
+                     mem_budget, top_k: int,
+                     profile_budget_s: float | None, sync=None):
+    """Fine pass of the coarse→fine search: measure the top-K simulated
+    survivors with ``measure_fn`` and re-rank by real us/step.
+
+    Survivor order is the coarse ranking the purely simulated selection
+    uses — budget-fitting candidates by makespan when anything fits, else
+    everything by peak memory — so the first measurement is always the
+    plan ``schedule="auto"`` would have picked. Returns
+    ``((plan, analysis), measured, profile)`` with measured numbers
+    attached to the surviving candidates' analyses.
+    """
+    import time as _time
+
+    ok = [(n, a) for n, a in results.items()
+          if isinstance(a, PlanAnalysis)]
+    if fits is not None:
+        pool = [(n, a) for n, a in ok
+                if mem_budget is None or a.peak_mem <= mem_budget]
+        pool.sort(key=lambda x: x[1].makespan)
+    else:
+        pool = sorted(ok, key=lambda x: x[1].peak_mem)
+    survivors = pool[:max(top_k, 1)]
+    sim_best_name = survivors[0][0] if survivors else None
+
+    measured: dict[str, float] = {}
+    t_start = _time.perf_counter()
+    for i, (name, _) in enumerate(survivors):
+        if i > 0 and profile_budget_s is not None:
+            spent = _time.perf_counter() - t_start
+            if sync is not None:
+                spent = sync(spent)
+            if spent >= profile_budget_s:
+                break   # budget exhausted; the sim-best was measured first
+        try:
+            us = float(measure_fn(plans[name]))
+        except Exception as e:  # noqa: BLE001 — a plan that won't run
+            results[name] = f"measure failed: {e}"   # can't win on merit
+            continue
+        finally:
+            _CACHE_STATS["measure_calls"] += 1
+        measured[name] = us
+        results[name] = dataclasses.replace(results[name], measured_us=us)
+    spent = _time.perf_counter() - t_start
+    profile = {
+        "top_k": top_k,
+        "budget_s": profile_budget_s,
+        "measure_s": sync(spent) if sync is not None else spent,
+        "survivors": [n for n, _ in survivors],
+        "simulated_best": sim_best_name,
+        "simulated_best_us": measured.get(sim_best_name),
+    }
+    if measured:
+        win = min(measured, key=measured.get)
+        best = (plans[win], results[win])
+    # else: every measurement failed — keep the simulated winner
+    return best, measured, profile

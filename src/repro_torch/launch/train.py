@@ -19,6 +19,21 @@ Prints one line a step (loss, grad norm, step ms, tokens/s) and
       --data 2 --layers 8 --seq 1024 --grad-compress int8 --backend gloo
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 6 --ckpt-dir build/ckpt --ckpt-every 2 --inject-failure-at 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gpt_paper --schedule auto
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch gpt_paper --pp 2 --vpp 1 --microbatches 8 --unit 4 \\
+      --backend gloo --schedule auto_profiled --profile-top-k 2
+
+``--schedule`` takes a registered schedule (zeropp, the §4 autogen and
+autogen_gated, ...), ``auto`` (the §4 plan selection: every candidate
+simulated under ``--preset``, the least simulated makespan winning,
+under ``--mem-budget`` bytes of simulated peak memory when given) or
+``auto_profiled`` (then the ``--profile-top-k`` best are timed on the
+mesh, within ``--profile-budget-s``); the first line names the selected
+schedule and how it was found (a search, or a hit of the plan cache,
+``~/.cache/repro_torch/plans.json`` or ``$REPRO_TORCH_PLAN_CACHE``, which
+``off`` disables). On a mesh every rank selects alike; rank 0 prints.
 
 ``--full`` trains the architecture at its published width (llama3.2-1b:
 16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
@@ -86,7 +101,19 @@ def _args(argv=None):
                          "config module's TRAIN_SEQ, else 2048; else 32)")
     ap.add_argument("--microbatches", type=int, default=4)
     ap.add_argument("--unit", type=int, default=2)
-    ap.add_argument("--schedule", default="zeropp")
+    ap.add_argument("--schedule", default="zeropp",
+                    help="a registered schedule, 'auto' (the §4 simulated "
+                         "plan selection) or 'auto_profiled' (also time "
+                         "the top-K finalists)")
+    ap.add_argument("--preset", default="a800",
+                    help="cost preset of the selection (a800)")
+    ap.add_argument("--mem-budget", type=float, default=None,
+                    help="auto: simulated peak-memory cap in bytes")
+    ap.add_argument("--profile-top-k", type=int, default=3,
+                    help="auto_profiled: simulated survivors to time")
+    ap.add_argument("--profile-budget-s", type=float, default=None,
+                    help="auto_profiled: seconds cap on timing (the "
+                         "simulated-best is always timed)")
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--full", action="store_true",
@@ -94,6 +121,8 @@ def _args(argv=None):
     ap.add_argument("--data", type=int, default=1, help="data-axis size")
     ap.add_argument("--pp", type=int, default=None,
                     help="pipeline stages a group (default: the config's)")
+    ap.add_argument("--vpp", type=int, default=None,
+                    help="stage blocks a rank (default: the config's)")
     ap.add_argument("--groups", type=int, default=1,
                     help="pipeline groups")
     ap.add_argument("--pods", type=int, default=1,
@@ -145,17 +174,48 @@ def _session(args, mod):
     batch = getattr(mod, "TRAIN_BATCH", None) if args.full else None
     ov = dict(schedule=args.schedule, microbatches=args.microbatches,
               unit=args.unit)
-    if args.pp is not None:
-        ov["pp"] = args.pp
+    for knob in ("pp", "vpp"):
+        if getattr(args, knob) is not None:
+            ov[knob] = getattr(args, knob)
     if args.groups != 1:
         ov["groups"] = args.groups
     if args.grad_compress is not None:
         ov["grad_compress"] = args.grad_compress
+    kw = dict(cost_preset=args.preset)
+    if args.mem_budget is not None:
+        kw["mem_budget"] = args.mem_budget
+    if args.schedule == "auto_profiled":
+        kw.update(profile_top_k=args.profile_top_k,
+                  profile_budget_s=args.profile_budget_s)
     return session(
         args.arch, mode="train", reduced=not args.full, device=args.device,
         seq_len=seq, global_batch=batch, data=args.data, pods=args.pods,
         layers=args.layers, overrides=ov,
-        optim=dict(lr=args.lr, warmup=1, total=10_000))
+        optim=dict(lr=args.lr, warmup=1, total=10_000), **kw)
+
+
+def _selection_lines(sess, asked: str) -> list[str]:
+    """What an auto session selected, how, and each candidate's simulated
+    makespan (seconds of the preset's cost model) and measured step."""
+    sched = sess.describe()["schedule"]
+    auto = sched["auto"]
+    prov = auto["provenance"]
+    lines = [
+        f"schedule={asked} selected {auto['selected']!r} "
+        f"({prov['selection']}; this session: {prov['this_session']}; "
+        f"simulated makespan {sched['makespan']:.4e} s under "
+        f"{sched['preset']}, stash depth {sched['stash_depth']})",
+        "simulated ranking: " + ", ".join(
+            f"{n}={m:.4e}" for n, m in sess.plan_selection.ranking())]
+    failed = {n: c for n, c in auto["candidates"].items()
+              if isinstance(c, str)}
+    if failed:
+        lines.append(f"not candidates: {failed}")
+    if auto.get("measured"):
+        lines.append("measured us/step: " + ", ".join(
+            f"{n}={us:.1f}"
+            for n, us in sess.plan_selection.measured_ranking()))
+    return lines
 
 
 def train(args, rank: int = 0) -> None:
@@ -182,6 +242,9 @@ def train(args, rank: int = 0) -> None:
         f"{d['schedule']['coalesce']}, grad_compress "
         f"{d['schedule']['grad_compress']}), batch {sc.global_batch} x "
         f"{sc.seq_len}", flush=True)
+    if sess.plan_selection is not None:
+        for line in _selection_lines(sess, args.schedule):
+            out(line, flush=True)
     cuda = sess.device.type == "cuda"
     tokens = sc.global_batch * sc.seq_len
     if cuda:
@@ -257,9 +320,11 @@ def train(args, rank: int = 0) -> None:
         raise SystemExit(f"non-finite loss: {losses}")
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
+    # the session that trained last (after a restart, the rebuilt one)
+    final = sess.describe()
     mine = dict(rank=rank, device=str(sess.device),
                 launches={**fa.LAUNCHES, **fx.LAUNCHES},
-                counters=sess.describe()["kernels"]["counters"],
+                counters=final["kernels"]["counters"],
                 max_memory_gb=(torch.cuda.max_memory_allocated(sess.device)
                                / 2**30 if cuda else None),
                 min_free_gb=(min(free) / 2**30 if free else None),
@@ -272,7 +337,7 @@ def train(args, rank: int = 0) -> None:
         ranks = [None] * mesh.world
         torch.distributed.all_gather_object(ranks, mine)
     summary = dict(arch=d["arch"], n_params=d["n_params"],
-                   schedule=d["schedule"], mesh=d.get("mesh"),
+                   schedule=final["schedule"], mesh=d.get("mesh"),
                    backend=None if mesh is None else mesh.backend,
                    global_batch=sc.global_batch, seq=sc.seq_len,
                    steps=steps, ranks=ranks)
@@ -286,7 +351,8 @@ def train(args, rank: int = 0) -> None:
     first = f"{losses[0]:.4f}" if losses else "none"
     last = f"{losses[-1]:.4f}" if losses else "none"
     out(f"TRAIN_OK steps={len(losses)} first_loss={first} "
-        f"last_loss={last} kernels={mine['counters']}{tail}", flush=True)
+        f"last_loss={last} schedule={sess.rc.schedule} "
+        f"kernels={mine['counters']}{tail}", flush=True)
     if rank == 0 and args.report:
         with open(args.report, "w") as f:
             json.dump(summary, f, indent=1)

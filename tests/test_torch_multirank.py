@@ -11,8 +11,10 @@ One spawn of four single-threaded gloo processes
   replicate the parameters and all-reduce the gradients);
 * variants of the llama data 2 x pp 2 case on its params and batch:
   per-tensor collectives (``coalesce="none"``), ``grad_compress="int8"``
-  flat and per-tensor, and ``gather_prefetch`` 0 and 2 (the base case
-  runs 1);
+  flat and per-tensor, ``gather_prefetch`` 0 and 2 (the base case runs
+  1), and the §4 schedules: ``schedule="auto"`` under the ``a800``
+  preset, ``"autogen_gated"`` and ``"auto_profiled"`` with
+  ``profile_top_k=2``;
 * the sharded embedding lookup and grad at data 4, on ids that overflow
   the all-to-all's capacity;
 * the int8 reduces with error feedback, flat and per tensor, at data 4;
@@ -52,6 +54,14 @@ JAX package's ``reduce_scatter_flat_int8`` / ``reduce_scatter_grad_int8``
 under ``jax.vmap(..., axis_name="data")`` on the same per-rank inputs,
 bit for bit: shards and new error buffers.
 
+The §4 variants: under ``auto`` and ``autogen_gated`` the loss and
+re-assembled gradients against ``jax.value_and_grad(reference_loss)``
+with the rules above; every rank runs the same schedule with the same
+table (sha256) — under ``auto`` the reference Session's selection at the
+same data 2 x pp 2 — and under ``auto_profiled`` every rank reports the
+same winner and the same measured times (each the maximum over the
+ranks).
+
 The launcher: the four-rank CPU CLI prints ``TRAIN_OK`` with a falling
 loss; a rank that fails makes it exit non-zero; ``nccl`` with ranks
 sharing a device is refused, naming ``--backend gloo``; ``--pods``
@@ -70,6 +80,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro.api import session as jsession  # noqa: E402
 from repro.core import fsdp as jfsdp  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
@@ -105,6 +116,15 @@ VARIANT = {
                                        coalesce="none")),
     "prefetch0": ("llama_d2_pp2", dict(gather_prefetch=0)),
     "prefetch2": ("llama_d2_pp2", dict(gather_prefetch=2)),
+}
+# the §4 schedules on the llama data 2 x pp 2 case: (base, overrides,
+# SessionSpec knobs)
+AUTO = {
+    "auto": ("llama_d2_pp2", dict(schedule="auto"),
+             dict(cost_preset="a800")),
+    "autogen_gated": ("llama_d2_pp2", dict(schedule="autogen_gated"), {}),
+    "auto_profiled": ("llama_d2_pp2", dict(schedule="auto_profiled"),
+                      dict(profile_top_k=2)),
 }
 # checkpoint cases on a TRAIN case's session, params and batches: two
 # steps under the controller, a failure injected before the second
@@ -186,6 +206,12 @@ def _train_case(name):
 def _variant_case(name, base):
     src, ov = VARIANT[name]
     return dict(base, name=name, overrides=dict(base["overrides"], **ov))
+
+
+def _auto_case(name, base):
+    src, ov, spec = AUTO[name]
+    return dict(base, name=name, overrides=dict(base["overrides"], **ov),
+                spec=spec)
 
 
 def _embed_case():
@@ -299,10 +325,11 @@ def results(tmp_path_factory):
     built = {n: _train_case(n) for n in TRAIN}
     variants = [_variant_case(n, built[b][2])
                 for n, (b, _) in VARIANT.items()]
+    autos = [_auto_case(n, built[b][2]) for n, (b, _, _) in AUTO.items()]
     ckpts = [dict(built[b][2], name=n, kind="ckpt",
                   dir=os.path.join(tmp, n)) for n, b in CKPT.items()]
     int8 = _int8_case()
-    ctx = _spawn([c for _, _, c in built.values()] + variants
+    ctx = _spawn([c for _, _, c in built.values()] + variants + autos
                  + [_embed_case(), int8] + ckpts, tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)}}
     # the reference and the one-rank steps while the ranks run
@@ -316,8 +343,8 @@ def results(tmp_path_factory):
                          one_rank=_one_rank(cfg, rc, case))
     while not ctx.join():
         pass
-    for name in list(TRAIN) + list(VARIANT) + [EMBED["name"],
-                                               INT8["name"]] + list(CKPT):
+    for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
+            EMBED["name"], INT8["name"]] + list(CKPT):
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -477,6 +504,60 @@ def test_multirank_int8_grads_within_the_reference_rule(results, name):
             worst = max(worst, float((t - _get(b["grads"], path)).abs()
                                      .max()) / gmax)
     assert 0.0 < worst < INT8_RULE, worst
+
+
+@pytest.mark.parametrize("name", ["auto", "autogen_gated"])
+def test_multirank_auto_step_matches_jax_value_and_grad(results, name):
+    """The §4 schedules on the llama data 2 x pp 2 case: every rank runs
+    the same plan, and the loss and re-assembled gradients equal
+    ``jax.value_and_grad(reference_loss)`` as the base case's do."""
+    base = results[AUTO[name][0]]
+    ranks = results[name]["ranks"]
+    assert len({(g["schedule"], g["table"]) for g in ranks}) == 1
+    for got in ranks:
+        assert abs(got["loss"] - base["ref_loss"]) <= \
+            LOSS_RTOL * abs(base["ref_loss"])
+    grads = tparams.unshard(_rt(base), [g["grads"] for g in ranks])
+    n = 0
+    for path, want in _leaves(base["ref_grads"]):
+        assert _rel(_np(_get(grads, path)), want) <= GRAD_RTOL, path
+        n += 1
+    assert n == sum(1 for _ in _leaves(grads))
+    if name == "autogen_gated":
+        assert ranks[0]["schedule"] == "autogen_gated"
+        return
+    # the reference Session's selection at the same mesh and shape
+    js = jsession("llama3.2-1b", mode="train", seq_len=SEQ, data=2,
+                  schedule="auto", cost_preset="a800",
+                  overrides=dict(pp=2, microbatches=MB, unit=UNIT,
+                                 vpp=base["rc"].vpp))
+    jd = js.describe()["schedule"]
+    assert ranks[0]["describe"]["auto"]["selected"] == \
+        ranks[0]["schedule"] == jd["auto"]["selected"]
+    for g in ranks:
+        d = g["describe"]
+        assert d["auto"]["candidates"] == jd["auto"]["candidates"]
+        for k in ("makespan", "bubble_ratio", "peak_mem", "stash_depth",
+                  "collectives"):
+            assert d[k] == jd[k], k
+
+
+def test_multirank_auto_profiled_agrees_on_every_rank(results):
+    """``auto_profiled`` with ``profile_top_k=2``: every rank measures the
+    same two survivors, reads the same times (the maximum over the
+    ranks) and trains the same winner."""
+    ranks = results["auto_profiled"]["ranks"]
+    autos = [g["describe"]["auto"] for g in ranks]
+    assert len({(g["schedule"], g["table"]) for g in ranks}) == 1
+    measured = autos[0]["measured"]
+    assert len(measured) == 2
+    assert all(a["measured"] == measured for a in autos)
+    assert ranks[0]["schedule"] == min(measured, key=measured.get)
+    assert all(a["provenance"]["selection"] == "search+measured"
+               for a in autos)
+    assert all(a["profile"]["survivors"] == list(measured)
+               for a in autos)
+    assert all(g["describe"]["cache"]["measure_calls"] == 2 for g in ranks)
 
 
 def _jax_int8(c):

@@ -193,8 +193,13 @@ def test_engine_refuses_packed_table_deeper_than_its_unit(V):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(schedule="auto"), "auto slice"),
-    (dict(schedule="autogen_gated"), "auto slice"),
+    # the auto slice has landed: schedule="auto" and autogen_gated train;
+    # what it still refuses is the reference's TPU preset and the
+    # selection knobs without a selection (ids kept from before it)
+    pytest.param(dict(schedule="auto", cost_preset="tpu_v5e"), "TPU preset",
+                 id="kw0-auto slice"),
+    pytest.param(dict(schedule="autogen_gated", mem_budget=1e9),
+                 "mem_budget only steers", id="kw1-auto slice"),
     (dict(overrides=dict(moe_mode="ep")), "MoE slice"),
     # several ranks train since the multi-rank slice; one process without
     # a process group is refused (ids kept from before that slice)
@@ -206,7 +211,10 @@ def test_engine_refuses_packed_table_deeper_than_its_unit(V):
                  "process group", id="kw4-multi-rank: next slice"),
     pytest.param(dict(overrides=dict(coalesce="none"), data=2),
                  "process group", id="kw5-multi-rank slice"),
-    (dict(topology="gpu_cluster"), "multi-rank slice"),
+    # topologies wait for elasticity, ROADMAP.md queue 1 item 8 (id kept
+    # from when the text named a multi-rank slice)
+    pytest.param(dict(topology="gpu_cluster"), "queue 1 item 8",
+                 id="kw6-multi-rank slice"),
     pytest.param(dict(pods=2), "process group", id="kw7-item 1b"),
 ])
 def test_train_session_refuses_what_later_slices_bring(kw, match):

@@ -6,10 +6,13 @@ of ``world`` CPU ranks and runs the cases of ``case_file`` (a
 ``torch.save``d list) in order; each rank writes its results to
 ``out_dir/<case>.<rank>.pt``.
 
-* ``train``: a train Session on the case's mesh, this rank's part of the
-  full reference tree (``params.shard_for_rank``), one ``train_step`` on
-  the global batch, then one ``opt_step``; it saves this rank's grads,
-  the metrics, ``grad_norm`` and the params after the update.
+* ``train``: a train Session on the case's mesh (with the case's
+  ``spec`` knobs: ``schedule="auto"`` and its selection knobs), this
+  rank's part of the full reference tree (``params.shard_for_rank``), one
+  ``train_step`` on the global batch, then one ``opt_step``; it saves
+  this rank's grads, the metrics, ``grad_norm``, the params after the
+  update, the schedule the session runs with a sha256 of its table, and
+  ``describe()["schedule"]``.
 * ``embed``: the vocabulary-sharded ``embed_lookup`` and ``embed_grad``
   on this rank's ids over a data axis of every rank.
 * ``int8``: the int8 reduces with error feedback over a data axis of
@@ -42,15 +45,21 @@ def _train(case, rank):
     from repro_torch import params as tparams
     from repro_torch.api import session
 
+    from repro_torch.core.plan import table_digest
+
     sess = session(case["arch"], mode="train", seq_len=case["seq"],
                    device="cpu", data=case["data"], pods=case["pods"],
-                   overrides=case["overrides"], optim=case["optim"])
+                   overrides=case["overrides"], optim=case["optim"],
+                   **case.get("spec", {}))
     full = tparams.from_reference(case["params"], device="cpu")
     p = tparams.shard_for_rank(sess.rt, full, sess.mesh.rank)
     grads, m = sess.train_step(p, case["batch"])
     out = {"grads": _host(grads), "loss": float(m["loss_sum"]),
            "aux": float(m["aux_sum"]), "emb_dropped": m["emb_dropped"],
-           "ranks": (sess.mesh.d_rank, sess.mesh.g_rank, sess.mesh.p_rank)}
+           "ranks": (sess.mesh.d_rank, sess.mesh.g_rank, sess.mesh.p_rank),
+           "schedule": sess.rc.schedule,
+           "table": table_digest(sess.rt.plans["main"].table),
+           "describe": sess.describe()["schedule"]}
     opt = sess.init_opt_state(p)
     p, opt, om = sess.opt_step(p, grads, opt)
     out["grad_norm"] = float(om["grad_norm"])
@@ -147,6 +156,9 @@ def _int8(case, rank):
 
 def main(rank, world, port, case_file, out_dir):
     torch.set_num_threads(1)
+    # the schedule="auto" cases' persisted plan cache (rank 0 writes it)
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = os.path.join(out_dir,
+                                                        "plans.json")
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank)
     try:
