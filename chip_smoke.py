@@ -12,13 +12,18 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    (one ``nvcc`` per source, all at once) and prints the build time, and
    for the entry functions of the attention kernels, K2 and K5 their
    registers and spills (ptxas) and tensor-core instructions
-   (``cuobjdump -sass``): the serving kernels' bf16 entries (the window
-   + stats contract's included), K2's in both head layouts and K1/K1b's
-   at head dims 96 and 128 must hold HGMMA (wgmma), and those K2 and
-   K1/K1b entries and K5's must not spill;
+   (``cuobjdump -sass``): the serving kernels' bf16 entries at every
+   head width (K3 causal and window + stats at 64, 96 and 128, K4 over
+   bf16 and int8 pages at 64, 96 and 128), K2's in both head layouts
+   and K1/K1b's at head dims 96 and 128 must hold HGMMA (wgmma), and
+   those K2 and K1/K1b entries and K5's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
-   kernels (K3 slotted at head_dim 64 and 128, K4 paged), the training
+   kernels at each serve cell's shapes (llama3.2-1b's e 64: K3 causal
+   and window + stats, K4 over bf16 and int8 pages; Jamba's K3 at e 128;
+   gpt-1.5B's e 96, 24 heads, MHA, 1024 keys: K3 causal and window, K4
+   over bf16 and int8 pages; yi-9b's K4 at e 128, 32 heads over 4, over
+   bf16 and int8 pages), the training
    kernels (K1 flash forward, K1b flash backward, K2 fused cross-entropy)
    in bf16 at llama3.2-1b's shapes, K1 and K1b at gpt-1.5B's (b 2, s
    1024, 24 heads of 96) and at head dim 128, K2 over gpt-1.5B's untied
@@ -62,7 +67,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    read as a [vocab, d] table (K2), labels not shifted to their shard
    (K2 over a shard, whose shards' statistics, combined with a max and a
    sum, must also equal the whole-vocab K2's loss, dh and dW), B and C
-   swapped (K5);
+   swapped (K5); at e 96 (128-wide tiles, zero pad columns) q, K and V
+   with NaN in the first 32 columns of every odd head must leave the
+   even heads' K3/K4 outputs finite and within the rule (a 128-wide
+   read would run into the next head);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -97,10 +105,22 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 6. after every timed run, torch.profiler traces: five decode steps and
    three 512-token prefill steps in each llama serving layout and in
    Jamba (device busy share, kernels by device time, and the device
-   kernels of K3/K4 with the key-split combine, and of K5, by name), and one
-   training step of each training model on fresh params (device busy
-   share, kernels by device time, launches a step, and the device time
-   of K1, K1b and K2, K2 also by pass: the split, pass 1, pass 2);
+   kernels of K3/K4 with the key-split combine, and of K5, by name);
+   then, after those models are freed, the paper's gpt-1.5B served at
+   full width and depth (22 layers, d_model 2304, 24 heads of 96,
+   LayerNorm, GELU MLP, untied head; bf16 weights from a seeded
+   generator) through the ``ServeEngine`` with 8 slots, ``max_seq``
+   1024 (its config's) and the same 16 requests, contiguous (K3 at e 96)
+   then paged (K4 at e 96, page 16), and yi-9b paged at full width and
+   depth (48 layers, 17.7 GB; K4 at e 128, 32 heads over 4), each with
+   the checks of step 3 (counters 0 before the engine run, the kernel
+   launched and no plain version after it, first-step logits against
+   the plain versions, and gpt's across its two layouts), then the same
+   decode and prefill traces of each of those three runs; then one
+   training step of each training model on fresh params under the
+   profiler (device busy share, kernels by device time, launches a
+   step, and the device time of K1, K1b and K2, K2 also by pass: the
+   split, pass 1, pass 2);
 7. multi-rank train phases, last, with the card otherwise empty, each
    four ranks spawned by ``python -m repro_torch.launch.train`` as a
    subprocess, all on this card, collectives staged through host memory
@@ -169,11 +189,16 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clocks: covers a call's enqueue
 ARCH = "llama3.2-1b"
 N_REQ, GEN, SLOTS, MAX_SEQ, PAGE = 16, 32, 8, 2048, 16
+# the serve cells of the paper's gpt-1.5B (its config's 1024 positions:
+# 64-512 prompt tokens and 32 generated fit) and of yi-9b (paged)
+GPT_SERVE, YI_SERVE, GPT_MAX_SEQ = "gpt_paper", "yi-9b", 1024
 
 # the serving kernels' bf16 tensor-core entry functions (slotted_win_*:
 # the window + stats contract)
-TC_SERVE = ("slotted_tc_e64", "slotted_tc_e128", "slotted_win_e64",
-            "slotted_win_e128", "paged_tc_bf16", "paged_tc_int8")
+TC_SERVE = ("slotted_tc_e64", "slotted_tc_e96", "slotted_tc_e128",
+            "slotted_win_e64", "slotted_win_e96", "slotted_win_e128",
+            "paged_tc_bf16", "paged_tc_int8", "paged_tc_bf16_e96",
+            "paged_tc_int8_e96", "paged_tc_bf16_e128", "paged_tc_int8_e128")
 # K2's bf16 tensor-core entry functions in both head layouts (a [V, d]
 # table, a [d, V] head), and its split and lse kernels
 TC_XENT = tuple(f"{k}<{lay}>" for k in ("stats_tc", "dlog_tc", "dw_tc",
@@ -447,9 +472,11 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
     import os
     import re
 
-    short = TC_SERVE + ("combine_e64", "combine_e128", "combine_stats_e64",
-                        "combine_stats_e128", "slotted_kernel",
-                        "paged_kernel", "xent_split", "lse_kernel")
+    # longest first: paged_tc_bf16 is a prefix of paged_tc_bf16_e96
+    short = sorted(TC_SERVE + tuple(
+        f"combine{st}_e{e}" for st in ("", "_stats") for e in (64, 96, 128))
+        + ("slotted_kernel", "paged_kernel", "xent_split", "lse_kernel"),
+        key=len, reverse=True)
     # K1/K1b by head widths <E,EV>; K2 by head layout <0: table, 1: head>
     flash = re.compile(r"(flash_fwd_tc|flash_fwd_kernel|dq_tc|dkdv_tc|"
                        r"dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E")
@@ -538,7 +565,47 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
 # --------------------------------------------------------------------------- #
 
 
+# the serving attention cells of the kernel phases: (tag of the phase
+# names, batch rows, q heads, kv heads, head width, keys a row, seed)
+LLAMA_ATTN = dict(tag="", b=SLOTS, h=32, g=8, e=64, S=MAX_SEQ, seed=1)
+JAMBA_ATTN = dict(tag="e128_", b=SLOTS, h=32, g=8, e=128, S=MAX_SEQ,
+                  seed=3)
+# gpt-1.5B (MHA, 96 wide: the 128-wide tensor-core body with zero pad
+# columns) over its 1024 positions, and yi-9b (GQA 8:1, 128 wide)
+GPT_ATTN = dict(tag="e96_", b=SLOTS, h=24, g=24, e=96, S=GPT_MAX_SEQ,
+                seed=4)
+YI_ATTN = dict(tag="e128_", b=SLOTS, h=32, g=4, e=128, S=MAX_SEQ, seed=5)
+
+
 def kernel_phases(torch, flush):
+    """The serving attention kernels, K3 and K4, at the shapes of each
+    serve cell: llama3.2-1b's (e 64: K3 causal and window, K4 over bf16
+    and int8 pages), Jamba's K3 at e 128, gpt-1.5B's K3 and K4 at e 96
+    (with the NaN probe of the pad columns) and yi-9b's K4 at e 128."""
+    results = []
+    serve_attention_phases(torch, flush, results, LLAMA_ATTN,
+                           ("causal_prefill", "decode", "window_stats",
+                            "bf16_decode", "bf16_prefill", "int8_decode"))
+    serve_attention_phases(torch, flush, results, JAMBA_ATTN,
+                           ("causal_prefill", "decode"))
+    serve_attention_phases(torch, flush, results, GPT_ATTN,
+                           ("causal_prefill", "decode", "window_stats",
+                            "bf16_prefill", "bf16_decode", "int8_decode"))
+    serve_attention_phases(torch, flush, results, YI_ATTN,
+                           ("bf16_prefill", "bf16_decode", "int8_decode"))
+    return results
+
+
+def serve_attention_phases(torch, flush, results, cell, phases):
+    """K3 (``causal_prefill``, ``decode``, ``window_stats``) and K4
+    (``bf16_prefill``, ``bf16_decode``, ``int8_decode``) at one serve
+    cell's shapes, in the order given, from one seeded generator: each
+    against its plain version under the bf16 rule, timed beside it, SDPA
+    and the bound, then fed its probes; decodes swept over key splits.
+    At a head width that is not a multiple of 64 (96), q, K and V with
+    NaN in the first 32 columns of their odd heads must leave the even
+    heads' outputs finite and within the rule: the body pads its tiles
+    in shared memory and never reads the next head's columns."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -547,11 +614,14 @@ def kernel_phases(torch, flush):
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(1)
-    b, h, g, e, S = 8, 32, 8, 64, MAX_SEQ
+    gen = torch.Generator(device=dev).manual_seed(cell["seed"])
+    tag, b, h, g, e, S = (cell[k] for k in ("tag", "b", "h", "g", "e", "S"))
     rep = h // g
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    results = []
+    padded = e % 64 != 0
+    # decode positions and window lengths spread over the cache: 128 +
+    # 256 i at 2048 keys, 64 + 128 i at 1024
+    spread = (S // 16 + S // 8 * torch.arange(b, device=dev)).int()
 
     def rand(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -587,8 +657,11 @@ def kernel_phases(torch, flush):
 
     tol = (f"tolerance: out |diff| <= {fa.BF16_RTOL:g} max |plain| of its "
            "row + 1 bf16 ulp (P rounded to bf16 on the tensor cores)")
+    shape = f"b={b} h={h} g={g} e={e}"
+    if padded:
+        shape += f" (tiles {-(-e // 64) * 64} wide, pad columns zero)"
 
-    def split_sweep(kern):
+    def split_sweep(kern, rows):
         """A decode kernel's time against the blocks an SM that the key
         splits aim for (``paged_attention._BLOCKS_AN_SM``; 0 = no split),
         recorded beside the phase's row."""
@@ -596,7 +669,7 @@ def kernel_phases(torch, flush):
         try:
             for w in (0, 1, 2, 4, 8):
                 pa._BLOCKS_AN_SM = w
-                res[w] = (pa.splits(b, g, rep, S, sms),
+                res[w] = (pa.splits(b, g, rows, S, sms),
                           time_ms(torch, kern, flush))
         finally:
             pa._BLOCKS_AN_SM = keep
@@ -604,105 +677,132 @@ def kernel_phases(torch, flush):
             f"{w} ({n}) {t:.4f} ms" for w, (n, t) in res.items()))
         results[-1]["split_ms"] = {w: t for w, (_, t) in res.items()}
 
+    def nan_probe(name, run, plain, sel=slice(None)):
+        """Odd heads' first 32 columns NaN in q, K and V: the even heads of
+        the kernel's out finite and within the rule."""
+        got, want = run(), plain()
+        got, want = got[sel][:, :, ::2], want[sel][:, :, ::2]
+        if not bool(torch.isfinite(want).all()):
+            fail(f"{name}: the NaN probe's plain version is not finite")
+        finite = bool(torch.isfinite(got).all())
+        log(f"[kernel] {name} check, NaN in the first 32 columns of the "
+            f"odd heads: even heads finite {finite}")
+        if not finite:
+            fail(f"{name} reads the next head's columns (NaN in the even "
+                 "heads' out)")
+        bf16_err(fa, got, want, f"{name} out (even heads)")
+
+    def odd_nan(x):
+        x = x.clone()
+        x[..., 1::2, :32] = float("nan")
+        return x
+
     # ---- slotted attention (contiguous cache) --------------------------- #
-    def slotted_phase(phase, sq, hd, rand):
-        q = rand(b, sq, h, hd)
-        k, v = rand(b, S, g, hd), rand(b, S, g, hd)
-        if sq > 1:
-            pos = torch.linspace(0, S - sq, b, device=dev).int()
-        else:
-            pos = (128 + 256 * torch.arange(b, device=dev)).int()
+    def slotted_phase(phase, sq):
+        q = rand(b, sq, h, e)
+        k, v = rand(b, S, g, e), rand(b, S, g, e)
+        pos = (torch.linspace(0, S - sq, b, device=dev).int() if sq > 1
+               else spread)
         keys = (pos + sq).clamp(max=S)
         kpos = torch.arange(S, device=dev)
         mask = (kpos[None, None, :] <= (pos[:, None] + torch.arange(
             sq, device=dev))[:, :, None])[:, None]
         nbytes = (2 * q.nbytes + pos.nbytes
-                  + int(keys.sum()) * g * 2 * hd * 2)
-        flops = causal_pairs(pos, sq, S) * h * 2 * (hd + hd)
+                  + int(keys.sum()) * g * 2 * e * 2)
+        flops = causal_pairs(pos, sq, S) * h * 2 * (e + e)
         ns = pa.splits(b, g, rep * sq, S, sms)
-        log(f"[kernel] slotted_attention:{phase} b={b} sq={sq} h={h} g={g} "
-            f"e={hd} S={S} pos={pos.tolist()} key splits {ns} ({tol})")
+        name = f"slotted_attention:{tag}{phase}"
+        log(f"[kernel] {name} {shape} sq={sq} S={S} pos={pos.tolist()} key "
+            f"splits {ns} ({tol})")
         lib = sdpa(q, k, v, mask)
-        record(f"slotted_attention:{phase}", SLOTTED,
+        record(name, SLOTTED,
                lambda: pa.flash_attention_slotted(q, k, v, pos=pos),
                lambda: ref.attention(q, k, v, q_offset=pos),
                lib, nbytes, flops, tc_check(lib))
         if sq == 1:
-            split_sweep(lambda: pa.flash_attention_slotted(q, k, v, pos=pos))
+            split_sweep(lambda: pa.flash_attention_slotted(q, k, v, pos=pos),
+                        rep)
         # the check must see K with its kv heads rolled by one, and V
         # rolled over kv heads at the keys of the second half only (a
         # fault of late tiles: rows that see no such key stay exact)
         plain = ref.attention(q, k, v, q_offset=pos)
         bf16_probe(fa, (pa.flash_attention_slotted(
             q, k.roll(1, dims=2).contiguous(), v, pos=pos),), (plain,),
-            ("slotted_attention out",), "K's kv heads rolled by one")
+            (f"{name} out",), "K's kv heads rolled by one")
         bf16_probe(fa, (pa.flash_attention_slotted(
             q, k, late_rolled(v), pos=pos),), (plain,),
-            ("slotted_attention out",),
-            f"V rolled over kv heads at keys >= {S // 2}")
+            (f"{name} out",), f"V rolled over kv heads at keys >= {S // 2}")
+        if padded:
+            qn, kn, vn = odd_nan(q), odd_nan(k), odd_nan(v)
+            nan_probe(name, lambda: pa.flash_attention_slotted(
+                qn, kn, vn, pos=pos), lambda: ref.attention(
+                qn, kn, vn, q_offset=pos))
 
-    for phase, sq in (("causal_prefill", 512), ("decode", 1)):
-        slotted_phase(phase, sq, e, rand)
+    # ---- window + stats (decode-attention contract, pos = cache length):
+    # the tensor-core body with key splits, its stats from the combine --- #
+    def window_phase():
+        q = rand(b, 1, h, e)
+        k, v = rand(b, S, g, e), rand(b, S, g, e)
+        cl = spread
+        wmask = (torch.arange(S, device=dev)[None, :] < cl[:, None])[
+            :, None, None]
+        win_sdpa = sdpa(q, k, v, wmask)
+        name = f"slotted_attention:{tag}window_stats"
 
-    # window + stats (decode-attention contract, pos = cache length): the
-    # tensor-core body with key splits, its stats from the combine
-    q = rand(b, 1, h, e)
-    k, v = rand(b, S, g, e), rand(b, S, g, e)
-    cl = (128 + 256 * torch.arange(b, device=dev)).int()
-    wmask = (torch.arange(S, device=dev)[None, :] < cl[:, None])[:, None,
-                                                                 None]
-    win_sdpa = sdpa(q, k, v, wmask)
+        def window_excess(a, p, what=""):
+            res = pa.window_excess(a, p)
+            log(f"[kernel]   window stats{what}: worst |diff| / limit "
+                + ", ".join(f"{n} {x:.4f}" for n, x in res.items()))
+            return res
 
-    def window_excess(a, p, what=""):
-        res = pa.window_excess(a, p)
-        log(f"[kernel]   window stats{what}: worst |diff| / limit " + ", "
-            .join(f"{n} {x:.4f}" for n, x in res.items()))
-        return res
+        def window_check(a, p):
+            bf16_excess(fa, win_sdpa().transpose(1, 2), p[0],
+                        "out (SDPA, for the record)")
+            res = window_excess(a, p)
+            if not max(res.values()) <= 1.0:
+                fail(f"{name}: window stats off the plain version: {res}")
+            return (a[0].float() - p[0].float()).abs().max().item()
 
-    def window_check(a, p):
-        bf16_excess(fa, win_sdpa().transpose(1, 2), p[0],
-                    "out (SDPA, for the record)")
-        res = window_excess(a, p)
-        if not max(res.values()) <= 1.0:
-            fail(f"window stats off the plain version: {res}")
-        return (a[0].float() - p[0].float()).abs().max().item()
-
-    ns = pa.splits(b, g, rep, S, sms)
-    log(f"[kernel] slotted_attention:window_stats b={b} sq=1 h={h} g={g} "
-        f"e={e} S={S} cache_len={cl.tolist()} key splits {ns} (tensor-core "
-        f"body; {tol}; acc by the same row rule; m, l: max |diff| <= "
-        f"{pa.STATS_RTOL:g} max |plain|)")
-    record("slotted_attention:window_stats", SLOTTED,
-           lambda: pa.decode_attention(q, k, v, cl),
-           lambda: ref.decode_attention(q, k, v, cl),
-           win_sdpa,
-           2 * q.nbytes + cl.nbytes + int(cl.sum()) * g * 2 * e * 2
-           + b * h * (2 + e) * 4,
-           int(cl.sum()) * h * 2 * (e + e), window_check)
-    # a row with no key: m = -inf, and l, acc and out exactly 0
-    cl0 = cl.clone()
-    cl0[0] = 0
-    got0 = pa.decode_attention(q, k, v, cl0)
-    res = window_excess(got0, ref.decode_attention(q, k, v, cl0),
-                        " (cache_len[0] = 0)")
-    out0, (m0, l0, acc0) = got0
-    if not (max(res.values()) <= 1.0 and bool(torch.isneginf(m0[0]).all())
-            and not l0[0].any() and not acc0[0].any()
-            and not out0[0].any()):
-        fail("window stats: a row with cache_len 0 is not m = -inf and "
-             "exact zeros")
-    # probes: one extra key (caught by l), K rolled over kv heads, V
-    # rolled over kv heads at the late keys
-    plain = ref.decode_attention(q, k, v, cl)
-    for what, bad, field in (
-            ("cache_len + 1", pa.decode_attention(q, k, v, cl + 1), "l"),
-            ("K's kv heads rolled by one", pa.decode_attention(
-                q, k.roll(1, dims=2).contiguous(), v, cl), "out"),
-            (f"V rolled over kv heads at keys >= {S // 2}",
-             pa.decode_attention(q, k, late_rolled(v), cl), "out")):
-        log(f"[kernel] window stats check, {what}:")
-        if not window_excess(bad, plain)[field] > 1.0:
-            fail(f"the window stats {field} check passes {what}")
+        ns = pa.splits(b, g, rep, S, sms)
+        log(f"[kernel] {name} {shape} sq=1 S={S} cache_len={cl.tolist()} "
+            f"key splits {ns} (tensor-core body; {tol}; acc by the same "
+            f"row rule; m, l: max |diff| <= {pa.STATS_RTOL:g} max |plain|)")
+        record(name, SLOTTED,
+               lambda: pa.decode_attention(q, k, v, cl),
+               lambda: ref.decode_attention(q, k, v, cl),
+               win_sdpa,
+               2 * q.nbytes + cl.nbytes + int(cl.sum()) * g * 2 * e * 2
+               + b * h * (2 + e) * 4,
+               int(cl.sum()) * h * 2 * (e + e), window_check)
+        # a row with no key: m = -inf, and l, acc and out exactly 0
+        cl0 = cl.clone()
+        cl0[0] = 0
+        got0 = pa.decode_attention(q, k, v, cl0)
+        res = window_excess(got0, ref.decode_attention(q, k, v, cl0),
+                            " (cache_len[0] = 0)")
+        out0, (m0, l0, acc0) = got0
+        if not (max(res.values()) <= 1.0
+                and bool(torch.isneginf(m0[0]).all())
+                and not l0[0].any() and not acc0[0].any()
+                and not out0[0].any()):
+            fail(f"{name}: a row with cache_len 0 is not m = -inf and "
+                 "exact zeros")
+        # probes: one extra key (caught by l), K rolled over kv heads, V
+        # rolled over kv heads at the late keys
+        plain = ref.decode_attention(q, k, v, cl)
+        for what, bad, field in (
+                ("cache_len + 1", pa.decode_attention(q, k, v, cl + 1), "l"),
+                ("K's kv heads rolled by one", pa.decode_attention(
+                    q, k.roll(1, dims=2).contiguous(), v, cl), "out"),
+                (f"V rolled over kv heads at keys >= {S // 2}",
+                 pa.decode_attention(q, k, late_rolled(v), cl), "out")):
+            log(f"[kernel] {name} check, {what}:")
+            if not window_excess(bad, plain)[field] > 1.0:
+                fail(f"the {name} {field} check passes {what}")
+        if padded:
+            qn, kn, vn = odd_nan(q), odd_nan(k), odd_nan(v)
+            nan_probe(name, lambda: pa.decode_attention(qn, kn, vn, cl)[0],
+                      lambda: ref.decode_attention(qn, kn, vn, cl)[0])
 
     # ---- paged attention (page pool) ------------------------------------ #
     ppr = S // PAGE
@@ -711,10 +811,8 @@ def kernel_phases(torch, flush):
     def paged_inputs(sq, int8):
         q = rand(b, sq, h, e)
         kf, vf = rand(n_pages, PAGE, g, e), rand(n_pages, PAGE, g, e)
-        if sq > 1:
-            pos = torch.linspace(0, S - sq, b, device=dev).int()
-        else:
-            pos = (128 + 256 * torch.arange(b, device=dev)).int()
+        pos = (torch.linspace(0, S - sq, b, device=dev).int() if sq > 1
+               else spread)
         live = (pos + sq + PAGE - 1) // PAGE
         perm = torch.randperm(n_pages, generator=gen, device=dev)
         pt = perm.reshape(b, ppr).int()
@@ -731,9 +829,7 @@ def kernel_phases(torch, flush):
             vf = (vf.float() / vs[:, None, :, None]).round().to(torch.int8)
         return q, kf, vf, ks, vs, pt, pos, mask, live
 
-    for phase, sq, int8 in (("bf16_decode", 1, False),
-                            ("bf16_prefill", 512, False),
-                            ("int8_decode", 1, True)):
+    def paged_phase(phase, sq, int8):
         q, kp, vp, ks, vs, pt, pos, mask, live = paged_inputs(sq, int8)
         kw = dict(page_tables=pt, pos=pos, k_scale=ks, v_scale=vs,
                   slot_mask=mask)
@@ -751,24 +847,24 @@ def kernel_phases(torch, flush):
                  )[:, None]
         lib = sdpa(q, kg, vg, pmask)
         tc = tc_check(lib, on)
+        name = f"paged_attention:{tag}{phase}"
 
         def check(a, p, mask=mask, tc=tc):
             err = tc(a, p)
             if a[~mask].any():
-                fail("paged kernel: a masked row is not exactly zero")
+                fail(f"{name}: a masked row is not exactly zero")
             return err
 
         ns = pa.splits(b, g, rep * sq, S, sms)
-        log(f"[kernel] paged_attention:{phase} b={b} sq={sq} h={h} g={g} "
-            f"e={e} page_size={PAGE} ppr={ppr} n_pages={n_pages} "
-            f"pos={pos.tolist()} masked_row=3 key splits {ns} ({tol}; "
-            "masked row exactly 0)")
-        record(f"paged_attention:{phase}", PAGED,
+        log(f"[kernel] {name} {shape} sq={sq} page_size={PAGE} ppr={ppr} "
+            f"n_pages={n_pages} pos={pos.tolist()} masked_row=3 key splits "
+            f"{ns} ({tol}; masked row exactly 0)")
+        record(name, PAGED,
                lambda: pa.paged_attention(q, kp, vp, **kw),
                lambda: ref.paged_attention(q, kp, vp, **kw),
                lib, nbytes, flops, check)
         if sq == 1:
-            split_sweep(lambda: pa.paged_attention(q, kp, vp, **kw))
+            split_sweep(lambda: pa.paged_attention(q, kp, vp, **kw), rep)
         plain = ref.paged_attention(q, kp, vp, **kw)
         # the check must see one live page-table entry of one row, past
         # its first 64-key tile, pointed at a page of another row (row 7
@@ -777,7 +873,7 @@ def kernel_phases(torch, flush):
         wrong[7, 5] = pt[0, 0]
         bf16_probe(fa, (pa.paged_attention(
             q, kp, vp, **dict(kw, page_tables=wrong)),), (plain,),
-            ("paged_attention out",),
+            (f"{name} out",),
             "row 7's page-table entry 5 pointed at row 0's first page")
         if int8:
             # and V dequantised with the wrong scales: K's, or those of
@@ -787,18 +883,20 @@ def kernel_phases(torch, flush):
                                vs.roll(1, dims=1).contiguous())):
                 bf16_probe(fa, (pa.paged_attention(
                     q, kp, vp, **dict(kw, v_scale=bad)),), (plain,),
-                    ("paged_attention out",),
-                    f"V dequantised with {what}")
+                    (f"{name} out",), f"V dequantised with {what}")
+        elif padded:
+            qn, kn, vn = odd_nan(q), odd_nan(kp), odd_nan(vp)
+            nan_probe(name, lambda: pa.paged_attention(qn, kn, vn, **kw),
+                      lambda: ref.paged_attention(qn, kn, vn, **kw), on)
 
-    # ---- slotted attention at head_dim 128 (jamba-v0.1-52b) ------------- #
-    gen128 = torch.Generator(device=dev).manual_seed(3)
-
-    def rand128(*shape):
-        return torch.randn(shape, generator=gen128, device=dev).to(bf)
-
-    for phase, sq in (("e128_causal_prefill", 512), ("e128_decode", 1)):
-        slotted_phase(phase, sq, 128, rand128)
-    return results
+    run = {"causal_prefill": lambda: slotted_phase("causal_prefill", 512),
+           "decode": lambda: slotted_phase("decode", 1),
+           "window_stats": window_phase,
+           "bf16_decode": lambda: paged_phase("bf16_decode", 1, False),
+           "bf16_prefill": lambda: paged_phase("bf16_prefill", 512, False),
+           "int8_decode": lambda: paged_phase("int8_decode", 1, True)}
+    for phase in phases:
+        run[phase]()
 
 
 def train_kernel_phases(torch, flush):
@@ -2226,7 +2324,8 @@ def first_step(torch, sess, params):
 
 def profile_serve(torch, sess, params, layout, kind="decode", steps=5):
     """Trace ``steps`` serve steps on fresh caches with torch.profiler:
-    decode (8 active slots at position 1024) or prefill (slot 0 takes a
+    decode (8 active slots at half the cache: position 1024 of 2048, 512
+    of gpt-1.5B's 1024) or prefill (slot 0 takes a
     512-token prompt at position 0, the other slots masked, as a lone
     admission does; one step at that shape runs first, outside the
     trace). Prints the device busy share of the window, the kernels by
@@ -2239,7 +2338,7 @@ def profile_serve(torch, sess, params, layout, kind="decode", steps=5):
     n = sess.max_slots
     if kind == "decode":
         batch = {"tokens": np.ones((n, 1), np.int32),
-                 "pos": np.full(n, 1024, np.int32),
+                 "pos": np.full(n, sess.spec.max_seq // 2, np.int32),
                  "slot_mask": np.ones(n, bool)}
     else:
         toks = np.zeros((n, 512), np.int32)
@@ -2302,7 +2401,7 @@ def reset_serve_launches():
     ss.reset_launches()
 
 
-def serve_phase(torch, layout, params=None, arch=ARCH):
+def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
     import numpy as np
 
     from repro_torch.api import session
@@ -2310,7 +2409,7 @@ def serve_phase(torch, layout, params=None, arch=ARCH):
 
     kw = dict(page_size=PAGE) if layout == "paged" else {}
     sess = session(arch, reduced=False, device="cuda", max_slots=SLOTS,
-                   max_seq=MAX_SEQ, **kw)
+                   max_seq=max_seq, **kw)
     vocab = sess.cfg.vocab
     if params is None:
         t0 = time.perf_counter()
@@ -2321,7 +2420,7 @@ def serve_phase(torch, layout, params=None, arch=ARCH):
             f"({sess.rc.param_dtype}) in {time.perf_counter() - t0:.2f} s, "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plain = session(arch, reduced=False, device="cuda", max_slots=SLOTS,
-                    max_seq=MAX_SEQ, overrides=dict(kernel_impl="ref"), **kw)
+                    max_seq=max_seq, overrides=dict(kernel_impl="ref"), **kw)
     lg_k = first_step(torch, sess, params)
     lg_p = first_step(torch, plain, params)
     if not bool(torch.isfinite(lg_k).all()) or lg_k.shape != (vocab,):
@@ -2407,6 +2506,23 @@ def serve_phase(torch, layout, params=None, arch=ARCH):
     return res, outs, lg_k, params, sess
 
 
+def compare_layouts(arch, lg_c, lg_p, outs_c, outs_p) -> float:
+    """The contiguous and paged runs of one model: first-step logits
+    within 0.05 of the largest |logit| (both run the bf16 tensor-core
+    bodies, over the same keys in other tiles), token agreement logged
+    (greedy streams part at near-ties of random weights)."""
+    d = (lg_c - lg_p).abs().max().item()
+    agree = sum(a == b for oc, op in zip(outs_c, outs_p)
+                for a, b in zip(oc, op)) / (N_REQ * GEN)
+    log(f"[serve] {arch} contiguous vs paged: first-step logits max |diff| "
+        f"{d:.4e} (tolerance 0.05 * max |logit| = "
+        f"{0.05 * lg_c.abs().max().item():.4f}); token agreement "
+        f"{agree:.4f}")
+    if d > 0.05 * lg_c.abs().max().item():
+        fail(f"{arch}: contiguous and paged first-step logits disagree")
+    return d
+
+
 # --------------------------------------------------------------------------- #
 
 
@@ -2450,7 +2566,7 @@ def main() -> None:
     resources = kernel_resources(build)
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    kernels = kernel_phases(torch, flush)
+    serve_kernels = kernel_phases(torch, flush)
     train_kernels = train_kernel_phases(torch, flush)
     gpt_kernels = gpt_kernel_phases(torch, flush)
     shard_kernels = shard_kernel_phases(torch, flush)
@@ -2460,19 +2576,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     contig, outs_c, lg_c, params, sess_c = serve_phase(torch, "contiguous")
     paged, outs_p, lg_p, _, sess_p = serve_phase(torch, "paged", params)
-    d = (lg_c - lg_p).abs().max().item()
-    agree = sum(a == b for oc, op in zip(outs_c, outs_p)
-                for a, b in zip(oc, op)) / (N_REQ * GEN)
-    log(f"[serve] contiguous vs paged: first-step logits max |diff| "
-        f"{d:.4e} (tolerance 0.05 * max |logit| = "
-        f"{0.05 * lg_c.abs().max().item():.4f}); token agreement "
-        f"{agree:.4f}")
-    if d > 0.05 * lg_c.abs().max().item():
-        fail("contiguous and paged first-step logits disagree")
+    compare_layouts(ARCH, lg_c, lg_p, outs_c, outs_p)
     serve = [contig, paged]
-    for row in kernels:
-        lay = contig if row["name"].startswith("slotted") else paged
-        row["launches"] = lay["launches"][row["name"].split(":")[0]]
+    kernels = []
     # each training cell frees its session, params and optimizer state
     # before the next phase, so that two peaks never add up
     train = train_phase(torch, LLAMA)
@@ -2491,9 +2597,6 @@ def main() -> None:
     jamba, _, _, params_j, sess_j = serve_phase(torch, "contiguous",
                                                 arch=JAMBA)
     serve.append(jamba)
-    for row in kernels:
-        if row["name"].startswith("slotted_attention:e128"):
-            row["launches"] = jamba["launches"]["slotted_attention"]
     for row in scan_kernels:
         row["launches"] = jamba["launches"]["selective_scan"]
     kernels += scan_kernels
@@ -2506,6 +2609,41 @@ def main() -> None:
     del params_j, sess_j, params, sess_c, sess_p
     gc.collect()
     torch.cuda.empty_cache()
+    # the paper's gpt-1.5B at full width and depth in both layouts (K3,
+    # then K4 at head_dim 96), then yi-9b paged (K4 at 128): 21 GB of
+    # weights together, freed after their profiles
+    log(f"[serve] before gpt: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    gpt_c, outs_gc, lg_gc, params_g, sess_gc = serve_phase(
+        torch, "contiguous", arch=GPT_SERVE, max_seq=GPT_MAX_SEQ)
+    gpt_p, outs_gp, lg_gp, _, sess_gp = serve_phase(
+        torch, "paged", params_g, arch=GPT_SERVE, max_seq=GPT_MAX_SEQ)
+    compare_layouts(GPT_SERVE, lg_gc, lg_gp, outs_gc, outs_gp)
+    log(f"[serve] before yi: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    yi, _, _, params_y, sess_y = serve_phase(torch, "paged", arch=YI_SERVE)
+    serve += [gpt_c, gpt_p, yi]
+    # their profiles after their timed runs
+    profiles += [profile_serve(torch, s, p, lay, kind, steps)
+                 for s, p, lay in ((sess_gc, params_g, "gpt_contiguous"),
+                                   (sess_gp, params_g, "gpt_paged"),
+                                   (sess_y, params_y, "yi_paged"))
+                 for kind, steps in (("decode", 5), ("prefill", 3))]
+    del params_g, sess_gc, sess_gp, params_y, sess_y
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each serving kernel row reads its wrapper's launches in the serve run
+    # of its cell: the phase name's width tag and the wrapper pick it
+    runs = {("", "slotted_attention"): contig, ("", "paged_attention"): paged,
+            ("e128_", "slotted_attention"): jamba,
+            ("e128_", "paged_attention"): yi,
+            ("e96_", "slotted_attention"): gpt_c,
+            ("e96_", "paged_attention"): gpt_p}
+    for row in serve_kernels:
+        lib, phase = row["name"].split(":")
+        tag = next((t for t in ("e96_", "e128_") if phase.startswith(t)), "")
+        row["launches"] = runs[tag, lib]["launches"][lib]
+    kernels = serve_kernels + kernels
     profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
     gc.collect()
     torch.cuda.empty_cache()

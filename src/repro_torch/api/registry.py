@@ -21,7 +21,10 @@ class RegistryError(ValueError):
 
 ARCHS = {"llama3p2_1b": "repro_torch.configs.llama3p2_1b",
          "jamba_v0p1_52b": "repro_torch.configs.jamba_v0p1_52b",
-         "gpt_paper": "repro_torch.configs.gpt_paper"}
+         "gpt_paper": "repro_torch.configs.gpt_paper",
+         "yi_9b": "repro_torch.configs.yi_9b",
+         "minitron_4b": "repro_torch.configs.minitron_4b",
+         "phi4_mini_3p8b": "repro_torch.configs.phi4_mini_3p8b"}
 
 
 def get_arch(name: str):

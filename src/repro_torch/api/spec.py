@@ -11,10 +11,11 @@ against the process group), with flat or per-tensor collectives
 registered schedule, the §4 ``autogen`` / ``autogen_gated``, or
 ``schedule="auto"`` / ``"auto_profiled"`` (the plan selection under
 ``cost_preset``, ``mem_budget``, ``profile_top_k`` and
-``profile_budget_s``, with the reference's checks). Topologies, expert
-parallelism, Mamba/MoE training, serving LayerNorm / GELU models (the
-paper's GPT), multi-rank serving and a serve session's ``"auto"`` are
-refused with the roadmap item they wait for.
+``profile_budget_s``, with the reference's checks). Serving takes
+RMSNorm or LayerNorm and the SwiGLU or GELU MLP (the paper's GPT
+included). Topologies, expert parallelism, Mamba/MoE training,
+multi-rank serving and a serve session's ``"auto"`` are refused with the
+roadmap item they wait for.
 """
 
 from __future__ import annotations
@@ -172,15 +173,6 @@ class SessionSpec:
             raise SessionError(
                 "serving runs on one rank: multi-rank serving on the tick "
                 f"engine waits for {LATER}")
-        mod = get_arch(self.arch)
-        cfg = (mod.reduced()[0] if self.reduced
-               else getattr(mod, "one_card_config", mod.config)())
-        if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
-            raise SessionError(
-                f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}) "
-                "waits for GPT serving: LayerNorm and the GELU MLP on the "
-                "serve path and K3/K4 at head_dim 96 (ROADMAP.md queue 1 "
-                "item 3); train it with mode='train'")
         if self.max_seq is None or self.max_seq < 1:
             raise SessionError(
                 "serve sessions need max_seq=<prompt+gen+slack> (the KV "

@@ -4,14 +4,17 @@ MHA with head_dim = d_model / n_heads (96 for 1.5B, 128 for the others),
 LayerNorm, the GELU MLP (d_ff = 4 d_model), RoPE at theta 10 000, an
 untied head, vocab 50304. Same values as ``repro/configs/gpt_paper.py``.
 
-The port trains the 1.5B model at its published width on one card
-(``one_card_train_run()``: 1,633,430,016 parameters, about 29.4 GB of
-bf16 params, float32 master, moments and grads). Serving it waits for
-K3/K4 at head_dim 96 and a LayerNorm / GELU serve path (ROADMAP.md
-queue 1 item 3), so this module has no ``one_card_run()``.
+The port trains and serves the 1.5B model at its published width and
+depth on one card: 1,633,430,016 parameters. Training
+(``one_card_train_run()``) holds about 29.4 GB of bf16 params, float32
+master, moments and grads. Serving (``one_card_run()``) holds
+3,266,860,032 bytes of bf16 weights and, at 8 slots of its 1024
+positions, a bf16 KV cache of 1,660,944,384 bytes (22 layers x K and V
+x 24 heads x 96); its attention runs K3 (contiguous cache) or K4 (page
+pool) at head_dim 96.
 """
 
-from repro_torch.configs._base import one_card_train
+from repro_torch.configs._base import one_card, one_card_train
 from repro_torch.models.common import ModelConfig, RunConfig
 
 SIZES = {
@@ -33,6 +36,10 @@ def config(size: str = "1.5B") -> ModelConfig:
         d_ff=4 * s["d_model"], vocab=50304,
         norm="layernorm", act="gelu_mlp", max_seq=1024,
     )
+
+
+def one_card_run() -> RunConfig:
+    return one_card()
 
 
 def one_card_train_run() -> RunConfig:

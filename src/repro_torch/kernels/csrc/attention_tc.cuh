@@ -42,6 +42,18 @@
 //   l sums the float32 P before P is rounded to bf16, so m and l keep
 //   the float32 rule; out and acc carry P's bf16 rounding.
 //
+// * Head widths: the tiles are whole 64-column blocks of the 128-byte
+//   swizzle, so a width ER that is not a multiple of 64 (gpt-1.5B's 96)
+//   runs the body of its padded width E = pad64(ER), as K1 does: q, K and
+//   V fill their ER real columns from device memory (rows ER wide there,
+//   ER * 2 bytes in bf16 and ER in int8, both multiples of 16), the
+//   chunks past ER are zero-filled by cp.async with a zero source size
+//   (never read: the next head's columns stay untouched), S and P V add
+//   exact zeros over them, and only the ER real columns of out, of the
+//   split scratch and of the window contract's acc are stored. An int8
+//   page's scale is its amax over the ER real columns; the pad columns
+//   convert to zeros. That spends E / ER of the products (4/3 at 96).
+//
 // What bounds it on the H100: at decode (sq = 1, 4 q heads a kv head) a
 // block reads each K/V byte once for 4 q rows: 8 flops a K/V byte pair,
 // far below the card's ~295 flops a byte, so bytes, and the key splits
@@ -161,41 +173,47 @@ __device__ __forceinline__ void st_shared16(uint32_t a, uint4 v) {
 }
 
 // Fills swizzled bf16 K and V tiles (BN rows x E) from row offsets
-// off(r) (elements; < 0 for a row read as zeros), shared by K and V.
-// Thread t copies chunk t % C of rows t / C + j * STEP, as load_tile.
-template <int E, typename Off>
+// off(r) (elements; < 0 for a row read as zeros), shared by K and V; the
+// chunks past the ER real columns are zeros. Thread t copies chunk t % C
+// of rows t / C + j * STEP, as load_tile.
+template <int E, int ER, typename Off>
 __device__ __forceinline__ void load_kv16(uint32_t sK, uint32_t sV,
                                           const bf16* k, const bf16* v,
                                           Off off) {
   constexpr int C = E / 8, STEP = mma::WG / C;
   static_assert(BN % STEP == 0 && STEP % 8 == 0, "tile");
+  static_assert(ER % 8 == 0 && ER <= E, "real columns");
   const int t = threadIdx.x % mma::WG, r0 = t / C, c = t % C;
+  const bool col = ER == E || c * 8 < ER;
   const uint32_t d = mma::swz<BN>(r0, c);
 #pragma unroll
   for (int j = 0; j < BN / STEP; ++j) {
     const int64_t e = off(r0 + j * STEP);
-    const bool ok = e >= 0;
+    const bool ok = col && e >= 0;
     const int64_t src = ok ? e + c * 8 : 0;
     mma::cp16(sK + d + j * STEP * 128, k + src, ok);
     mma::cp16(sV + d + j * STEP * 128, v + src, ok);
   }
 }
 
-// Raw int8 K and V tiles (BN rows x E bytes, row-major) at sK, sV.
-// Thread t copies chunk t % C (16 values) of rows t / C + j * STEP; it
-// converts the same chunks later (convert8), so no barrier sits between.
-template <int E, typename Off>
+// Raw int8 K and V tiles (BN rows x E bytes, row-major) at sK, sV; the
+// chunks past the ER real columns are zeros. Thread t copies chunk t % C
+// (16 values) of rows t / C + j * STEP; it converts the same chunks later
+// (convert8), so no barrier sits between.
+template <int E, int ER, typename Off>
 __device__ __forceinline__ void load_kv8(uint32_t sK, uint32_t sV,
                                          const int8_t* k, const int8_t* v,
                                          Off off) {
   constexpr int C = E / 16, STEP = mma::WG / C;
   static_assert(BN % STEP == 0, "tile");
+  static_assert(ER % 16 == 0 && ER <= E, "real columns");
   const int t = threadIdx.x % mma::WG, r0 = t / C, c = t % C;
+  const bool col = ER == E || c * 16 < ER;
 #pragma unroll
   for (int j = 0; j < BN / STEP; ++j) {
     const int r = r0 + j * STEP;
     const int64_t e = off(r);
-    const bool ok = e >= 0;
+    const bool ok = col && e >= 0;
     const int64_t src = ok ? e + c * 16 : 0;
     mma::cp16(sK + r * E + c * 16, k + src, ok);
     mma::cp16(sV + r * E + c * 16, v + src, ok);
@@ -231,8 +249,9 @@ __device__ __forceinline__ void convert8(uint32_t raw, uint32_t dst) {
 // ---- the block body ------------------------------------------------------ //
 
 // This thread's values of row half h (rows r0 + 8 h of the m64 tile,
-// columns 8 j + c0, + 1) of the float32 accumulator o to the row arow.
-template <int E>
+// columns 8 j + c0, + 1) of the float32 accumulator o to the row arow,
+// the ER real columns only.
+template <int E, int ER>
 __device__ __forceinline__ void store_acc(float* arow,
                                           const float (&o)[E / 64][32],
                                           int h, int c0) {
@@ -240,15 +259,17 @@ __device__ __forceinline__ void store_acc(float* arow,
   for (int ob = 0; ob < E / 64; ++ob)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(arow + ob * 64 + 8 * j + c0) =
+      if (ER == E || ob * 64 + 8 * j < ER)
+        *reinterpret_cast<float2*>(arow + ob * 64 + 8 * j + c0) =
           make_float2(o[ob][4 * j + 2 * h], o[ob][4 * j + 2 * h + 1]);
 }
 
-// WIN: the window + stats contract (WindowRows; p is a WinParams, its
-// stats written here with ns == 1); otherwise causal rows.
-template <int E, bool WIN = false, typename PT>
+// ER: the head width in device memory; the tiles are E = pad64(ER)
+// wide. WIN: the window + stats contract (WindowRows; p is a WinParams,
+// its stats written here with ns == 1); otherwise causal rows.
+template <int ER, bool WIN = false, typename PT>
 __device__ __forceinline__ void attend(const PT& p) {
-  static_assert(E % 64 == 0, "head dim");
+  constexpr int E = mma::pad64(ER);
   using namespace mma;
   using KV = typename PT::Source;
   using L = Layout<E, KV>;
@@ -278,8 +299,8 @@ __device__ __forceinline__ void attend(const PT& p) {
   const int t_hi = (split + 1) * n_tiles / p.ns;
   const float sl2 = p.scale * LOG2E;
 
-  load_tile<BM, E>(sQ, p.q, [&](int r) -> const bf16* {
-    return m0 + r < M ? p.q + rows.row(m0 + r) * E : nullptr;
+  load_tile<BM, E, ER>(sQ, p.q, [&](int r) -> const bf16* {
+    return m0 + r < M ? p.q + rows.row(m0 + r) * ER : nullptr;
   });
 
   FastDiv ps_div(1);
@@ -288,7 +309,7 @@ __device__ __forceinline__ void attend(const PT& p) {
     const uint32_t st = sRing + (t & 1) * L::stage;
     const int n0 = t * BN;
     if constexpr (!KV::paged) {
-      load_kv16<E>(st, st + L::tile, kv.k, kv.v, [&](int r) -> int64_t {
+      load_kv16<E, ER>(st, st + L::tile, kv.k, kv.v, [&](int r) -> int64_t {
         return n0 + r < kend ? kv.row(b, gi, n0 + r) : -1;
       });
     } else {
@@ -297,10 +318,10 @@ __device__ __forceinline__ void attend(const PT& p) {
         if (n >= kend) return -1;
         const int j = ps_div.div(n);
         return ((static_cast<int64_t>(kv.page(b, j)) * kv.ps + n -
-                 j * kv.ps) * G + gi) * E;
+                 j * kv.ps) * G + gi) * ER;
       };
       if constexpr (KV::quant) {
-        load_kv8<E>(st, st + L::raw, kv.k, kv.v, off);
+        load_kv8<E, ER>(st, st + L::raw, kv.k, kv.v, off);
         // the tile's K scales (threads 0..63) and V scales (64..127)
         const int t8 = threadIdx.x % WG, key = t8 % BN, n = n0 + key;
         const bool ok = n < kend;
@@ -308,7 +329,7 @@ __device__ __forceinline__ void attend(const PT& p) {
         cp4(st + 2 * L::raw + t8 * 4,
             ok ? src + kv.page(b, ps_div.div(n)) * G + gi : src, ok);
       } else {
-        load_kv16<E>(st, st + L::tile, kv.k, kv.v, off);
+        load_kv16<E, ER>(st, st + L::tile, kv.k, kv.v, off);
       }
     }
   };
@@ -453,21 +474,23 @@ __device__ __forceinline__ void attend(const PT& p) {
     if (m >= M) continue;
     if (p.ns == 1) {
       const float inv = 1.f / fmaxf(lsum, 1e-30f);
-      bf16* orow = p.out + rows.row(m) * E;
+      bf16* orow = p.out + rows.row(m) * ER;
 #pragma unroll
       for (int ob = 0; ob < E / 64; ++ob)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j) {
+          if (ER != E && ob * 64 + 8 * j >= ER) continue;  // pad columns
           *reinterpret_cast<__nv_bfloat162*>(orow + ob * 64 + 8 * j + c0) =
               __floats2bfloat162_rn(o[ob][4 * j + 2 * h] * inv,
                                     o[ob][4 * j + 2 * h + 1] * inv);
+        }
       if constexpr (WIN) {  // the stats, with m back in the natural log
         const size_t st = rows.stat(m);
         if ((lane & 3) == 0) {
           p.m[st] = mx[h] * LN2;
           p.l[st] = lsum;
         }
-        store_acc<E>(p.acc + st * E, o, h, c0);
+        store_acc<E, ER>(p.acc + st * ER, o, h, c0);
       }
     } else {
       const size_t r = static_cast<size_t>(split) * p.R + rows.stat(m);
@@ -475,13 +498,15 @@ __device__ __forceinline__ void attend(const PT& p) {
         pm[r] = mx[h];
         pl[r] = lsum;
       }
-      store_acc<E>(pa + r * E, o, h, c0);
+      store_acc<E, ER>(pa + r * ER, o, h, c0);
     }
   }
 }
 
 // Merges the ns key splits of part (m in the log2 domain, l, acc) in
-// split order into out [b, sq, H, E] bf16; one warp a row of [b, H, sq].
+// split order into out [b, sq, H, E] bf16; one warp a row of [b, H, sq],
+// E / 32 values a lane (E is the real width: 3 values at 96, stored one
+// at a time).
 // STATS (the window contract): also writes the merged m in the natural
 // log domain, l and the unnormalised acc (relative to the merged max) to
 // m_out, l_out [b, H, sq] and acc_out [b, H, sq, E].
@@ -494,6 +519,7 @@ __device__ __forceinline__ void combine(const float* __restrict__ part,
                                         float* __restrict__ acc_out =
                                             nullptr) {
   constexpr int V = E / 32;  // values a lane
+  static_assert(E % 32 == 0, "head dim");
   const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (r >= R) return;
@@ -520,16 +546,26 @@ __device__ __forceinline__ void combine(const float* __restrict__ part,
       l_out[r] = lsum;
     }
     float* a = acc_out + static_cast<size_t>(r) * E + lane * V;
+    if constexpr (V % 2 == 0) {
 #pragma unroll
-    for (int u = 0; u < V; u += 2)
-      *reinterpret_cast<float2*>(a + u) = make_float2(acc[u], acc[u + 1]);
+      for (int u = 0; u < V; u += 2)
+        *reinterpret_cast<float2*>(a + u) = make_float2(acc[u], acc[u + 1]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) a[u] = acc[u];
+    }
   }
   const int i = r % sq, h = (r / sq) % H, b = r / (sq * H);
   bf16* o = out + ((static_cast<size_t>(b) * sq + i) * H + h) * E + lane * V;
+  if constexpr (V % 2 == 0) {
 #pragma unroll
-  for (int u = 0; u < V; u += 2)
-    *reinterpret_cast<__nv_bfloat162*>(o + u) =
-        __floats2bfloat162_rn(acc[u] * inv, acc[u + 1] * inv);
+    for (int u = 0; u < V; u += 2)
+      *reinterpret_cast<__nv_bfloat162*>(o + u) =
+          __floats2bfloat162_rn(acc[u] * inv, acc[u + 1] * inv);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) o[u] = __float2bfloat16_rn(acc[u] * inv);
+  }
 }
 
 constexpr int COMBINE_ROWS = 4;  // rows (warps) a combine block
@@ -553,11 +589,13 @@ inline void run_combine(CombineStats comb, const WinParams<KV>& p, int grid,
 }
 
 // Launches the body kernel over (b * G, row tiles, ns) and, with ns > 1,
-// the combine kernel. Returns 0 or a cudaError_t.
-template <int E, typename PT, typename Comb>
+// the combine kernel; ER is the real head width. Returns 0 or a
+// cudaError_t.
+template <int ER, typename PT, typename Comb>
 inline int launch(void (*kern)(PT), Comb comb, const PT& p, int b,
                   cudaStream_t stream) {
-  constexpr size_t smem = Layout<E, typename PT::Source>::bytes;
+  constexpr size_t smem =
+      Layout<mma::pad64(ER), typename PT::Source>::bytes;
   cudaError_t err = mma::allow_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = p.H / p.kv.G * p.sq;

@@ -29,8 +29,12 @@
 // bytes), are converted to bf16 in one register pass (exact), and their
 // scales are applied to S's columns (K) and P's columns (V), never in
 // device memory. Small grids (decode) split the keys over blocks and
-// combine_e64 merges the splits, as in the slotted kernel. Instantiated
-// for e = 64 (llama3.2-1b).
+// combine_e* merges the splits, as in the slotted kernel. Instantiated
+// for e = 64 (llama3.2-1b), e = 96 (gpt-1.5B: the 128-wide body, its 32
+// pad columns zero-filled in shared memory and never stored; an int8
+// page's per-head scale covers the 96 real columns) and e = 128 (yi-9b),
+// each over bf16 and int8 pages (paged_tc_{bf16,int8}, with an _e96 or
+// _e128 suffix past 64).
 //
 // float32 q or pools, and bf16 q over float32 pools: the CUDA-core body
 // (attention_tile.cuh attend), int8 dequantised in shared memory.
@@ -85,12 +89,19 @@ int run(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dim 64 only (llama3.2-1b); other widths come with their configs.
+// Head dims 64 (llama3.2-1b), 96 (gpt-1.5B) and 128 (yi-9b); other
+// widths come with their configs.
 template <typename TQ, typename TKV>
 int by_shape(const Args& a, int E, int EV) {
   const bool small = attn::pick_bm(a.H / a.G * a.sq) == 16;
-  if (E == 64 && EV == 64)
+  if (E != EV) return -1;
+  if (E == 64)
     return small ? run<TQ, TKV, 64, 64, 16>(a) : run<TQ, TKV, 64, 64, 64>(a);
+  if (E == 96)
+    return small ? run<TQ, TKV, 96, 96, 16>(a) : run<TQ, TKV, 96, 96, 64>(a);
+  if (E == 128)
+    return small ? run<TQ, TKV, 128, 128, 16>(a)
+                 : run<TQ, TKV, 128, 128, 64>(a);
   return -1;
 }
 
@@ -116,14 +127,39 @@ __global__ void __launch_bounds__(mma::WG)
     paged_tc_int8(const Params<Paged<64, int8_t>> p) {
   attn_tc::attend<64>(p);
 }
+__global__ void __launch_bounds__(mma::WG)
+    paged_tc_bf16_e96(const Params<Paged<96, bf16>> p) {
+  attn_tc::attend<96>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
+    paged_tc_int8_e96(const Params<Paged<96, int8_t>> p) {
+  attn_tc::attend<96>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
+    paged_tc_bf16_e128(const Params<Paged<128, bf16>> p) {
+  attn_tc::attend<128>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
+    paged_tc_int8_e128(const Params<Paged<128, int8_t>> p) {
+  attn_tc::attend<128>(p);
+}
 __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
     combine_e64(const float* part, bf16* out, int ns, int R, int sq, int H) {
   attn_tc::combine<64>(part, out, ns, R, sq, H);
 }
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_e96(const float* part, bf16* out, int ns, int R, int sq, int H) {
+  attn_tc::combine<96>(part, out, ns, R, sq, H);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_e128(const float* part, bf16* out, int ns, int R, int sq,
+                 int H) {
+  attn_tc::combine<128>(part, out, ns, R, sq, H);
+}
 
-template <typename T, typename Kern>
-int run_tc(const Args& a, Kern kern) {
-  const Params<Paged<64, T>> p{
+template <int E, typename T, typename Kern>
+int run_tc(const Args& a, Kern kern, attn_tc::Combine comb) {
+  const Params<Paged<E, T>> p{
       static_cast<const bf16*>(a.q),
       static_cast<bf16*>(a.out),
       a.part,
@@ -135,7 +171,23 @@ int run_tc(const Args& a, Kern kern) {
       a.scale,
       {static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.ks, a.vs,
        a.pt, a.ppr, a.ps, a.n_pages, a.G}};
-  return attn_tc::launch<64>(kern, combine_e64, p, a.b, a.stream);
+  return attn_tc::launch<E>(kern, comb, p, a.b, a.stream);
+}
+
+// bf16 q over bf16 (kv_dtype 1) or int8 (2) pages
+int by_shape_tc(const Args& a, int kv_dtype, int E, int EV) {
+  const bool i8 = kv_dtype == 2;
+  if (E != EV) return -1;
+  if (E == 64)
+    return i8 ? run_tc<64, int8_t>(a, paged_tc_int8, combine_e64)
+              : run_tc<64, bf16>(a, paged_tc_bf16, combine_e64);
+  if (E == 96)
+    return i8 ? run_tc<96, int8_t>(a, paged_tc_int8_e96, combine_e96)
+              : run_tc<96, bf16>(a, paged_tc_bf16_e96, combine_e96);
+  if (E == 128)
+    return i8 ? run_tc<128, int8_t>(a, paged_tc_int8_e128, combine_e128)
+              : run_tc<128, bf16>(a, paged_tc_bf16_e128, combine_e128);
+  return -1;
 }
 
 }  // namespace
@@ -159,11 +211,8 @@ extern "C" int paged_attention(int q_dtype, int kv_dtype, const void* q,
   if (b == 0 || sq == 0) return 0;
   if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)) return -1;
   if (n_split < 1 || (n_split > 1 && part == nullptr)) return -1;
-  if (q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2)) {
-    if (E != 64 || EV != 64) return -1;
-    return kv_dtype == 1 ? run_tc<bf16>(a, paged_tc_bf16)
-                         : run_tc<int8_t>(a, paged_tc_int8);
-  }
+  if (q_dtype == 1 && (kv_dtype == 1 || kv_dtype == 2))
+    return by_shape_tc(a, kv_dtype, E, EV);
   if (n_split != 1) return -1;
   if (q_dtype == 0) return by_pool(a, kv_dtype, E, EV);
   if (q_dtype == 1 && kv_dtype == 0)

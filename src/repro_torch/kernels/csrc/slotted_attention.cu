@@ -29,8 +29,11 @@
 // under two blocks an SM (decode: b * G blocks), the wrapper splits the
 // keys: each block takes a contiguous range of whole tiles and writes
 // float32 (m, l, acc) to scratch, and combine_e* merges the splits in
-// fixed order into the bf16 out. Instantiated for e = 64 (llama3.2-1b)
-// and e = 128 (jamba-v0.1-52b).
+// fixed order into the bf16 out. Instantiated for e = 64 (llama3.2-1b),
+// e = 96 (gpt-1.5B: the 128-wide body with its 32 pad columns zero-filled
+// in shared memory, never read from device memory and never stored; the
+// combine and the split scratch hold the 96 real columns) and e = 128
+// (jamba-v0.1-52b).
 //
 // The window + stats contract in bf16 (slotted_win_e*) is the same body
 // with WindowRows: every row sees the keys below pos[b], so a block loads
@@ -95,15 +98,17 @@ int run(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dims 64 (llama3.2-1b) and 128 (jamba-v0.1-52b); other widths come
-// with their configs. At E = EV = 128 a BM-64 block takes 115,456 bytes of
-// dynamic shared memory (allow_smem raises the cap) and 64 accumulator
-// registers a thread.
+// Head dims 64 (llama3.2-1b), 96 (gpt-1.5B) and 128 (jamba-v0.1-52b);
+// other widths come with their configs. At E = EV = 128 a BM-64 block
+// takes 115,456 bytes of dynamic shared memory (allow_smem raises the
+// cap) and 64 accumulator registers a thread.
 template <typename TQ, typename TKV>
 int by_shape(const Args& a, int E, int EV) {
   const bool small = attn::pick_bm(a.H / a.G * a.sq) == 16;
   if (E == 64 && EV == 64)
     return small ? run<TQ, TKV, 64, 64, 16>(a) : run<TQ, TKV, 64, 64, 64>(a);
+  if (E == 96 && EV == 96)
+    return small ? run<TQ, TKV, 96, 96, 16>(a) : run<TQ, TKV, 96, 96, 64>(a);
   if (E == 128 && EV == 128)
     return small ? run<TQ, TKV, 128, 128, 16>(a)
                  : run<TQ, TKV, 128, 128, 64>(a);
@@ -122,12 +127,20 @@ __global__ void __launch_bounds__(mma::WG)
   attn_tc::attend<64>(p);
 }
 __global__ void __launch_bounds__(mma::WG)
+    slotted_tc_e96(const Params<Contig<96>> p) {
+  attn_tc::attend<96>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
     slotted_tc_e128(const Params<Contig<128>> p) {
   attn_tc::attend<128>(p);
 }
 __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
     combine_e64(const float* part, bf16* out, int ns, int R, int sq, int H) {
   attn_tc::combine<64>(part, out, ns, R, sq, H);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_e96(const float* part, bf16* out, int ns, int R, int sq, int H) {
+  attn_tc::combine<96>(part, out, ns, R, sq, H);
 }
 __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
     combine_e128(const float* part, bf16* out, int ns, int R, int sq,
@@ -141,6 +154,10 @@ __global__ void __launch_bounds__(mma::WG)
   attn_tc::attend<64, true>(p);
 }
 __global__ void __launch_bounds__(mma::WG)
+    slotted_win_e96(const WinParams<Contig<96>> p) {
+  attn_tc::attend<96, true>(p);
+}
+__global__ void __launch_bounds__(mma::WG)
     slotted_win_e128(const WinParams<Contig<128>> p) {
   attn_tc::attend<128, true>(p);
 }
@@ -148,6 +165,11 @@ __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
     combine_stats_e64(const float* part, bf16* out, float* m, float* l,
                       float* acc, int ns, int R, int sq, int H) {
   attn_tc::combine<64, true>(part, out, ns, R, sq, H, m, l, acc);
+}
+__global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
+    combine_stats_e96(const float* part, bf16* out, float* m, float* l,
+                      float* acc, int ns, int R, int sq, int H) {
+  attn_tc::combine<96, true>(part, out, ns, R, sq, H, m, l, acc);
 }
 __global__ void __launch_bounds__(32 * attn_tc::COMBINE_ROWS)
     combine_stats_e128(const float* part, bf16* out, float* m, float* l,
@@ -186,6 +208,9 @@ int by_shape_tc(const Args& a, int E, int EV) {
   if (E == 64 && EV == 64)
     return a.window ? run_win<64>(a, slotted_win_e64, combine_stats_e64)
                     : run_tc<64>(a, slotted_tc_e64, combine_e64);
+  if (E == 96 && EV == 96)
+    return a.window ? run_win<96>(a, slotted_win_e96, combine_stats_e96)
+                    : run_tc<96>(a, slotted_tc_e96, combine_e96);
   if (E == 128 && EV == 128)
     return a.window ? run_win<128>(a, slotted_win_e128, combine_stats_e128)
                     : run_tc<128>(a, slotted_tc_e128, combine_e128);

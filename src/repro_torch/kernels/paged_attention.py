@@ -48,11 +48,10 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"slotted_attention": 0, "paged_attention": 0}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# (e == ev) head widths each kernel is instantiated for: the slotted
-# kernel also at 128 (jamba-v0.1-52b's attention layer); the paged kernel
-# at 64 only (the flash kernels have their own, flash_attention.HEAD_DIMS)
-_HEAD_DIMS = (64,)
-_SLOTTED_HEAD_DIMS = (64, 128)
+# (e == ev) head widths both kernels are instantiated for: llama3.2-1b's
+# 64, gpt-1.5B's 96 (the 128-wide tensor-core body with zero pad
+# columns) and 128 (jamba-v0.1-52b, yi-9b); any other width raises
+HEAD_DIMS = (64, 96, 128)
 
 
 # blocks a (batch row, kv head) row tile of the tensor-core body: 64
@@ -158,7 +157,7 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
 
 
 def _check_dims(e: int, ev: int, h: int, g: int,
-                dims: tuple = _HEAD_DIMS) -> None:
+                dims: tuple = HEAD_DIMS) -> None:
     if e != ev or e not in dims:
         raise ValueError(
             f"head dims e={e}, ev={ev}: the kernel is built for e == ev "
@@ -200,7 +199,7 @@ def _slotted(q, k, v, pos, window):
     if k.shape[0] != b or v.shape[:3] != k.shape[:3] or k.shape[3] != e:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
-    _check_dims(e, ev, h, g, _SLOTTED_HEAD_DIMS)
+    _check_dims(e, ev, h, g)
     out = torch.empty((b, sq, h, ev), dtype=q.dtype, device=dev)
     m = l = acc = None
     if window:

@@ -12,6 +12,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --slots 4 --n-requests 8 --prompt 12 --gen 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt_paper \\
+      --full --device cuda --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
+      --full --device cuda --slots 8 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --full --device cuda --slots 8
 
@@ -21,10 +25,13 @@ instead of drawing them; its pipeline stacking must match this
 session's, so a checkpoint of the one-rank trainer (pp 1) serves with
 ``--pp 1``.
 
-``--full`` serves the published width on one card (llama3.2-1b: 16
-layers, d_model 2048; jamba-v0.1-52b: d_model 4096 at depth 8, one
-period of its layer pattern, as ``one_card_config()`` cuts it; bf16);
-without it the reduced smoke config runs. Jamba's Mamba layers keep
+``--full`` serves the published width on one card, in bf16
+(llama3.2-1b: 16 layers, d_model 2048; gpt_paper: the paper's
+gpt-1.5B, 22 layers, d_model 2304, 24 heads of 96, LayerNorm and the
+GELU MLP; yi-9b, minitron-4b and phi4-mini-3.8b at full depth;
+jamba-v0.1-52b: d_model 4096 at depth 8, one period of its layer
+pattern, as ``one_card_config()`` cuts it); without it the reduced
+smoke config runs. Jamba's Mamba layers keep
 per-slot state, so ``--page-size`` and ``--prefill-chunk`` are refused
 for it.
 """

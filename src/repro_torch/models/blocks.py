@@ -6,9 +6,8 @@ Mamba and gathered-MoE layers. Training (dense attention layers only):
 (SwiGLU or the GELU MLP) are
 written against the ZeroPP tape (``core/tape.py``): every parameterised
 GEMM is a ``dense`` node (deferred dW, the W task), everything else a
-``prim`` (immediate grads in B). Serving (RMSNorm and SwiGLU models
-only; ``cached_layer`` and ``norm_fwd`` refuse the others): RMSNorm, the
-SwiGLU FFN,
+``prim`` (immediate grads in B). Serving: ``norm_fwd`` (RMSNorm or
+LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP),
 ``attn_cached`` with its three cache layouts (paged pool, per-slot
 positions, one scalar position), ``mamba_cached`` (prefill through the
 selective-scan kernel, decode one SSM step) and ``moe_fwd`` (the
@@ -206,26 +205,34 @@ def _dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
 
 
 def check_serves(cfg) -> None:
-    """The serve path computes RMSNorm and SwiGLU only: refuse a config
-    that asks for anything else rather than compute the wrong function."""
-    if cfg.norm != "rmsnorm" or cfg.act != "swiglu":
+    """The blocks compute RMSNorm or LayerNorm and the SwiGLU or GELU MLP,
+    serving and training: refuse a config that asks for anything else
+    rather than compute the wrong function."""
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.act not in (
+            "swiglu", "gelu_mlp"):
         raise NotImplementedError(
-            f"serving {cfg.name} (norm={cfg.norm!r}, act={cfg.act!r}): the "
-            "serve path computes RMSNorm and the SwiGLU MLP only; LayerNorm "
-            "and GELU serving, with K3/K4 at head_dim 96, come with GPT "
-            "serving (ROADMAP.md queue 1 item 3)")
+            f"norm={cfg.norm!r}, act={cfg.act!r} of {cfg.name}: the port "
+            "computes RMSNorm or LayerNorm and the SwiGLU or GELU MLP")
 
 
 def norm_fwd(cfg, params, pfx, x):
-    """RMSNorm in float32, cast back to x.dtype."""
+    """RMSNorm (eps 1e-6) or LayerNorm (eps 1e-5, with its bias) in
+    float32, cast back to x.dtype."""
     check_serves(cfg)
+    if cfg.norm == "layernorm":
+        return layer_norm(x, params[f"{pfx}.scale"], params[f"{pfx}.bias"])
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
     return (y * params[f"{pfx}.scale"]).to(x.dtype)
 
 
 def ffn_fwd(ctx, params, pfx, x):
-    """SwiGLU (``cached_layer`` refuses configs with another MLP)."""
+    """SwiGLU, or the GELU MLP ``gelu(x wi) wd`` (tanh approximation),
+    told apart by their params (``ffn_specs`` gives the GELU MLP ``wi``
+    and ``wd``, SwiGLU ``wg``, ``wu`` and ``wd``)."""
+    if f"{pfx}.wi" in params:
+        h = gelu(_dense(x, params[f"{pfx}.wi"]))
+        return _dense(h, params[f"{pfx}.wd"])
     g = _dense(x, params[f"{pfx}.wg"])
     u = _dense(x, params[f"{pfx}.wu"])
     return _dense(F.silu(g) * u, params[f"{pfx}.wd"])

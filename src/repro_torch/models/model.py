@@ -77,13 +77,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(_NOT_PORTED.format(
             what=", ".join(missing), name=cfg.name))
-    # the blocks and the final norm compute these two of each, whatever
-    # else a config names
-    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.act not in (
-            "swiglu", "gelu_mlp"):
-        raise NotImplementedError(
-            f"norm={cfg.norm!r}, act={cfg.act!r} of {cfg.name}: the port "
-            "computes RMSNorm or LayerNorm and the SwiGLU or GELU MLP")
+    # the blocks and the final norm compute two norms and two MLPs, in
+    # both modes, whatever else a config names
+    blocks.check_serves(cfg)
 
 
 def build_geometry(cfg: ModelConfig, rc: RunConfig) -> Geometry:

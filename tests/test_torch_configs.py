@@ -17,11 +17,12 @@ torch = pytest.importorskip("torch")
 # workers (eight spinning OpenMP threads per worker oversubscribe them)
 torch.set_num_threads(1)
 
+from repro.api import get_arch as jget_arch  # noqa: E402
 from repro.configs import gpt_paper as jgpt  # noqa: E402
 from repro.configs import llama3p2_1b as jllama  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
-from repro_torch.api import SessionError, session  # noqa: E402
+from repro_torch.api import SessionError, get_arch, session  # noqa: E402
 from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -106,6 +107,59 @@ def test_gpt_param_specs_equal_reference(full, pp):
     tio = {n: _fields(s) for n, s in tmodel.io_specs(tcfg).items()}
     assert tio == {n: _fields(s) for n, s in jmodel.io_specs(cfg).items()}
     assert {"final_norm.bias", "head.w"} <= set(tio)
+
+
+# the reference's llama-class dense decoders (head_dim 128, untied head)
+# and their parameter counts at full width and depth, from the ParamSpecs
+DENSE = {"yi-9b": 8_829_407_232, "minitron-4b": 5_096_279_040,
+         "phi4-mini-3.8b": 4_450_618_368}
+
+
+@pytest.mark.parametrize("arch", list(DENSE))
+def test_dense_arch_configs_equal_reference_field_by_field(arch):
+    """``config()`` and ``reduced()`` of yi-9b, minitron-4b and phi4-mini
+    equal the reference's; the one-card serve run is pp 1 in bf16 and the
+    train run zeropp at vpp 2; the serve session at full width counts
+    the parameters the config modules' docstrings state."""
+    tmod, jmod = get_arch(arch), jget_arch(arch)
+    assert _fields(tmod.config()) == _fields(jmod.config())
+    for t, j in zip(tmod.reduced(), jmod.reduced()):
+        assert _fields(t) == _fields(j)
+    cfg = tmod.config()
+    assert (cfg.head_dim, cfg.norm, cfg.act, cfg.tie_embeddings) == (
+        128, "rmsnorm", "swiglu", False)
+    one = tmod.one_card_run()
+    assert (one.pp, one.vpp, one.microbatches) == (1, 1, 1)
+    assert one.param_dtype == one.compute_dtype == "bfloat16"
+    rc = tmod.one_card_train_run()
+    assert (rc.pp, rc.vpp, rc.schedule) == (1, 2, "zeropp")
+    n = session(arch, reduced=False, max_seq=64,
+                device="cpu").describe()["n_params"]
+    assert n == DENSE[arch]
+    assert f"{n:,}" in tmod.one_card_run.__doc__
+    assert f"{n:,}" in tmod.one_card_train_run.__doc__
+
+
+@pytest.mark.parametrize("arch", list(DENSE))
+@pytest.mark.parametrize("full", [True, False])
+def test_dense_arch_param_specs_equal_reference(arch, full):
+    """Segments and stage and io specs name for name, at the reduced
+    config's pp and vpp (yi-9b: pp 2, vpp 3)."""
+    tmod, jmod = get_arch(arch), jget_arch(arch)
+    cfg = jmod.config() if full else jmod.reduced()[0]
+    tcfg = tmod.config() if full else tmod.reduced()[0]
+    jgeo = jmodel.build_geometry(cfg, jmod.reduced()[1])
+    tgeo = tmodel.build_geometry(tcfg, tmod.reduced()[1])
+    assert tgeo.pp == jgeo.pp
+    for js, ts in zip(jgeo.segments, tgeo.segments, strict=True):
+        assert _fields(ts) == _fields(js)
+        assert tgeo.seg_stages(ts) == jgeo.seg_stages(js)
+        jspec = {n: _fields(s) for n, s in jmodel.stage_specs(cfg, js).items()}
+        tspec = {n: _fields(s)
+                 for n, s in tmodel.stage_specs(tcfg, ts).items()}
+        assert tspec == jspec
+    assert {n: _fields(s) for n, s in tmodel.io_specs(tcfg).items()} == \
+        {n: _fields(s) for n, s in jmodel.io_specs(cfg).items()}
 
 
 @pytest.mark.parametrize("full,pp", [(False, 1), (False, 2), (True, 1)])
@@ -195,21 +249,21 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
                                          ("act", "gelu_mlp")])
 def test_session_refuses_norms_and_mlps_it_does_not_compute(
         monkeypatch, field, value):
-    """Training computes LayerNorm and the GELU MLP; the serve path
-    computes RMSNorm and SwiGLU only, so a serve session of a config
-    asking for LayerNorm or the GELU MLP is refused (GPT serving,
-    ROADMAP.md queue 1 item 3), and so is any norm or MLP the port has no
-    block for."""
+    """Training and serving compute LayerNorm and the GELU MLP beside
+    RMSNorm and SwiGLU, so sessions of a config asking for either build
+    in both modes; a norm or MLP the port has no block for is refused in
+    both modes, before any device work."""
     cfg, rc = tllama.reduced()
     monkeypatch.setattr(tllama, "reduced", lambda: (
         dataclasses.replace(cfg, **{field: value}), rc))
     session("llama3.2-1b", mode="train", device="cpu")
-    with pytest.raises(SessionError, match="queue 1 item 3"):
-        session("llama3.2-1b", mode="serve", max_seq=16, device="cpu")
+    sess = session("llama3.2-1b", mode="serve", max_seq=16, device="cpu")
+    assert getattr(sess.cfg, field) == value
     monkeypatch.setattr(tllama, "reduced", lambda: (
         dataclasses.replace(cfg, **{field: "unknown"}), rc))
-    with pytest.raises(SessionError, match="the port computes"):
-        session("llama3.2-1b", mode="train", device="cpu")
+    for mode in ("train", "serve"):
+        with pytest.raises(SessionError, match="the port computes"):
+            session("llama3.2-1b", mode=mode, max_seq=16, device="cpu")
 
 
 def test_import_loads_no_jax():

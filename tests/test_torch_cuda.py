@@ -50,6 +50,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from torch_cases import late_rolled as _late_rolled  # noqa: E402
+from torch_cases import odd_heads_nan as _odd_heads_nan  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
 from torch_cases import qkv as _qkv  # noqa: E402
 
@@ -326,6 +327,147 @@ def test_paged_bf16_wrong_page_probe(cuda, pool, sq):
             bad = pa.paged_attention(qt, kp, vp, page_tables=ptt,
                                      **dict(kw, v_scale=v_bad))
             assert fa.bf16_excess(bad, want) > 1.0
+
+
+# ---- the serving kernels at gpt-1.5B's and yi-9b's head widths --------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["causal", "decode", "window_stats"])
+def test_slotted_kernel_head_dim_96(cuda, dtype, mode):
+    """K3 at gpt-1.5B's width and MHA (24 heads of 96): the float32 body,
+    and the bf16 tensor-core body on 128-wide tiles with zero pad
+    columns, causal or the window + stats contract, with and without key
+    splits (decode splits, a 70-row chunk does not); K rolled over heads
+    must fail the check."""
+    dt = getattr(torch, dtype)
+    b, h, g, e, S = 3, 24, 24, 96, 300
+    sq = 70 if mode == "causal" else 1
+    q, k, v = (_t(a).to(cuda, dt) for a in _qkv(31, b, sq, h, g, e, S))
+    pos = torch.tensor([0, 131, S - sq], dtype=torch.int32, device=cuda)
+    if mode == "window_stats":
+        want = tref.decode_attention(q, k, v, pos)
+        got = pa.decode_attention(q, k, v, pos)
+        if dt == torch.bfloat16:
+            res = pa.window_excess(got, want)
+            assert max(res.values()) <= 1.0, res
+            assert pa.window_excess(pa.decode_attention(
+                q, k.roll(1, dims=2).contiguous(), v, pos),
+                want)["out"] > 1.0
+        else:
+            (got, (m, l, acc)), (want, (mw, lw, accw)) = got, want
+            torch.testing.assert_close(l, lw, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(acc, accw, rtol=1e-4, atol=1e-3)
+            _close(got, want, dt)
+        return
+    got = pa.flash_attention_slotted(q, k, v, pos=pos)
+    want = tref.attention(q, k, v, q_offset=pos)
+    if dt == torch.bfloat16:
+        _bf16_close(got, want)
+        bad = pa.flash_attention_slotted(q, k.roll(1, dims=2).contiguous(),
+                                         v, pos=pos)
+        assert fa.bf16_excess(bad, want) > 1.0
+    else:
+        _close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,h,g", [(96, 24, 24), (128, 32, 4)])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8",
+                                  "bf16_q_int8"])
+@pytest.mark.parametrize("sq", [1, 40])
+def test_paged_kernel_wide_heads(cuda, e, h, g, pool, sq):
+    """K4 at gpt-1.5B's width (MHA, 96: the 128-wide body, int8 scales
+    over the 96 real columns) and yi-9b's (GQA 8:1, 128), decode and a
+    40-row chunk, every pool: float32 q on the CUDA-core body, bf16 q on
+    the tensor-core body by the bf16 rule; a masked row exactly zero. One
+    live page-table entry pointed at another row's page, and with int8
+    pools V dequantised with K's scales or the next kv head's, must fail
+    the rule."""
+    b, ps, ppr = 4, 16, 20
+    n_pages = b * ppr
+    rng = np.random.RandomState(32)
+    q = rng.randn(b, sq, h, e).astype(np.float32)
+    kp = rng.randn(n_pages, ps, g, e).astype(np.float32)
+    vp = rng.randn(n_pages, ps, g, e).astype(np.float32)
+    pt = _t(rng.permutation(n_pages).reshape(b, ppr).astype(np.int32))
+    pos = np.array([0, 150, ppr * ps - sq, 200], np.int32)
+    mask = np.array([True, True, True, False])
+    bf = pool in ("bfloat16", "bf16_q_int8")
+    qt = _t(q).to(cuda, torch.bfloat16 if bf else torch.float32)
+    ks = vs = None
+    if "int8" in pool:
+        kp, vp, ks, vs = _int8_pools(kp, vp, cuda)
+    else:
+        kp, vp = (_t(a).to(cuda, qt.dtype) for a in (kp, vp))
+    pt = pt.to(cuda)
+    kw = dict(pos=_t(pos).to(cuda), slot_mask=_t(mask).to(cuda),
+              k_scale=ks, v_scale=vs)
+    got = pa.paged_attention(qt, kp, vp, page_tables=pt, **kw)
+    want = tref.paged_attention(qt, kp, vp, page_tables=pt, **kw)
+    assert not got[~kw["slot_mask"]].any()
+    if not bf:
+        _close(got, want, qt.dtype)
+        return
+    _bf16_close(got, want)
+    wrong = pt.clone()
+    wrong[2, 5] = pt[1, 0]         # keys 80..95 of row 2 from row 1's page
+    bad = pa.paged_attention(qt, kp, vp, page_tables=wrong, **kw)
+    assert fa.bf16_excess(bad, want) > 1.0
+    if ks is not None:
+        for v_bad in (ks, vs.roll(1, dims=1).contiguous()):
+            bad = pa.paged_attention(qt, kp, vp, page_tables=pt,
+                                     **dict(kw, v_scale=v_bad))
+            assert fa.bf16_excess(bad, want) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["slotted", "window", "paged"])
+@pytest.mark.parametrize("sq", [1, 40])
+def test_e96_kernels_never_read_the_next_heads_columns(cuda, kernel, sq):
+    """q, K and V whose odd heads hold NaN in their first 32 columns (what
+    a 128-wide read of an even head's 96-wide row would load as its pad
+    columns): the even heads' outputs are finite and within the bf16
+    rule of the plain version's."""
+    b, h, g, e, S = 3, 24, 24, 96, 256
+    q, k, v = (_odd_heads_nan(_t(a).to(cuda, torch.bfloat16))
+               for a in _qkv(33, b, sq, h, g, e, S))
+    pos = torch.tensor([0, 100, S - sq], dtype=torch.int32, device=cuda)
+    if kernel == "paged":
+        ps = 16
+        kp, vp = (x.reshape(b * S // ps, ps, g, e).contiguous()
+                  for x in (k, v))
+        kw = dict(page_tables=torch.arange(
+            b * S // ps, dtype=torch.int32, device=cuda).reshape(b, -1),
+            pos=pos)
+        got = pa.paged_attention(q, kp, vp, **kw)
+        want = tref.paged_attention(q, kp, vp, **kw)
+    elif kernel == "window":
+        got = pa.decode_attention(q, k, v, pos + sq)[0]
+        want = tref.decode_attention(q, k, v, pos + sq)[0]
+    else:
+        got = pa.flash_attention_slotted(q, k, v, pos=pos)
+        want = tref.attention(q, k, v, q_offset=pos)
+    got, want = got[:, :, ::2], want[:, :, ::2]
+    assert bool(torch.isfinite(want).all())
+    assert bool(torch.isfinite(got).all())
+    _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_serving_kernels_refuse_head_dims_they_lack(cuda):
+    """A head width without an instantiation (80) raises on the card; it
+    does not fall back to the plain version."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _qkv(
+        34, 2, 1, 4, 4, 80, 64))
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        pa.flash_attention_slotted(q, k, v, pos=pos)
+    with pytest.raises(ValueError, match="head dims"):
+        pa.paged_attention(q, k.reshape(8, 16, 4, 80), v.reshape(
+            8, 16, 4, 80), page_tables=torch.arange(
+                8, dtype=torch.int32, device=cuda).reshape(2, 4), pos=pos)
 
 
 def _rel_close(got, want, rtol=1e-4):

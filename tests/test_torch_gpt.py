@@ -13,7 +13,7 @@ JAX package, on the CPU.
   units of two, seq 16) vs the JAX ``make_train_step``, then one AdamW
   step (``head.w`` decays, the LayerNorm scales and biases do not); the
   single-device reference loss vs the JAX one and the step's;
-* the serve Session's refusal and the training CLI.
+* the serve Session at both widths and the training CLI.
 
 Float32 inputs made from numpy seeds; params cross in one process
 (``params.from_reference``). Tolerances: 1e-5 of the largest reference
@@ -371,13 +371,22 @@ def test_gpt_reference_loss_matches_jax_and_train_step():
 
 @pytest.mark.parametrize("reduced", [True, False])
 def test_serve_session_refuses_gpt(reduced):
-    """Serving gpt_paper (LayerNorm, the GELU MLP, head_dim 96) waits for
-    its serve path and K3/K4 at 96: refused on every device, before any
-    device work."""
-    for device in ("cpu", "cuda"):
-        with pytest.raises(SessionError, match="GPT serving"):
+    """Serving gpt_paper (LayerNorm, the GELU MLP, head_dim 96): a serve
+    session builds on the CPU and describes itself (gpt-1.5B at full
+    width: 1,633,430,016 parameters in bf16, head_dim 96 for K3/K4),
+    before any weights exist; on the card's default device it is refused
+    only where there is no GPU."""
+    sess = tsession("gpt_paper", max_seq=64, reduced=reduced, device="cpu")
+    d = sess.describe()
+    assert (sess.cfg.norm, sess.cfg.act) == ("layernorm", "gelu_mlp")
+    if not reduced:
+        assert d["n_params"] == 1_633_430_016
+        assert sess.cfg.head_dim == 96
+        assert sess.rc.param_dtype == "bfloat16"
+    if not torch.cuda.is_available():
+        with pytest.raises(SessionError, match="no GPU"):
             tsession("gpt_paper", max_seq=64, reduced=reduced,
-                     device=device)
+                     device="cuda")
 
 
 def test_launch_train_gpt_cpu_prints_train_ok():

@@ -26,6 +26,13 @@ emulation, P rounded to bf16, must read at most half of
 and l within 1e-4 of their largest |plain|), and one extra key, K rolled
 over kv heads and V rolled at the late keys must fail it. The plain
 versions are held to the JAX package in ``tests/test_torch_kernels.py``.
+
+Head widths: 64 (llama3.2-1b), 96 (gpt-1.5B, MHA) and 128 (Jamba, yi-9b).
+At 96 the body runs 128-wide tiles whose last 32 columns are zeros in
+shared memory: the emulation padded so gives the same values as the
+96-wide one, while a read of 128 columns from device memory (into the
+next head's first 32) is caught by the rule when those columns hold
+NaN.
 """
 
 import numpy as np
@@ -38,6 +45,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from torch_cases import late_rolled as _late_rolled  # noqa: E402
+from torch_cases import odd_heads_nan as _odd_heads_nan  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
 from torch_cases import qkv as _qkv  # noqa: E402
 
@@ -108,11 +116,15 @@ SLOTTED_CASES = [
     dict(e=64, S=256, sq=40, pos=(0, 100, 230)),
     dict(e=64, S=256, sq=1, pos=(0, 127, 255)),      # decode
     dict(e=128, S=192, sq=24, pos=(0, 70, 180)),     # Jamba's head width
+    # gpt-1.5B's width and MHA: prefill and decode
+    dict(e=96, S=192, sq=24, pos=(0, 70, 180), h=6, g=6),
+    dict(e=96, S=256, sq=1, pos=(0, 127, 255), h=6, g=6),
+    dict(e=128, S=256, sq=1, pos=(0, 127, 255), h=8, g=1),   # yi-9b's GQA
 ]
 
 
 def _slotted_inputs(case, seed=30):
-    b, h, g = 3, 8, 2
+    b, h, g = 3, case.get("h", 8), case.get("g", 2)
     q, k, v = (_bf(a) for a in _qkv(seed, b, case["sq"], h, g, case["e"],
                                      case["S"]))
     return q, k, v, torch.tensor(case["pos"], dtype=torch.int32)
@@ -130,13 +142,16 @@ def test_slotted_bf16_tolerance_holds_the_kernels_rounding(case):
     assert worst <= 0.5, worst
 
 
-@pytest.mark.parametrize("probe", ["kv_heads_rolled", "late_v_rolled"])
-def test_slotted_bf16_tolerance_rejects_probes(probe):
+@pytest.mark.parametrize("probe,case", [
+    ("kv_heads_rolled", 0), ("late_v_rolled", 0),
+    pytest.param("kv_heads_rolled", 3, id="kv_heads_rolled-e96"),
+    pytest.param("late_v_rolled", 3, id="late_v_rolled-e96")])
+def test_slotted_bf16_tolerance_rejects_probes(probe, case):
     """K with its kv heads rolled by one, and V rolled over kv heads at the
     keys of the second half only (rows that see no such key stay exact),
-    exceed the bf16 limit."""
+    exceed the bf16 limit, at head widths 64 and 96."""
     q, k, v, pos = (x.bfloat16() if x.is_floating_point() else x
-                    for x in _slotted_inputs(SLOTTED_CASES[0]))
+                    for x in _slotted_inputs(SLOTTED_CASES[case]))
     want = tref.attention(q, k, v, q_offset=pos)
     if probe == "kv_heads_rolled":
         bad = tref.attention(q, k.roll(1, dims=2), v, q_offset=pos)
@@ -146,11 +161,11 @@ def test_slotted_bf16_tolerance_rejects_probes(probe):
     assert fa.bf16_excess(bad, want) > 1.0
 
 
-def _paged_inputs(int8, sq=24):
+def _paged_inputs(int8, sq=24, e=64, h=8, g=2):
     """bf16 q over page pools (ps 16, 16 pages a row): per-row offsets at
     0, one row whose chunk runs past the row's keys, and one masked row
     with a stale table."""
-    b, h, g, e, ps, ppr, n_pages = 3, 8, 2, 64, 16, 16, 40
+    b, ps, ppr, n_pages = 3, 16, 16, 40
     q, kp, vp, pt, _, _ = _paged_case(31, b, sq, h, g, e, ps, ppr, n_pages)
     pos = torch.tensor([0, ppr * ps - sq + 7, 90], dtype=torch.int32)
     mask = torch.tensor([True, True, False])
@@ -165,12 +180,23 @@ def _paged_inputs(int8, sq=24):
     return q, kp, vp, ks, vs, pt, pos, mask, ps
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_paged_bf16_tolerance_holds_the_kernels_rounding(int8):
+# (int8 pages, head width, q heads, kv heads): llama3.2-1b's 64 (GQA),
+# gpt-1.5B's 96 (MHA) and yi-9b's 128 (GQA 8:1)
+PAGED_CASES = [pytest.param(False, 64, 8, 2, id="False"),
+               pytest.param(True, 64, 8, 2, id="True"),
+               pytest.param(False, 96, 6, 6, id="e96-bf16"),
+               pytest.param(True, 96, 6, 6, id="e96-int8"),
+               pytest.param(False, 128, 8, 1, id="e128-bf16"),
+               pytest.param(True, 128, 8, 1, id="e128-int8")]
+
+
+@pytest.mark.parametrize("int8,e,h,g", PAGED_CASES)
+def test_paged_bf16_tolerance_holds_the_kernels_rounding(int8, e, h, g):
     """K4's tensor-core rounding (int8: exact conversion, K's scales on
     S's columns, V's on P's columns) stays within half of the bf16 limit
     against the plain version; the masked row is exactly zero."""
-    q, kp, vp, ks, vs, pt, pos, mask, ps = _paged_inputs(int8)
+    q, kp, vp, ks, vs, pt, pos, mask, ps = _paged_inputs(int8, e=e, h=h,
+                                                         g=g)
     kw = dict(page_tables=pt, pos=pos, k_scale=ks, v_scale=vs,
               slot_mask=mask)
     pool = (lambda x: x) if int8 else (lambda x: x.bfloat16())
@@ -186,15 +212,21 @@ def test_paged_bf16_tolerance_holds_the_kernels_rounding(int8):
     assert not emu[~mask].any()
 
 
-@pytest.mark.parametrize("probe", ["v_with_k_scales", "v_next_head_scales",
-                                   "wrong_page"])
-def test_paged_bf16_tolerance_rejects_probes(probe):
+@pytest.mark.parametrize("probe,e,h,g", [
+    ("v_with_k_scales", 64, 8, 2), ("v_next_head_scales", 64, 8, 2),
+    ("wrong_page", 64, 8, 2)] + [
+    pytest.param(p, e, h, g, id=f"{p}-e{e}")
+    for p in ("v_with_k_scales", "v_next_head_scales", "wrong_page")
+    for e, h, g in ((96, 6, 6), (128, 8, 1)) if (p, g) != (
+        "v_next_head_scales", 1)])
+def test_paged_bf16_tolerance_rejects_probes(probe, e, h, g):
     """V dequantised with K's scales or with the next kv head's scales
     (int8 pools), and one live page-table entry of one row, past its
     first 64-key tile, pointed at a page of another row, exceed the bf16
-    limit."""
+    limit, at head widths 64, 96 and 128 (yi-9b's one kv head of the
+    case has no next head)."""
     q, kp, vp, ks, vs, pt, pos, mask, _ = _paged_inputs(
-        probe != "wrong_page")
+        probe != "wrong_page", e=e, h=h, g=g)
     q = q.bfloat16()
     if probe == "wrong_page":
         kp, vp = kp.bfloat16(), vp.bfloat16()
@@ -340,11 +372,12 @@ def _window_emulate(q, k, v, cache_len, ns):
 WINDOW_CASES = [
     dict(e=64, S=256, sq=1, cl=(0, 1, 130, 256)),    # decode, a key split
     dict(e=128, S=192, sq=4, cl=(0, 64, 100, 191)),  # Jamba's width, sq > 1
+    dict(e=96, S=256, sq=1, cl=(0, 1, 130, 256), h=6, g=6),  # gpt-1.5B's
 ]
 
 
 def _window_inputs(case, seed=33):
-    b, h, g = len(case["cl"]), 8, 2
+    b, h, g = len(case["cl"]), case.get("h", 8), case.get("g", 2)
     q, k, v = (_bf(a) for a in _qkv(seed, b, case["sq"], h, g, case["e"],
                                      case["S"]))
     return q, k, v, torch.tensor(case["cl"])
@@ -368,13 +401,15 @@ def test_window_stats_bf16_rule_holds_the_kernels_rounding(case, ns):
     assert not l[0].any() and not acc[0].any() and not out[0].any()
 
 
-@pytest.mark.parametrize("probe", ["one_more_key", "kv_heads_rolled",
-                                   "late_v_rolled"])
-def test_window_stats_bf16_rule_rejects_probes(probe):
+@pytest.mark.parametrize("probe,case", [
+    ("one_more_key", 0), ("kv_heads_rolled", 0), ("late_v_rolled", 0)] + [
+    pytest.param(p, 2, id=f"{p}-e96")
+    for p in ("one_more_key", "kv_heads_rolled", "late_v_rolled")])
+def test_window_stats_bf16_rule_rejects_probes(probe, case):
     """One extra key (cache_len + 1, caught by l), K with its kv heads
     rolled by one and V rolled over kv heads at the keys of the second
-    half (caught by out) exceed the window rule."""
-    q, k, v, cl = _window_inputs(WINDOW_CASES[0])
+    half (caught by out) exceed the window rule, at widths 64 and 96."""
+    q, k, v, cl = _window_inputs(WINDOW_CASES[case])
     want = tref.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                                  cl)
     field = "l" if probe == "one_more_key" else "out"
@@ -386,3 +421,52 @@ def test_window_stats_bf16_rule_rejects_probes(probe):
         v = _late_rolled(v)
     assert pa.window_excess(_window_emulate(q, k, v, cl, 3),
                             want)[field] > 1.0
+
+
+# ---- head width 96: the 128-wide tiles ----------------------------------- #
+
+
+def _read_wide(x, width=128):
+    """What a body reading ``width`` columns from device memory would load
+    for each head of x [..., heads, e] (contiguous, e < width): its own e
+    columns and then the next head's first ``width - e`` (zeros past the
+    end of the tensor)."""
+    e = x.shape[-1]
+    flat = torch.cat([x.reshape(-1), x.new_zeros(width - e)])
+    return flat.as_strided(x.shape[:-1] + (width,), x.stride()[:-1] + (1,))
+
+
+def _pad(x, width=128):
+    """x [..., e] zero-padded to ``width`` columns, as the body's tiles
+    hold it in shared memory."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+@pytest.mark.parametrize("wide", ["zero_pad", "next_head_read"])
+def test_e96_pad_columns_add_zeros_and_the_nan_probe_catches_a_wide_read(
+        wide):
+    """gpt-1.5B's width on 128-wide tiles (MHA, 6 heads): q, K and V
+    zero-padded to 128 columns give the 96-wide out exactly (the pad
+    columns add exact zeros to S and to P V), and with the first 32
+    columns of every odd head set to NaN the even heads' outputs stay
+    finite and within the bf16 rule. Tiles read 128 columns wide from
+    device memory instead (into the next head) give the even heads NaN
+    rows: the NaN probe of ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py`` fails such a kernel."""
+    q, k, v, pos = _slotted_inputs(SLOTTED_CASES[3])
+    e = q.shape[-1]
+    want = tref.attention(q, k, v, q_offset=pos)
+    take = _pad if wide == "zero_pad" else _read_wide
+    got = tref.attention(take(q), take(k), take(v), q_offset=pos,
+                         scale=e ** -0.5)[..., :e]
+    if wide == "zero_pad":
+        assert torch.equal(got, want)
+    qn, kn, vn = (_odd_heads_nan(x) for x in (q, k, v))
+    plain = tref.attention(qn, kn, vn, q_offset=pos)[..., ::2, :]
+    assert bool(torch.isfinite(plain).all())
+    got = tref.attention(take(qn), take(kn), take(vn), q_offset=pos,
+                         scale=e ** -0.5)[..., :e][..., ::2, :]
+    finite = bool(torch.isfinite(got).all())
+    assert finite == (wide == "zero_pad")
+    if finite:
+        assert fa.bf16_excess(got.bfloat16(), plain.bfloat16()) <= 0.5

@@ -37,3 +37,12 @@ def late_rolled(x):
     half = x.shape[1] // 2
     x[:, half:] = x[:, half:].roll(1, dims=2)
     return x
+
+
+def odd_heads_nan(x, cols=32):
+    """x [..., heads, e] (a torch tensor) with the first ``cols`` columns
+    of every odd head set to NaN: the values a kernel reading 128
+    columns from an even head's 96-wide row would run into."""
+    x = x.clone()
+    x[..., 1::2, :cols] = float("nan")
+    return x
