@@ -23,7 +23,9 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    and window + stats, K4 over bf16 and int8 pages; Jamba's K3 at e 128;
    gpt-1.5B's e 96, 24 heads, MHA, 1024 keys: K3 causal and window, K4
    over bf16 and int8 pages; yi-9b's K4 at e 128, 32 heads over 4, over
-   bf16 and int8 pages), the training
+   bf16 and int8 pages; the multi-rank serve path's K3 and K4 decodes:
+   llama3.2-1b's heads, 2 rows a micro-batch, 2048 keys, K4 over a
+   rank's 512 pages), the training
    kernels (K1 flash forward, K1b flash backward, K2 fused cross-entropy)
    in bf16 at llama3.2-1b's shapes, K1 and K1b at gpt-1.5B's (b 2, s
    1024, 24 heads of 96) and at head dim 128, K2 over gpt-1.5B's untied
@@ -158,7 +160,24 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    logged (no claim: the ranks share the card); last
    ``schedule="auto_profiled"`` times the 2 best candidates on both
    ranks, which must agree on the times and the winner. The makespans
-   are seconds of the a800 cost model, not times of this card.
+   are seconds of the a800 cost model, not times of this card;
+9. the multi-rank serve phase, last: llama3.2-1b at full width and
+   depth served on data 2 x pp 2 (vpp 2, 2 micro-batches of the serve
+   table) by four ranks on this card over gloo, spawned by ``python -m
+   repro_torch.launch.serve`` as a subprocess: 8 slots, max_seq 2048,
+   the first 8 prompts of step 3 with 16 greedy tokens each, contiguous
+   (K3) then paged at page 16 (K4) in the one spawn; the head
+   vocabulary-sharded (64,128 rows a shard), the stage blocks gathered
+   tick by tick. One rank's serve of the same params (re-stacked for pp
+   1) and requests runs here first: in each layout the logits of every
+   slot row (both data shards) in a prefill step and the decode step
+   after it must agree with the one rank's row by row, within 0.05 of
+   the row's max |logit|; the token agreement is logged, every rank
+   must have launched K3 (contiguous) and K4 (paged) and no plain
+   version, and the subprocess must exit 0.
+   Prefill and decode step ms, tokens/s, each rank's peak memory and
+   FSDP gather seconds are logged (no claim: gloo stages every gather
+   on the host).
 
 Any failure exits non-zero before the result lines. The second-to-last line
 of standard output is the kernel table as JSON; the last line is
@@ -310,6 +329,21 @@ AUTO = dict(name="auto", arch="gpt_paper", pp=2, data=1, vpp=1, seq=1024,
             backend="gloo", preset="a800", top_k=2,
             compare=("autogen_gated", "zeropp"),
             cuts="none (22 layers at full width; seq 1024, the paper's)")
+# the multi-rank serve phase: llama3.2-1b at full width and depth served
+# on data 2 x pp 2 (vpp 2, 2 micro-batches of the serve table), four
+# ranks (one process each, all on this card over gloo) spawned by
+# ``python -m repro_torch.launch.serve``: 8 slots, max_seq 2048, 8
+# requests (the first 8 prompts of ``workload()``, 64-512 tokens) of 16
+# greedy tokens each, contiguous (K3) then paged at page 16 (K4) in the
+# one spawn. At data 2 the head is vocabulary-sharded: 64,128 rows a
+# shard. Held to one rank's serve of the same params and requests here:
+# every slot row's logits in a prefill and a decode step by the serve
+# phases' rule (0.05 of the row's max |logit|), token agreement logged
+SERVE_MULTI = dict(name="serve_multirank", arch=ARCH, data=2, pp=2, vpp=2,
+                   microbatches=2, slots=SLOTS, max_seq=MAX_SEQ, n_req=8,
+                   gen=16, page=PAGE, backend="gloo",
+                   cuts="none (16 layers at full width; 8 of the 16 "
+                        "requests, 16 of 32 tokens each)")
 # rank 0's step 1 against one one-rank step of the same params and batch
 # (pp 1, vpp 2, micro-batches of 2 or 4 sequences): bf16 compute in other
 # micro-batch shapes and stage boundaries, and the reductions in another
@@ -575,13 +609,21 @@ JAMBA_ATTN = dict(tag="e128_", b=SLOTS, h=32, g=8, e=128, S=MAX_SEQ,
 GPT_ATTN = dict(tag="e96_", b=SLOTS, h=24, g=24, e=96, S=GPT_MAX_SEQ,
                 seed=4)
 YI_ATTN = dict(tag="e128_", b=SLOTS, h=32, g=4, e=128, S=MAX_SEQ, seed=5)
+# the multi-rank serve path's (SERVE_MULTI): each rank's cached stage
+# takes one micro-batch of 2 of its shard's 4 slot rows at a time, over
+# 2048 keys a row, and K4 this rank's block of the page pool (512 of
+# 1024 pages)
+MESH_ATTN = dict(tag="mesh_", b=2, h=32, g=8, e=64, S=MAX_SEQ, seed=6,
+                 pages=SLOTS * MAX_SEQ // PAGE // 2)
 
 
 def kernel_phases(torch, flush):
     """The serving attention kernels, K3 and K4, at the shapes of each
     serve cell: llama3.2-1b's (e 64: K3 causal and window, K4 over bf16
     and int8 pages), Jamba's K3 at e 128, gpt-1.5B's K3 and K4 at e 96
-    (with the NaN probe of the pad columns) and yi-9b's K4 at e 128."""
+    (with the NaN probe of the pad columns), yi-9b's K4 at e 128, and
+    the decodes of the multi-rank serve path (b 2, K4 over a rank's 512
+    pages)."""
     results = []
     serve_attention_phases(torch, flush, results, LLAMA_ATTN,
                            ("causal_prefill", "decode", "window_stats",
@@ -593,6 +635,8 @@ def kernel_phases(torch, flush):
                             "bf16_prefill", "bf16_decode", "int8_decode"))
     serve_attention_phases(torch, flush, results, YI_ATTN,
                            ("bf16_prefill", "bf16_decode", "int8_decode"))
+    serve_attention_phases(torch, flush, results, MESH_ATTN,
+                           ("decode", "bf16_decode"))
     return results
 
 
@@ -619,9 +663,11 @@ def serve_attention_phases(torch, flush, results, cell, phases):
     rep = h // g
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     padded = e % 64 != 0
-    # decode positions and window lengths spread over the cache: 128 +
-    # 256 i at 2048 keys, 64 + 128 i at 1024
-    spread = (S // 16 + S // 8 * torch.arange(b, device=dev)).int()
+    # decode positions and window lengths spread over the cache, the
+    # last near its end: 128 + 256 i at 2048 keys and 8 rows, 64 + 128 i
+    # at 1024, 128 + 1792 i at 2048 keys and 2 rows
+    spread = (S // 16 + (S - S // 8) // max(b - 1, 1)
+              * torch.arange(b, device=dev)).int()
 
     def rand(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -806,7 +852,10 @@ def serve_attention_phases(torch, flush, results, cell, phases):
 
     # ---- paged attention (page pool) ------------------------------------ #
     ppr = S // PAGE
-    n_pages = b * ppr
+    n_pages = cell.get("pages", b * ppr)    # the pool
+    # a masked row with a stale table (where there are 4 rows or more),
+    # and the row of the page-table probe
+    masked, probe = (3 if b > 3 else None), min(7, b - 1)
 
     def paged_inputs(sq, int8):
         q = rand(b, sq, h, e)
@@ -814,13 +863,14 @@ def serve_attention_phases(torch, flush, results, cell, phases):
         pos = (torch.linspace(0, S - sq, b, device=dev).int() if sq > 1
                else spread)
         live = (pos + sq + PAGE - 1) // PAGE
-        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        perm = torch.randperm(n_pages, generator=gen, device=dev)[:b * ppr]
         pt = perm.reshape(b, ppr).int()
         pt = torch.where(torch.arange(ppr, device=dev)[None] < live[:, None],
                          pt, 0).int()                  # sentinel tails
         mask = torch.ones(b, dtype=torch.bool, device=dev)
-        mask[3] = False
-        pt[3] = pt[0]                                  # stale table
+        if masked is not None:
+            mask[masked] = False
+            pt[masked] = pt[0]                         # stale table
         ks = vs = None
         if int8:
             ks = kf.float().abs().amax(dim=(1, 3)) / 127.0
@@ -857,8 +907,8 @@ def serve_attention_phases(torch, flush, results, cell, phases):
 
         ns = pa.splits(b, g, rep * sq, S, sms)
         log(f"[kernel] {name} {shape} sq={sq} page_size={PAGE} ppr={ppr} "
-            f"n_pages={n_pages} pos={pos.tolist()} masked_row=3 key splits "
-            f"{ns} ({tol}; masked row exactly 0)")
+            f"n_pages={n_pages} pos={pos.tolist()} masked_row={masked} key "
+            f"splits {ns} ({tol}; a masked row exactly 0)")
         record(name, PAGED,
                lambda: pa.paged_attention(q, kp, vp, **kw),
                lambda: ref.paged_attention(q, kp, vp, **kw),
@@ -867,14 +917,15 @@ def serve_attention_phases(torch, flush, results, cell, phases):
             split_sweep(lambda: pa.paged_attention(q, kp, vp, **kw), rep)
         plain = ref.paged_attention(q, kp, vp, **kw)
         # the check must see one live page-table entry of one row, past
-        # its first 64-key tile, pointed at a page of another row (row 7
-        # sees every key of entry 5: keys 80..95)
+        # its first 64-key tile, pointed at a page of another row (the
+        # last row, or row 7, sees every key of entry 5: keys 80..95)
         wrong = pt.clone()
-        wrong[7, 5] = pt[0, 0]
+        wrong[probe, 5] = pt[0, 0]
         bf16_probe(fa, (pa.paged_attention(
             q, kp, vp, **dict(kw, page_tables=wrong)),), (plain,),
             (f"{name} out",),
-            "row 7's page-table entry 5 pointed at row 0's first page")
+            f"row {probe}'s page-table entry 5 pointed at row 0's first "
+            "page")
         if int8:
             # and V dequantised with the wrong scales: K's, or those of
             # the next kv head
@@ -2506,6 +2557,158 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
     return res, outs, lg_k, params, sess
 
 
+def serve_multirank_phase(torch, c):
+    """Multi-rank serving (SERVE_MULTI): first one rank's serve of the
+    same params (the same seed, its layers re-stacked for pp 1) and
+    requests here, in both layouts; then ``python -m
+    repro_torch.launch.serve`` as a subprocess of its own process group,
+    four ranks over gloo on this card, both layouts in the one spawn.
+    In each layout the logits of every slot row in a prefill step and the
+    decode step after it (``launch.serve.first_logits``) must agree with
+    the one-rank ones row by row by the serve phases' rule, every rank
+    must have launched K3 (contiguous) and K4 (paged) and reached no
+    plain version, and the subprocess must exit 0. Step times, tokens/s, each rank's peak memory
+    and FSDP gather seconds are logged; no claim."""
+    import numpy as np
+
+    from repro_torch import params as tparams
+    from repro_torch.api import session
+    from repro_torch.launch.serve import first_logits
+
+    tag = f"[serve multirank {c['arch']}]"
+    ranks = c["data"] * c["pp"]
+    log(f"{tag} backend {c['backend']} (host-staged), {ranks} ranks on 1 "
+        f"device: data {c['data']} x pp {c['pp']}, vpp {c['vpp']}, "
+        f"{c['microbatches']} micro-batches; {c['slots']} slots, max_seq "
+        f"{c['max_seq']}, {c['n_req']} requests x {c['gen']} tokens; cut: "
+        f"{c['cuts']}")
+    prompts = workload()[:c["n_req"]]
+    one = {}
+    params = None
+    for layout in ("contiguous", "paged"):
+        kw = dict(page_size=c["page"]) if layout == "paged" else {}
+        sess = session(c["arch"], reduced=False, device="cuda",
+                       max_slots=c["slots"], max_seq=c["max_seq"], **kw)
+        if params is None:
+            rc_mesh = dataclasses.replace(sess.rc, pp=c["pp"], vpp=c["vpp"])
+            full = tparams.init_all_params(
+                sess.cfg, rc_mesh,
+                torch.Generator(device="cuda").manual_seed(0), "cuda")
+            params = tparams.relayout(full, sess.cfg, rc_mesh, sess.rc)
+            del full
+        lg = first_logits(sess, params, prompts)
+        eng = sess.serve_engine(params)
+        reqs = [eng.submit(p, max_gen=c["gen"]) for p in prompts]
+        eng.run_until_idle()
+        one[layout] = (lg, [r.result(timeout=1) for r in reqs])
+        del eng, sess
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} one rank (pp 1): both layouts served")
+
+    req_file = OUT / "serve_multirank_requests.json"
+    req_file.write_text(json.dumps([dict(tokens=p.tolist(), max_gen=c["gen"])
+                                    for p in prompts]))
+    report = OUT / "serve_multirank.json"
+    for f in [report] + [pathlib.Path(f"{report}.{lay}.logits.npy")
+                         for lay in one]:
+        f.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+           "--arch", c["arch"], "--data", str(c["data"]), "--pp",
+           str(c["pp"]), "--vpp", str(c["vpp"]), "--microbatches",
+           str(c["microbatches"]), "--slots", str(c["slots"]), "--max-seq",
+           str(c["max_seq"]), "--layouts", "contiguous,paged",
+           "--page-size", str(c["page"]), "--backend", c["backend"],
+           "--requests", str(req_file), "--report", str(report)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in env.get("PYTHONPATH", "").split(
+            os.pathsep) if x])
+    log(f"{tag} {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"the {c['name']} run did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    (OUT / f"{c['name']}.log").write_text(out + "\n--- stderr ---\n" + err)
+    for line in out.splitlines():
+        log(f"{tag}   {line}")
+    if proc.returncode != 0:
+        fail(f"the {c['name']} run exited {proc.returncode}: {err[-2000:]}")
+    rep = json.loads(report.read_text())
+    need = {"contiguous": "slotted_attention", "paged": "paged_attention"}
+    res = dict(name=c["name"], backend=c["backend"], ranks=ranks,
+               cuts=c["cuts"], wall_s=wall, layouts={})
+    for layout, (lg1, outs1) in one.items():
+        row = rep["layouts"][layout]
+        lg = np.load(f"{report}.{layout}.logits.npy")
+        if lg.shape != lg1.shape or not np.isfinite(lg).all():
+            fail(f"{layout}: multi-rank logits are not finite [2, "
+                 f"{c['slots']}, vocab] values: {lg.shape}")
+        # per step and slot row: max |diff| over the row's max |logit|
+        rows = np.abs(lg - lg1).max(-1) / np.abs(lg1).max(-1)
+        scale = float(np.abs(lg1).max())
+        d = float(np.abs(lg - lg1).max())
+        same = (lg.argmax(-1) == lg1.argmax(-1)).mean()
+        outs = row["streams"]
+        if len(outs) != c["n_req"] or any(len(o) != c["gen"] for o in outs):
+            fail(f"{layout}: {len(outs)} streams of "
+                 f"{[len(o) for o in outs]} tokens")
+        agree = sum(a == b for o, o1 in zip(outs, outs1)
+                    for a, b in zip(o, o1)) / (c["n_req"] * c["gen"])
+        log(f"{tag} {layout}: prefill and decode logits of all "
+            f"{c['slots']} rows vs one rank: max |diff| {d:.4e} (max "
+            f"|logit| {scale:.4f}); worst row |diff| / its max |logit|: "
+            f"prefill {rows[0].max():.4e}, decode {rows[1].max():.4e} "
+            f"(tolerance 0.05); argmax agreement {same:.4f}; token "
+            f"agreement with one rank {agree:.4f}")
+        if not (rows <= 0.05).all():
+            fail(f"{layout}: multi-rank logits off the one-rank ones in "
+                 f"(step, row) {np.argwhere(rows > 0.05).tolist()}")
+        per_rank = []
+        for r in rep["ranks"]:
+            cnt = r["counts"][layout]
+            if not cnt["launches"].get(need[layout]):
+                fail(f"{layout}: rank {r['rank']} launched no "
+                     f"{need[layout]}: {cnt['launches']}")
+            if any(k.startswith("ref_") for k in cnt["counters"]):
+                fail(f"{layout}: rank {r['rank']} reached a plain version: "
+                     f"{cnt['counters']}")
+            per_rank.append(cnt)
+            log(f"{tag} {layout} rank {r['rank']}: launches "
+                f"{cnt['launches']}, peak {cnt['max_memory_gb']:.2f} GiB "
+                f"allocated, {cnt['gathers']} FSDP gathers: "
+                f"{cnt['gather_issue_s']:.2f} s issuing, "
+                f"{cnt['gather_wait_s']:.2f} s waiting")
+        pre, dec = row["prefill_step_ms"], row["decode_step_ms"]
+        log(f"{tag} {layout}: {row['generated_tokens']} tokens in "
+            f"{row['wall_s']:.2f} s = {row['tok_per_s']:.2f} tok/s; "
+            f"{len(pre)} prefill steps of {np.mean(pre):.1f} ms (min "
+            f"{min(pre):.1f}, max {max(pre):.1f}), {len(dec)} decode steps "
+            f"of {np.mean(dec):.1f} ms (min {min(dec):.1f}, max "
+            f"{max(dec):.1f}) (no claim: the ranks share the card and gloo "
+            "stages every gather on the host)")
+        res["layouts"][layout] = dict(
+            logits_vs_one_rank=d, max_logit=scale,
+            worst_row_rel=rows.max(-1).tolist(),
+            argmax_agreement=float(same),
+            token_agreement=agree, wall_s=row["wall_s"],
+            tok_per_s=row["tok_per_s"], prefill_step_ms=pre,
+            decode_step_ms=dec,
+            launches=sum(r["counts"][layout]["launches"][need[layout]]
+                         for r in rep["ranks"]),
+            per_rank=per_rank)
+    log(f"{tag} {wall:.1f} s in all (subprocess)")
+    return res
+
+
 def compare_layouts(arch, lg_c, lg_p, outs_c, outs_p) -> float:
     """The contiguous and paged runs of one model: first-step logits
     within 0.05 of the largest |logit| (both run the bf16 tensor-core
@@ -2639,10 +2842,15 @@ def main() -> None:
             ("e128_", "paged_attention"): yi,
             ("e96_", "slotted_attention"): gpt_c,
             ("e96_", "paged_attention"): gpt_p}
-    for row in serve_kernels:
-        lib, phase = row["name"].split(":")
-        tag = next((t for t in ("e96_", "e128_") if phase.startswith(t)), "")
-        row["launches"] = runs[tag, lib]["launches"][lib]
+    def serve_launches(rows):
+        for row in rows:
+            lib, phase = row["name"].split(":")
+            tag = next((t for t in ("e96_", "e128_", "mesh_")
+                        if phase.startswith(t)), "")
+            row["launches"] = runs[tag, lib]["launches"][lib]
+
+    mesh_kernels = [r for r in serve_kernels if ":mesh_" in r["name"]]
+    serve_launches([r for r in serve_kernels if r not in mesh_kernels])
     kernels = serve_kernels + kernels
     profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
     gc.collect()
@@ -2655,6 +2863,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     auto = auto_phase(torch, AUTO)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_multi = serve_multirank_phase(torch, SERVE_MULTI)
+    # the multi-rank path's decodes: the four ranks' launches
+    for lib, layout in (("slotted_attention", "contiguous"),
+                        ("paged_attention", "paged")):
+        runs["mesh_", lib] = {"launches": {
+            lib: serve_multi["layouts"][layout]["launches"]}}
+    serve_launches(mesh_kernels)
     for row in shard_kernels:    # both runs: K2 over a 64,128-row shard
         row["launches"] = sum(r["launches"]["fused_xent"]
                               for r in multirank)
@@ -2663,7 +2880,7 @@ def main() -> None:
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
          "train": [train, train_gpt], "ckpt": ckpt, "multirank": multirank,
-         "auto": auto,
+         "auto": auto, "serve_multirank": serve_multi,
          "profiles": profiles,
          "wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -51,8 +51,26 @@ every candidate and the plan cache (``core/plan_cache.py``,
 Each rank draws the same full tree from the seed and keeps its part
 (``params.shard_for_rank``; every pod keeps the same); ``train_step``
 takes the same global batch on every rank and returns this rank's grads
-(summed over the pods); ``opt_step`` clips by the global norm. Serving
-runs on one rank.
+(summed over the pods); ``opt_step`` clips by the global norm.
+
+Serving on a mesh runs the same way: every rank builds the same serve
+session (``data``, ``pods``, ``overrides=dict(pp=..., groups=...)``)
+and its own engine, and the serve step runs the forward-only table on
+the tick engine (``core/executor.py serve_body``). Each rank holds its
+part of the params and of the cache tree (its V stage slots, its slot
+rows or its block of pages); every call takes the whole batch, the same
+on every rank, and returns the whole batch's tokens (and logits). The
+ranks' engines must run in lockstep: each serve step, slot reset, page
+reset and page copy first checks that every rank is making the same
+call with the same arrays (a sha256 gathered over the mesh) and raises
+``SessionError`` if not. A serve session spans ranks when pods, data
+or groups is above 1; with pp > 1 alone it runs on one rank, walking
+the stages, whatever process group exists::
+
+    sess = repro_torch.api.session("llama3.2-1b", mode="serve",
+                                   reduced=False, data=2, max_slots=8,
+                                   max_seq=2048, overrides=dict(pp=2))
+    eng = sess.serve_engine(sess.init_params())
 
 Checkpoints, in the reference's on-disk format (``ckpt/checkpoint.py``):
 ``checkpointing(dir, every=50)`` gives the fault-tolerance
@@ -78,6 +96,7 @@ the device here; serve tokens and logits come back as CPU tensors, which
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import time
 import types
@@ -94,7 +113,12 @@ from repro_torch.ckpt.checkpoint import (
 )
 from repro_torch.core import serve as CS
 from repro_torch.core.comm import Mesh
-from repro_torch.core.pipeline import Runtime, make_train_step
+from repro_torch.core.pipeline import (
+    Runtime,
+    make_serve_step,
+    make_train_step,
+    serve_tiling,
+)
 from repro_torch.core.plan import (
     COLLECTIVE_ALPHA_BETA,
     PlanAnalysis,
@@ -167,7 +191,11 @@ class Session:
             * self.rc.pp
         self.device = torch.device(spec.device)
         mesh = None
-        if spec.mode == "train" and world > 1:
+        # a serve session spans ranks when a pods, data or groups axis
+        # does; pp alone walks its stages on one rank
+        on_mesh = world > 1 and (spec.mode == "train"
+                                 or world > self.rc.pp)
+        if on_mesh:
             if spec.device == "cuda":
                 self.device = _rank_card()
                 torch.cuda.set_device(self.device)
@@ -197,12 +225,12 @@ class Session:
         self._plan_source = None   # memory-hit | persisted-hit | search |
         #                            search+measured: THIS construction's
         #                            lookup outcome, for describe()
-        if spec.mode == "train" and self.rc.schedule in AUTO_MODES:
+        if self.rc.schedule in AUTO_MODES:
             self.plan_selection = self._auto_select(
                 profiled=self.rc.schedule == "auto_profiled")
             self.rc = dataclasses.replace(
                 self.rc, schedule=self.plan_selection.selected.name)
-        if spec.mode == "train":
+        if spec.mode == "train" or mesh is not None:
             try:
                 self.rt = Runtime(
                     self.cfg, self.rc, self.device, mesh,
@@ -213,6 +241,7 @@ class Session:
         else:
             # the engine reads rt.G (page partitions per FSDP group)
             self.rt = types.SimpleNamespace(G=self.rc.groups)
+        self._serve_steps: dict = {}
         self._rope = None
         self._engine_stats = None   # serving EngineStats (engine attaches)
         self._fault_tolerance = None  # a TrainController (attach())
@@ -227,7 +256,12 @@ class Session:
         """(seq, mbs, dp) for the cost model. The port always knows its
         data axis (``data=``, default 1), so dp is that, not the
         reference's guess of 8 for a session whose mesh is not built
-        yet; mbs is the train shape's sequences a micro-batch."""
+        yet; mbs is the train shape's sequences a micro-batch. A serve
+        session has no train shape: seq is its ``max_seq`` and mbs 1, as
+        the reference's serve session reads them."""
+        if self.spec.mode == "serve":
+            return self.spec.seq_len or self.spec.max_seq or 32, 1, \
+                self.data_size
         sc, rc = self.shape_cfg, self.rc
         per_mb = self.pods_size * self.data_size * rc.groups \
             * rc.microbatches
@@ -421,13 +455,38 @@ class Session:
             return self.spec.max_pages
         return self.max_slots * self.pages_per_slot
 
+    @property
+    def _shards(self) -> int:
+        return self.pods_size * self.data_size
+
     def check_slot_sharding(self) -> None:
-        """Nothing to check: one rank computes every slot row in one
-        pass (the reference checks that its micro-batch tiling covers
-        the rows of each data shard)."""
+        """On a mesh the serve step's micro-batch tiling must cover every
+        slot row of a shard — rows beyond it would silently never be
+        computed (the reference's check; the batch-sharded layout is
+        checked when the session is built). One rank computes every row
+        in one pass."""
+        if self.mesh is None:
+            return
+        b_loc, Btot, mbs = serve_tiling(self.rt, self.max_slots)
+        covered = self.rt.G * Btot * mbs
+        if covered != b_loc:
+            raise SessionError(
+                f"max_slots ({self.max_slots}) gives {b_loc} slot rows "
+                f"per data shard, but the serve step tiles them as "
+                f"groups×microbatches×mbs = {self.rt.G}×{Btot}×{mbs}, "
+                f"covering only {covered} — pick max_slots so "
+                f"slots/(pods·data) is a multiple of "
+                f"groups·min(microbatches, slots/(pods·data)), or "
+                "adjust the microbatches override")
 
     def sampling_unsupported_reason(self) -> str | None:
-        return None   # the replicated head always returns full logits
+        """None when the serve step can return full next-token logits (the
+        host-side sampling layer's input); otherwise why it cannot (the
+        reference's rule: not on a multi-pod mesh)."""
+        if self.mesh is not None and self.rt.multi_pod:
+            return ("logits return is not wired for multi-pod meshes "
+                    f"(pods={self.pods_size})")
+        return None
 
     # ------------------------------------------------------------------ #
     # Params / caches
@@ -443,23 +502,73 @@ class Session:
         return shard_for_rank(self.rt, full, self.mesh.rank)
 
     def init_caches(self):
+        """Zeroed caches on the device; on a mesh this rank's part: its V
+        stage slots and its shard's slot rows, or its block of pages."""
+        on_mesh = self.mesh is not None
+        shards = self._shards if on_mesh else 1
         return CS.init_serve_caches(
-            self.cfg, self.rc, self.geo, slots=self.max_slots,
+            self.cfg, self.rc, self.geo, slots=self.max_slots // shards,
             max_seq=self._max_seq(), page_size=self.page_size,
-            n_pages=self.n_pages if self.paged else 0, device=self.device)
+            n_pages=self.n_pages // shards if self.paged else 0,
+            device=self.device, stages=self.rc.vpp if on_mesh else None)
+
+    def _lockstep(self, what: str, *arrays) -> None:
+        """On a mesh: check that every rank makes the same call ``what``
+        with the same arrays (a sha256 of their dtypes, shapes and bytes,
+        gathered over the mesh); raise if any rank differs, before any
+        collective of the call could pair with another call's."""
+        if self.mesh is None:
+            return
+        h = hashlib.sha256(what.encode())
+        for a in arrays:
+            a = np.ascontiguousarray(np.asarray(a))
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+        mine = int.from_bytes(h.digest()[:8], "little", signed=True)
+        every = self.mesh.world_comm.all_gather(torch.tensor(
+            [mine], dtype=torch.int64, device=self.device)).cpu()
+        if bool((every != mine).any()):
+            raise SessionError(
+                f"the ranks' serve calls left lockstep at {what}: rank "
+                f"{self.mesh.rank} holds digest {mine}, the ranks hold "
+                f"{every.tolist()}; every rank must see the same "
+                "submissions in the same order")
+
+    def _local(self, mask, per_shard: int) -> np.ndarray:
+        """This rank's shard of a global mask (slot rows or pages)."""
+        i = self.mesh.shard_of(self.mesh.rank)
+        return np.asarray(mask, bool)[i * per_shard:(i + 1) * per_shard]
 
     def reset_slot_caches(self, caches, slot_mask):
-        """Zero the cache rows of the slots flagged in ``slot_mask``, in
-        place (slot reclaim)."""
+        """Zero the cache rows of the slots flagged in ``slot_mask``
+        [max_slots], in place (slot reclaim); on a mesh, this shard's."""
+        if self.mesh is not None:
+            self._lockstep("reset_slot_caches", slot_mask)
+            slot_mask = self._local(slot_mask,
+                                    self.max_slots // self._shards)
         return CS.reset_slot_caches(caches, self._index(slot_mask))
 
     def reset_pages(self, caches, page_mask):
-        """Zero the pages flagged in ``page_mask`` [n_pages], in place."""
+        """Zero the pages flagged in ``page_mask`` [n_pages], in place; on
+        a mesh, this shard's block of them."""
+        if self.mesh is not None:
+            self._lockstep("reset_pages", page_mask)
+            page_mask = self._local(page_mask, self.n_pages // self._shards)
         return CS.reset_pages(caches, self._index(page_mask))
 
     def copy_pages(self, caches, src, dst):
-        """Copy page ``src[i]`` -> ``dst[i]`` in every paged leaf."""
-        return CS.copy_pages(caches, self._ids(src), self._ids(dst))
+        """Copy page ``src[i]`` -> ``dst[i]`` (global page ids) in every
+        paged leaf, in place. On a mesh a pair across two pods × data
+        shards is a send between the two ranks of this model index."""
+        if self.mesh is None:
+            return CS.copy_pages(caches, self._ids(src), self._ids(dst))
+        self._lockstep("copy_pages", src, dst)
+        m = self.mesh
+        return CS.copy_pages_across(
+            caches, src, dst, dev_pages=self.n_pages // self._shards,
+            shard=m.shard_of(m.rank), exchange=m.exchange,
+            peer=lambda i: m.rank_of(i % m.data, m.g_rank, m.p_rank,
+                                     i // m.data))
 
     # ------------------------------------------------------------------ #
     # Training
@@ -656,10 +765,38 @@ class Session:
     def _index(self, mask) -> torch.Tensor:
         return self._ids(np.flatnonzero(np.asarray(mask)))
 
+    def _mesh_step(self, params, caches, batch, want_logits):
+        """One serve step on the mesh's tick engine (``make_serve_step``,
+        built once per prompt width and logits flag)."""
+        self.check_slot_sharding()
+        toks = np.asarray(batch["tokens"])
+        self._lockstep("serve", toks, batch.get("pos", 0),
+                       batch.get("slot_mask", False),
+                       batch.get("page_tables", 0), want_logits)
+        key = (toks.shape[1], want_logits)
+        if key not in self._serve_steps:
+            try:
+                self._serve_steps[key] = make_serve_step(
+                    self.rt, ShapeConfig("serve", self._max_seq(),
+                                         self.max_slots, "decode"),
+                    prompt_len=toks.shape[1], max_seq=self._max_seq(),
+                    page_size=self.page_size, want_logits=want_logits,
+                    rope=self._rope)
+            except ValueError as e:
+                raise SessionError(str(e)) from e
+        res = self._serve_steps[key](params, caches, batch)
+        if want_logits:
+            tok, logits, caches = res
+            return tok.cpu(), logits.cpu(), caches
+        tok, caches = res
+        return tok.cpu(), caches
+
     def _step(self, params, caches, batch, want_logits):
         """Move a numpy batch to the device and run one serve step."""
         if self._rope is None:
             self._rope = CS.rope_for(self.cfg, self._max_seq(), self.device)
+        if self.mesh is not None:
+            return self._mesh_step(params, caches, batch, want_logits)
         dev = self.device
         tb = {"tokens": torch.as_tensor(np.asarray(batch["tokens"]),
                                         dtype=torch.int32, device=dev)}
@@ -773,6 +910,12 @@ class Session:
             out["schedule"] = self._describe_schedule()
             out["shape"] = {"seq_len": sc.seq_len,
                             "global_batch": sc.global_batch}
+        elif self.plan_selection is not None:
+            # the reference's report of a serve session's selection; it
+            # changes nothing served: the serve step runs the
+            # forward-only table whatever the selection picked
+            out["schedule"] = dict(self._describe_schedule(),
+                                   serve_table="fwd_only")
         if self._engine_stats is not None:
             out["serving"] = dataclasses.asdict(self._engine_stats)
         if self._fault_tolerance is not None:
@@ -785,10 +928,11 @@ class Session:
         an auto session also every candidate and the plan cache's
         state, with the reference's keys."""
         rc = self.rc
-        plan = self.rt.plans["main"]
+        sel = self.plan_selection
+        plan = sel.selected if sel is not None else self.rt.plans["main"]
         pt = plan.packed
-        if self.plan_selection is not None:
-            ana = self.plan_selection.analysis
+        if sel is not None:
+            ana = sel.analysis
         else:
             cm = self._cost_model(rc.vpp)
             ana = plan.analyze(cm if plan.has_w else fused_cost_model(cm),

@@ -7,15 +7,16 @@ data x (groups x pp) mesh of ranks (``pods``, ``data``,
 ``overrides["pp"]``, ``overrides["groups"]``; the session checks them
 against the process group), with flat or per-tensor collectives
 (``coalesce``) and float32 or int8 gradient reduces
-(``grad_compress``); serving runs on one rank. Train sessions take any
+(``grad_compress``); serving runs on one rank or on the same mesh, with
+the reference's checks that the slot rows and the page arena split
+evenly over pods x data (x FSDP groups, paged). Train sessions take any
 registered schedule, the §4 ``autogen`` / ``autogen_gated``, or
 ``schedule="auto"`` / ``"auto_profiled"`` (the plan selection under
 ``cost_preset``, ``mem_budget``, ``profile_top_k`` and
-``profile_budget_s``, with the reference's checks). Serving takes
-RMSNorm or LayerNorm and the SwiGLU or GELU MLP (the paper's GPT
-included). Topologies, expert parallelism, Mamba/MoE training,
-multi-rank serving and a serve session's ``"auto"`` are refused with the
-roadmap item they wait for.
+``profile_budget_s``, with the reference's checks); serve sessions take
+``"auto"`` too. Serving takes RMSNorm or LayerNorm and the SwiGLU or
+GELU MLP (the paper's GPT included). Topologies, expert parallelism and
+Mamba/MoE training are refused with the roadmap item they wait for.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ class SessionError(ValueError):
     """Invalid session specification (message says how to fix it)."""
 
 
-LATER = "ROADMAP.md queue 1 item 4"
 AUTO_MODES = ("auto", "auto_profiled")
 
 
@@ -66,8 +66,8 @@ class SessionSpec:
     optim: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     seq_len: int | None = None      # train: sequence length (default 32)
     topology: Any = None            # hardware topology (refused: one card)
-    data: int | None = None         # data-axis size (train; default 1)
-    pods: int | None = None         # pod axis (train; default 1)
+    data: int | None = None         # data-axis size (default 1)
+    pods: int | None = None         # pod axis (default 1)
     layers: int | None = None       # train: the model cut to this depth
     #                                 (its widths kept; default: all)
     max_seq: int | None = None      # serving cache length
@@ -168,11 +168,10 @@ class SessionSpec:
         if self.layers is not None:
             raise SessionError("layers= cuts a model for training; serving "
                                "takes the config's depth")
-        if ((self.data or 1) > 1 or (self.pods or 1) > 1
-                or self.overrides.get("groups", 1) != 1):
-            raise SessionError(
-                "serving runs on one rank: multi-rank serving on the tick "
-                f"engine waits for {LATER}")
+        for knob in ("pp", "groups"):
+            if self.overrides.get(knob, 1) < 1:
+                raise SessionError(
+                    f"{knob} must be >= 1, got {self.overrides[knob]}")
         if self.max_seq is None or self.max_seq < 1:
             raise SessionError(
                 "serve sessions need max_seq=<prompt+gen+slack> (the KV "
@@ -187,6 +186,13 @@ class SessionSpec:
                     f"max_slots ({self.max_slots}) and global_batch "
                     f"({self.global_batch}) disagree; in serve mode they "
                     "are the same quantity — pass one of them")
+            shards = (self.pods or 1) * (self.data or 1)
+            if self.max_slots % shards != 0:
+                raise SessionError(
+                    f"max_slots ({self.max_slots}) must divide evenly "
+                    f"over the pods×data axes ({shards}): the slotted "
+                    "(per-slot pos) serve path needs a batch-sharded "
+                    "cache — round max_slots up or shrink data=/pods=")
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
             raise SessionError(
                 f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
@@ -210,6 +216,41 @@ class SessionSpec:
             if self.max_pages < 1:
                 raise SessionError(
                     f"max_pages must be >= 1, got {self.max_pages}")
+            shards = (self.pods or 1) * (self.data or 1)
+            if self.max_pages % shards != 0:
+                raise SessionError(
+                    f"max_pages ({self.max_pages}) must divide evenly "
+                    f"over the pods×data axes ({shards}): the page axis "
+                    "shards exactly like the slot batch axis")
+        if self.page_size is not None:
+            # the page arena and the slot rows partition over pods×data
+            # × FSDP groups (cache leaves shard over the stage axis, so
+            # a page exists only in the group replica that wrote it) —
+            # catch a bad count here with the full partition count, not
+            # deep in PagePool at engine construction.
+            try:
+                groups = self.resolve_configs()[2].groups
+            except Exception:   # resolution errors surface on their own
+                groups = None
+            if groups is not None and groups > 1:
+                shards = (self.pods or 1) * (self.data or 1)
+                parts = shards * groups
+                if self.max_pages is not None \
+                        and self.max_pages % parts != 0:
+                    raise SessionError(
+                        f"max_pages ({self.max_pages}) must divide "
+                        f"evenly over the {parts} cache partitions "
+                        f"(pods×data ({shards}) × FSDP groups "
+                        f"({groups})): a page lives only in the stage "
+                        "replica of the group that wrote it — round "
+                        f"max_pages to a multiple of {parts}")
+                if self.max_slots is not None \
+                        and self.max_slots % parts != 0:
+                    raise SessionError(
+                        f"max_slots ({self.max_slots}) must divide "
+                        f"evenly over the {parts} cache partitions "
+                        f"(pods×data ({shards}) × FSDP groups "
+                        f"({groups})) for the paged serve path")
         return self
 
     def _validate_selection(self) -> None:
@@ -230,11 +271,6 @@ class SessionSpec:
                 f"during selection; this session is mode={self.mode!r} — "
                 "use schedule='auto' (simulated-only) here, or tune in a "
                 "train session and pass the winning schedule explicitly")
-        if sched == "auto" and self.mode != "train":
-            raise SessionError(
-                "schedule='auto' selects a pipeline plan; a one-rank serve "
-                "session has one stage, so there is nothing to select "
-                f"until multi-rank serving ({LATER})")
         if self.profile_top_k < 1:
             raise SessionError(
                 f"profile_top_k must be >= 1 (at least the simulated-best "

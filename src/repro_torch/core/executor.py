@@ -1,8 +1,9 @@
-"""The tick engine and its training handlers, as an eager loop.
+"""The tick engine and its training and serving handlers, as an eager
+loop.
 
 The port's counterpart of ``repro/core/executor.py`` (``TickEngine``,
 ``validate_unit_stash_packed``, ``make_tok_slice``, ``segment_train_scan``,
-``train_body``). The JAX engine scans a ``PackedTable`` with ``lax.scan``
+``train_body``, ``make_cache_io``, ``serve_body``). The JAX engine scans a ``PackedTable`` with ``lax.scan``
 inside ``shard_map``; here each rank walks its column of the table in
 Python. Each tick:
 
@@ -48,11 +49,24 @@ pipeline groups, then their float32 all-reduce across pods; the io
 grads summed over the model axis, across pods and, unless
 vocabulary-sharded, over the data axis; and the metrics summed over the
 whole mesh. On one rank every one of them is a sum over that rank.
+
+Serving (``serve_body``) walks the forward-only table on the same engine:
+F cells and NOPs, the stage blocks gathered tick by tick as in training,
+no reduces and no tape. Each F cell embeds at stage 0, runs the cached
+stage on its micro-batch's rows of this rank's cache tree
+(``make_cache_io``), and the drain rank samples at the last stage; the
+tokens (and logits) are then summed over the model axis from the drain
+ranks and gathered over the data and pod axes, so that every rank
+returns the whole batch's. Serve steps count into ``COLL_TIME`` the
+seconds the engine spends issuing gathers (on gloo, the copy of the
+slab to the host) and waiting for them (the collective and the copy
+back), for the serve launcher's report; training steps time nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
@@ -69,6 +83,13 @@ from repro_torch.core.tape import Tape
 from repro_torch.models import blocks
 from repro_torch.models import model as M
 from repro_torch.models.common import torch_dtype
+
+
+COLL_TIME = {"gathers": 0, "issue_s": 0.0, "wait_s": 0.0}
+
+
+def reset_coll_time() -> None:
+    COLL_TIME.update(gathers=0, issue_s=0.0, wait_s=0.0)
 
 
 def make_tok_slice(g_rank: int, Btot: int, mbs: int):
@@ -168,6 +189,7 @@ class TickEngine:
     mesh: Any = None
     act: Any = None
     grad_compress: str = "none"
+    times: dict | None = None   # COLL_TIME-shaped: gather counts, seconds
     state: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -219,11 +241,14 @@ class TickEngine:
 
     def _land(self, slot: int) -> None:
         pend, self.pending[slot] = self.pending[slot], None
+        t0 = time.perf_counter() if self.times is not None else 0.0
         if self.flat is not None:
             self.gbuf[slot] = pend.wait().to(self.cdt)
         else:
             self.gbuf[slot] = {n: p.wait().to(self.cdt)
                                for n, p in pend.items()}
+        if self.times is not None:
+            self.times["wait_s"] += time.perf_counter() - t0
 
     def _gather_step(self, row) -> None:
         gv, slot = row["gather_v"], row["gather_slot"]
@@ -234,6 +259,7 @@ class TickEngine:
             return
         if self.pending[slot] is not None:   # issued, never read
             self._land(slot)
+        t0 = time.perf_counter() if self.times is not None else 0.0
         if self.flat is not None:
             self.pending[slot] = self.comm.all_gather_async(
                 self.seg_flat[gv])
@@ -243,6 +269,9 @@ class TickEngine:
                                            self.comm)
                 for n in self.gatherable}
         self.gbuf[slot] = None
+        if self.times is not None:
+            self.times["gathers"] += 1
+            self.times["issue_s"] += time.perf_counter() - t0
 
     def _reduce_step(self, row) -> None:
         rv = row["reduce_v"]
@@ -283,8 +312,8 @@ class TickEngine:
     def _add_reduces(self, wait: bool) -> None:
         """Add issued reduces into ``acc_shard`` in issue order: every one
         (``wait``), or those up to the first still in flight."""
-        shard = self.state["acc_shard"]
         while self.reduces:
+            shard = self.state["acc_shard"]
             rv, issued = self.reduces[0]
             if not wait and not all(p.ready() for p in issued.values()):
                 return
@@ -489,3 +518,170 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
                "aux_sum": w.all_reduce(metrics["aux_sum"]),
                "emb_dropped": int(w.all_reduce(dropped))}
     return {"io": io_g, "segments": {"main": seg_grads}}, metrics
+
+
+# --------------------------------------------------------------------------- #
+# Serving: KV-cache hooks + F handler over the same engine
+# --------------------------------------------------------------------------- #
+
+
+def make_cache_io(*, g_rank: int, Btot: int, mbs: int, paged: bool):
+    """(cache_get, cache_put) hooks for this rank's layer-cache tree
+    ``{"L{j}.<name>": [V, b_loc | n_loc, ...]}``.
+
+    ``cache_get(tree, j, v, u)`` hands the stage every leaf of layer slot
+    ``j`` (``L{j}.`` and a dot, so that L1 never matches L10; int8 page
+    scales beside their pools too) at stage slot ``v``: a paged leaf
+    whole (rows gather and scatter through their page tables), a
+    contiguous one as micro-batch ``u``'s rows ``(g_rank·Btot + u)·mbs``
+    onward. Both are views, which the cached layers write in place;
+    ``cache_put`` copies back only a leaf the stage returned as a tensor
+    of its own."""
+
+    def cache_get(tree, j, v, u):
+        pfx, out = f"L{j}.", {}
+        for key, a in tree.items():
+            if not key.startswith(pfx):
+                continue
+            start = (g_rank * Btot + u) * mbs
+            out[key[len(pfx):]] = a[v] if paged else \
+                a[v, start:start + mbs]
+        return out
+
+    def cache_put(tree, j, v, u, cd):
+        views = cache_get(tree, j, v, u)
+        for n, val in cd.items():
+            if val.data_ptr() != views[n].data_ptr():
+                views[n].copy_(val)
+        return tree
+
+    return cache_get, cache_put
+
+
+def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
+               rope: dict, page_size: int = 0, want_logits: bool = False):
+    """One rank's serve step on the tick engine (prefill chunk or decode).
+
+    ``batch`` holds this rank's rows of the step's batch, on the device:
+    ``tokens`` int [b_loc, s], ``pos`` an int or an int [b_loc] tensor,
+    optional ``slot_mask`` bool [b_loc] and ``page_tables`` int [b_loc,
+    pages_per_slot] (shard-local page ids). ``caches`` is this rank's
+    cache tree, written in place. Returns ``(tokens, caches)`` or
+    ``(tokens, logits, caches)``: int32 [gb] and float32 [gb, vocab], the
+    same on every rank (logits are not returned on a multi-pod mesh)."""
+    cfg, rc = rt.cfg, rt.rc
+    io_p = params["io"]
+    Pe, G, p_rank, g_rank = rt.Pe, rt.G, rt.p_rank, rt.g_rank
+    vloc, comm, mesh = rt.vloc, rt.comm, rt.mesh
+    cdt = torch_dtype(rc.compute_dtype)
+    tokens = batch["tokens"]
+    pos = batch.get("pos", 0)
+    slot_mask = batch.get("slot_mask")
+    page_tables = batch.get("page_tables")
+    per_slot = isinstance(pos, torch.Tensor) and pos.ndim == 1
+    if page_tables is not None and not (per_slot and page_size > 0):
+        raise ValueError(
+            "page_tables require a per-slot pos vector and page_size > 0")
+    seg = rt.segs["main"]
+    V, n_kinds = seg.vpp, len(seg.kinds)
+    pt = rt.serve_plan().packed
+    if (pt.reduce_v >= 0).any():
+        raise ValueError("the serve table reduces gradients: it must be "
+                         "forward-only")
+    tree = caches["main"]
+    dev = tokens.device
+    s, d = tokens.shape[1], cfg.d_model
+    eng = TickEngine(
+        pt=pt, specs=rt.stage_specs["main"], seg_p=params["segments"]["main"],
+        flat=rt.flat_layouts["main"], comm=comm, cdt=cdt,
+        rs_dtype=torch.float32, p_rank=p_rank, mesh=mesh,
+        act=((mbs, s, d), cdt), times=COLL_TIME)
+    st = eng.state
+    st["xbuf"] = _Stash(pt.U, "fwd wire")
+    tok_slice = make_tok_slice(g_rank, Btot, mbs)
+    cache_get, cache_put = make_cache_io(g_rank=g_rank, Btot=Btot, mbs=mbs,
+                                         paged=page_tables is not None)
+    ctx = blocks.LayerCtx(cfg=cfg, rc=rc, rope=rope, causal=True,
+                          page_size=page_size)
+    out_tok = torch.zeros((G * Btot, mbs), dtype=torch.int32, device=dev)
+    out_logits = None
+    if want_logits:
+        # vocabulary-sharded: the drain rank's slice for the rows of every
+        # data rank (the all-gather in serve_logits), hence D·mbs rows
+        lrows = (rt.dsize if vloc else 1) * mbs
+        out_logits = torch.zeros((G * Btot, lrows, vloc or cfg.vocab),
+                                 dtype=torch.float32, device=dev)
+
+    def f_branch(eng, row):
+        u, v = row["mb"], row["v"]
+        if u >= Btot:
+            # a micro-batch past a degenerate tiling (fewer rows than
+            # groups x micro-batches: the table still runs every one).
+            # The reference recomputes clamped rows there, re-applying
+            # their state and overwriting a sampled token; here it is
+            # inert: nothing is written or sampled, the wire carries zeros
+            if not (p_rank == 0 and v == 0):
+                st["xbuf"].pop(u)
+            st["send_f"] = torch.zeros((mbs, s, d), dtype=cdt, device=dev)
+            return
+        if p_rank == 0 and v == 0:
+            ids = tok_slice(tokens, u)
+            x = (Vb.embed_lookup(io_p["embed.table"], ids, vloc, cdt, comm)
+                 if vloc is not None else M.embed_tokens(io_p, ids, cfg, cdt))
+        else:
+            x = st["xbuf"].pop(u)
+        params_v = eng.stage_params(v, row["use_slot"])
+        ctx.slot_mask = (tok_slice(slot_mask, u) if slot_mask is not None
+                         else None)
+        # the writing rows once a cell, not once a layer
+        ctx.write_rows = (torch.nonzero(ctx.slot_mask).reshape(-1)
+                          if slot_mask is not None else None)
+        ctx.page_tables = (tok_slice(page_tables, u)
+                           if page_tables is not None else None)
+        ch = [cache_get(tree, j, v, u) for j in range(n_kinds)]
+        y, ch2 = M.cached_stage(ctx, seg, params_v, x, ch, v * Pe + p_rank,
+                                tok_slice(pos, u) if per_slot else pos)
+        for j in range(n_kinds):
+            cache_put(tree, j, v, u, ch2[j])
+        st["send_f"] = y
+        if p_rank == Pe - 1 and v == V - 1:
+            h_last = y[:, -1]
+            idx = g_rank * Btot + u % Btot
+            out_tok[idx] = Vb.greedy_sample(cfg, rc, io_p, h_last, vloc,
+                                            comm)
+            if want_logits:
+                out_logits[idx] = Vb.serve_logits(cfg, rc, io_p, h_last,
+                                                  vloc, comm)
+
+    eng.run({KF: f_branch})
+    if st["xbuf"]:
+        raise RuntimeError(f"serve table left live wires: {list(st['xbuf'])}")
+    tok = out_tok.reshape(-1)
+    logits = None
+    if want_logits:
+        if vloc is not None:
+            # [G·Btot, D·mbs, vloc] -> [D·b_loc, vloc]: the pod's row r is
+            # data rank r // b_loc's local row r % b_loc, and each u-block
+            # holds every data rank's mbs rows
+            D = rt.dsize
+            logits = out_logits.reshape(G * Btot, D, mbs, vloc).transpose(
+                0, 1).reshape(D * G * Btot * mbs, vloc)
+        else:
+            logits = out_logits.reshape(G * Btot * mbs, cfg.vocab)
+    if mesh is None:
+        return (tok, logits, caches) if want_logits else (tok, caches)
+    # the drain ranks hold the sampled rows of their group: share them over
+    # the model axis, then over the data and pod axes
+    drain = p_rank == Pe - 1
+    tok = mesh.model_comm.all_reduce(tok if drain else torch.zeros_like(tok))
+    tok = mesh.pod_comm.all_gather(mesh.data_comm.all_gather(tok))
+    if not want_logits:
+        return tok, caches
+    logits = mesh.model_comm.all_reduce(
+        logits if drain else torch.zeros_like(logits))
+    every = mesh.data_comm.all_gather(logits)
+    if vloc is not None:
+        # every data rank's vocabulary slice of the same rows, side by side
+        D, n = rt.dsize, logits.shape[0]
+        every = every.reshape(D, n, vloc).transpose(0, 1).reshape(n, D * vloc)
+    return tok, every, caches

@@ -1,15 +1,21 @@
-"""Runtime and the train-step builder of the port.
+"""Runtime and the train- and serve-step builders of the port.
 
-The port's counterpart of the train side of ``repro/core/pipeline.py``:
-``Runtime`` builds the segment's ``SchedulePlan`` (or adopts an
-injected one, e.g. the winner of ``schedule="auto"``), the parameter specs,
-the gatherable sets, the flat FSDP layouts (``coalesce="flat"``; none
-for ``"none"``) and the vocabulary shard for one rank of a pods x data
-x (groups x pp) mesh; ``make_train_step`` wraps the executor's
-``train_body`` into ``step(params, batch) -> (grads, metrics)``. The
-batch is sharded over (pod, data): a rank takes shard ``pod * data +
-d`` of ``pods * data``. Without a mesh one rank holds one pipeline
-group (pp = data = groups = pods = 1) and the data axis is
+The port's counterpart of ``repro/core/pipeline.py``: ``Runtime`` builds
+the segment's ``SchedulePlan`` (or adopts an injected one, e.g. the
+winner of ``schedule="auto"``) and, once a serve step asks, the
+forward-only serve plan (``plans["serve_main"]``), the parameter specs,
+the gatherable sets, the flat FSDP layouts (``coalesce="flat"``; none for ``"none"``) and
+the vocabulary shard for one rank of a pods x data x (groups x pp)
+mesh; ``make_train_step`` wraps the executor's ``train_body`` into
+``step(params, batch) -> (grads, metrics)`` and ``make_serve_step`` the
+executor's ``serve_body`` into ``step(params, caches, batch) ->
+(tokens, [logits,] caches)`` (``serve_tiling`` splits a rank's slot
+rows into groups x micro-batches x rows). The batch is sharded over
+(pod, data): a rank takes shard ``pod * data + d`` of ``pods * data``;
+a serve batch must split evenly (the batch-sharded cache layout; the
+reference's sequence-sharded fallback is not ported). Without a mesh
+one rank holds one pipeline group (pp = data = groups = pods = 1) and
+the data axis is
 :class:`repro_torch.core.fsdp.LocalComm`; with a live
 :class:`repro_torch.core.comm.Mesh` it is the mesh's data communicator
 (the D ranks of one pod). A :class:`repro_torch.core.comm.MeshShape` alone gives the
@@ -19,13 +25,16 @@ layout without collectives (cutting and re-assembling trees,
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.core import fsdp
 from repro_torch.core import vocab as Vb
 from repro_torch.core.comm import Mesh, MeshShape
-from repro_torch.core.executor import train_body
+from repro_torch.core import serve as CS
+from repro_torch.core.executor import serve_body, train_body
 from repro_torch.core.generators import SchedParams
 from repro_torch.core.plan import (
     UNIT_GATED_SCHEDULES,
@@ -91,6 +100,8 @@ class Runtime:
             self._adopt(plan, sp) if plan is not None else
             SchedulePlan.build(rc.schedule, sp,
                                prefetch=rc.gather_prefetch))}
+        self.sp = sp
+        self.multi_pod = self.shape.pods > 1
         self.io_specs = M.io_specs(cfg)
         self.stage_specs = {s.name: M.stage_specs(cfg, s)
                             for s in self.geo.segments}
@@ -115,6 +126,17 @@ class Runtime:
                 f"(P={pp.P}, V={pp.V}, B={pp.n_mb}) but this runtime "
                 f"needs (P={sp.P}, V={sp.V}, B={sp.n_mb})")
         return plan.with_prefetch(self.rc.gather_prefetch)
+
+    def serve_plan(self) -> SchedulePlan:
+        """The forward-only serve table, ``plans["serve_main"]``, built
+        when a serve step first asks for it (a train runtime never
+        does): not unit-gated, its wires hold every micro-batch."""
+        if "serve_main" not in self.plans:
+            self.plans["serve_main"] = SchedulePlan.build(
+                "fwd_only",
+                dataclasses.replace(self.sp, unit=self.rc.microbatches),
+                prefetch=self.rc.gather_prefetch)
+        return self.plans["serve_main"]
 
     @property
     def tables(self) -> dict[str, PackedTable]:
@@ -182,5 +204,98 @@ def make_train_step(rt: Runtime, shape_cfg):
         b = {k: to_dev(batch[k]) for k in ("tokens", "labels")}
         return train_body(params, b, rt=rt, shape_cfg=shape_cfg, mbs=mbs,
                           denom=denom)
+
+    return step
+
+
+# --------------------------------------------------------------------------- #
+# Serving: prefill (s = prompt len) and decode (s = 1) steps
+# --------------------------------------------------------------------------- #
+
+
+def batch_shardable(rt: Runtime, gb: int) -> bool:
+    """Whether ``gb`` slot rows split evenly over the pods x data shards
+    (the batch-sharded cache layout, the only one ported)."""
+    shards = rt.shape.pods * rt.dsize
+    return gb % shards == 0 and gb >= shards
+
+
+SEQ_SHARD_LATER = (
+    "the reference falls back to the sequence-sharded KV cache "
+    "(kv_seq_shard), which waits for ROADMAP.md queue 1 item 8; use a "
+    "slot count divisible by the pods x data axes")
+
+
+def serve_tiling(rt: Runtime, gb: int) -> tuple[int, int, int]:
+    """(b_loc, Btot, mbs): how the serve step tiles a rank's ``b_loc``
+    slot rows into (groups x micro-batches x mbs), as the reference's
+    ``serve_tiling`` does for the batch-sharded layout. Rows beyond
+    ``G·Btot·mbs`` would never be computed, so slotted callers check
+    exact coverage (``Session.check_slot_sharding``)."""
+    b_loc = gb // (rt.shape.pods * rt.dsize)
+    Btot = min(rt.rc.microbatches, b_loc)
+    mbs = b_loc // (rt.G * Btot) if b_loc >= rt.G * Btot else 1
+    # degenerate tiny batches: one micro-batch a group
+    if b_loc < rt.G * Btot:
+        Btot = max(b_loc // rt.G, 1)
+        mbs = 1
+    return b_loc, Btot, mbs
+
+
+def make_serve_step(rt: Runtime, shape_cfg, *, prompt_len: int = 1,
+                    max_seq: int | None = None, page_size: int = 0,
+                    want_logits: bool = False, rope: dict | None = None):
+    """Returns step(params, caches, batch) -> (tokens, caches), or (tokens,
+    logits, caches) with ``want_logits``, on this rank of ``rt``'s mesh.
+
+    ``batch`` is the step's whole batch, the same on every rank (numpy
+    arrays or tensors): ``tokens`` [gb, prompt_len]; ``pos`` an int, or
+    [gb] per slot; optional ``slot_mask`` [gb] and ``page_tables`` [gb,
+    max_seq // page_size] (shard-local page ids). Each rank takes its
+    shard's rows. ``tokens`` come back int32 [gb] and ``logits`` float32
+    [gb, vocab] (the drain ranks' rows, gathered), on the device. A batch
+    that does not split over pods x data (the reference's
+    sequence-sharded layout, logits or not) is refused, and so are
+    logits on a multi-pod mesh, as the reference refuses them."""
+    gb = shape_cfg.global_batch
+    max_seq = max_seq or shape_cfg.seq_len
+    if not batch_shardable(rt, gb):
+        # a serve session's spec refuses such a slot count first
+        raise ValueError(f"global_batch {gb} does not split over the "
+                         f"pods x data axes: {SEQ_SHARD_LATER}")
+    if want_logits and rt.multi_pod:
+        raise NotImplementedError(
+            "logits return is not wired for multi-pod meshes")
+    if rt.shape.world > 1 and rt.mesh is None:
+        raise ValueError(f"a step on a {rt.shape.world}-rank mesh needs the "
+                         "live Mesh of this rank's process")
+    b_loc, Btot, mbs = serve_tiling(rt, gb)
+    shard = rt.shape.shard_of(rt.rank)
+    rows = slice(shard * b_loc, (shard + 1) * b_loc)
+    dev = rt.device
+    if rope is None:
+        rope = CS.rope_for(rt.cfg, max_seq, dev)
+
+    def local(a, dtype):
+        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        return a[rows].to(device=dev, dtype=dtype)
+
+    def step(params, caches, batch):
+        if tuple(np.shape(batch["tokens"])) != (gb, prompt_len):
+            raise ValueError(f"batch['tokens'] is "
+                             f"{tuple(np.shape(batch['tokens']))}, the "
+                             f"step takes [{gb}, {prompt_len}]")
+        b = {"tokens": local(batch["tokens"], torch.int32)}
+        pos = batch.get("pos", 0)
+        b["pos"] = (local(pos, torch.int32) if np.ndim(pos) == 1
+                    else int(pos))
+        if batch.get("slot_mask") is not None:
+            b["slot_mask"] = local(batch["slot_mask"], torch.bool)
+        if batch.get("page_tables") is not None:
+            b["page_tables"] = local(batch["page_tables"], torch.int32)
+        return serve_body(params, caches, b, rt=rt, mbs=mbs, Btot=Btot,
+                          rope=rope, page_size=page_size,
+                          want_logits=want_logits)
 
     return step

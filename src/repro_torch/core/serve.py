@@ -1,15 +1,18 @@
-"""The one-rank serve step and its cache tree.
+"""The one-rank serve step and the serve cache tree.
 
-The port's counterpart of ``repro/core/executor.py:928 serve_body`` and
-``repro/core/pipeline.py:533-653`` (``init_serve_caches``,
-``reset_slot_caches``, ``reset_pages``, ``copy_pages``).
+The port's counterpart of ``repro/core/pipeline.py:533-653``
+(``init_serve_caches``, ``reset_slot_caches``, ``reset_pages``,
+``copy_pages``) and of the reference's serve body at one rank.
 
-There is no tick engine here. With pp = data = 1 on one card there is
-nothing to schedule: the step embeds the tokens, walks the stages in
-logical order (stage ``s = v·pp + p`` at stacked index ``p·V + v``, for
-any pp/vpp the params were stacked with), and samples greedily from the
-last position's hidden state. The tick engine, which overlaps stages on
-several ranks, arrives with the training slice.
+``serve_step`` runs no tick engine: on one rank there is nothing to
+schedule, so it embeds the tokens, walks the stages in logical order
+(stage ``s = v·pp + p`` at stacked index ``p·V + v``, for any pp/vpp the
+params were stacked with), and samples greedily from the last position's
+hidden state. On a mesh of ranks the serve step runs the forward-only
+table on the tick engine instead (``core/executor.py serve_body``); its
+cache tree is this rank's part of the same tree (``init_serve_caches``
+with ``stages=V``, the rank's slot rows or page block), and
+``copy_pages_across`` moves a page between the pods × data shards.
 
 Caches are updated in place, where the reference returns new arrays (its
 jitted step donates them instead):
@@ -22,7 +25,9 @@ jitted step donates them instead):
 
 Callers that need the old cache contents must clone them first.
 
-Cache tree: ``{"main": {"L{j}.k": [P·V, slots, max_seq, g, e], ...}}``,
+Cache tree: ``{"main": {"L{j}.k": [P·V, slots, max_seq, g, e], ...}}``
+(on a mesh ``[V, b_loc, ...]``, or ``[V, n_pages / (pods·data), ...]``
+paged),
 or with paging ``[P·V, n_pages, page_size, g, e]`` leaves plus
 ``L{j}.k_scale``/``L{j}.v_scale`` ``[P·V, n_pages, g]`` float32 leaves
 for int8 pools. A Mamba layer slot holds ``L{j}.conv`` ``[P·V, slots,
@@ -32,6 +37,7 @@ d_state]`` (float32); its state has no positions, so it is never paged.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import vocab as Vb
@@ -41,11 +47,14 @@ from repro_torch.models.common import rope_tables, torch_dtype
 
 
 def init_serve_caches(cfg, rc, geo, *, slots: int, max_seq: int,
-                      page_size: int = 0, n_pages: int = 0, device="cuda"):
-    """Zeroed cache tree on ``device``."""
+                      page_size: int = 0, n_pages: int = 0, device="cuda",
+                      stages: int | None = None):
+    """Zeroed cache tree on ``device``: ``stages`` leading rows (default
+    every stage, P·V; a rank of a mesh holds its V), ``slots`` rows or
+    ``n_pages`` pages."""
     tree = {}
     for seg in geo.segments:
-        stages = geo.seg_stages(seg)
+        rows = stages or geo.seg_stages(seg)
         slots_tree = {}
         for j, kind in enumerate(seg.kinds):
             cs = dict(M.layer_cache_spec(cfg, rc, kind, slots, max_seq))
@@ -65,7 +74,7 @@ def init_serve_caches(cfg, rc, geo, *, slots: int, max_seq: int,
                                             torch.float32)
             for n, (shape, dt) in cs.items():
                 slots_tree[f"L{j}.{n}"] = torch.zeros(
-                    (stages,) + shape, dtype=dt, device=device)
+                    (rows,) + shape, dtype=dt, device=device)
         tree[seg.name] = slots_tree
     return tree
 
@@ -93,6 +102,44 @@ def copy_pages(caches, src: torch.Tensor, dst: torch.Tensor):
     for sub in caches.values():
         for a in sub.values():
             a[:, dst] = a[:, src]
+    return caches
+
+
+TAG_PAGE = 16   # tags of page copies: TAG_PAGE + the pair's index
+
+
+def copy_pages_across(caches, src, dst, *, dev_pages: int, shard: int,
+                      peer, exchange):
+    """``copy_pages`` on a mesh, in place: ``src`` / ``dst`` are *global*
+    page ids (numpy), shard ``i`` of the pods × data axes holds pages
+    ``[i·dev_pages, (i+1)·dev_pages)`` as local ids ``gid % dev_pages``,
+    and this rank holds shard ``shard``. A pair within one shard copies
+    locally; a pair across shards is a send of the source page's rows
+    from the rank of the same model index in the source shard
+    (``peer(shard)`` gives its global rank) to this one, through
+    ``exchange`` (``Mesh.exchange``). Every source is read before any
+    destination is written, as the reference's ``a.at[:, dst].set(a[:,
+    src])``; repeats of one (src, dst) pair count once."""
+    pairs = list(dict.fromkeys(zip(np.asarray(src).reshape(-1).tolist(),
+                                   np.asarray(dst).reshape(-1).tolist())))
+    for sub in caches.values():
+        for a in sub.values():
+            put, sends, recvs, into = {}, [], [], []
+            for i, (s, d) in enumerate(pairs):
+                ss, ds = s // dev_pages, d // dev_pages
+                if ds == shard and ss == shard:
+                    put[i] = a[:, s % dev_pages].clone()
+                elif ds == shard:
+                    recvs.append((peer(ss), TAG_PAGE + i))
+                    into.append(i)
+                elif ss == shard:
+                    sends.append((a[:, s % dev_pages], peer(ds),
+                                  TAG_PAGE + i))
+            got = exchange(sends, recvs, a[:, 0].shape, a.dtype) \
+                if sends or recvs else []
+            put.update(zip(into, got))
+            for i, t in put.items():
+                a[:, pairs[i][1] % dev_pages] = t
     return caches
 
 

@@ -37,7 +37,12 @@ kernel, as a plain scan over vocabulary chunks.
 Serving: the ``[b, d] @ [d, vocab]`` product is a plain float32 matrix
 product (the reference upcasts the head to float32 the same way); the
 head is the tied table's transpose, or ``head.w`` [d, vocab] when the
-embedding is untied. Serving runs on one rank (replicated head).
+embedding is untied. Sharded, every data rank gathers the normed rows of
+the whole data axis and computes its vocabulary slice for all of them;
+``greedy_sample`` then takes the reference's cross-shard argmax (the
+local max and first argmax, the global max, and among the shards that
+reach it the highest shard's candidate), which is not ``torch.argmax``
+over the full row where two shards tie.
 """
 
 from __future__ import annotations
@@ -54,13 +59,6 @@ def vocab_shard(vocab: int, dsize: int) -> int | None:
     if dsize > 1 and vocab % dsize == 0 and vocab // dsize >= 8:
         return vocab // dsize
     return None
-
-
-def _replicated(vloc):
-    if vloc is not None:
-        raise NotImplementedError(
-            "serving runs on one rank with the head replicated (vloc=None); "
-            "multi-rank serving is ROADMAP.md queue 1 item 4")
 
 
 # --------------------------------------------------------------------------- #
@@ -204,18 +202,39 @@ def loss_and_dy(cfg, rc, io_p, h, labels, denom: float, vloc: int | None,
 # --------------------------------------------------------------------------- #
 
 
-def serve_logits(cfg, rc, io_p, h, vloc: int | None = None):
-    """Full next-token logits [b, vocab] (float32) from final hiddens
-    h [b, d]. Feeds the host-side sampling layer."""
-    _replicated(vloc)
-    hn, _ = _final_norm_fwd(cfg, io_p, h)
+def _head(cfg, io_p):
+    """The head as a float32 [d, vocab | vloc] matrix."""
     w = (io_p["embed.table"].t() if cfg.tie_embeddings
          else io_p["head.w"])
-    return hn @ w.float()
+    return w.float()
 
 
-def greedy_sample(cfg, rc, io_p, h, vloc: int | None = None):
-    """Greedy next token [b] int32 (first index of the maximum, as
-    ``jnp.argmax``)."""
-    return torch.argmax(serve_logits(cfg, rc, io_p, h, vloc),
-                        dim=-1).to(torch.int32)
+def serve_logits(cfg, rc, io_p, h, vloc: int | None = None, comm=None):
+    """Next-token logits (float32) from final hiddens h [b, d]: [b, vocab]
+    with the head replicated; sharded, this rank's vocabulary slice for
+    the rows of every data rank, [D·b, vloc] (the rows in data-rank
+    order). Feeds the host-side sampling layer."""
+    hn, _ = _final_norm_fwd(cfg, io_p, h)
+    if vloc is not None:
+        hn = comm.all_gather(hn)
+    return hn @ _head(cfg, io_p)
+
+
+def greedy_sample(cfg, rc, io_p, h, vloc: int | None = None, comm=None):
+    """Greedy next token [b] int32 for this rank's rows h [b, d].
+
+    Replicated: the first index of the maximum, as ``jnp.argmax``.
+    Sharded over ``comm``'s data ranks, the reference's rule: each rank
+    gathers every rank's rows and takes its shard's max and first
+    argmax; the global max is the max over the shards, and the token the
+    largest ``argmax + shard offset`` among the shards whose max reaches
+    it (so of two shards tied at the max, the higher one wins)."""
+    logits = serve_logits(cfg, rc, io_p, h, vloc, comm)
+    if vloc is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    b, r = h.shape[0], comm.index
+    lmax, lidx = logits.max(-1).values, torch.argmax(logits, dim=-1)
+    gmax = comm.all_reduce(lmax, "max")
+    cand = torch.where(lmax >= gmax, lidx + r * vloc, 0)
+    tok = comm.all_reduce(cand, "max")
+    return tok[r * b:(r + 1) * b].to(torch.int32)

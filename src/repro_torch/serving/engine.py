@@ -33,6 +33,15 @@ prefills. Greedy output stays token-identical to the contiguous path.
 Sampled requests (``temperature > 0``) pull the drain rank's full
 logits and draw host-side with a per-request seeded generator.
 
+On a mesh session every rank runs its own engine, and the engines must
+run in lockstep: every rank submits the same requests in the same order
+and ticks them with ``step()`` / ``run_until_idle()``; the session checks
+each serve step, slot reset, page reset and page copy against every
+other rank's and raises on any difference (the engine then fails every
+request). So a mesh session refuses the background thread, whose ticks
+would admit by the threads' timing, and a sampled request without a
+``seed``, whose draws would differ by rank.
+
 A copy of ``repro.serving.engine`` for ``repro_torch`` sessions. It takes
 numpy batches to the session and reads back host tensors, exactly as the
 reference engine does with jax sessions. Left out until their slices:
@@ -50,6 +59,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from repro_torch.api.spec import SessionError
 from repro_torch.serving.paging import PagedSlotPool
 from repro_torch.serving.sampling import sample_token
 from repro_torch.serving.scheduler import (
@@ -180,6 +190,12 @@ class ServeEngine:
         if self._failure is not None:
             raise RuntimeError("engine failed; no further submissions") \
                 from self._failure
+        if temperature > 0 and seed is None \
+                and getattr(self.session, "mesh", None) is not None:
+            raise SessionError(
+                "a sampled request (temperature > 0) on a mesh session "
+                "needs a seed: every rank draws its tokens, and the draws "
+                "must agree")
         req = Request(prompt=np.asarray(prompt, np.int32),
                       max_gen=max_gen, stop=stop, temperature=temperature,
                       top_p=top_p, seed=seed)
@@ -283,7 +299,15 @@ class ServeEngine:
         return self.stats
 
     def start(self) -> "ServeEngine":
-        """Run the driver loop in a daemon thread (async driver)."""
+        """Run the driver loop in a daemon thread (async driver). Refused
+        on a mesh session: its ranks' engines tick in lockstep, which a
+        thread's timing cannot keep."""
+        if getattr(self.session, "mesh", None) is not None:
+            raise SessionError(
+                "a mesh session's engines must tick in lockstep: every "
+                "rank admits the same requests at the same tick, which a "
+                "background thread's timing cannot guarantee; drive the "
+                "engine with step() / run_until_idle() on every rank")
         if self._thread is not None:
             return self
         self._stop.clear()

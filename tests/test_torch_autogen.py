@@ -28,7 +28,8 @@ operations in the same order as the reference, so outputs compare with
   fingerprints, ``off``, and a path of its own;
 * the facade: the spec's checks, ``schedule="auto"`` picking the
   reference Session's plan with the same ``describe()["schedule"]``
-  simulated values, ``tpu_v5e`` and serve-mode ``auto`` refused;
+  simulated values, ``tpu_v5e`` refused, and a serve session's
+  ``auto`` running the reference serve Session's selection;
 * the train step at one rank under ``autogen`` / ``autogen_gated``
   against ``jax.value_and_grad(reference_loss)`` (loss 1e-5 relative,
   gradients 1e-4 of max |ref|) and the JAX ``make_train_step``, and
@@ -626,9 +627,19 @@ def test_spec_refuses_tpu_unknown_presets_and_serve_auto():
     with pytest.raises(SessionError, match="unknown cost_preset 'h100'"):
         tsession("llama3.2-1b", mode="train", device="cpu",
                  cost_preset="h100")
-    with pytest.raises(SessionError, match="queue 1 item 4"):
-        tsession("llama3.2-1b", mode="serve", device="cpu", max_seq=16,
-                 schedule="auto")
+    # a serve session's schedule="auto" runs the reference serve
+    # Session's selection (seq = max_seq, one sequence a micro-batch)
+    # and describe() reports it, beside the table serving runs
+    js = jsession("llama3.2-1b", mode="serve", data=1, max_seq=16,
+                  schedule="auto")
+    ts = tsession("llama3.2-1b", mode="serve", device="cpu", max_seq=16,
+                  schedule="auto")
+    jd, td = js.describe()["schedule"], ts.describe()["schedule"]
+    assert ts.rc.schedule == js.rc.schedule == td["auto"]["selected"]
+    assert td["auto"] == jd["auto"]
+    assert td["serve_table"] == "fwd_only"
+    for k in SIMULATED:
+        assert td[k] == jd[k], k
     with pytest.raises(Exception) as want:
         jsession("llama3.2-1b", mode="serve", max_seq=16,
                  schedule="auto_profiled")

@@ -234,7 +234,8 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
         session("llama3.2-1b", mode="train", device="cpu", data=2)
     with pytest.raises(SessionError, match="unknown architecture"):
         session("qwen2-moe-a2.7b", max_seq=16, device="cpu")
-    with pytest.raises(SessionError, match="one rank"):
+    # a serve session on a mesh, too (multi-rank serving)
+    with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", max_seq=16, data=2, device="cpu")
     with pytest.raises(SessionError, match="page_size"):
         session("llama3.2-1b", max_seq=16, kv_cache_dtype="int8",

@@ -62,6 +62,36 @@ same data 2 x pp 2 — and under ``auto_profiled`` every rank reports the
 same winner and the same measured times (each the maximum over the
 ranks).
 
+Serving on the mesh (the same spawn): reduced llama3.2-1b at data 2 x
+pp 2 (vpp 2, contiguous cache) and at pods 2 x data 2 (pp 1, vpp 2,
+paged with prefix sharing), and reduced Jamba at data 2 x groups 2
+(contiguous), each through the engine over staggered requests (slot
+reclaim; chunked prefill for llama), every rank submitting the same and
+ticking with ``run_until_idle``. Held:
+
+* the greedy streams equal the reference engine's on one device (the
+  same params, re-stacked for pp 1) with ``==``, on every rank;
+* llama at data 2 x pp 2: one batched prefill's logits (staggered
+  positions, a masked slot) within 1e-5 of the reference's max |logit|
+  in float32 (measured: at most a few ulps); a sampled request
+  (temperature 0.8, seed 3) equal to the port's one-rank engine's
+  stream; the serve launcher's report logits (every row's prefill and
+  decode step) within 1e-5 of the one-rank port's; the scalar-pos ``serve_prefill`` / ``serve_decode`` path
+  equal to the engine's stream in every row; a rank submitting another
+  prompt makes every rank's engine raise ``SessionError`` at that tick
+  (lockstep), and the background thread and an unseeded sampled
+  request are refused; a default serve session (its config's pp 2
+  alone) built under the group stays on one rank and serves the stream
+  of one built without a group;
+* llama paged at pods 2 x data 2: the prefix hits and every
+  cross-partition page copy (global ids) equal what the reference's
+  engine and ``repro.serving.paging.PagedSlotPool`` decide at shards=4
+  on the same requests (a stub session with no device under it);
+* the vocabulary-sharded ``greedy_sample`` at data 4 against the
+  reference's under ``jax.vmap(axis_name="data")``, with two equal
+  table rows in shards 0 and 2: both take the higher shard's row, where
+  ``argmax`` over the full row takes the first.
+
 The launcher: the four-rank CPU CLI prints ``TRAIN_OK`` with a falling
 loss; a rank that fails makes it exit non-zero; ``nccl`` with ranks
 sharing a device is refused, naming ``--backend gloo``; ``--pods``
@@ -71,6 +101,7 @@ multiplies the world size.
 import dataclasses
 import functools
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -84,15 +115,18 @@ from repro.api import session as jsession  # noqa: E402
 from repro.core import fsdp as jfsdp  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.core import vocab as jvocab  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
 from repro_torch.api import SessionError  # noqa: E402
 from repro_torch.api import session as tsession  # noqa: E402
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
+from repro_torch.configs import jamba_v0p1_52b as tjamba  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.core.comm import MeshShape  # noqa: E402
 from repro_torch.core.pipeline import Runtime  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -129,6 +163,27 @@ AUTO = {
 # checkpoint cases on a TRAIN case's session, params and batches: two
 # steps under the controller, a failure injected before the second
 CKPT = {"ckpt_d2_pp2": "llama_d2_pp2", "ckpt_q2_d2": "llama_q2_d2"}
+# serving on the mesh: name -> (arch, data, pods, RunConfig overrides,
+# SessionSpec knobs); four slots, float32
+SERVE = {
+    "serve_d2_pp2": ("llama3.2-1b", 2, 1,
+                     dict(pp=2, vpp=2, microbatches=2),
+                     dict(max_slots=4, max_seq=32, prefill_chunk=4)),
+    "serve_q2_d2_paged": ("llama3.2-1b", 2, 2,
+                          dict(pp=1, vpp=2, microbatches=1),
+                          dict(max_slots=4, max_seq=32, prefill_chunk=4,
+                               page_size=4)),
+    "serve_jamba_d2_g2": ("jamba-v0.1-52b", 2, 1,
+                          dict(pp=1, groups=2, microbatches=1),
+                          dict(max_slots=4, max_seq=32)),
+}
+SERVE_LOGIT_RTOL = 1e-5
+# a default reduced-llama serve session (its config's pp 2, no other
+# axis), built by every rank under the spawn's process group and in this
+# process without one
+DEFAULT_SERVE = dict(spec=dict(max_slots=2, max_seq=16), seed=5,
+                     prompt=np.arange(3, 9, dtype=np.int32), max_gen=4)
+TIE = dict(name="tie_d4", kind="tie", data=4, vocab=256, rows=(10, 140))
 # the int8 rule of the reference's flat_int8 case: max |int8 - float32|
 # over every gradient, over the float32 run's global max |g|
 INT8_RULE = 0.02
@@ -253,6 +308,188 @@ def _int8_case():
     return c
 
 
+def _serve_work(arch, sampled):
+    """Staggered requests drawn with numpy: llama's six of
+    ``tests/test_torch_serving.py`` (chunks of width 4 and 1, three
+    sharing an 8-token prefix) and, where asked, a sampled one with a
+    seed; Jamba's five with prompts of 6 tokens (no chunking: one
+    prefill width for the reference to compile)."""
+    rng = np.random.RandomState(0)
+    if arch.startswith("jamba"):
+        return [(rng.randint(0, 256, size=6).astype(np.int32),
+                 dict(max_gen=g)) for g in (3, 4, 2, 5, 3)]
+    prefix = rng.randint(0, 256, size=8).astype(np.int32)
+    out = []
+    for i, (p, g) in enumerate([(5, 4), (9, 6), (4, 3), (12, 5), (8, 2),
+                                (13, 6)]):
+        toks = rng.randint(0, 256, size=p).astype(np.int32)
+        if i in (1, 3, 5):
+            toks[:8] = prefix
+        out.append((toks, dict(max_gen=g)))
+    if sampled:
+        out.append((rng.randint(0, 256, size=8).astype(np.int32),
+                    dict(max_gen=5, temperature=0.8, seed=3)))
+    return out
+
+
+def _serve_case(name):
+    """The case the ranks run, and the one-device layout (pp 1, vpp 1)
+    of its params for the reference."""
+    arch, data, pods, ov, spec = SERVE[name]
+    llama = arch.startswith("llama")
+    cfg, rc = tllama.reduced() if llama else tjamba.reduced()
+    rc = dataclasses.replace(rc, **ov)
+    params = _numpy_params(cfg, rc, np.random.RandomState(17))
+    one = dataclasses.replace(rc, pp=1, vpp=1, groups=1)
+    flat = params if (rc.pp, rc.vpp) == (1, 1) else tparams.to_host(
+        tparams.relayout(tparams.from_reference(params, device="cpu"),
+                         cfg, rc, one))
+    case = dict(name=name, kind="serve", arch=arch, data=data, pods=pods,
+                overrides=ov, spec=spec, params=params,
+                work=_serve_work(arch, sampled=name == "serve_d2_pp2"))
+    if name == "serve_d2_pp2":
+        rng = np.random.RandomState(1)
+        case["first"] = {
+            "tokens": rng.randint(0, 256, size=(4, 4)).astype(np.int32),
+            "pos": np.array([0, 4, 0, 9], np.int32),
+            "slot_mask": np.array([True, True, False, True])}
+        case["scalar"] = case["work"][1][0], case["work"][1][1]["max_gen"]
+        case["lockstep"] = True
+        case["default"] = DEFAULT_SERVE
+    return case, flat
+
+
+def _jax_serve(case, flat):
+    """The reference engine on one device over the case's requests, the
+    same params at pp 1; with the case's ``first`` batch, its logits."""
+    arch, _, _, ov, spec = SERVE[case["name"]]
+    js = jsession(arch, mode="serve", data=1, **spec,
+                  overrides=dict(ov, pp=1, vpp=1, groups=1))
+    jp = jax.tree.map(jnp.asarray, flat)
+    eng = js.serve_engine(jp)
+    reqs = [eng.submit(t, **kw) for t, kw in case["work"]]
+    eng.run_until_idle()
+    out = dict(streams=[r.result(timeout=5) for r in reqs],
+               stats=eng.stats)
+    if "first" in case:
+        _, logits, _ = js.serve_step_batched(jp, js.init_caches(),
+                                             case["first"], want_logits=True)
+        out["first_logits"] = np.asarray(logits)
+    return out
+
+
+def _port_one_rank(case, flat):
+    """The port's one-rank engine over the case's requests, and the serve
+    launcher's report logits (every row's prefill and decode)."""
+    arch, _, _, ov, spec = SERVE[case["name"]]
+    ts = tsession(arch, device="cpu", **spec,
+                  overrides=dict(ov, pp=1, vpp=1, groups=1))
+    params = tparams.from_reference(flat, device="cpu")
+    eng = ts.serve_engine(params)
+    reqs = [eng.submit(t, **kw) for t, kw in case["work"]]
+    eng.run_until_idle()
+    return dict(streams=[r.result(timeout=5) for r in reqs],
+                report_logits=tserve.first_logits(
+                    ts, params, [t for t, _ in case["work"]]))
+
+
+class _StubSession:
+    """What the reference's ServeEngine reads of a session, with no device
+    under it: the paged case's pool geometry (pods 2 x data 2, one
+    group), steps that return zeros, page copies logged. The engine's and
+    the pool's admission decisions depend on the prompts and budgets
+    only, never on the tokens, so they are the reference's decisions for
+    the mesh."""
+
+    def __init__(self, spec, pods, data):
+        self.spec = types.SimpleNamespace(
+            mode="serve", prefill_chunk=spec["prefill_chunk"],
+            prefix_sharing="on", pods=pods)
+        self.cfg = types.SimpleNamespace(encdec=None, moe=None)
+        self.rc = types.SimpleNamespace(moe_stats=False)
+        self.geo = types.SimpleNamespace(segments=[types.SimpleNamespace(
+            kinds=("attn:dense",))])
+        self.rt = types.SimpleNamespace(G=1)
+        self.paged, self.page_size = True, spec["page_size"]
+        self.max_slots, self.pods_size, self.data_size = \
+            spec["max_slots"], pods, data
+        self.pages_per_slot = spec["max_seq"] // spec["page_size"]
+        self.n_pages = self.max_slots * self.pages_per_slot
+        self.max_seq = spec["max_seq"]
+        self.copies = []
+
+    def _max_seq(self):
+        return self.max_seq
+
+    def check_slot_sharding(self):
+        pass
+
+    def sampling_unsupported_reason(self):
+        return "a stub"
+
+    def init_caches(self, abstract=False):
+        return {}
+
+    def reset_slot_caches(self, caches, mask):
+        return caches
+
+    def reset_pages(self, caches, mask):
+        return caches
+
+    def copy_pages(self, caches, src, dst):
+        self.copies.append(sorted(set(zip(np.asarray(src).tolist(),
+                                          np.asarray(dst).tolist()))))
+        return caches
+
+    def serve_step_batched(self, params, caches, batch, want_logits=False):
+        return np.zeros(self.max_slots, np.int32), caches
+
+
+def _jax_paging(case):
+    """The reference engine's page decisions at shards = pods x data."""
+    from repro.serving import ServeEngine
+    arch, data, pods, ov, spec = SERVE[case["name"]]
+    stub = _StubSession(spec, pods, data)
+    eng = ServeEngine(stub, None)
+    assert eng.pool.pool.shards == pods * data
+    for t, kw in case["work"]:
+        eng.submit(t, **kw)
+    eng.run_until_idle()
+    return dict(copies=stub.copies, prefix_hits=eng.stats.prefix_hits,
+                prefix_hit_tokens=eng.stats.prefix_hit_tokens)
+
+
+def _tie_case():
+    """Rows of h near one vector u, and a table whose rows 10 (shard 0)
+    and 140 (shard 2) both hold 4u: every row's two largest logits tie
+    across two shards."""
+    c = dict(TIE)
+    rng = np.random.RandomState(23)
+    cfg = tllama.reduced()[0]
+    d = cfg.d_model
+    u = rng.randn(d).astype(np.float32)
+    table = 0.01 * rng.randn(c["vocab"], d).astype(np.float32)
+    for r in c["rows"]:
+        table[r] = 4 * u
+    h = (u + 0.05 * rng.randn(c["data"], 2, d)).astype(np.float32)
+    c.update(cfg=cfg, table=torch.from_numpy(table),
+             scale=torch.ones(d), h=torch.from_numpy(h))
+    return c
+
+
+def _jax_tie(c):
+    """The reference's greedy_sample over the shards under
+    ``jax.vmap(axis_name="data")``: [data, rows] tokens."""
+    D, vloc = c["data"], c["vocab"] // c["data"]
+    jcfg = jmodel.get_arch("llama3.2-1b").reduced()[0]
+    tables = jnp.asarray(c["table"].numpy().reshape(D, vloc, -1))
+    scale = jnp.asarray(c["scale"].numpy())
+    fn = jax.vmap(lambda t, h: jvocab.greedy_sample(
+        jcfg, None, {"embed.table": t, "final_norm.scale": scale}, h, vloc),
+        axis_name="data")
+    return np.asarray(fn(tables, jnp.asarray(c["h"].numpy())))
+
+
 def _rule_embed_grad(ids, dx, vocab, D):
     """The reference's capacity rule (``repro/core/vocab.py`` embed_grad)
     in numpy: each rank's rows go to their shard's owner in order, at most
@@ -329,9 +566,19 @@ def results(tmp_path_factory):
     ckpts = [dict(built[b][2], name=n, kind="ckpt",
                   dir=os.path.join(tmp, n)) for n, b in CKPT.items()]
     int8 = _int8_case()
+    serves = {n: _serve_case(n) for n in SERVE}
+    tie = _tie_case()
     ctx = _spawn([c for _, _, c in built.values()] + variants + autos
-                 + [_embed_case(), int8] + ckpts, tmp)
-    out = {INT8["name"]: {"ref": _jax_int8(int8)}}
+                 + [_embed_case(), int8] + ckpts
+                 + [c for c, _ in serves.values()] + [tie], tmp)
+    out = {INT8["name"]: {"ref": _jax_int8(int8)},
+           TIE["name"]: {"ref": _jax_tie(tie)}}
+    # the reference engines (and the port's one rank) while the ranks run
+    for name, (case, flat) in serves.items():
+        out[name] = dict(case=case, ref=_jax_serve(case, flat))
+    out["serve_d2_pp2"]["one_rank"] = _port_one_rank(*serves["serve_d2_pp2"])
+    out["serve_q2_d2_paged"]["paging"] = _jax_paging(
+        serves["serve_q2_d2_paged"][0])
     # the reference and the one-rank steps while the ranks run
     for name, (cfg, rc, case) in built.items():
         b = case["batch"]
@@ -344,7 +591,8 @@ def results(tmp_path_factory):
     while not ctx.join():
         pass
     for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
-            EMBED["name"], INT8["name"]] + list(CKPT):
+            EMBED["name"], INT8["name"]] + list(CKPT) + list(SERVE) + [
+            TIE["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -660,6 +908,123 @@ def test_multirank_checkpoint_files_are_the_unsharded_parts(results,
             a, b = ranks[rank]["state"], ranks[peer]["state"]
             assert all(torch.equal(t, _get(b, p))
                        for p, t in _state_leaves(a)), (rank, peer)
+
+
+# --------------------------------------------------------------------------- #
+# Serving on the mesh
+# --------------------------------------------------------------------------- #
+
+
+def _greedy(work):
+    return [i for i, (_, kw) in enumerate(work)
+            if kw.get("temperature", 0) == 0]
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_multirank_serve_streams_equal_the_reference_engine(results, name):
+    """Every rank's greedy streams equal the reference engine's on one
+    device with ``==``, and the ranks ran the plain versions."""
+    r = results[name]
+    work, want = r["case"]["work"], r["ref"]["streams"]
+    assert [g["ranks"] for g in r["ranks"]] == [
+        MeshShape(SERVE[name][1], r["case"]["overrides"].get("pp", 1),
+                  r["case"]["overrides"].get("groups", 1),
+                  SERVE[name][2]).coords(k) for k in range(WORLD)]
+    for got in r["ranks"]:
+        assert [got["streams"][i] for i in _greedy(work)] == \
+            [want[i] for i in _greedy(work)]
+        assert [len(t) for t in got["streams"]] == \
+            [kw["max_gen"] for _, kw in work]
+        assert got["counters"].get(
+            "ref_paged" if "page_size" in SERVE[name][4]
+            else "ref_attention", 0) > 0
+
+
+def test_multirank_serve_logits_sampling_and_scalar_path(results):
+    """llama at data 2 x pp 2: one batched prefill's logits within 1e-5
+    of the reference's max |logit| (float32) on every rank; the sampled
+    request equal to the port's one-rank engine; the scalar-pos path
+    equal to the engine's stream in every row; the serve launcher's
+    report logits (every row's prefill and decode step) within 1e-5 of
+    the one-rank port's."""
+    r = results["serve_d2_pp2"]
+    ref = r["ref"]["first_logits"]
+    k = len(r["case"]["work"]) - 1          # the sampled request
+    for got in r["ranks"]:
+        lg = got["first_logits"].numpy()
+        assert lg.shape == ref.shape == (4, 256)
+        assert _rel(lg, ref) <= SERVE_LOGIT_RTOL
+        assert got["streams"][k] == r["one_rank"]["streams"][k]
+        assert got["scalar"] == [r["ref"]["streams"][1]] * 4
+        one = r["one_rank"]["report_logits"]
+        assert got["report_logits"].shape == one.shape == (2, 4, 256)
+        assert _rel(got["report_logits"], one) <= SERVE_LOGIT_RTOL
+    assert r["one_rank"]["streams"][:k] == r["ref"]["streams"][:k]
+
+
+def test_multirank_serve_engines_keep_lockstep(results):
+    """A rank that submits another prompt makes every rank's engine raise
+    at that tick; the background thread and a sampled request without a
+    seed are refused on a mesh."""
+    for got in results["serve_d2_pp2"]["ranks"]:
+        assert "left lockstep at serve" in got["lockstep"]
+        assert "lockstep" in got["thread"]
+        assert "needs a seed" in got["unseeded"]
+
+
+def test_multirank_default_serve_session_stays_on_one_rank(results):
+    """A default reduced-llama serve session (pp 2 alone) built under the
+    spawn's process group walks its stages on one rank, as it does with
+    no group: no mesh on any rank, and the same stream (==) as this
+    process's session of the same seed."""
+    d = DEFAULT_SERVE
+    ts = tsession("llama3.2-1b", mode="serve", device="cpu", **d["spec"])
+    assert ts.mesh is None and ts.rc.pp == 2
+    eng = ts.serve_engine(ts.init_params(
+        torch.Generator().manual_seed(d["seed"])))
+    req = eng.submit(d["prompt"], max_gen=d["max_gen"])
+    eng.run_until_idle()
+    want = req.result(timeout=1)
+    assert len(want) == d["max_gen"]
+    for got in results["serve_d2_pp2"]["ranks"]:
+        assert got["default"] == dict(mesh=None, pp=2, stream=want)
+
+
+def test_multirank_paged_serve_copies_equal_the_reference_pool(results):
+    """pods 2 x data 2, paged with prefix sharing: the prefix hits and
+    the cross-partition page copies (global ids, in order) equal the
+    reference engine's at shards=4, and some copy crosses shards."""
+    r = results["serve_q2_d2_paged"]
+    want = r["paging"]
+    assert want["copies"] and want["prefix_hits"] > 0
+    n_loc = 32 // 4
+    assert any(s // n_loc != d // n_loc for c in want["copies"]
+               for s, d in c)
+    for got in r["ranks"]:
+        assert got["copies"] == want["copies"]
+        assert got["stats"]["prefix_hits"] == want["prefix_hits"]
+        assert got["stats"]["prefix_hit_tokens"] == \
+            want["prefix_hit_tokens"]
+
+
+def test_multirank_greedy_sample_ties_as_the_reference(results):
+    """Two equal table rows in shards 0 and 2: the port's sharded
+    ``greedy_sample`` equals the reference's under ``jax.vmap`` (the
+    higher shard's row), where ``argmax`` over the full row would take
+    the first."""
+    c = _tie_case()
+    want = results[TIE["name"]]["ref"]
+    lo, hi = c["rows"]
+    vloc = c["vocab"] // c["data"]
+    full = np.concatenate([g["logits"].numpy()
+                           for g in results[TIE["name"]]["ranks"]], axis=1)
+    assert (full[:, lo] == full[:, hi]).all()
+    assert (full.argmax(-1) == lo).all()
+    for rank, got in enumerate(results[TIE["name"]]["ranks"]):
+        assert got["tok"].dtype == torch.int32
+        np.testing.assert_array_equal(got["tok"].numpy(), want[rank])
+        assert (got["tok"].numpy() == hi).all()
+    assert vloc * 2 <= hi < vloc * 3
 
 
 # --------------------------------------------------------------------------- #

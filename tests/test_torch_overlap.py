@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.api import SessionError  # noqa: E402
 from repro_torch.api import session as tsession  # noqa: E402
+from repro_torch.api.spec import SessionSpec  # noqa: E402
 from repro_torch.core import executor  # noqa: E402
 from repro_torch.core.comm import Pending  # noqa: E402
 from repro_torch.core.fsdp import LocalComm  # noqa: E402
@@ -181,11 +182,12 @@ def test_train_session_accepts_the_multi_rank_knobs():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # multi-rank serving is ROADMAP.md queue 1 item 4 (ids kept from when
-    # it was item 1b)
-    pytest.param(dict(mode="serve", max_seq=32, pods=2), "item 4",
+    # multi-rank serving landed (ROADMAP.md queue 1 item 4; ids kept from
+    # when it was item 1b): these specs validate, and the session then
+    # needs the ranks' process group, as a train session does
+    pytest.param(dict(mode="serve", max_seq=32, pods=2), None,
                  id="kw0-item 1b"),
-    pytest.param(dict(mode="serve", max_seq=32, data=2), "item 4",
+    pytest.param(dict(mode="serve", max_seq=32, data=2), None,
                  id="kw1-item 1b"),
     (dict(mode="train", overrides=dict(moe_mode="ep")), "MoE slice"),
     (dict(mode="train", overrides=dict(grad_compress="int4")), "int8"),
@@ -193,6 +195,12 @@ def test_train_session_accepts_the_multi_rank_knobs():
     (dict(mode="train", pods=0), "pods must be >= 1"),
 ])
 def test_session_still_refuses_multi_rank_serving_and_ep(kw, match):
+    if match is None:
+        spec = SessionSpec(arch="llama3.2-1b", device="cpu", **kw)
+        assert spec.validate() is spec
+        with pytest.raises(SessionError, match="process group"):
+            tsession("llama3.2-1b", device="cpu", **kw)
+        return
     with pytest.raises(SessionError, match=match):
         tsession("llama3.2-1b", device="cpu", **kw)
 

@@ -25,6 +25,18 @@ of ``world`` CPU ranks and runs the cases of ``case_file`` (a
   case's directory, a failure injected before the second), then the
   same two steps uninterrupted; it saves both states, the losses and
   the controller's resume steps.
+* ``serve``: a serve Session on the case's mesh, this rank's part of the
+  full reference tree, and the engine over the case's requests (every
+  rank submits the same, then ticks them with ``run_until_idle``); it
+  saves the streams, the engine's stats and the page copies it made
+  (global ids), and optionally the logits of one batched prefill with
+  ``want_logits`` on fresh caches, the scalar-pos ``serve_prefill`` /
+  ``serve_decode`` stream of one prompt in every row, and what a
+  lockstep fault raises (rank 0 submits another prompt), what the
+  background thread and an unseeded sampled request raise, and the
+  stream of a default serve session (pp alone) built under the group.
+* ``tie``: the vocabulary-sharded ``greedy_sample`` over a data axis of
+  every rank, on this rank's rows and table shard.
 """
 
 from __future__ import annotations
@@ -154,6 +166,102 @@ def _int8(case, rank):
     return out
 
 
+def _serve(case, rank):
+    import numpy as np
+
+    from repro_torch import params as tparams
+    from repro_torch.api import SessionError, session
+    from repro_torch.launch.serve import first_logits
+
+    sess = session(case["arch"], mode="serve", device="cpu",
+                   data=case["data"], pods=case["pods"],
+                   overrides=case["overrides"], **case["spec"])
+    full = tparams.from_reference(case["params"], device="cpu")
+    params = tparams.shard_for_rank(sess.rt, full, sess.mesh.rank)
+    out = {"ranks": (sess.mesh.d_rank, sess.mesh.g_rank, sess.mesh.p_rank),
+           "copies": []}
+    copy = sess.copy_pages
+
+    def logged(caches, src, dst):
+        out["copies"].append(sorted(set(zip(np.asarray(src).tolist(),
+                                            np.asarray(dst).tolist()))))
+        return copy(caches, src, dst)
+
+    sess.copy_pages = logged
+    eng = sess.serve_engine(params)
+    try:
+        eng.start()
+    except SessionError as e:
+        out["thread"] = str(e)
+    try:
+        eng.submit(case["work"][0][0], temperature=0.5)
+    except SessionError as e:
+        out["unseeded"] = str(e)
+    reqs = [eng.submit(t, **kw) for t, kw in case["work"]]
+    eng.run_until_idle()
+    out["streams"] = [r.result(timeout=1) for r in reqs]
+    st = eng.stats
+    out["stats"] = dict(prefill_steps=st.prefill_steps,
+                        decode_steps=st.decode_steps,
+                        prefix_hits=st.prefix_hits,
+                        prefix_hit_tokens=st.prefix_hit_tokens)
+    out["counters"] = sess.describe()["kernels"]["counters"]
+    if "first" in case:
+        _, logits, _ = sess.serve_step_batched(
+            params, sess.init_caches(), case["first"], want_logits=True)
+        out["first_logits"] = logits
+        # the serve launcher's report: every row's prefill and decode
+        out["report_logits"] = first_logits(sess, params,
+                                            [t for t, _ in case["work"]])
+    if "scalar" in case:
+        prompt, g = case["scalar"]
+        rows = sess.max_slots
+        caches = sess.init_caches()
+        tok, caches = sess.serve_prefill(
+            params, caches, {"tokens": np.tile(prompt, (rows, 1))})
+        stream = [tok.tolist()]
+        for t in range(g - 1):
+            tok, caches = sess.serve_decode(params, caches, {
+                "tokens": np.array(stream[-1], np.int32)[:, None],
+                "pos": np.int32(len(prompt) + t)})
+            stream.append(tok.tolist())
+        out["scalar"] = [[s_[r] for s_ in stream] for r in range(rows)]
+    if "default" in case:
+        # a default serve session (reduced llama: pp 2, nothing else)
+        # built under this process group: pp alone walks its stages on
+        # one rank, whatever group exists
+        d = case["default"]
+        one = session(case["arch"], mode="serve", device="cpu", **d["spec"])
+        e1 = one.serve_engine(one.init_params(
+            torch.Generator().manual_seed(d["seed"])))
+        r1 = e1.submit(d["prompt"], max_gen=d["max_gen"])
+        e1.run_until_idle()
+        out["default"] = dict(mesh=one.mesh, pp=one.rc.pp,
+                              stream=r1.result(timeout=1))
+    if case.get("lockstep"):
+        eng = sess.serve_engine(params)
+        prompt, kw = case["work"][0]
+        eng.submit(prompt if rank else prompt[::-1].copy(), **kw)
+        try:
+            eng.run_until_idle()
+        except SessionError as e:
+            out["lockstep"] = str(e)
+    return out
+
+
+def _tie(case, rank):
+    from repro_torch.core import vocab as Vb
+    from repro_torch.core.comm import Mesh
+
+    comm = Mesh(case["data"], 1, 1, "cpu").data_comm
+    vloc = case["vocab"] // case["data"]
+    io = {"embed.table": case["table"][rank * vloc:(rank + 1) * vloc],
+          "final_norm.scale": case["scale"]}
+    h = case["h"][rank]
+    return {"tok": Vb.greedy_sample(case["cfg"], None, io, h, vloc, comm),
+            "logits": Vb.serve_logits(case["cfg"], None, io, h, vloc, comm)}
+
+
 def main(rank, world, port, case_file, out_dir):
     torch.set_num_threads(1)
     # the schedule="auto" cases' persisted plan cache (rank 0 writes it)
@@ -164,7 +272,7 @@ def main(rank, world, port, case_file, out_dir):
     try:
         for case in torch.load(case_file, weights_only=False):
             fn = {"train": _train, "embed": _embed, "int8": _int8,
-                  "ckpt": _ckpt}[case["kind"]]
+                  "ckpt": _ckpt, "serve": _serve, "tie": _tie}[case["kind"]]
             torch.save(fn(case, rank),
                        os.path.join(out_dir, f"{case['name']}.{rank}.pt"))
     finally:
