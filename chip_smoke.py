@@ -32,8 +32,11 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    head [2304, 50304] read in place, K2's two passes apart over one of
    two vocabulary shards (the sharded loss: 2048 gathered rows over
    64,128 rows of llama's table, and over a [2304, 25152] block of
-   gpt-1.5B's head.w), and the selective scan (K5) in
-   float32 — each timed beside
+   gpt-1.5B's head.w), the selective scan (K5) in
+   float32, and the Jamba training path's kernels at its shapes: K5 and
+   its backward K5b at one micro-batch (b 1, s 4096, d 8192, n 16,
+   float32) and K2 over Jamba's untied head [4096, 65536] at 4096 rows
+   — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
@@ -57,7 +60,9 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    K5 chained over two halves with h0 equal bit for bit to one pass over
    the whole; K5's phase also logs its resident warps an SM (ptxas
    registers and block size, and the CUDA occupancy query) and its MUFU
-   floor. Probes that must fail
+   floor; K5b's six gradients each within 1e-4 of the plain tensor's
+   largest value, two runs equal bit for bit (no float atomics), its
+   launch shape and MUFU floor logged. Probes that must fail
    the checks: K with its kv heads rolled by one and V rolled over kv
    heads at the keys of the second half only (K3, K1; for the window
    contract also one extra key, caught by l), one live
@@ -69,7 +74,8 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    read as a [vocab, d] table (K2), labels not shifted to their shard
    (K2 over a shard, whose shards' statistics, combined with a max and a
    sum, must also equal the whole-vocab K2's loss, dh and dW), B and C
-   swapped (K5); at e 96 (128-wide tiles, zero pad columns) q, K and V
+   swapped (K5; K5b too, and x's channels rolled by one and A's sign
+   flipped, a non-finite reading failing the rule); at e 96 (128-wide tiles, zero pad columns) q, K and V
    with NaN in the first 32 columns of every odd head must leave the
    even heads' K3/K4 outputs finite and within the rule (a 128-wide
    read would run into the next head);
@@ -95,6 +101,15 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    untied head; 4 micro-batches of two 1024-token sequences), after
    llama's session, params and optimizer state are freed: K1, K1b and
    K2 176, 88 and 8 times a step, step 1's loss near ln(vocab) + 1/2;
+   after ``[ckpt gpt_paper]`` (gpt-1.5B under the fault-tolerance
+   controller), ``[train jamba-v0.1-52b]``: Jamba's published widths cut to 2 layers
+   (mamba:dense, mamba:moe) and 8 experts (2.33 B parameters; zeropp,
+   vpp 1, 4 micro-batches of one 4096-token sequence in units of 2):
+   step 1 through the kernels (K5, K5b, K2) and through the plain
+   versions, loss within 2e-3 relative and pre-clip gradient norm within
+   1e-2, loss near ln(vocab) + 1/2; then three timed steps with the
+   counters set to 0: K5, K5b and K2 16, 8 and 8 times a step, no plain
+   version, aux_sum and the forward's dropped assignments logged;
 5. Jamba serve phase, after the training state is freed:
    jamba-v0.1-52b at its published widths cut to depth 8 (one period:
    Mamba, attention and gathered-MoE layers; 26.6 GB of bf16 weights
@@ -119,10 +134,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    launched and no plain version after it, first-step logits against
    the plain versions, and gpt's across its two layouts), then the same
    decode and prefill traces of each of those three runs; then one
-   training step of each training model on fresh params under the
-   profiler (device busy share, kernels by device time, launches a
-   step, and the device time of K1, K1b and K2, K2 also by pass: the
-   split, pass 1, pass 2);
+   training step of each training model (llama, gpt-1.5B, Jamba's cut)
+   on fresh params under the profiler (device busy share, kernels by
+   device time, launches a step, and the device time of K1, K1b, K2, K5
+   and K5b, K2 also by pass: the split, pass 1, pass 2);
 7. multi-rank train phases, last, with the card otherwise empty, each
    four ranks spawned by ``python -m repro_torch.launch.train`` as a
    subprocess, all on this card, collectives staged through host memory
@@ -253,8 +268,20 @@ XENT = dict(route="cuda", source="src/repro_torch/kernels/csrc/fused_xent.cu",
 SCAN = dict(route="cuda",
             source="src/repro_torch/kernels/csrc/selective_scan.cu",
             replaces="src/repro/kernels/selective_scan.py:57")
+SCAN_BWD = dict(route="cuda",
+                source="src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+                replaces="src/repro/core/tape.py:148")
 JAMBA, JAMBA_VOCAB, MAMBA_LAYERS = "jamba-v0.1-52b", 65536, 7
 SCAN_B, SCAN_S, SCAN_D, SCAN_N = 8, 512, 8192, 16
+# K5 and K5b at Jamba's training shape: one micro-batch of one
+# 4096-token sequence over d_inner 8192 channels, state 16
+SCAN_TRAIN = dict(b=1, s=4096, d=8192, n=16)
+# K5b vs its plain version, per output, against the output's max |plain|:
+# both compute in float32, the kernel recomputing the states from
+# checkpoints every 128 steps and summing dA, dD over 4096 steps and dB,
+# dC over 8192 channels in another order than the plain version (doubling
+# steps in chunks of 256), with exp2 by MUFU
+SCAN_BWD_RTOL = 1e-4
 # K5 vs its plain version: both compute in float32, the kernel one step at
 # a time, the plain version in doubling steps inside chunks of 256, so y
 # and the state differ by float32 rounding only
@@ -278,10 +305,37 @@ GPT = dict(arch="gpt_paper", seq=1024, global_batch=8, vocab=50304,
            d_model=2304,
            launches={"flash_attention_fwd": 176, "flash_attention_bwd": 88,
                      "fused_xent": 8}, loss0=math.log(50304) + 0.5)
+# the Jamba training cell: jamba-v0.1-52b at its published widths cut to
+# 2 layers (mamba:dense, mamba:moe) and 8 experts (configs/
+# jamba_v0p1_52b.py one_card_train_config; 2.33 B parameters), zeropp,
+# vpp 1, 4 micro-batches of one 4096-token sequence in units of 2. A step
+# launches K5 2 x 4 x 2 times (F and B's recompute), K5b 2 x 4, K2 2 x 4
+# (two passes a micro-batch). Step 1 through the kernels against the
+# plain versions: loss within 2e-3 relative, the pre-clip gradient norm
+# within 1e-2 (bf16 compute: the two runs round differently, and the
+# router's top-2 may flip at near ties); its loss near ln(vocab) + 1/2
+# (an RMSNorm and a 1/sqrt(d) untied head: unit-variance logits)
+JAMBA_TRAIN = dict(arch=JAMBA, seq=4096, global_batch=4, vocab=JAMBA_VOCAB,
+                   d_model=4096, steps=3,
+                   launches={"selective_scan": 16, "selective_scan_bwd": 8,
+                             "fused_xent": 8},
+                   loss0=math.log(JAMBA_VOCAB) + 0.5,
+                   cuts="depth 32 -> 2 (mamba:dense, mamba:moe), experts "
+                        "16 -> 8 (80 GB card)")
+JAMBA_LOSS_RTOL, JAMBA_NORM_RTOL = 2e-3, 1e-2
+# and each Mamba leaf's gradient (layers 0 and 1) within JAMBA_LEAF_RTOL
+# of the plain versions', relative to its max |plain|: the H100 read
+# 2.8e-3 to 7.2e-3 over the 18 leaves (one to two bf16 ulps, 2^-8), and a
+# wrong dA, dD or dB from K5b moves its leaves by O(1)
+JAMBA_LEAF_RTOL = 2e-2
 # device kernels of each training kernel, by name, for the step's profile
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
-                 "K2 fused_xent": sum(XENT_PASSES.values(), ())}
+                 "K2 fused_xent": sum(XENT_PASSES.values(), ()),
+                 "K5 selective_scan": ("::scan_kernel<",),
+                 "K5b selective_scan_bwd": tuple(
+                     f"(anonymous namespace)::{k}<" for k in (
+                         "ck_kernel", "bwd_kernel", "reduce_kernel"))}
 # the checkpoint phase: gpt-1.5B's train cell (full width and depth) for
 # 4 steps under the fault-tolerance controller, a checkpoint every 2
 # steps (async, keep 1), a failure injected before step 3 (index), so the
@@ -492,7 +546,8 @@ def record_phase(torch, flush, results, name, meta, kern, plain, lib,
 def kernel_resources(build, names=("slotted_attention", "paged_attention",
                                    "flash_attention_fwd",
                                    "flash_attention_bwd",
-                                   "fused_xent", "selective_scan")) -> dict:
+                                   "fused_xent", "selective_scan",
+                                   "selective_scan_bwd")) -> dict:
     """Per entry function of the named libraries (keyed "library:name";
     the serving float32 attention bodies' instantiations share one name;
     K1/K1b's are named by their head widths, K2's by their head layout,
@@ -518,6 +573,10 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
                       r"dlog_kernel|dw_kernel|dh_kernel)ILi([01])E")
 
     def name_of(lib, mangled):
+        m = re.search(r"(ck_kernel|bwd_kernel|reduce_kernel)ILi(\d+)E",
+                      mangled)
+        if m:    # K5b: its three kernels by state size
+            return f"{lib}:{m.group(1)}<{m.group(2)}>"
         m = re.search(r"scan_kernelILi(\d+)ELb([01])E", mangled)
         if m:    # K5: scan_kernel<N, 16-byte copies>
             return (f"{lib}:scan_kernel<{m.group(1)},"
@@ -1251,20 +1310,29 @@ def gpt_kernel_phases(torch, flush):
     dim 96) and at head dim 128 (gpt-6.2B's 32 heads of 128), and K2 over
     gpt-1.5B's untied head read in place as [d, vocab], each against its
     plain version with probes that must fail its rule."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import fused_xent as fx
-    from repro_torch.kernels import ref
-
     results = []
     # one micro-batch: the step's sequences over its four micro-batches
     b, s = GPT["global_batch"] // 4, GPT["seq"]
     flash_phases(torch, flush, results, "gpt_causal_e96", b, s, 24, 24, 96)
     flash_phases(torch, flush, results, "causal_e128", b, s, 32, 32, 128)
 
+    head_xent_phase(torch, flush, results, "gpt_head", b * s,
+                    GPT["d_model"], GPT["vocab"], seed=4)
+    return results
+
+
+def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
+    """K2 over an untied head read in place as [d, vocab] bf16, one
+    micro-batch's n rows (the step's denominator: four micro-batches),
+    against its plain version, with the probe of the head's bytes read
+    as a [vocab, d] table."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ref
+
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4)
-    n, d, vocab = b * s, GPT["d_model"], GPT["vocab"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
     hn = torch.randn((n, d), generator=gen, device=dev)
     head = (torch.randn((d, vocab), generator=gen, device=dev)
             / d ** 0.5).to(torch.bfloat16)
@@ -1289,10 +1357,10 @@ def gpt_kernel_phases(torch, flush):
         return max(rel_err(dha, dhp, 1e-4, "dh"),
                    rel_err(dwa, dwp, 1e-4, "dW"))
 
-    log(f"[kernel] fused_xent:gpt_head h [{n}, {d}] float32, head.w [{d}, "
+    log(f"[kernel] fused_xent:{tag} h [{n}, {d}] float32, head.w [{d}, "
         f"{vocab}] bf16 read in place (tolerance: loss 1e-5 relative; dh, "
         "dW max |diff| <= 1e-4 max |plain|)")
-    record_phase(torch, flush, results, "fused_xent:gpt_head", XENT,
+    record_phase(torch, flush, results, f"fused_xent:{tag}", XENT,
                  lambda: fx.softmax_xent(hn, head, lab, **kw),
                  lambda: ref.softmax_xent(hn, head, lab, **kw),
                  lib_xent, nbytes, 3 * 2 * n * d * vocab, check_xent,
@@ -1307,7 +1375,6 @@ def gpt_kernel_phases(torch, flush):
     _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
     if not (w_loss > 1.0 and w_dw > 1.0):
         fail("the fused_xent check passes head.w read as a table")
-    return results
 
 
 def vocab_shard_phase(torch, flush, results, name, n, d, vocab, layout,
@@ -1560,6 +1627,272 @@ def scan_kernel_phase(torch, flush, resources):
     return results
 
 
+def jamba_train_kernel_phases(torch, flush, resources):
+    """The kernels of the Jamba training path at its shapes: K5 forward
+    and K5b (the scan's backward) at one micro-batch (b 1, s 4096, d
+    8192, n 16, float32), each against its plain version, K5b with three
+    probes that must fail its rule (the channels of x rolled by one, A's
+    sign flipped, B and C swapped); then K2 over Jamba's untied head
+    [4096, 65536] at one micro-batch's 4096 rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, d, n = (SCAN_TRAIN[k] for k in ("b", "s", "d", "n"))
+    results = []
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    dt = torch.exp(torch.empty((b, s, d), device=dev).uniform_(
+        -6.9078, -2.3026, generator=gen))
+    bm = torch.randn((b, s, n), generator=gen, device=dev)
+    cm = torch.randn((b, s, n), generator=gen, device=dev)
+    dy = torch.randn((b, s, d), generator=gen, device=dev)
+    A = -(torch.arange(1, n + 1, device=dev, dtype=torch.float32)[None]
+          * torch.exp(0.1 * torch.randn((d, n), generator=gen, device=dev)))
+    D = torch.randn((d,), generator=gen, device=dev)
+    f32 = 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    mhz = float(clk[0]) if clk and clk[0].isdigit() else None
+    mufu_ms = b * s * d * n / (sms * 16 * mhz * 1e6) * 1e3 if mhz else None
+
+    # K5 forward, y only (the training path's call)
+    nbytes = f32 * (3 * b * s * d + 2 * b * s * n + d * n + d)
+    log(f"[kernel] selective_scan:train x, dt [{b}, {s}, {d}], A [{d}, "
+        f"{n}], float32, y only (tolerance: y max |diff| <= {SCAN_RTOL:g} "
+        "max |plain|)")
+    record_phase(torch, flush, results, "selective_scan:train", SCAN,
+                 lambda: ss.selective_scan(x, dt, A, bm, cm, D),
+                 lambda: ref.selective_scan(x, dt, A, bm, cm, D),
+                 None, nbytes, b * s * d * (n * 8 + 2),
+                 lambda a, p: rel_err(a, p, SCAN_RTOL, "y"),
+                 dtype="float32")
+
+    # K5b: read x, dt, dy, B, C, A, D once; write dx, ddt, dA, dB, dC, dD
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    nbytes = f32 * (5 * b * s * d + 4 * b * s * n + 2 * (d * n + d))
+    # per (row, step, channel, state): exp, the states' a h + u (3), the
+    # cotangent g = C dy + a g (2), w = g a h (2), and g B, w A, dt w,
+    # g dt x, dy h into dx, ddt, dA, dB, dC (2 each)
+    flops = b * s * d * (n * 18 + 6)
+    shape = ss.launch_shape_bwd(n)
+    regs = resources.get(f"selective_scan_bwd:bwd_kernel<{n}>", {})
+    log(f"[kernel] selective_scan_bwd launch: {shape['threads']} threads "
+        f"a block ({shape['lanes']} lanes a channel), "
+        f"{shape['smem_bytes']} bytes of shared memory a block, "
+        f"{shape['blocks_per_sm']} blocks an SM by the CUDA occupancy "
+        f"query; reverse walk {regs.get('registers')} registers, "
+        f"{regs.get('spill_bytes')} spill bytes (ptxas); MUFU floor at one "
+        "exponential an update "
+        + (f"{mufu_ms:.4f} ms at {mhz:g} MHz" if mhz else "not measured")
+        + " (this design takes four)")
+
+    def check(a, p):
+        return max(rel_err(g, w, SCAN_BWD_RTOL, nm)
+                   for g, w, nm in zip(a, p, names))
+
+    log(f"[kernel] selective_scan_bwd:train x, dt, dy [{b}, {s}, {d}], A "
+        f"[{d}, {n}], B, C [{b}, {s}, {n}], float32 (tolerance: each "
+        f"gradient max |diff| <= {SCAN_BWD_RTOL:g} max |plain|)")
+    record_phase(torch, flush, results, "selective_scan_bwd:train",
+                 SCAN_BWD,
+                 lambda: ss.selective_scan_bwd(x, dt, A, bm, cm, D, dy),
+                 lambda: ref.selective_scan_bwd(x, dt, A, bm, cm, D, dy),
+                 None, nbytes, flops, check, dtype="float32")
+    results[-1].update(launch=shape, mufu_floor_ms=mufu_ms,
+                       sm_clock_max_mhz=mhz)
+    plain = ref.selective_scan_bwd(x, dt, A, bm, cm, D, dy)
+    again = ss.selective_scan_bwd(x, dt, A, bm, cm, D, dy)
+    same = all(torch.equal(u, v) for u, v in zip(
+        again, ss.selective_scan_bwd(x, dt, A, bm, cm, D, dy)))
+    log(f"[kernel] selective_scan_bwd: two runs bit-identical {same}")
+    if not same:
+        fail("two runs of selective_scan_bwd differ")
+    del again
+    for probe, args in (
+            ("the channels of x rolled by one",
+             (x.roll(1, dims=2).contiguous(), dt, A, bm, cm, D, dy)),
+            ("A's sign flipped", (x, dt, (-A).contiguous(), bm, cm, D, dy)),
+            ("B and C swapped", (x, dt, A, cm, bm, D, dy))):
+        log(f"[kernel] selective_scan_bwd check, {probe}:")
+        bad = ss.selective_scan_bwd(*args)
+        worst = [rel_excess(g, w, SCAN_BWD_RTOL, nm)[1]
+                 for g, w, nm in zip(bad, plain, names)]
+        # a non-finite reading fails the rule too (A > 0 overflows)
+        if all(w <= 1.0 for w in worst):
+            fail(f"the selective_scan_bwd check passes {probe}")
+        del bad
+    del plain, x, dt, bm, cm, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = JAMBA_TRAIN
+    head_xent_phase(torch, flush, results, "jamba_head",
+                    c["global_batch"] // 4 * c["seq"], c["d_model"],
+                    c["vocab"], seed=8)
+    return results
+
+
+def jamba_train_phase(torch, cell):
+    """jamba-v0.1-52b's train cut on the card: step 1 through the kernels
+    and through the plain versions (loss and pre-clip gradient norm),
+    then timed steps with the launch counters set to 0 before them: step
+    ms, tokens/s, peak memory, aux_sum, the dropped assignments (the
+    forward's routing calls) and K5 / K5b / K2 launches a step. Returns
+    the result row (the session and its state are released)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import blocks
+
+    tag = f"[train {cell['arch']}]"
+    sess = train_session(cell)
+    plain = train_session(cell, overrides=dict(kernel_impl="ref"))
+    desc = sess.describe()
+    sc = sess.shape_cfg
+    mo = sess.cfg.moe
+    log(f"{tag} {desc['n_params']} params ({cell['cuts']}), schedule "
+        f"{desc['schedule']['name']}, vpp {sess.rc.vpp}, "
+        f"{sess.rc.microbatches} micro-batches in units of "
+        f"{sess.rc.unit}, batch {sc.global_batch} x {sc.seq_len}; "
+        f"{mo.n_experts} experts top-{mo.top_k} at capacity factor "
+        f"{mo.capacity_factor}")
+    t0 = time.perf_counter()
+    params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{tag} params ({sess.rc.param_dtype}) in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    stream = sess.stream()
+    batch = stream.batch(0)
+
+    def norm(grads):
+        sq = sum((g.float() ** 2).sum() for part in ("io", "segments")
+                 for g in (grads[part] if part == "io"
+                           else grads[part]["main"]).values())
+        return float(sq.sqrt())
+
+    # the Mamba mixers' leaves, whose gradients K5b feeds (the norm is
+    # mostly the head's and the expert banks')
+    def mamba_grads(grads):
+        return {n_: g_.float().clone()
+                for n_, g_ in grads["segments"]["main"].items()
+                if ".mix." in n_}
+
+    # ---- step 1: kernels vs plain versions ------------------------------ #
+    rows, leaves = {}, {}
+    for name, s_ in (("kernels", sess), ("plain versions", plain)):
+        t0 = time.perf_counter()
+        g, m = s_.train_step(params, batch)
+        torch.cuda.synchronize()
+        rows[name] = dict(loss=float(m["loss_sum"]), norm=norm(g),
+                          aux=float(m["aux_sum"]),
+                          s=time.perf_counter() - t0)
+        leaves[name] = mamba_grads(g)
+        del g, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    k, p = rows["kernels"], rows["plain versions"]
+    log(f"{tag} step 1: loss kernels {k['loss']:.6f} ({k['s']:.2f} s), "
+        f"plain versions {p['loss']:.6f} ({p['s']:.2f} s); pre-clip grad "
+        f"norm {k['norm']:.6f} / {p['norm']:.6f}; aux_sum {k['aux']:.6f} "
+        f"/ {p['aux']:.6f}; tolerance loss {JAMBA_LOSS_RTOL:g}, norm "
+        f"{JAMBA_NORM_RTOL:g} relative")
+    if not abs(k["loss"] - p["loss"]) <= JAMBA_LOSS_RTOL * abs(p["loss"]):
+        fail(f"step-1 loss {k['loss']} off the plain versions' {p['loss']}")
+    if not abs(k["norm"] - p["norm"]) <= JAMBA_NORM_RTOL * p["norm"]:
+        fail(f"step-1 grad norm {k['norm']} off the plain versions' "
+             f"{p['norm']}")
+    if not abs(k["loss"] - cell["loss0"]) <= 0.5:
+        fail(f"step-1 loss {k['loss']} is not near {cell['loss0']:.3f}")
+    # each Mamba leaf: max |kernels - plain| over max |plain|
+    leaf_err = {}
+    for n_, gp in leaves["plain versions"].items():
+        scale = float(gp.abs().max())
+        if not scale > 0:
+            fail(f"step-1 gradient of {n_} is zero")
+        leaf_err[n_] = float(
+            (leaves["kernels"][n_] - gp).abs().max()) / scale
+    worst = max(leaf_err, key=leaf_err.get)
+    log(f"{tag} step 1 Mamba leaves, max |kernels - plain| / max |plain|: "
+        + ", ".join(f"{n_} {e_:.3e}" for n_, e_ in sorted(leaf_err.items()))
+        + f"; tolerance {JAMBA_LEAF_RTOL:g}")
+    if not leaf_err[worst] <= JAMBA_LEAF_RTOL:
+        fail(f"step-1 gradient of {worst} is {leaf_err[worst]:.3e} off the "
+             f"plain versions' (tolerance {JAMBA_LEAF_RTOL:g})")
+    rows["mamba_leaf_err"] = leaf_err
+    del plain, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- timed steps ---------------------------------------------------- #
+    # the dropped assignments of the forward's routing calls (the model
+    # counts them; B's recompute routes the same tokens again)
+    opt = sess.init_opt_state(params)
+    torch.cuda.synchronize()
+    for mod in (fa, fx, ss):
+        mod.reset_launches()
+    base = ops.kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    tokens = sc.global_batch * sc.seq_len
+    for i in range(cell["steps"]):
+        b = stream.batch(i)
+        torch.cuda.synchronize()
+        with blocks.counting_drops() as routed:
+            t0 = time.perf_counter()
+            grads, m = sess.train_step(params, b)
+            params, opt, om = sess.opt_step(params, grads, opt)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        del grads
+        row = dict(step=i + 1, ms=dt * 1e3, tok_per_s=tokens / dt,
+                   loss=float(m["loss_sum"]), aux_sum=float(m["aux_sum"]),
+                   grad_norm=float(om["grad_norm"]),
+                   dropped=routed["dropped"], assignments=routed["picks"],
+                   max_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+        steps.append(row)
+        log(f"{tag} step {i + 1}: {row['ms']:.1f} ms, "
+            f"{row['tok_per_s']:.1f} tok/s, loss {row['loss']:.4f}, "
+            f"aux_sum {row['aux_sum']:.4f}, dropped {row['dropped']} "
+            f"of {row['assignments']} assignments, grad norm "
+            f"{row['grad_norm']:.3f}, max memory "
+            f"{row['max_memory_gb']:.2f} GiB")
+    if not all(r["assignments"] for r in steps):
+        fail(f"no routing was counted in the timed steps: {steps}")
+    launches = train_launches()
+    counters = {k_: v - base.get(k_, 0)
+                for k_, v in ops.kernel_counters().items()
+                if v - base.get(k_, 0)}
+    n = cell["steps"]
+    log(f"{tag} launches in {n} steps: {launches}; dispatch {counters}")
+    for name, per_step in cell["launches"].items():
+        if launches[name] != per_step * n:
+            fail(f"{name} launched {launches[name]} times in {n} steps, "
+                 f"expected {per_step} a step")
+    if any(k_.startswith("ref_") for k_ in counters):
+        fail(f"the timed steps reached a plain version: {counters}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["aux_sum"])
+               for r in steps):
+        fail(f"non-finite losses: {steps}")
+    res = dict(arch=cell["arch"], n_params=desc["n_params"],
+               cuts=cell["cuts"], step1=rows, steps=steps,
+               step_ms=sum(r["ms"] for r in steps) / n,
+               tok_per_s=sum(r["tok_per_s"] for r in steps) / n,
+               max_memory_gb=max(r["max_memory_gb"] for r in steps),
+               launches=launches,
+               launches_per_step={k_: launches[k_] / n
+                                  for k_ in cell["launches"]},
+               counters=counters)
+    del sess, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------------- #
 # Train phase
 # --------------------------------------------------------------------------- #
@@ -1568,8 +1901,9 @@ def scan_kernel_phase(torch, flush, resources):
 def train_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
+    from repro_torch.kernels import selective_scan as ss
 
-    return {**fa.LAUNCHES, **fx.LAUNCHES}
+    return {**fa.LAUNCHES, **fx.LAUNCHES, **ss.LAUNCHES}
 
 
 def train_session(cell, **kw):
@@ -2745,6 +3079,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def mark(name):
+        """Log and keep the seconds since the last mark (the phases' share
+        of the run's time limit)."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+        log(f"[time] {name}: {phase_s[name]:.1f} s (at {now - t_start:.1f} "
+            "s)")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2767,6 +3111,7 @@ def main() -> None:
         f"=== {n} ({v['seconds']:.1f} s)\n{v['log']}"
         for n, v in build.BUILD_LOG.items()))
     resources = kernel_resources(build)
+    mark("build")
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     serve_kernels = kernel_phases(torch, flush)
@@ -2774,12 +3119,15 @@ def main() -> None:
     gpt_kernels = gpt_kernel_phases(torch, flush)
     shard_kernels = shard_kernel_phases(torch, flush)
     scan_kernels = scan_kernel_phase(torch, flush, resources)
+    jamba_train_kernels = jamba_train_kernel_phases(torch, flush, resources)
+    mark("kernel phases")
     del flush
     gc.collect()
     torch.cuda.empty_cache()
     contig, outs_c, lg_c, params, sess_c = serve_phase(torch, "contiguous")
     paged, outs_p, lg_p, _, sess_p = serve_phase(torch, "paged", params)
     compare_layouts(ARCH, lg_c, lg_p, outs_c, outs_p)
+    mark("serve llama3.2-1b")
     serve = [contig, paged]
     kernels = []
     # each training cell frees its session, params and optimizer state
@@ -2788,13 +3136,23 @@ def main() -> None:
     for row in train_kernels:
         row["launches"] = train["launches"][row["name"].split(":")[0]]
     kernels += train_kernels
+    mark("train llama3.2-1b")
     log(f"[train] before gpt: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
     train_gpt = train_phase(torch, GPT)
     for row in gpt_kernels:
         row["launches"] = train_gpt["launches"][row["name"].split(":")[0]]
     kernels += gpt_kernels
+    mark("train gpt_paper")
     ckpt = ckpt_phase(torch, GPT, card)
+    mark("ckpt gpt_paper")
+    log(f"[train] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    train_jamba = jamba_train_phase(torch, JAMBA_TRAIN)
+    for row in jamba_train_kernels:
+        row["launches"] = train_jamba["launches"][row["name"].split(":")[0]]
+    kernels += jamba_train_kernels
+    mark("train jamba-v0.1-52b")
     log(f"[serve] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
     jamba, _, _, params_j, sess_j = serve_phase(torch, "contiguous",
@@ -2809,6 +3167,7 @@ def main() -> None:
                                   (sess_p, params, "paged"),
                                   (sess_j, params_j, "jamba"))
                 for kind, steps in (("decode", 5), ("prefill", 3))]
+    mark("serve jamba and profiles")
     del params_j, sess_j, params, sess_c, sess_p
     gc.collect()
     torch.cuda.empty_cache()
@@ -2832,6 +3191,7 @@ def main() -> None:
                                    (sess_gp, params_g, "gpt_paged"),
                                    (sess_y, params_y, "yi_paged"))
                  for kind, steps in (("decode", 5), ("prefill", 3))]
+    mark("serve gpt_paper, yi-9b and profiles")
     del params_g, sess_gc, sess_gp, params_y, sess_y
     gc.collect()
     torch.cuda.empty_cache()
@@ -2852,7 +3212,8 @@ def main() -> None:
     mesh_kernels = [r for r in serve_kernels if ":mesh_" in r["name"]]
     serve_launches([r for r in serve_kernels if r not in mesh_kernels])
     kernels = serve_kernels + kernels
-    profiles += [profile_train(torch, LLAMA), profile_train(torch, GPT)]
+    profiles += [profile_train(torch, c) for c in (LLAMA, GPT, JAMBA_TRAIN)]
+    mark("train profiles")
     gc.collect()
     torch.cuda.empty_cache()
     # last: four ranks share the card, with nothing else on it
@@ -2860,12 +3221,15 @@ def main() -> None:
         f"GiB allocated here, {torch.cuda.mem_get_info()[0] / 2**30:.2f} "
         "GiB of the card free")
     multirank = [multirank_phase(torch, c) for c in (MULTI, PODS)]
+    mark("multirank, pods")
     gc.collect()
     torch.cuda.empty_cache()
     auto = auto_phase(torch, AUTO)
+    mark("auto gpt_paper")
     gc.collect()
     torch.cuda.empty_cache()
     serve_multi = serve_multirank_phase(torch, SERVE_MULTI)
+    mark("serve multirank llama3.2-1b")
     # the multi-rank path's decodes: the four ranks' launches
     for lib, layout in (("slotted_attention", "contiguous"),
                         ("paged_attention", "paged")):
@@ -2879,10 +3243,12 @@ def main() -> None:
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
-         "train": [train, train_gpt], "ckpt": ckpt, "multirank": multirank,
+         "train": [train, train_gpt, train_jamba], "ckpt": ckpt,
+         "multirank": multirank,
          "auto": auto, "serve_multirank": serve_multi,
          "profiles": profiles,
-         "wall_s": time.perf_counter() - t_start}, indent=1))
+         "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
+        indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

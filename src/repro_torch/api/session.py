@@ -17,8 +17,12 @@ Serving — everything :class:`repro_torch.serving.ServeEngine` reads::
 
 ``session("jamba-v0.1-52b", reduced=False, max_slots=8, max_seq=2048)``
 serves Jamba's published widths at depth 8 (``one_card_config()``) the
-same way, with Mamba, attention and gathered-MoE layers; Jamba trains in
-a later slice (a train session raises ``SessionError``).
+same way, with Mamba, attention and gathered-MoE layers;
+``session("jamba-v0.1-52b", mode="train", reduced=False)`` trains them at
+the published widths cut to two layers and eight experts
+(``one_card_train_config()``): the selective scan runs K5 forward and K5b
+backward, and the router's load-balance loss is seeded into each B task
+(``describe()["last_step"]["aux_sum"]`` after a step).
 
 Training on a mesh of ranks runs the same calls in every rank's process,
 after ``torch.distributed.init_process_group`` (world size pods x data x
@@ -244,6 +248,7 @@ class Session:
         self._serve_steps: dict = {}
         self._rope = None
         self._engine_stats = None   # serving EngineStats (engine attaches)
+        self._last_metrics = None   # the last train_step's metrics
         self._fault_tolerance = None  # a TrainController (attach())
         # baseline for the per-session dispatch counters (process-wide)
         self._kernel_counter_base = ops.kernel_counters()
@@ -604,7 +609,9 @@ class Session:
                 self._train_step = make_train_step(self.rt, self.shape_cfg)
             except ValueError as e:
                 raise SessionError(str(e)) from e
-        return self._train_step(params, batch)
+        grads, metrics = self._train_step(params, batch)
+        self._last_metrics = metrics
+        return grads, metrics
 
     def opt_config(self):
         """(AdamWConfig, use_lr_schedule, warmup, total) from spec.optim."""
@@ -916,6 +923,14 @@ class Session:
             # forward-only table whatever the selection picked
             out["schedule"] = dict(self._describe_schedule(),
                                    serve_table="fwd_only")
+        if self._last_metrics is not None:
+            # the last train step's metrics: the loss, the router's
+            # auxiliary losses (aux_sum; 0 for a dense model) and the
+            # embedding rows dropped
+            m = self._last_metrics
+            out["last_step"] = {"loss_sum": float(m["loss_sum"]),
+                                "aux_sum": float(m["aux_sum"]),
+                                "emb_dropped": int(m["emb_dropped"])}
         if self._engine_stats is not None:
             out["serving"] = dataclasses.asdict(self._engine_stats)
         if self._fault_tolerance is not None:

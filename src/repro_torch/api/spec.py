@@ -310,13 +310,6 @@ class SessionSpec:
                     "drop mem_budget)")
 
     def _validate_train(self) -> "SessionSpec":
-        cfg = get_arch(self.arch).config()
-        if cfg.mamba is not None or cfg.moe is not None:
-            raise SessionError(
-                f"training {cfg.name} (Mamba and MoE layers) waits for the "
-                "Jamba training slice: apply_mamba and apply_moe on the "
-                "tape, the selective-scan backward and the router aux "
-                "loss (ROADMAP.md queue 1); serve it with mode='serve'")
         for knob in ("pp", "groups"):
             if self.overrides.get(knob, 1) < 1:
                 raise SessionError(
@@ -350,16 +343,20 @@ class SessionSpec:
         multi-device smoke layout) becomes 1 unless ``overrides`` set it,
         and the full width takes the module's ``one_card_train_run()``
         (pp, groups from ``overrides``). The full width
-        is the module's ``one_card_config()`` where it defines one (a
-        model cut in depth to fit one card), else ``config()``; a train
-        spec's ``layers`` cuts its depth."""
+        is the module's ``one_card_train_config()`` in train mode and its
+        ``one_card_config()`` in serve mode where it defines them (a model
+        cut to fit one card), else ``config()``; a ``layers`` cuts its
+        depth."""
         mod = get_arch(self.arch)
         if self.reduced:
             cfg, rc = mod.reduced()
             if self.mode == "train":
                 rc = dataclasses.replace(rc, pp=1)
         else:
-            cfg = getattr(mod, "one_card_config", mod.config)()
+            cut = getattr(mod, "one_card_config", mod.config)
+            if self.mode == "train":
+                cut = getattr(mod, "one_card_train_config", cut)
+            cfg = cut()
             rc = (mod.one_card_train_run() if self.mode == "train"
                   else mod.one_card_run())
         if self.overrides:

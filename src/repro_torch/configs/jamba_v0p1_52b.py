@@ -6,12 +6,14 @@ Same values as ``repro/configs/jamba_v0p1_52b.py``.
 
 One period of eight layers holds every layer kind of the model:
 ``mamba:dense`` (layers 0, 2, 6), ``mamba:moe`` (1, 3, 5, 7) and
-``attn:dense`` (4).
+``attn:dense`` (4). The port serves one period on one card
+(``one_card_config()``) and trains a two-layer cut of it
+(``one_card_train_config()``, ``one_card_train_run()``).
 """
 
 import dataclasses
 
-from repro_torch.configs._base import one_card
+from repro_torch.configs._base import one_card, one_card_train
 from repro_torch.models.common import MambaCfg, MoECfg, ModelConfig, RunConfig
 
 
@@ -39,6 +41,45 @@ def one_card_config() -> ModelConfig:
 
 def one_card_run() -> RunConfig:
     return one_card()
+
+
+# the one-card training shape: one 4096-token sequence a micro-batch,
+# four micro-batches (16,384 tokens a step)
+TRAIN_SEQ, TRAIN_BATCH = 4096, 4
+
+
+def one_card_train_config() -> ModelConfig:
+    """The published widths trained on one card: two cuts.
+
+    Widths are not cut: d_model 4096, d_ff and d_ff_expert 14336, d_state
+    16, d_conv 4, expand 2, dt_rank 256 (d_model / 16), vocab 65536,
+    top-2 routing at capacity factor 1.25, an untied head.
+
+    * Depth 32 -> 2: layer 0 is ``mamba:dense``, layer 1 ``mamba:moe``,
+      the first depth that holds a MoE layer (the attention layer, index
+      4, is left out; training runs attention in the llama and gpt
+      cells).
+    * Experts 16 -> 8 (top-2 kept). A ``mamba:moe`` layer of 16 experts
+      holds 2.82 B parameters (16 x 3 x 4096 x 14336); with the io (the
+      embedding and the untied head, 2 x 65536 x 4096 = 0.54 B), two
+      Mamba mixers (0.105 B each) and the dense FFN (0.176 B) that is
+      3.74 B, and at the port's 18-22 bytes a parameter (bf16 params,
+      float32 master weights, moments, gradients and ``acc_full``)
+      67-82 GB before activations: more than the card's 80 GB. Eight
+      experts give 2.33 B parameters, 42-51 GB.
+    """
+    cfg = config()
+    return dataclasses.replace(
+        cfg, n_layers=2, moe=dataclasses.replace(cfg.moe, n_experts=8))
+
+
+def one_card_train_run() -> RunConfig:
+    """zeropp at pp 1 over the two layers as one stage block (vpp 1: at
+    depth 2 the static-kinds rule allows no vpp 2, whose stage blocks
+    would hold a dense and a MoE layer in the same slot), four
+    micro-batches of one 4096-token sequence in units of two; bf16 params
+    and compute, float32 master weights and moments."""
+    return one_card_train(vpp=1)
 
 
 def reduced():

@@ -380,11 +380,12 @@ class TickEngine:
 
 
 def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
-                       seq, denom, io_g, metrics):
+                       seq, denom, io_g, metrics, aux_seed=0.0):
     """Run one segment's plan on the tick engine; accumulates into io_g
     and metrics in place and returns this rank's stage grads {name: [V,
-    *local shape]} (reduced over the data axis, not yet across
-    groups)."""
+    *local shape]} (reduced over the data axis, not yet across groups).
+    ``aux_seed`` is the cotangent of each B task's auxiliary-loss output
+    (the router weight over the global micro-batch count)."""
     cfg, rc = rt.cfg, rt.rc
     cdt = torch_dtype(rc.compute_dtype)
     V, Pe, U = seg.vpp, rt.Pe, pt.U
@@ -453,7 +454,11 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
             dy = dh.reshape(mbs, seq, d)
         else:
             dy = st["bbuf"].pop(u)
-        cots, igrads, stash = t.backward({out.idx: dy.to(out.val.dtype)})
+        seeds = {out.idx: dy.to(out.val.dtype)}
+        if aux_seed:
+            seeds[aux.idx] = torch.tensor(aux_seed, dtype=torch.float32,
+                                          device=dev)
+        cots, igrads, stash = t.backward(seeds)
         dx = cots[xin.idx]
         st["send_b"] = dx.to(cdt)
         if stash:
@@ -480,9 +485,10 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
     return st["acc_shard"]
 
 
-def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
+def train_body(params, batch, *, rt, shape_cfg, mbs, denom, aux_seed=0.0):
     """One rank's training step: (grads, metrics), grads in float32 in
-    this rank's local shapes; ``batch`` is this rank's data shard."""
+    this rank's local shapes; ``batch`` is this rank's data shard;
+    ``aux_seed`` seeds each micro-batch's auxiliary loss."""
     io_p = params["io"]
     dev = rt.device
     io_g = {n: torch.zeros(a.shape, dtype=torch.float32, device=dev)
@@ -493,7 +499,7 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom):
     seg = rt.segs["main"]
     seg_grads = segment_train_scan(
         rt, seg, rt.tables["main"], params["segments"]["main"], io_p, batch,
-        mbs, shape_cfg.seq_len, denom, io_g, metrics)
+        mbs, shape_cfg.seq_len, denom, io_g, metrics, aux_seed)
     mesh = rt.mesh
     if mesh is None:
         # one rank: the cross-group and data reductions of the reference

@@ -171,7 +171,9 @@ def make_train_step(rt: Runtime, shape_cfg):
     tensors), the same on every rank; each rank takes its data shard.
     Grads are float32 trees shaped like this rank's params, summed over
     the pods; metrics are ``loss_sum`` (the step's mean token loss),
-    ``aux_sum`` and ``emb_dropped``, summed over the mesh."""
+    ``aux_sum`` (the auxiliary losses of every micro-batch's stages; the
+    step's objective adds ``router_aux_weight`` times its mean over the
+    global micro-batches) and ``emb_dropped``, summed over the mesh."""
     rc = rt.rc
     if rt.shape.world > 1 and rt.mesh is None:
         raise ValueError(f"a step on a {rt.shape.world}-rank mesh needs the "
@@ -186,6 +188,11 @@ def make_train_step(rt: Runtime, shape_cfg):
                          f"groups * microbatches ({rt.shape.pods} * "
                          f"{rt.dsize} * {rt.G} * {Btot}) micro-batches")
     denom = float(gb * seq)   # the global token count
+    # the reference's semantics: loss += w * the mean over the global
+    # micro-batches of each one's aux (summed over stages)
+    aux_seed = (rt.cfg.moe.router_aux_weight
+                / (Btot * rt.G * rt.dsize * rt.shape.pods)
+                if rt.cfg.moe is not None else 0.0)
     shard = rt.shape.shard_of(rt.rank)
     rows = slice(shard * n_local, (shard + 1) * n_local)
 
@@ -203,7 +210,7 @@ def make_train_step(rt: Runtime, shape_cfg):
                                  f"[{gb}, {seq}]")
         b = {k: to_dev(batch[k]) for k in ("tokens", "labels")}
         return train_body(params, b, rt=rt, shape_cfg=shape_cfg, mbs=mbs,
-                          denom=denom)
+                          denom=denom, aux_seed=aux_seed)
 
     return step
 

@@ -10,10 +10,13 @@ parameterised GEMM separates into
 
 Every parameterised contraction is a ``dense`` node: B replays its dX and
 *stashes* ``(x, dy)``; :func:`compute_dw` replays the dW GEMM later.
-Everything else (norms, rotary, the attention core, element-wise glue) is
-a ``prim`` whose backward comes from ``torch.autograd.grad`` over the
-function applied to detached inputs: its parameters (norm scales) receive
-immediate gradients in B.
+Everything else (norms, rotary, the attention core, the selective scan,
+routing, element-wise glue) is a ``prim`` whose backward comes from
+``torch.autograd.grad`` over the function applied to detached inputs: its
+parameters (norm scales, the conv and SSM parameters) receive immediate
+gradients in B. A prim may have several outputs (``n_out``: the conv's
+two halves, the router's weights and auxiliary loss); in B an output
+that received no cotangent gets zeros, as in the reference.
 
 Modes: ``"fwd"`` (the F task) computes under ``torch.no_grad``; ``"bwd"``
 computes *and* records, then :meth:`Tape.backward` walks the records in
@@ -67,11 +70,11 @@ class _DenseRec:
 
 @dataclasses.dataclass
 class _GenericRec:
-    out_idx: int
+    out_idxs: tuple[int, ...]
     in_idxs: tuple[int, ...]
     pnames: tuple[str, ...]
     inputs: tuple[torch.Tensor, ...]    # detached leaves (params, xs)
-    output: torch.Tensor                # the result, with a local graph
+    outputs: tuple[torch.Tensor, ...]   # the results, with a local graph
 
 
 @dataclasses.dataclass
@@ -113,11 +116,12 @@ class Tape:
                 _DenseRec(out.idx, x.idx, pname, spec, x.val, w))
         return out
 
-    def prim(self, fn: Callable, *xs: TVal, pnames: Sequence[str] = ()
-             ) -> TVal:
-        """Apply ``fn(*param_values, *x_values)`` (one output); its
-        backward comes from ``torch.autograd.grad``. Parameters in
-        ``pnames`` receive immediate gradients in B."""
+    def prim(self, fn: Callable, *xs: TVal, pnames: Sequence[str] = (),
+             n_out: int = 1):
+        """Apply ``fn(*param_values, *x_values)``; its backward comes from
+        ``torch.autograd.grad``. Parameters in ``pnames`` receive
+        immediate gradients in B. With ``n_out`` > 1, ``fn`` returns that
+        many tensors and so does the call (a tuple of TVals)."""
         pvals = tuple(self.params[p] for p in pnames)
         xvals = tuple(x.val for x in xs)
         if self.mode == "bwd":
@@ -129,12 +133,13 @@ class Tape:
             inputs = ()
             with torch.no_grad():
                 outs = fn(*pvals, *xvals)
-        out = self.value(outs.detach())
+        outs_t = (outs,) if n_out == 1 else tuple(outs)
+        out_vals = tuple(self.value(o.detach()) for o in outs_t)
         if self.mode == "bwd":
             self._records.append(_GenericRec(
-                out.idx, tuple(x.idx for x in xs), tuple(pnames), inputs,
-                outs))
-        return out
+                tuple(o.idx for o in out_vals), tuple(x.idx for x in xs),
+                tuple(pnames), inputs, outs_t))
+        return out_vals[0] if n_out == 1 else out_vals
 
     def elementwise(self, fn: Callable, x: TVal) -> TVal:
         """``fn`` applied to one value (an activation), as a prim."""
@@ -177,15 +182,19 @@ class Tape:
                         wstash.append(
                             WStash(rec.pname, dw_spec, rec.x_saved, dy))
                     continue
-                dy = cot.pop(rec.out_idx, None)
-                # an output that depends on no input (a constant) has no
-                # backward
-                if dy is None or not rec.output.requires_grad:
+                dys = [cot.pop(i, None) for i in rec.out_idxs]
+                # outputs that depend on no input (constants, integer
+                # routing results) have no backward; the others take zeros
+                # where no cotangent arrived
+                live = [(o, torch.zeros_like(o) if d is None
+                         else d.to(o.dtype))
+                        for o, d in zip(rec.outputs, dys) if o.requires_grad]
+                if all(d is None for d in dys) or not live:
                     continue
                 with torch.enable_grad():
                     grads = torch.autograd.grad(
-                        rec.output, rec.inputs, dy.to(rec.output.dtype),
-                        allow_unused=True)
+                        [o for o, _ in live], rec.inputs,
+                        [d for _, d in live], allow_unused=True)
                 np_ = len(rec.pnames)
                 for p, g in zip(rec.pnames, grads[:np_]):
                     _acc(igrads, p, g)

@@ -22,7 +22,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("slotted_attention", "paged_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "fused_xent", "selective_scan")
+           "flash_attention_bwd", "fused_xent", "selective_scan",
+           "selective_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,10 @@ SIGNATURES = {
         "fused_xent_split": [_P, _P, ctypes.c_longlong, _P]},
     "selective_scan": {"selective_scan": [_P] * 9 + [_I] * 4 + [_P],
                        "selective_scan_occupancy": [_I, _I, _P]},
+    "selective_scan_bwd": {
+        "selective_scan_bwd": [_P] * 14 + [_I] * 4 + [_P],
+        "selective_scan_bwd_workspace": [_I] * 4 + [_P],
+        "selective_scan_bwd_occupancy": [_I, _P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -14,7 +14,9 @@ serving) goes to the slotted kernel (K3), a static Python int (training,
 causal or bidirectional) to the flash kernels (K1 forward, K1b backward)
 through a differentiable ``torch.autograd.Function``. ``softmax_xent``
 goes to the fused cross-entropy kernel (K2), ``selective_scan`` to the
-selective-scan kernel (K5); ``xent_stats`` / ``xent_grads``, K2's two
+selective-scan kernel (K5) and ``selective_scan_train``, the training
+path's differentiable scan, to K5 forward and K5b backward through a
+``torch.autograd.Function``; ``xent_stats`` / ``xent_grads``, K2's two
 passes apart, serve the vocabulary-sharded loss. ``selective_scan_step``,
 one decode step of the scan, is plain PyTorch on every device, as in the
 reference (which has no kernel for it either); it is not counted.
@@ -136,6 +138,15 @@ def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,
         return ref.selective_scan(x, dt, A, B, C, D, **kw)
     _count("kernel_scan")
     return ss.selective_scan(x, dt, A, B, C, D, **kw)
+
+
+def selective_scan_train(x, dt, A, B, C, D, *, impl=None):
+    """The differentiable scan (no h0, y only) of the training path: K5
+    forward and K5b backward on the card, the plain versions on the CPU
+    (``kernel_scan`` / ``kernel_scan_bwd`` or ``ref_scan`` /
+    ``ref_scan_bwd`` in the counters)."""
+    return ss.scan(x, dt, A, B, C, D, use_kernel=_use_kernel(x, impl),
+                   count=_count)
 
 
 def selective_scan_step(h, x, dt, A, B, C, D):

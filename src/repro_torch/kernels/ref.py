@@ -351,6 +351,89 @@ def selective_scan(x, dt, A, B, C, D, *, chunk=256, h0=None,
     return y
 
 
+def _chunk_states(xc, dtc, Bc, Af, h):
+    """(a, h_all) of one chunk: a_t = exp(dt_t A) and the states h_t after
+    each step [b, c, d, n], from the entry state h [b, d, n]."""
+    a = torch.exp(dtc[..., None] * Af[None, None])
+    u = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+    a_cum, u_cum = _scan_pairs(a.clone(), u)
+    return a, a_cum.mul_(h[:, None]).add_(u_cum)
+
+
+def selective_scan_bwd(x, dt, A, B, C, D, dy, *, chunk=256):
+    """The gradient of :func:`selective_scan` (h0 = 0, y only) for the
+    cotangent dy [b, s, d]: (dx, ddt, dA, dB, dC, dD), each in its
+    input's dtype. The plain reverse scan, written out: a forward pass
+    keeps each chunk's entry state ([b, d, n] a chunk); then, from the
+    last chunk to the first, the chunk's states are recomputed from its
+    entry state and the state cotangent walks back,
+
+      g_t = C_t dy_t + exp(dt_{t+1} A) g_{t+1},
+
+    as an inclusive scan of the flipped chunk (doubling steps, as the
+    forward), carrying a_{t0} g_{t0} into the chunk before. With
+    w_t = g_t a_t h_{t-1}:
+
+      dx_t = D dy_t + dt_t sum_n g_t B_t,  ddt_t = sum_n (w_t A + g_t B_t x_t),
+      dA = sum_t dt_t w_t,  dB_t = sum_d g_t dt_t x_t,  dC_t = sum_d dy_t h_t,
+      dD = sum_t dy_t x_t.
+
+    Live memory is a few [b, chunk, d, n] float32 tensors, as the
+    forward's; padding past s has dt = 0 and dy = 0, so it adds nothing.
+    """
+    b, s, d = x.shape
+    n = A.shape[1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    if pad:
+        xf, dtf, Bf, Cf, dyf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                                for t in (xf, dtf, Bf, Cf, dyf))
+    Af = A.float()
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
+    entry = []
+    for k in range(nc):
+        entry.append(h)
+        if k < nc - 1:
+            sl = slice(k * chunk, (k + 1) * chunk)
+            _, h_all = _chunk_states(xf[:, sl], dtf[:, sl], Bf[:, sl], Af, h)
+            h = h_all[:, -1].clone()
+            del h_all
+    dA = torch.zeros((d, n), dtype=torch.float32, device=x.device)
+    G = torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
+    outs = []
+    for k in reversed(range(nc)):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        xc, dtc, Bc, Cc, dyc = (t[:, sl] for t in (xf, dtf, Bf, Cf, dyf))
+        a, h_all = _chunk_states(xc, dtc, Bc, Af, entry[k])
+        dC = torch.einsum("bcdn,bcd->bcn", h_all, dyc)
+        # the flipped chunk: g_r = a'_r g_{r-1} + u_r with a'_r = a_{t+1}
+        u = Cc[:, :, None, :] * dyc[..., None]
+        u[:, -1] += G
+        ar = torch.zeros_like(a)
+        ar[:, :-1] = a[:, 1:]
+        _, g = _scan_pairs(ar.flip(1), u.flip(1))
+        g = g.flip(1)
+        del ar, u
+        G = a[:, 0] * g[:, 0]
+        w = a.mul_(g)                              # g_t a_t h_{t-1}
+        w[:, 1:] *= h_all[:, :-1]
+        w[:, 0] *= entry[k]
+        del h_all
+        sgB = torch.einsum("bcdn,bcn->bcd", g, Bc)
+        dx = dyc * D.float() + dtc * sgB
+        ddt = torch.einsum("bcdn,dn->bcd", w, Af) + xc * sgB
+        dA += torch.einsum("bcd,bcdn->dn", dtc, w)
+        dB = torch.einsum("bcdn,bcd->bcn", g, dtc * xc)
+        outs.append((dx, ddt, dB, dC))
+        del g, w, a
+    dx, ddt, dB, dC = (torch.cat(o[::-1], dim=1)[:, :s]
+                       for o in zip(*outs))
+    dD = (dyf * xf).sum(dim=(0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype))
+
+
 def selective_scan_step(h, x, dt, A, B, C, D):
     """One decode step. h: [b, d, n]; x, dt: [b, d]; B, C: [b, n].
     Returns (h_new [b, d, n], y [b, d] in x.dtype)."""

@@ -9,6 +9,10 @@ Prints one line a step (loss, grad norm, step ms, tokens/s) and
   PYTHONPATH=src python -m repro_torch.launch.train --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt_paper \\
       --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-v0.1-52b --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-v0.1-52b --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --backend gloo --data 2 --pp 2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --data 2 \\
@@ -38,8 +42,10 @@ schedule and how it was found (a search, or a hit of the plan cache,
 ``--full`` trains the architecture at its published width (llama3.2-1b:
 16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
 gpt_paper: gpt-1.5B, 22 layers, d_model 2304, vocab 50304, 8 sequences
-of 1024 a step; bf16, random weights from seed 0); without it the
-reduced smoke config. The default device is the card.
+of 1024 a step; jamba-v0.1-52b: its widths cut to 2 layers and 8
+experts, vpp 1, 4 sequences of 4096 a step; bf16, random weights from
+seed 0); without it the reduced smoke config. The default device is the
+card.
 
 ``--data D --pp P [--groups G] [--pods Q]`` trains on Q * D * G * P
 ranks (pods replicate the parameters and all-reduce the gradients):

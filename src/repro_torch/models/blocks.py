@@ -1,11 +1,13 @@
 """Transformer blocks: tape versions for training, cached for serving.
 
 The port's counterpart of ``repro/models/blocks.py`` for dense attention,
-Mamba and gathered-MoE layers. Training (dense attention layers only):
-``apply_norm`` (RMSNorm or LayerNorm), ``apply_attn`` and ``apply_ffn``
-(SwiGLU or the GELU MLP) are
-written against the ZeroPP tape (``core/tape.py``): every parameterised
-GEMM is a ``dense`` node (deferred dW, the W task), everything else a
+Mamba and gathered-MoE layers. Training: ``apply_norm`` (RMSNorm or
+LayerNorm), ``apply_attn``, ``apply_ffn`` (SwiGLU or the GELU MLP),
+``apply_mamba`` (the selective scan: K5 forward, K5b backward on the
+card) and ``apply_moe`` (gathered top-k experts with the router's
+load-balance loss) are written against the ZeroPP tape
+(``core/tape.py``): every parameterised GEMM is a ``dense`` node
+(deferred dW, the W task; the expert banks too), everything else a
 ``prim`` (immediate grads in B). Serving: ``norm_fwd`` (RMSNorm or
 LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP),
 ``attn_cached`` with its three cache layouts (paged pool, per-slot
@@ -36,6 +38,7 @@ leaves on the writing rows only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -403,7 +406,8 @@ def _capacity(n_tok: int, mo) -> int:
 def _route(logits: torch.Tensor, mo, cap: int):
     """Top-k routing of the [n, E] router logits: (weights [n, K] float32
     renormalised over the k picks, expert ids [n, K], capacity slot [n,
-    K] with ``cap`` for a dropped pick). Ties go to the lower expert id,
+    K] with ``cap`` for a dropped pick). The weights are differentiable
+    in the logits (the training path's ``route``). Ties go to the lower expert id,
     as ``jax.lax.top_k`` breaks them (a stable descending sort); a pick's
     slot is its rank among its expert's picks in flattened (token, k)
     order."""
@@ -418,6 +422,90 @@ def _route(logits: torch.Tensor, mo, cap: int):
     slot = (rank * flat_oh).sum(-1).reshape(n, K)
     slot = torch.where(slot < cap, slot, cap)
     return topw, topi, slot
+
+
+_DROP_COUNTS: list[dict] = []
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Count the training path's routed picks while open: yields a dict
+    whose ``dropped`` and ``picks`` hold, on exit, the picks that forward
+    (``fwd``-mode tape) routing calls made and the ones of them that fell
+    past their expert's capacity. B's recompute routes the same tokens
+    again and is not counted. The sums stay on the device until exit."""
+    box = {"dropped": 0, "picks": 0}
+    _DROP_COUNTS.append(box)
+    try:
+        yield box
+    finally:
+        _DROP_COUNTS.remove(box)
+        box["dropped"], box["picks"] = int(box["dropped"]), int(box["picks"])
+
+
+def apply_moe(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> tuple[TVal, TVal]:
+    """The gathered top-k MoE FFN on the tape (the reference's
+    ``apply_moe`` without expert parallelism, shared experts or stats).
+    Returns (y, aux): aux is the Switch load-balance term, E times the sum
+    over experts of (share of first picks) x (mean probability).
+
+    The router is a dense node; routing is a two-output prim (weights,
+    aux) whose expert ids and capacity slots leave the tape as closure
+    captures (integers, no gradient), as in the reference. Dispatch
+    scatters every pick into [E, cap + 1, d] (the last slot takes the
+    dropped picks and is cut off), the three expert banks are dense nodes
+    (dW deferred to W), and combine gathers each pick's output through the
+    drop slot (zeros for a dropped pick), weighted by its routing
+    weight."""
+    mo = ctx.cfg.moe
+    if mo.n_shared:
+        raise NotImplementedError(
+            f"{ctx.cfg.name}: training MoE layers with shared experts "
+            "(n_shared) arrives with the remaining blocks (ROADMAP.md queue "
+            "1 item 6)")
+    b, s, d = x.shape
+    n = b * s
+    cap = _capacity(n, mo)
+    E, K = mo.n_experts, mo.top_k
+    logits = t.dense(x, f"{pfx}.router", "bsd,de->bse")
+    holder = {}
+
+    def route(lg):
+        lgf = lg.reshape(n, E)
+        topw, topi, slot = _route(lgf, mo, cap)
+        holder["topi"], holder["slot"] = topi, slot
+        if t.mode == "fwd":
+            for box in _DROP_COUNTS:
+                box["dropped"] = box["dropped"] + (slot == cap).sum()
+                box["picks"] += slot.numel()
+        frac_tok = F.one_hot(topi[:, 0], E).float().mean(dim=0)
+        frac_prob = torch.softmax(lgf.float(), dim=-1).mean(dim=0)
+        aux = (frac_tok * frac_prob).sum() * E
+        return topw, aux
+
+    topw, aux = t.prim(route, logits, n_out=2)
+
+    def dispatch(xv):
+        buf = torch.zeros((E, cap + 1, d), dtype=xv.dtype, device=xv.device)
+        xk = xv.reshape(n, d).repeat_interleave(K, dim=0)
+        buf = buf.index_put((holder["topi"].reshape(-1),
+                             holder["slot"].reshape(-1)), xk,
+                            accumulate=True)
+        return buf[:, :cap]
+
+    xe = t.prim(dispatch, x)                                # [E, cap, d]
+    g = t.dense(xe, f"{pfx}.e_wg", "ecd,edf->ecf")
+    u = t.dense(xe, f"{pfx}.e_wu", "ecd,edf->ecf")
+    hh = t.prim(lambda a, b2: F.silu(a) * b2, g, u)
+    ye = t.dense(hh, f"{pfx}.e_wd", "ecf,efd->ecd")
+
+    def combine(yv, wv):
+        ypad = F.pad(yv, (0, 0, 0, 1))       # the drop slot reads zeros
+        gathered = ypad[holder["topi"], holder["slot"]]     # [n, K, d]
+        out = (gathered * wv[..., None].to(yv.dtype)).sum(dim=1)
+        return out.reshape(b, s, d)
+
+    return t.prim(combine, ye, topw), aux
 
 
 def moe_fwd(ctx, params, pfx, x):
@@ -484,6 +572,46 @@ def mamba_specs(cfg: ModelConfig, pfx: str):
         f"{pfx}.Dd": ParamSpec((di,), "ones"),
         f"{pfx}.w_out": ParamSpec((di, d), fsdp_dim=0),
     }
+
+
+def apply_mamba(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+    """The Mamba mixer on the tape (the reference's ``apply_mamba``):
+    in_proj, out_proj and the x projection are dense nodes; the causal
+    depthwise conv with SiLU (and the split off of the gate z) is a
+    two-output prim with the conv's params; the SSM is a prim with the
+    dt projection, dt bias, A_log and D, which runs the differentiable
+    scan (``ops.selective_scan_train``: K5 / K5b on the card). The dtype
+    steps are the reference's: softplus in the compute dtype, then float32
+    for the scan and for ``y * silu(z)``, cast back."""
+    mc, di, dt_rank = _mamba_dims(ctx.cfg)
+    n = mc.d_state
+    xz = t.dense(x, f"{pfx}.w_in", "bsd,de->bse")           # e = 2 di
+
+    def conv_split(cw, cb, v):
+        xs, z = v[..., :di], v[..., di:]
+        pad = F.pad(xs, (0, 0, mc.d_conv - 1, 0))
+        out = sum(pad[:, i:i + xs.shape[1]] * cw[i]
+                  for i in range(mc.d_conv)) + cb
+        return F.silu(out), z
+
+    xs, z = t.prim(conv_split, xz,
+                   pnames=(f"{pfx}.conv_w", f"{pfx}.conv_b"), n_out=2)
+    bcdt = t.dense(xs, f"{pfx}.w_x", "bse,er->bsr")   # r = dt_rank + 2 n
+
+    def ssm(w_dt, dt_bias, a_log, dd, xs_v, bcdt_v, z_v):
+        dt_in = bcdt_v[..., :dt_rank]
+        Bm = bcdt_v[..., dt_rank:dt_rank + n].float()
+        Cm = bcdt_v[..., dt_rank + n:].float()
+        dt = F.softplus(torch.einsum("bsr,re->bse", dt_in, w_dt)
+                        + dt_bias).float()
+        A = -torch.exp(a_log.float())
+        y = ops.selective_scan_train(xs_v.float(), dt, A, Bm, Cm, dd.float(),
+                                     impl=ctx.rc.kernel_impl)
+        return (y * F.silu(z_v.float())).to(xs_v.dtype)
+
+    y = t.prim(ssm, xs, bcdt, z, pnames=(f"{pfx}.w_dt", f"{pfx}.dt_bias",
+                                         f"{pfx}.A_log", f"{pfx}.Dd"))
+    return t.dense(y, f"{pfx}.w_out", "bse,ed->bsd")
 
 
 def _ssm_inputs(params, pfx, xs_c, dt_rank, n):

@@ -10,10 +10,10 @@ reference parameter tree carries over name for name.
 The port has blocks for decoder layers with an attention or a Mamba
 mixer and a SwiGLU, GELU-MLP or gathered-MoE FFN (``attn:dense``,
 ``attn:moe``, ``mamba:dense``, ``mamba:moe``), RMSNorm or LayerNorm, and
-a tied or untied head. Serving runs all four kinds with RMSNorm and
-SwiGLU; training runs ``attn:dense`` with either norm and dense MLP and
-either head. Any other layer kind or variant raises
-``NotImplementedError``.
+a tied or untied head. Serving and training run all four kinds with
+either norm, either dense MLP and either head; a MoE layer's router adds
+its load-balance term to the stage's auxiliary loss. Any other layer
+kind or variant raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -166,35 +166,44 @@ def rope_for(cfg: ModelConfig, seq: int, device=None):
 
 
 def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
-                keep: float) -> TVal:
+                keep: float) -> tuple[TVal, TVal | None]:
     """Pre-norm residual layer; ``keep`` (0.0 for padding layers) scales
-    each residual branch, as the reference's ``u + v * keep``. Dense
-    kinds have no auxiliary loss. Training runs ``attn:dense`` layers
-    only: Mamba and MoE on the tape wait for the Jamba training slice."""
-    if kind != "attn:dense":
-        raise NotImplementedError(
-            f"training a {kind!r} layer of {ctx.cfg.name} waits for the "
-            "Jamba training slice (apply_mamba and apply_moe on the tape; "
-            "ROADMAP.md queue 1)")
+    each residual branch, as the reference's ``u + v * keep``. Returns
+    (y, the MoE router's auxiliary loss, or None for a dense FFN)."""
+    _check_kind(ctx.cfg, kind)
+    mix, ffn = kind.split(":")
 
     def res_add(a, b):
         return t.prim(lambda u, v: u + v * keep, a, b)
 
     h = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln1", x)
-    x = res_add(x, blocks.apply_attn(t, ctx, f"{pfx}.mix", h))
+    if mix == "attn":
+        h = blocks.apply_attn(t, ctx, f"{pfx}.mix", h)
+    else:
+        h = blocks.apply_mamba(t, ctx, f"{pfx}.mix", h)
+    x = res_add(x, h)
     h2 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln2", x)
-    return res_add(x, blocks.apply_ffn(t, ctx, f"{pfx}.ffn", h2))
+    aux = None
+    if ffn == "moe":
+        h2, aux = blocks.apply_moe(t, ctx, f"{pfx}.ffn", h2)
+    else:
+        h2 = blocks.apply_ffn(t, ctx, f"{pfx}.ffn", h2)
+    return res_add(x, h2), aux
 
 
 def apply_stage(t: Tape, ctx: blocks.LayerCtx, seg: Segment, x: TVal,
                 stage_id: int) -> tuple[TVal, TVal]:
-    """Apply the k layers of one stage. Returns (y, aux scalar): the aux
-    loss stays 0 for dense layers, kept for the ``aux_sum`` metric."""
+    """Apply the k layers of one stage. Returns (y, aux scalar): the sum
+    of the MoE layers' auxiliary losses, each scaled by its layer's keep,
+    chained on the tape (a value with no record for dense stages)."""
     aux_total = t.value(torch.zeros((), dtype=torch.float32,
                                     device=x.val.device))
     for j, kind in enumerate(seg.kinds):
         keep = float(stage_id * seg.k + j < seg.n_layers)
-        x = apply_layer(t, ctx, kind, f"L{j}", x, keep)
+        x, aux = apply_layer(t, ctx, kind, f"L{j}", x, keep)
+        if aux is not None:
+            aux_total = t.prim(
+                lambda a, b, keep=keep: a + b.float() * keep, aux_total, aux)
     return x, aux_total
 
 
@@ -229,12 +238,17 @@ def reference_logits(cfg, rc, params, tokens):
 
 
 def reference_loss(cfg, rc, params, tokens, labels):
-    """Mean token cross-entropy of :func:`reference_logits` (float32)."""
-    logits, _ = reference_logits(cfg, rc, params, tokens)
+    """Mean token cross-entropy of :func:`reference_logits` (float32),
+    plus ``router_aux_weight`` times the auxiliary loss for a MoE
+    model."""
+    logits, aux = reference_logits(cfg, rc, params, tokens)
     lf = logits.reshape(-1, logits.shape[-1]).float()
     lse = torch.logsumexp(lf, dim=-1)
     lab = lf.gather(1, labels.reshape(-1, 1).long())[:, 0]
-    return (lse - lab).mean()
+    loss = (lse - lab).mean()
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 # --------------------------------------------------------------------------- #

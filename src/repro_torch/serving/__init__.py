@@ -11,6 +11,7 @@ from repro_torch.serving.paging import PageAllocation, PagePool, PagedSlotPool
 from repro_torch.serving.radix import RadixIndex
 from repro_torch.serving.sampling import SamplingParams, sample_token
 from repro_torch.serving.scheduler import (
+    MoECapacity,
     Request,
     RequestScheduler,
     SchedulerPolicy,
@@ -19,6 +20,7 @@ from repro_torch.serving.slots import SlotPool, SlotView
 
 __all__ = [
     "EngineStats",
+    "MoECapacity",
     "PageAllocation",
     "PagePool",
     "PagedSlotPool",

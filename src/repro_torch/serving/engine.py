@@ -44,11 +44,11 @@ would admit by the threads' timing, and a sampled request without a
 
 A copy of ``repro.serving.engine`` for ``repro_torch`` sessions. It takes
 numpy batches to the session and reads back host tensors, exactly as the
-reference engine does with jax sessions. Left out until their slices:
-MoE capacity-aware admission and expert-load stats (at 8 slots of
-jamba-v0.1-52b the reference's bound never defers an admission), and the
-elastic ``park_all``/``resubmit``/``reshard`` path with the router
-hooks.
+reference engine does with jax sessions. A MoE model's engine defaults
+to the reference's capacity-aware admission (``MoECapacity``). Left out
+until their slices: expert-load stats (ROADMAP.md queue 1 item 7) and the
+elastic ``park_all``/``resubmit``/``reshard`` path with the router hooks
+(item 8).
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from repro_torch.api.spec import SessionError
 from repro_torch.serving.paging import PagedSlotPool
 from repro_torch.serving.sampling import sample_token
 from repro_torch.serving.scheduler import (
+    MoECapacity,
     Request,
     RequestScheduler,
     SchedulerPolicy,
@@ -113,6 +114,8 @@ class EngineStats:
     evictions: int = 0              # prefix pages LRU-evicted
     pages_in_use: int = 0           # live pages right now
     peak_pages_in_use: int = 0      # high-water mark
+    # MoE capacity-aware admission (zero on dense models)
+    capacity_deferrals: int = 0     # admissions deferred by the MoE bound
 
 
 class ServeEngine:
@@ -138,6 +141,14 @@ class ServeEngine:
                               else session.spec.prefill_chunk)
         check_layout(session, self.prefill_chunk)
         self.pool: SlotPool | PagedSlotPool = self._build_pool()
+        moe_cfg = getattr(session.cfg, "moe", None)
+        if policy is None and moe_cfg is not None:
+            # MoE serving defaults to capacity-aware admission: defer
+            # admissions whose projected co-resident hot-expert load
+            # would overflow the dispatch capacity (pass an explicit
+            # policy — moe_capacity=None — to admit unbounded).
+            policy = SchedulerPolicy(
+                moe_capacity=MoECapacity.from_moe_cfg(moe_cfg))
         self.scheduler = RequestScheduler(policy)
         session.check_slot_sharding()  # fail before allocating caches
         # host-side sampling needs the serve step's full-logits return,
@@ -273,6 +284,8 @@ class ServeEngine:
                 active = self.pool.active()
                 if active:
                     self._decode_tick()
+                self.stats.capacity_deferrals = \
+                    self.scheduler.capacity_deferrals
                 if self._paged:
                     self.stats.prefix_hits = self.pool.prefix_hits
                     self.stats.prefix_hit_tokens = \

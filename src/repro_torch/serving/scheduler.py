@@ -8,11 +8,9 @@ bound how much prefill work may delay in-flight decodes per tick, and
 full batch only when the pool is empty) — the baseline the benchmark
 compares against.
 
-A copy of ``repro.serving.scheduler`` without the MoE capacity bound
-(``MoECapacity``), which arrives with the Jamba training slice. At the
-slot counts the port serves MoE models with (8 slots of jamba-v0.1-52b,
-4 of its reduced config) the reference's bound admits every co-batch,
-so admission is the same.
+A copy of ``repro.serving.scheduler``, with the MoE capacity-aware
+admission bound (``MoECapacity``; the dispatch capacity is the model
+blocks' ``_capacity``).
 """
 
 from __future__ import annotations
@@ -88,6 +86,52 @@ class Request:
         return list(self.tokens)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoECapacity:
+    """Capacity-aware MoE admission bound.
+
+    Every co-resident slot routes its decode token through the MoE
+    layers; the dispatch buffer holds ``capacity(tokens)`` tokens per
+    expert and silently *drops* assignments beyond it. Uniform routing
+    always fits (the capacity formula covers ``top_k/E`` load plus the
+    capacity factor), but real routing is skewed — a hot expert drawing
+    ``skew``× the uniform share overflows once enough slots decode
+    together. This bound projects the hot-expert load of the would-be
+    co-resident batch and defers admission past the largest batch whose
+    projection still fits, trading occupancy for zero projected drops.
+    """
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # assumed hot-expert load as a multiple of the uniform share;
+    # 0 disables the bound (admit regardless of projected load)
+    skew: float = 2.0
+
+    @classmethod
+    def from_moe_cfg(cls, mo, skew: float = 2.0) -> "MoECapacity":
+        return cls(n_experts=mo.n_experts, top_k=mo.top_k,
+                   capacity_factor=mo.capacity_factor, skew=skew)
+
+    def fits(self, n_tokens: int) -> bool:
+        """Does a co-batch of ``n_tokens`` decode tokens fit the
+        projected hot expert within its dispatch capacity?"""
+        if self.skew <= 0 or n_tokens <= 0:
+            return True
+        from repro_torch.models.blocks import _capacity
+
+        cap = _capacity(n_tokens, self)
+        hot = n_tokens * self.top_k / self.n_experts * self.skew
+        return hot <= cap
+
+    def max_admissible(self, n_slots: int) -> int:
+        """Largest co-batch (<= n_slots) the bound admits."""
+        n = 0
+        while n < n_slots and self.fits(n + 1):
+            n += 1
+        return n
+
+
 @dataclasses.dataclass
 class SchedulerPolicy:
     # max new requests prefills per engine tick: bounds how long in-flight
@@ -96,6 +140,10 @@ class SchedulerPolicy:
     # "continuous": refill any free slot each tick;
     # "static": admit only when the pool is completely idle (baseline)
     mode: str = "continuous"
+    # MoE capacity-aware admission: defer admissions whose projected
+    # co-resident hot-expert load would overflow the dispatch capacity.
+    # None disables (dense models / unbounded admission).
+    moe_capacity: MoECapacity | None = None
 
     def __post_init__(self):
         if self.mode not in ("continuous", "static"):
@@ -113,6 +161,8 @@ class RequestScheduler:
         self.policy = policy or SchedulerPolicy()
         self._lock = threading.Lock()
         self._queue: list[Request] = []
+        # admissions deferred (kept queued) by the MoE capacity bound
+        self.capacity_deferrals = 0
 
     def submit(self, req: Request) -> Request:
         with self._lock:
@@ -157,6 +207,15 @@ class RequestScheduler:
         queue position but admission continues past it, so a deferred
         head never blocks unrelated neighbours behind it (None still
         means out-of-capacity and stops admission for the tick).
+
+        With ``policy.moe_capacity`` set, admission additionally stops —
+        FIFO order preserved — once the projected co-resident decode
+        batch (active slots + already-admitted + the candidate) would
+        overflow the projected hot expert's dispatch capacity; each such
+        stop bumps ``capacity_deferrals``. Deferred requests re-try on
+        the next tick as slots free up. The first request into an idle
+        pool is always admitted — an over-tight bound degrades to serial
+        serving, it never livelocks.
         """
         admitted: list[Request] = []
         rejected: list[tuple[Request, Exception]] = []
@@ -166,9 +225,19 @@ class RequestScheduler:
             limit = (self.policy.max_prefills_per_tick
                      if self.policy.mode == "continuous"
                      else pool.n_slots)
+            cap = self.policy.moe_capacity
             i = 0
             while i < len(self._queue) and len(admitted) < limit:
                 req = self._queue[i]
+                # the bound trades occupancy for projected drops, never
+                # liveness: the first request into an idle pool always
+                # admits, else an over-tight bound would livelock.
+                # (n_active already counts this tick's admissions —
+                # try_admit claims the slot immediately.)
+                co = pool.n_active
+                if cap is not None and co > 0 and not cap.fits(co + 1):
+                    self.capacity_deferrals += 1
+                    break
                 try:
                     s = pool.try_admit(req)
                 except ValueError as e:

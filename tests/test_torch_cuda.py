@@ -36,7 +36,11 @@ The selective scan (float32 in and out) walks the recurrence one step at
 a time where the plain version scans each chunk in doubling steps: y and
 the final state within 1e-5 of the plain tensor's max |value|; the
 kernel chained over two halves with h0 repeats the same float32
-operations, so it must equal the one-pass run bit for bit.
+operations, so it must equal the one-pass run bit for bit. Its backward
+(K5b) recomputes the states from checkpoints and sums dA, dD, dB and dC
+over up to a thousand steps and hundreds of channels in another order:
+every gradient within 1e-4 of the plain tensor's max |value|, and two
+runs equal bit for bit (no float atomics).
 """
 
 import numpy as np
@@ -247,6 +251,43 @@ def test_selective_scan_kernel_matches_plain(cuda, n, with_h0, s, d):
         assert err > 1e-5 * wy.abs().max().item()
     with pytest.raises(ValueError, match="float32"):
         ss.selective_scan(x.double(), dt, A, B, C, D)
+
+
+SCAN_BWD_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("s", [1, 200, 1030])
+@pytest.mark.parametrize("d", [200, 203])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, n, s, d):
+    """K5b at one step, within a chunk and over several 128-step chunks
+    ending in a part tile; d not a multiple of the block: every gradient
+    within SCAN_BWD_RTOL of its max |plain| (sums over up to 1030 steps
+    and 203 channels in another order, exp2 by MUFU), two runs equal bit
+    for bit (no atomics), the autograd op's backward equal to it, and B
+    and C swapped failing the check."""
+    x, dt, A, B, C, D, _ = _scan_case(13, 3, s, d, n, cuda)
+    dy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    before = ss.LAUNCHES["selective_scan_bwd"]
+    got = ss.selective_scan_bwd(x, dt, A, B, C, D, dy)
+    assert ss.LAUNCHES["selective_scan_bwd"] == before + 1
+    want = tref.selective_scan_bwd(x, dt, A, B, C, D, dy, chunk=128)
+    for g, w in zip(got, want):
+        _rel_close(g, w, SCAN_BWD_RTOL)
+    again = ss.selective_scan_bwd(x, dt, A, B, C, D, dy)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C, D)]
+    y = ss.scan(*ins)
+    assert torch.equal(y.detach(), ss.selective_scan(x, dt, A, B, C, D))
+    grads = torch.autograd.grad(y, ins, dy)
+    assert all(torch.equal(a, g) for a, g in zip(grads, got))
+    if s > 1:
+        bad = ss.selective_scan_bwd(x, dt, A, C, B, D, dy)
+        assert any((b_ - w).abs().max().item()
+                   > SCAN_BWD_RTOL * w.abs().max().item()
+                   for b_, w in zip(bad, want))
 
 
 def _int8_pools(kp, vp, cuda):

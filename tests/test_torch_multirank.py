@@ -18,6 +18,12 @@ One spawn of four single-threaded gloo processes
 * the sharded embedding lookup and grad at data 4, on ids that overflow
   the all-to-all's capacity;
 * the int8 reduces with error feedback, flat and per tensor, at data 4;
+* reduced Jamba (Mamba, attention and gathered-MoE layers) at data 2 x
+  groups 2, one sequence a micro-batch: loss + router_aux_weight * the
+  mean aux, aux_sum and every gradient against ``jax.value_and_grad`` of
+  the reference's loss over one-sequence micro-batches
+  (``reference_logits`` per sequence: the router's capacity and aux are
+  per micro-batch), with the train cases' tolerances;
 * checkpoints on the mesh: the llama data 2 x pp 2 and pods 2 x data 2
   cases run two steps under the fault-tolerance controller, saving after
   each step, with a failure injected before the second: every rank
@@ -184,6 +190,12 @@ SERVE_LOGIT_RTOL = 1e-5
 DEFAULT_SERVE = dict(spec=dict(max_slots=2, max_seq=16), seed=5,
                      prompt=np.arange(3, 9, dtype=np.int32), max_gen=4)
 TIE = dict(name="tie_d4", kind="tie", data=4, vocab=256, rows=(10, 140))
+# reduced Jamba (Mamba, attention and MoE layers) trained on data 2 x
+# groups 2 (pp 1: its 8 layers do not split into static stage slots),
+# four micro-batches of one sequence a rank: held to the reference's
+# single-device forward run per sequence, which is what the pipeline's
+# micro-batches see (the router's capacity and aux are per micro-batch)
+JAMBA = dict(name="jamba_d2_g2", arch="jamba-v0.1-52b", data=2, groups=2)
 # the int8 rule of the reference's flat_int8 case: max |int8 - float32|
 # over every gradient, over the float32 run's global max |g|
 INT8_RULE = 0.02
@@ -256,6 +268,43 @@ def _train_case(name):
     return cfg, rc, dict(name=name, kind="train", arch=arch, data=data,
                          pods=pods, seq=SEQ, overrides=ov, optim=OPTIM,
                          params=_numpy_params(cfg, rc, rng), batch=batch)
+
+
+def _jamba_case():
+    cfg, rc = tjamba.reduced()
+    rc = dataclasses.replace(rc, pp=1, groups=JAMBA["groups"],
+                             schedule="zeropp", microbatches=MB, unit=UNIT)
+    gb = JAMBA["data"] * JAMBA["groups"] * MB
+    rng = np.random.RandomState(9)
+    batch = {k: rng.randint(0, cfg.vocab, (gb, SEQ)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    ov = dict(pp=1, groups=JAMBA["groups"], vpp=1, schedule="zeropp",
+              microbatches=MB, unit=UNIT)
+    return cfg, rc, dict(name=JAMBA["name"], kind="train",
+                         arch=JAMBA["arch"], data=JAMBA["data"], pods=1,
+                         seq=SEQ, overrides=ov, optim=OPTIM,
+                         params=_numpy_params(cfg, rc, rng), batch=batch)
+
+
+def _jax_per_sequence(case):
+    """The reference's loss over one-sequence micro-batches: the mean
+    token cross-entropy of ``reference_logits`` run on each sequence
+    alone, plus router_aux_weight times the mean of their aux; with its
+    gradients and the aux sum."""
+    jcfg, jrc = jmodel.get_arch(case["arch"]).reduced()
+    w = jcfg.moe.router_aux_weight
+
+    def loss(p, tokens, labels):
+        logits, aux = jax.vmap(lambda t: jmodel.reference_logits(
+            jcfg, jrc, p, t[None]))(tokens)
+        lf = logits.reshape(-1, logits.shape[-1]).astype(jnp.float32)
+        lse = jax.scipy.special.logsumexp(lf, axis=-1)
+        lab = jnp.take_along_axis(lf, labels.reshape(-1)[:, None], 1)[:, 0]
+        return (lse - lab).mean() + w * aux.mean(), aux.sum()
+
+    (val, aux), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        case["params"], case["batch"]["tokens"], case["batch"]["labels"])
+    return float(val), float(aux), jax.tree.map(np.asarray, grads)
 
 
 def _variant_case(name, base):
@@ -568,11 +617,14 @@ def results(tmp_path_factory):
     int8 = _int8_case()
     serves = {n: _serve_case(n) for n in SERVE}
     tie = _tie_case()
+    jcfg, jrc, jamba = _jamba_case()
     ctx = _spawn([c for _, _, c in built.values()] + variants + autos
                  + [_embed_case(), int8] + ckpts
-                 + [c for c, _ in serves.values()] + [tie], tmp)
+                 + [c for c, _ in serves.values()] + [tie, jamba], tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)},
-           TIE["name"]: {"ref": _jax_tie(tie)}}
+           TIE["name"]: {"ref": _jax_tie(tie)},
+           JAMBA["name"]: dict(cfg=jcfg, rc=jrc, case=jamba,
+                               ref=_jax_per_sequence(jamba))}
     # the reference engines (and the port's one rank) while the ranks run
     for name, (case, flat) in serves.items():
         out[name] = dict(case=case, ref=_jax_serve(case, flat))
@@ -592,7 +644,7 @@ def results(tmp_path_factory):
         pass
     for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
             EMBED["name"], INT8["name"]] + list(CKPT) + list(SERVE) + [
-            TIE["name"]]:
+            TIE["name"], JAMBA["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -673,6 +725,34 @@ def test_multirank_adamw_matches_reference_on_the_full_tree(results, name):
         assert abs(g["grad_norm"] - norm) <= STEP_RTOL * norm
     for path, w in _leaves(jax.tree.map(np.asarray, want)):
         assert _rel(_np(_get(got, path)), w) <= GRAD_RTOL, path
+
+
+def test_multirank_jamba_matches_per_sequence_reference(results):
+    """Reduced Jamba on data 2 x groups 2: every rank's loss_sum plus
+    router_aux_weight times aux_sum over the 16 global micro-batches, the
+    aux_sum, and the unsharded gradients against the reference's loss
+    over one-sequence micro-batches (``_jax_per_sequence``); the global
+    grad norm equal on every rank."""
+    r = results[JAMBA["name"]]
+    want, want_aux, ref_grads = r["ref"]
+    w = r["cfg"].moe.router_aux_weight
+    n_mb = JAMBA["data"] * JAMBA["groups"] * MB
+    ranks = r["ranks"]
+    for got in ranks:
+        assert abs(got["aux"] - want_aux) <= LOSS_RTOL * abs(want_aux)
+        loss = got["loss"] + w * got["aux"] / n_mb
+        assert abs(loss - want) <= LOSS_RTOL * abs(want)
+    assert len({g["grad_norm"] for g in ranks}) == 1
+    rt = Runtime(r["cfg"], r["rc"], "cpu",
+                 MeshShape(JAMBA["data"], 1, JAMBA["groups"], 1))
+    grads = tparams.unshard(rt, [g["grads"] for g in ranks])
+    n = 0
+    for path, ref in _leaves(ref_grads):
+        got = _get(grads, path)
+        assert got.dtype == torch.float32
+        assert _rel(_np(got), ref) <= GRAD_RTOL, path
+        n += 1
+    assert n == sum(1 for _ in _leaves(grads))
 
 
 def test_multirank_embed_grad_drops_by_the_reference_rule(results):
