@@ -62,7 +62,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    registers and block size, and the CUDA occupancy query) and its MUFU
    floor; K5b's six gradients each within 1e-4 of the plain tensor's
    largest value, two runs equal bit for bit (no float atomics), its
-   launch shape and MUFU floor logged. Probes that must fail
+   launch shape (kernels a call, chunk and tile steps, blocks and waves,
+   the occupancy query, ptxas registers and spills of its chunk and
+   reverse walks) and MUFU floor at its four exponentials an update
+   logged. Probes that must fail
    the checks: K with its kv heads rolled by one and V rolled over kv
    heads at the keys of the second half only (K3, K1; for the window
    contract also one extra key, caught by l), one live
@@ -181,10 +184,12 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    table) by four ranks on this card over gloo, spawned by ``python -m
    repro_torch.launch.serve`` as a subprocess: 8 slots, max_seq 2048,
    the first 8 prompts of step 3 with 16 greedy tokens each, contiguous
-   (K3) then paged at page 16 (K4) in the one spawn; the head
+   (K3), paged at page 16 (K4), then contiguous with ``serve_resident``
+   (``--layouts contiguous+resident``) in the one spawn; the head
    vocabulary-sharded (64,128 rows a shard), the stage blocks gathered
-   tick by tick. One rank's serve of the same params (re-stacked for pp
-   1) and requests runs here first: in each layout the logits of every
+   tick by tick, or under ``serve_resident`` held whole on each rank
+   with no gather (every rank's count must read 0). One rank's serve of
+   the same params (re-stacked for pp 1) and requests runs here first: in each layout the logits of every
    slot row (both data shards) in a prefill step and the decode step
    after it must agree with the one rank's row by row, within 0.05 of
    the row's max |logit|; the token agreement is logged, every rank
@@ -277,10 +282,11 @@ SCAN_B, SCAN_S, SCAN_D, SCAN_N = 8, 512, 8192, 16
 # 4096-token sequence over d_inner 8192 channels, state 16
 SCAN_TRAIN = dict(b=1, s=4096, d=8192, n=16)
 # K5b vs its plain version, per output, against the output's max |plain|:
-# both compute in float32, the kernel recomputing the states from
-# checkpoints every 128 steps and summing dA, dD over 4096 steps and dB,
-# dC over 8192 channels in another order than the plain version (doubling
-# steps in chunks of 256), with exp2 by MUFU
+# both compute in float32, the kernel walking chunks of 128 steps in
+# parallel, carrying states and cotangents across them through each
+# chunk's decay, and summing dA, dD over 4096 steps and dB, dC over 8192
+# channels in another order than the plain version (doubling steps in
+# chunks of 256), with exp2 by MUFU
 SCAN_BWD_RTOL = 1e-4
 # K5 vs its plain version: both compute in float32, the kernel one step at
 # a time, the plain version in doubling steps inside chunks of 256, so y
@@ -334,8 +340,9 @@ TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K2 fused_xent": sum(XENT_PASSES.values(), ()),
                  "K5 selective_scan": ("::scan_kernel<",),
                  "K5b selective_scan_bwd": tuple(
-                     f"(anonymous namespace)::{k}<" for k in (
-                         "ck_kernel", "bwd_kernel", "reduce_kernel"))}
+                     f"(anonymous namespace)::{k}" for k in (
+                         "chunk_kernel<", "carry_kernel(", "bwd_kernel<",
+                         "reduce_kernel<"))}
 # the checkpoint phase: gpt-1.5B's train cell (full width and depth) for
 # 4 steps under the fault-tolerance controller, a checkpoint every 2
 # steps (async, keep 1), a failure injected before step 3 (index), so the
@@ -388,9 +395,10 @@ AUTO = dict(name="auto", arch="gpt_paper", pp=2, data=1, vpp=1, seq=1024,
 # ranks (one process each, all on this card over gloo) spawned by
 # ``python -m repro_torch.launch.serve``: 8 slots, max_seq 2048, 8
 # requests (the first 8 prompts of ``workload()``, 64-512 tokens) of 16
-# greedy tokens each, contiguous (K3) then paged at page 16 (K4) in the
-# one spawn. At data 2 the head is vocabulary-sharded: 64,128 rows a
-# shard. Held to one rank's serve of the same params and requests here:
+# greedy tokens each, contiguous (K3), paged at page 16 (K4), then
+# contiguous with serve_resident (every rank holds its stage rows whole:
+# no FSDP gather) in the one spawn. At data 2 the head is
+# vocabulary-sharded: 64,128 rows a shard. Held to one rank's serve of the same params and requests here:
 # every slot row's logits in a prefill and a decode step by the serve
 # phases' rule (0.05 of the row's max |logit|), token agreement logged
 SERVE_MULTI = dict(name="serve_multirank", arch=ARCH, data=2, pp=2, vpp=2,
@@ -573,9 +581,9 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
                       r"dlog_kernel|dw_kernel|dh_kernel)ILi([01])E")
 
     def name_of(lib, mangled):
-        m = re.search(r"(ck_kernel|bwd_kernel|reduce_kernel)ILi(\d+)E",
+        m = re.search(r"(chunk_kernel|bwd_kernel|reduce_kernel)ILi(\d+)E",
                       mangled)
-        if m:    # K5b: its three kernels by state size
+        if m:    # K5b: its templated kernels by state size
             return f"{lib}:{m.group(1)}<{m.group(2)}>"
         m = re.search(r"scan_kernelILi(\d+)ELb([01])E", mangled)
         if m:    # K5: scan_kernel<N, 16-byte copies>
@@ -1679,16 +1687,30 @@ def jamba_train_kernel_phases(torch, flush, resources):
     # g dt x, dy h into dx, ddt, dA, dB, dC (2 each)
     flops = b * s * d * (n * 18 + 6)
     shape = ss.launch_shape_bwd(n)
-    regs = resources.get(f"selective_scan_bwd:bwd_kernel<{n}>", {})
-    log(f"[kernel] selective_scan_bwd launch: {shape['threads']} threads "
-        f"a block ({shape['lanes']} lanes a channel), "
-        f"{shape['smem_bytes']} bytes of shared memory a block, "
+    # a block a (channel block, chunk, batch row) in the chunk walk and
+    # the reverse walk; the waves of the reverse walk at its occupancy
+    nblk = -(-d // (shape["threads"] // shape["lanes"]))
+    shape["blocks"] = nblk * -(-s // shape["chunk"]) * b
+    shape["waves"] = shape["blocks"] / (shape["blocks_per_sm"] * sms)
+    regs = {k: resources.get(f"selective_scan_bwd:{k}<{n}>", {})
+            for k in ("chunk_kernel", "bwd_kernel")}
+    # exponentials an update: the chunk walk, the reverse walk's
+    # sub-checkpoints, its tiles' states and its reverse step
+    exps = 4
+    log(f"[kernel] selective_scan_bwd launch: {shape['kernels']} kernels a "
+        f"call, x, dt, dy read in two passes (the chunk walk, the reverse "
+        f"walk); chunks of {shape['chunk']} steps, {shape['blocks']} blocks "
+        f"in the chunk walk and in the reverse walk ({shape['waves']:.1f} "
+        f"waves on {sms} SMs), {shape['threads']} threads a block "
+        f"({shape['lanes']} lanes a channel), tiles of {shape['tile']} "
+        f"steps, {shape['smem_bytes']} bytes of shared memory a block, "
         f"{shape['blocks_per_sm']} blocks an SM by the CUDA occupancy "
-        f"query; reverse walk {regs.get('registers')} registers, "
-        f"{regs.get('spill_bytes')} spill bytes (ptxas); MUFU floor at one "
-        "exponential an update "
-        + (f"{mufu_ms:.4f} ms at {mhz:g} MHz" if mhz else "not measured")
-        + " (this design takes four)")
+        "query; ptxas registers / spill bytes: "
+        + ", ".join(f"{k} {r.get('registers')} / {r.get('spill_bytes')}"
+                    for k, r in regs.items())
+        + "; MUFU floor at one exponential an update "
+        + (f"{mufu_ms:.4f} ms at {mhz:g} MHz, at this design's {exps} "
+           f"{exps * mufu_ms:.4f} ms" if mhz else "not measured"))
 
     def check(a, p):
         return max(rel_err(g, w, SCAN_BWD_RTOL, nm)
@@ -1702,7 +1724,9 @@ def jamba_train_kernel_phases(torch, flush, resources):
                  lambda: ss.selective_scan_bwd(x, dt, A, bm, cm, D, dy),
                  lambda: ref.selective_scan_bwd(x, dt, A, bm, cm, D, dy),
                  None, nbytes, flops, check, dtype="float32")
-    results[-1].update(launch=shape, mufu_floor_ms=mufu_ms,
+    results[-1].update(launch=shape, registers=regs, mufu_floor_ms=mufu_ms,
+                       design_mufu_floor_ms=(exps * mufu_ms if mhz
+                                             else None),
                        sm_clock_max_mhz=mhz)
     plain = ref.selective_scan_bwd(x, dt, A, bm, cm, D, dy)
     again = ss.selective_scan_bwd(x, dt, A, bm, cm, D, dy)
@@ -2896,13 +2920,16 @@ def serve_multirank_phase(torch, c):
     same params (the same seed, its layers re-stacked for pp 1) and
     requests here, in both layouts; then ``python -m
     repro_torch.launch.serve`` as a subprocess of its own process group,
-    four ranks over gloo on this card, both layouts in the one spawn.
-    In each layout the logits of every slot row in a prefill step and the
-    decode step after it (``launch.serve.first_logits``) must agree with
-    the one-rank ones row by row by the serve phases' rule, every rank
+    four ranks over gloo on this card, both layouts and then the
+    contiguous one with ``serve_resident`` (``contiguous+resident``:
+    stage rows whole on each rank) in the one spawn. In each layout the
+    logits of every slot row in a prefill step and the decode step after
+    it (``launch.serve.first_logits``) must agree with the one-rank ones
+    of its cache layout row by row by the serve phases' rule, every rank
     must have launched K3 (contiguous) and K4 (paged) and reached no
-    plain version, and the subprocess must exit 0. Step times, tokens/s, each rank's peak memory
-    and FSDP gather seconds are logged; no claim."""
+    plain version, the resident layout must make no FSDP gather on any
+    rank, and the subprocess must exit 0. Step times, tokens/s, each
+    rank's peak memory and FSDP gather seconds are logged; no claim."""
     import numpy as np
 
     from repro_torch import params as tparams
@@ -2945,14 +2972,15 @@ def serve_multirank_phase(torch, c):
     req_file.write_text(json.dumps([dict(tokens=p.tolist(), max_gen=c["gen"])
                                     for p in prompts]))
     report = OUT / "serve_multirank.json"
+    layouts = ("contiguous", "paged", "contiguous+resident")
     for f in [report] + [pathlib.Path(f"{report}.{lay}.logits.npy")
-                         for lay in one]:
+                         for lay in layouts]:
         f.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
            "--arch", c["arch"], "--data", str(c["data"]), "--pp",
            str(c["pp"]), "--vpp", str(c["vpp"]), "--microbatches",
            str(c["microbatches"]), "--slots", str(c["slots"]), "--max-seq",
-           str(c["max_seq"]), "--layouts", "contiguous,paged",
+           str(c["max_seq"]), "--layouts", ",".join(layouts),
            "--page-size", str(c["page"]), "--backend", c["backend"],
            "--requests", str(req_file), "--report", str(report)]
     env = dict(os.environ)
@@ -2980,7 +3008,9 @@ def serve_multirank_phase(torch, c):
     need = {"contiguous": "slotted_attention", "paged": "paged_attention"}
     res = dict(name=c["name"], backend=c["backend"], ranks=ranks,
                cuts=c["cuts"], wall_s=wall, layouts={})
-    for layout, (lg1, outs1) in one.items():
+    for layout in layouts:
+        kind, resident = layout.split("+")[0], layout.endswith("+resident")
+        lg1, outs1 = one[kind]
         row = rep["layouts"][layout]
         lg = np.load(f"{report}.{layout}.logits.npy")
         if lg.shape != lg1.shape or not np.isfinite(lg).all():
@@ -3009,9 +3039,12 @@ def serve_multirank_phase(torch, c):
         per_rank = []
         for r in rep["ranks"]:
             cnt = r["counts"][layout]
-            if not cnt["launches"].get(need[layout]):
+            if not cnt["launches"].get(need[kind]):
                 fail(f"{layout}: rank {r['rank']} launched no "
-                     f"{need[layout]}: {cnt['launches']}")
+                     f"{need[kind]}: {cnt['launches']}")
+            if resident and cnt["gathers"]:
+                fail(f"{layout}: rank {r['rank']} made {cnt['gathers']} "
+                     "FSDP gathers under serve_resident")
             if any(k.startswith("ref_") for k in cnt["counters"]):
                 fail(f"{layout}: rank {r['rank']} reached a plain version: "
                      f"{cnt['counters']}")
@@ -3036,8 +3069,10 @@ def serve_multirank_phase(torch, c):
             token_agreement=agree, wall_s=row["wall_s"],
             tok_per_s=row["tok_per_s"], prefill_step_ms=pre,
             decode_step_ms=dec,
-            launches=sum(r["counts"][layout]["launches"][need[layout]]
+            launches=sum(r["counts"][layout]["launches"][need[kind]]
                          for r in rep["ranks"]),
+            gathers=sum(r["counts"][layout]["gathers"]
+                        for r in rep["ranks"]),
             per_rank=per_rank)
     log(f"{tag} {wall:.1f} s in all (subprocess)")
     return res

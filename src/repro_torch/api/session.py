@@ -277,7 +277,10 @@ class Session:
         """(per-gather-tick, per-reduce-tick) collective counts for the
         α–β cost model — 1 each under the flat-segment layout, the
         gatherable tensor count under per-tensor collectives (the
-        reference's rule: a tensor whose FSDP dim divides by dp)."""
+        reference's rule: a tensor whose FSDP dim divides by dp); none
+        under ``serve_resident``."""
+        if self.rc.serve_resident:
+            return 0, 0
         _, _, dp = self._cost_shape()
         n_gath = n_repl = 0
         for sp in M.stage_specs(self.cfg, seg).values():

@@ -51,7 +51,6 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import fsdp
 from repro_torch.params import shard_for_rank, unshard
 
 BF16 = "bfloat16"
@@ -198,7 +197,7 @@ class MeshLayout:
             return ([sh.rank_of(d, 0, 0) for d in range(rt.dsize)]
                     if rt.io_sharded(name) else [0])
         sname, n = name
-        ld = fsdp.local_dim(rt.stage_specs[sname][n], rt.dsize)
+        ld = rt.local_dim(sname, n)
         ds = range(rt.dsize) if ld is not None else range(1)
         return [sh.rank_of(d, 0, p) for d in ds for p in range(rt.Pe)]
 

@@ -51,7 +51,8 @@ vocabulary-sharded, over the data axis; and the metrics summed over the
 whole mesh. On one rank every one of them is a sum over that rank.
 
 Serving (``serve_body``) walks the forward-only table on the same engine:
-F cells and NOPs, the stage blocks gathered tick by tick as in training,
+F cells and NOPs, the stage blocks gathered tick by tick as in training
+(none under ``serve_resident``: each rank holds its stage rows whole),
 no reduces and no tape. Each F cell embeds at stage 0, runs the cached
 stage on its micro-batch's rows of this rank's cache tree
 (``make_cache_io``), and the drain rank samples at the last stage; the
@@ -156,12 +157,13 @@ class TickEngine:
 
     Handlers receive ``(engine, row)``; they read stage parameters via
     :meth:`stage_params` and the engine's ``state`` dict. The stage's
-    gatherable tensors (their fsdp dim divides the data axis) are
-    gathered a tick at a time: with a flat layout ``flat`` as one slab
-    (one collective a tick), without one (``coalesce="none"``) one
-    collective a tensor. The others (a dim the data axis does not divide)
-    stay replicated in ``seg_p``, are read in place and have their grads
-    all-reduced over the data axis. ``mesh`` (a live
+    gatherable tensors (``gatherable``, the Runtime's set: those whose
+    fsdp dim the data axis divides, none under ``serve_resident``) are
+    gathered a tick at a time: with a flat layout ``flat`` as one slab (one collective a
+    tick), without one (``coalesce="none"``) one collective a tensor.
+    The others (a dim the data axis does not divide, or every tensor
+    under ``serve_resident``) stay whole in ``seg_p``, are read in place
+    and have their grads all-reduced over the data axis. ``mesh`` (a live
     :class:`repro_torch.core.comm.Mesh`, or None on one rank) carries the
     stage ring at pp > 1; ``act`` is the wire's (shape, dtype).
 
@@ -185,6 +187,7 @@ class TickEngine:
     comm: Any                   # the data axis (LocalComm on one rank)
     cdt: torch.dtype
     rs_dtype: torch.dtype
+    gatherable: Any             # names gathered over the data axis
     p_rank: int = 0
     mesh: Any = None
     act: Any = None
@@ -195,12 +198,14 @@ class TickEngine:
     def __post_init__(self):
         validate_unit_stash_packed(self.pt)
         D = self.comm.size
-        self.ld = {n: fsdp.local_dim(sp, D) for n, sp in self.specs.items()}
-        self.replicated = sorted(n for n, d in self.ld.items() if d is None)
-        self.gatherable = sorted(set(self.specs) - set(self.replicated))
-        if self.replicated and D == 1:
-            raise ValueError("on one rank every stage tensor is gathered, "
-                             f"not {self.replicated}")
+        self.gatherable = sorted(self.gatherable)
+        self.ld = {n: fsdp.local_dim(sp, D) if n in self.gatherable
+                   else None for n, sp in self.specs.items()}
+        self.replicated = sorted(set(self.specs) - set(self.gatherable))
+        if (self.flat is not None
+                and sorted(self.flat.names) != self.gatherable):
+            raise ValueError(f"the flat layout holds {sorted(self.flat.names)}"
+                             f", the gatherable tensors are {self.gatherable}")
         # packed once per step: a gather tick indexes a row
         self.seg_flat = (fsdp.pack_flat_stack(self.seg_p, self.flat)
                          if self.flat is not None else None)
@@ -232,9 +237,7 @@ class TickEngine:
                 f"{use_slot}, which holds block {self.held[use_slot]}")
         if self.pending[use_slot] is not None:
             self._land(use_slot)
-        buf = self.gbuf[use_slot]
-        out = (fsdp.unpack_flat(buf, self.flat) if self.flat is not None
-               else dict(buf or {}))
+        out = dict(self.gbuf[use_slot] or {})
         for n in self.replicated:
             out[n] = self.seg_p[n][v]
         return out
@@ -243,10 +246,19 @@ class TickEngine:
         pend, self.pending[slot] = self.pending[slot], None
         t0 = time.perf_counter() if self.times is not None else 0.0
         if self.flat is not None:
-            self.gbuf[slot] = pend.wait().to(self.cdt)
+            buf = fsdp.unpack_flat(pend.wait().to(self.cdt), self.flat)
         else:
-            self.gbuf[slot] = {n: p.wait().to(self.cdt)
-                               for n, p in pend.items()}
+            buf = {n: p.wait().to(self.cdt) for n, p in pend.items()}
+        # on a mesh, a tensor cut on a dim other than 0 lands as a
+        # strided view (its shards are stacked on dim 0); it is copied
+        # into the layout the params are stored in, so that a cell reads
+        # it as it reads a resident tensor, bit for bit (the summation
+        # order of a product of one or two rows follows the operand's
+        # strides). Tensors cut on dim 0 land contiguous and are not
+        # copied; one rank keeps its views.
+        copy = self.comm.size > 1
+        self.gbuf[slot] = {n: t.contiguous() if copy and self.ld[n] else t
+                           for n, t in buf.items()}
         if self.times is not None:
             self.times["wait_s"] += time.perf_counter() - t0
 
@@ -408,13 +420,13 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
         pt=pt, specs=specs, seg_p=seg_p, flat=rt.flat_layouts[seg.name],
         comm=comm, cdt=cdt, rs_dtype=torch_dtype(rc.grad_rs_dtype),
         p_rank=p_rank, mesh=rt.mesh, act=((mbs, seq, d), cdt),
-        grad_compress=rc.grad_compress)
+        grad_compress=rc.grad_compress, gatherable=rt.gatherable[seg.name])
     eng.state.update(
         xbuf=_Stash(U, "fwd wire"), bbuf=_Stash(U, "bwd wire"),
         fstash=_Stash(U, "F->B"), wstash=_Stash(U, "B->W"),
         acc_full={n: torch.zeros((V, *specs[n].shape), dtype=torch.float32,
                                  device=dev) for n in specs},
-        acc_shard={n: torch.zeros((V, *fsdp.local_shape(specs[n], rt.dsize)),
+        acc_shard={n: torch.zeros((V, *rt.local_shape(seg.name, n)),
                                   dtype=torch.float32, device=dev)
                    for n in specs})
     st = eng.state
@@ -601,7 +613,8 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
         pt=pt, specs=rt.stage_specs["main"], seg_p=params["segments"]["main"],
         flat=rt.flat_layouts["main"], comm=comm, cdt=cdt,
         rs_dtype=torch.float32, p_rank=p_rank, mesh=mesh,
-        act=((mbs, s, d), cdt), times=COLL_TIME)
+        act=((mbs, s, d), cdt), times=COLL_TIME,
+        gatherable=rt.gatherable["main"])
     st = eng.state
     st["xbuf"] = _Stash(pt.U, "fwd wire")
     tok_slice = make_tok_slice(g_rank, Btot, mbs)

@@ -4,7 +4,8 @@ The port's counterpart of ``repro/core/pipeline.py``: ``Runtime`` builds
 the segment's ``SchedulePlan`` (or adopts an injected one, e.g. the
 winner of ``schedule="auto"``) and, once a serve step asks, the
 forward-only serve plan (``plans["serve_main"]``), the parameter specs,
-the gatherable sets, the flat FSDP layouts (``coalesce="flat"``; none for ``"none"``) and
+the gatherable sets (none under ``serve_resident``), the flat FSDP
+layouts (``coalesce="flat"``; none for ``"none"``) and
 the vocabulary shard for one rank of a pods x data x (groups x pp)
 mesh; ``make_train_step`` wraps the executor's ``train_body`` into
 ``step(params, batch) -> (grads, metrics)`` and ``make_serve_step`` the
@@ -105,9 +106,13 @@ class Runtime:
         self.io_specs = M.io_specs(cfg)
         self.stage_specs = {s.name: M.stage_specs(cfg, s)
                             for s in self.geo.segments}
+        # weight-resident serving (the reference's serve_resident): every
+        # stage tensor stays whole on each rank, so no tick gathers and a
+        # train step all-reduces the stage grads over the data axis
         self.gatherable = {
-            sname: sorted(n for n, sp_ in sps.items()
-                          if fsdp.local_dim(sp_, self.dsize) is not None)
+            sname: [] if rc.serve_resident else
+            sorted(n for n, sp_ in sps.items()
+                   if fsdp.local_dim(sp_, self.dsize) is not None)
             for sname, sps in self.stage_specs.items()}
         self.flat_layouts = {
             sname: (fsdp.build_flat_layout(self.stage_specs[sname],
@@ -145,6 +150,19 @@ class Runtime:
     def io_sharded(self, name: str) -> bool:
         """Whether io param ``name`` is cut into vocabulary shards."""
         return self.vloc is not None and name in Vb.SHARDED
+
+    def local_dim(self, sname: str, n: str) -> int | None:
+        """The dim of stage tensor ``n`` cut over the data axis, or None
+        where each data rank holds it whole (a dim the axis does not
+        divide, or ``serve_resident``)."""
+        return (fsdp.local_dim(self.stage_specs[sname][n], self.dsize)
+                if n in self.gatherable[sname] else None)
+
+    def local_shape(self, sname: str, n: str) -> tuple[int, ...]:
+        """This rank's shape of stage tensor ``n`` (one stage block)."""
+        sp_ = self.stage_specs[sname][n]
+        return (fsdp.local_shape(sp_, self.dsize)
+                if n in self.gatherable[sname] else tuple(sp_.shape))
 
     def owned(self) -> dict[str, bool]:
         """{keystr path: whether this rank's copy counts in the global

@@ -11,10 +11,13 @@ which the serve path's prefill needs (``models/blocks.py
 mamba_cached``).
 
 K5b (``csrc/selective_scan_bwd.cu``) is the gradient, which the reference
-takes from ``jax.vjp`` over its jnp scan: a checkpoint pass writes the
-state at every 128 steps, a reverse walk recomputes each chunk's states
-from its checkpoint and walks them back, and a last pass sums the
-per-block partials of dB and dC (no float atomics). ``scan`` is the
+takes from ``jax.vjp`` over its jnp scan. It cuts the sequence into
+chunks of 128 steps that run in parallel: each chunk walks from a zero
+state (its local end state, decay and the cotangent it sends back), a
+short pass across the chunks gives each chunk's entry state and carry,
+each chunk then recomputes its states from its entry state and walks them
+back from its carry, and a last pass sums the per-block partials of dB,
+dC, dA and dD in a fixed order (no float atomics). ``scan`` is the
 differentiable op of the training path: forward by K5, backward by K5b
 on CUDA tensors, by the plain versions on CPU ones.
 
@@ -23,7 +26,7 @@ on CUDA tensors, by the plain versions on CPU ones.
 CPU. For CUDA tensors they check device, dtype (float32 throughout),
 shape and contiguity, launch the kernel on the current stream and raise
 if the launch is refused: there is no fallback to the plain version on
-the card. ``LAUNCHES`` counts the kernel launches (K5b's three kernels
+the card. ``LAUNCHES`` counts the kernel launches (K5b's four kernels
 count once a call), and nothing else.
 """
 
@@ -115,8 +118,8 @@ def selective_scan_bwd(x, dt, A, B, C, D, dy):
     """The gradient of ``selective_scan`` (no h0, y only) for the
     cotangent dy: (dx, ddt, dA, dB, dC, dD), the contract of
     ``ref.selective_scan_bwd``. On the card every input is float32 and
-    contiguous, the state size 4, 8 or 16 (the kernel checkpoints every
-    128 steps)."""
+    contiguous, the state size 4, 8 or 16 (the kernel walks chunks of
+    128 steps in parallel)."""
     if _on_cpu(x):
         return ref.selective_scan_bwd(x, dt, A, B, C, D, dy)
     _check_shapes(x, dt, A, B, C, D, dy)
@@ -150,13 +153,15 @@ def selective_scan_bwd(x, dt, A, B, C, D, dy):
 
 def launch_shape_bwd(n: int) -> dict:
     """How K5b's reverse walk launches for state size n on the current
-    card (the keys of :func:`launch_shape`)."""
-    out = (ctypes.c_int * 4)()
+    card: the keys of :func:`launch_shape`, and the steps a chunk (a
+    block's share of the sequence), the steps a register tile and the
+    kernels a call launches."""
+    out = (ctypes.c_int * 7)()
     rc = build.load("selective_scan_bwd").selective_scan_bwd_occupancy(
         n, out)
     _raise_on(rc, "selective_scan_bwd_occupancy")
     return dict(blocks_per_sm=out[0], threads=out[1], smem_bytes=out[2],
-                lanes=out[3])
+                lanes=out[3], chunk=out[4], tile=out[5], kernels=out[6])
 
 
 class _Scan(torch.autograd.Function):

@@ -22,7 +22,7 @@ Usage:
       --backend gloo --data 2 --pp 2 --slots 4 --prefill-chunk 4
   PYTHONPATH=src python -m repro_torch.launch.serve --full --data 2 \\
       --pp 2 --vpp 2 --microbatches 2 --slots 8 --backend gloo \\
-      --layouts contiguous,paged --page-size 16
+      --layouts contiguous,paged,contiguous+resident --page-size 16
 
 ``--data D --pp P [--groups G] [--pods Q] --backend B`` serves on Q * D
 * G * P ranks: this process spawns one process a rank (as
@@ -40,7 +40,11 @@ checkpoint of a P-stage trainer holds them), as a serve session does,
 and ``--backend`` is refused. ``--vpp`` and ``--microbatches`` set
 the stage blocks a rank and the micro-batches of the serve table.
 ``--layouts contiguous,paged`` serves the same requests in each layout
-in turn on the same ranks and params (paged at ``--page-size``).
+in turn on the same ranks and params (paged at ``--page-size``). A
+layout written ``contiguous+resident`` or ``paged+resident`` serves with
+``serve_resident`` set: each rank holds its stage rows whole and no tick
+gathers a stage block over the data axis (the report's ``gathers`` read
+0).
 ``--report FILE`` adds a prefill and a decode step with their logits
 before each layout's run (``first_logits``: every slot row, so every
 data shard's) and writes rank 0's JSON summary: per layout the streams,
@@ -79,6 +83,8 @@ import torch
 from repro_torch.api import Session, SessionError, SessionSpec, get_arch
 from repro_torch.core.comm import BACKENDS, check_backend
 from repro_torch.serving.engine import check_layout
+
+RESIDENT = "+resident"   # a --layouts suffix: serve_resident=True
 
 _LATER = {
     "--replicas": "data-parallel replicas behind a router arrive with the "
@@ -162,7 +168,10 @@ def _args(argv=None):
     ap.add_argument("--layouts", default=None,
                     help="comma-separated cache layouts to serve in turn: "
                          "contiguous, paged (default: paged with "
-                         "--page-size, else contiguous)")
+                         "--page-size, else contiguous); '+resident' after "
+                         "one (contiguous+resident) serves it with "
+                         "serve_resident: stage rows whole on each rank, "
+                         "no FSDP gathers")
     ap.add_argument("--prefix-sharing", default="on", choices=("on", "off"))
     ap.add_argument("--kv-cache-dtype", default=None,
                     choices=("fp32", "bf16", "int8"),
@@ -204,11 +213,14 @@ def _args(argv=None):
             raise SystemExit(f"{flag} is not in repro_torch yet: {why}")
     layouts = (args.layouts.split(",") if args.layouts else
                ["paged" if args.page_size else "contiguous"])
-    bad = sorted(set(layouts) - {"contiguous", "paged"})
+    bad = sorted(lay for lay in layouts if lay.removesuffix(RESIDENT)
+                 not in ("contiguous", "paged"))
     if bad:
         raise SystemExit(f"--layouts: unknown layout(s) {bad}; pick "
-                         "contiguous and/or paged")
-    if "paged" in layouts and not args.page_size:
+                         f"contiguous and/or paged, each with or without "
+                         f"{RESIDENT}")
+    if any(lay.startswith("paged") for lay in layouts) and \
+            not args.page_size:
         raise SystemExit("--layouts paged needs --page-size")
     args.layouts = layouts
     return args
@@ -243,7 +255,9 @@ def _spec(args, max_seq: int, layout: str) -> SessionSpec:
           if getattr(args, k) is not None}
     if args.groups != 1:
         ov["groups"] = args.groups
-    paged = layout == "paged"
+    if layout.endswith(RESIDENT):
+        ov["serve_resident"] = True
+    paged = layout.startswith("paged")
     return SessionSpec(
         arch=args.arch, mode="serve", reduced=not args.full,
         device=args.device, max_slots=args.slots, max_seq=max_seq,
@@ -392,7 +406,11 @@ def serve(args, rank: int = 0) -> None:
     mod = get_arch(args.arch)
     work, max_seq = _workload(args, mod)
     out = print if rank == 0 else (lambda *a, **k: None)
-    params, layouts, counts = None, {}, {}
+    # this rank's part of the params and whether it is the resident cut
+    # (stage rows whole) or the gathered one (stage rows cut over the
+    # data axis): a layout of the other kind drops it before making its
+    # own, so a layout's peak memory holds its own cut only
+    params, resident_cut, layouts, counts = None, None, {}, {}
     for layout in args.layouts:
         sess = Session(_spec(args, max_seq, layout))
         mesh = sess.mesh
@@ -409,7 +427,9 @@ def serve(args, rank: int = 0) -> None:
             check_layout(sess, args.prefill_chunk)   # before any weights
         except NotImplementedError as e:
             raise SystemExit(f"{args.arch}: {e}") from e
-        if params is None:
+        resident = layout.endswith(RESIDENT)
+        if params is None or resident != resident_cut:
+            params, resident_cut = None, resident
             if args.ckpt:
                 params = sess.restore_params(args.ckpt)
                 out(f"params restored from train checkpoint {args.ckpt}")

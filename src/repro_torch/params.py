@@ -8,7 +8,8 @@ stacking (row ``storage_index(p, v, V) = p * V + v`` holds logical stage
 ``repro``'s tree. One rank of a pods x data x (groups x pp) mesh holds
 its part (:func:`shard_for_rank`): the V stage rows of its stage rank p
 (every pipeline group and every pod holds the same rows), each tensor cut along its fsdp dim
-into the data rank's shard where the data axis divides it, and the
+into the data rank's shard where the data axis divides it (whole under
+``serve_resident``), and the
 embedding table / untied head cut into the data rank's vocabulary shard.
 :func:`unshard` re-assembles the full tree (group 0's copy), as the
 reference's tests do.
@@ -19,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import fsdp
 from repro_torch.models import model as M
 from repro_torch.models.common import (
     init_param,
@@ -106,11 +106,11 @@ def shard_for_rank(rt, full, rank: int):
         io[n] = a.contiguous().clone()
     segs = {}
     for sname, st in full["segments"].items():
-        specs, rows = rt.stage_specs[sname], _stage_rows(rt, p)
+        rows = _stage_rows(rt, p)
         out = {}
         for n, a in st.items():
             a = a[rows]
-            ld = fsdp.local_dim(specs[n], D)
+            ld = rt.local_dim(sname, n)
             if ld is not None and D > 1:
                 k = a.shape[ld + 1] // D
                 a = a.narrow(ld + 1, d * k, k)
@@ -133,10 +133,9 @@ def unshard(rt, trees):
             io[n] = trees[0]["io"][n]
     segs = {}
     for sname in trees[0]["segments"]:
-        specs = rt.stage_specs[sname]
         out = {}
         for n in trees[0]["segments"][sname]:
-            ld = fsdp.local_dim(specs[n], D)
+            ld = rt.local_dim(sname, n)
             full = [None] * (rt.Pe * rt.rc.vpp)
             for p in range(rt.Pe):
                 parts = [trees[sh.rank_of(d, 0, p)]["segments"][sname][n]

@@ -37,8 +37,9 @@ a time where the plain version scans each chunk in doubling steps: y and
 the final state within 1e-5 of the plain tensor's max |value|; the
 kernel chained over two halves with h0 repeats the same float32
 operations, so it must equal the one-pass run bit for bit. Its backward
-(K5b) recomputes the states from checkpoints and sums dA, dD, dB and dC
-over up to a thousand steps and hundreds of channels in another order:
+(K5b) walks chunks of 128 steps in parallel, carries the states and
+cotangents across them through each chunk's decay, and sums dA, dD, dB
+and dC over up to 4096 steps and hundreds of channels in another order:
 every gradient within 1e-4 of the plain tensor's max |value|, and two
 runs equal bit for bit (no float atomics).
 """
@@ -257,17 +258,22 @@ SCAN_BWD_RTOL = 1e-4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 8, 16])
-@pytest.mark.parametrize("s", [1, 200, 1030])
-@pytest.mark.parametrize("d", [200, 203])
-def test_selective_scan_bwd_kernel_matches_plain(cuda, n, s, d):
-    """K5b at one step, within a chunk and over several 128-step chunks
-    ending in a part tile; d not a multiple of the block: every gradient
-    within SCAN_BWD_RTOL of its max |plain| (sums over up to 1030 steps
-    and 203 channels in another order, exp2 by MUFU), two runs equal bit
-    for bit (no atomics), the autograd op's backward equal to it, and B
-    and C swapped failing the check."""
-    x, dt, A, B, C, D, _ = _scan_case(13, 3, s, d, n, cuda)
+@pytest.mark.parametrize("b,s,d,n", [
+    (3, s, d, n) for n in (4, 8, 16) for s in (1, 200, 1030)
+    for d in (200, 203)] + [
+    # the training length, one and two rows; one step past a chunk
+    (1, 4096, 203, 16), (2, 4096, 203, 16), (3, 129, 203, 16),
+    (3, 129, 200, 4)])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, b, s, d, n):
+    """K5b at one step, within a chunk, one step past a 128-step chunk,
+    over several chunks ending in a part tile and over the 32 chunks of
+    the training length; d not a multiple of the block: every gradient
+    within SCAN_BWD_RTOL of its max |plain| (sums over up to 4096 steps
+    and 203 channels in another order, exp2 by MUFU, the chunks' entry
+    states and carries through their decays), two runs equal bit for bit
+    (no atomics), the autograd op's backward equal to it, and B and C
+    swapped failing the check."""
+    x, dt, A, B, C, D, _ = _scan_case(13, b, s, d, n, cuda)
     dy = torch.randn(x.shape, generator=torch.Generator(
         device=cuda).manual_seed(2), device=cuda)
     before = ss.LAUNCHES["selective_scan_bwd"]

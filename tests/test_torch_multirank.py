@@ -89,6 +89,13 @@ ticking with ``run_until_idle``. Held:
   request are refused; a default serve session (its config's pp 2
   alone) built under the group stays on one rank and serves the stream
   of one built without a group;
+* the same llama case with ``serve_resident`` (stage rows whole on each
+  rank): streams, the batched prefill's logits and the report logits
+  equal the case without the knob bit for bit, no FSDP gather on any
+  rank, and the logits within 1e-5 of the reference engine's with the
+  knob; the serve launcher's rank body (``launch/serve.py serve``) at
+  data 2 x pp 2 serving ``contiguous`` then ``contiguous+resident``: the
+  same streams, no gather in the resident layout;
 * llama paged at pods 2 x data 2: the prefix hits and every
   cross-partition page copy (global ids) equal what the reference's
   engine and ``repro.serving.paging.PagedSlotPool`` decide at shards=4
@@ -106,6 +113,7 @@ multiplies the world size.
 
 import dataclasses
 import functools
+import json
 import os
 import types
 
@@ -175,6 +183,12 @@ SERVE = {
     "serve_d2_pp2": ("llama3.2-1b", 2, 1,
                      dict(pp=2, vpp=2, microbatches=2),
                      dict(max_slots=4, max_seq=32, prefill_chunk=4)),
+    # the same case with serve_resident: stage rows whole on each rank
+    "serve_d2_pp2_resident": ("llama3.2-1b", 2, 1,
+                              dict(pp=2, vpp=2, microbatches=2,
+                                   serve_resident=True),
+                              dict(max_slots=4, max_seq=32,
+                                   prefill_chunk=4)),
     "serve_q2_d2_paged": ("llama3.2-1b", 2, 2,
                           dict(pp=1, vpp=2, microbatches=1),
                           dict(max_slots=4, max_seq=32, prefill_chunk=4,
@@ -190,6 +204,9 @@ SERVE_LOGIT_RTOL = 1e-5
 DEFAULT_SERVE = dict(spec=dict(max_slots=2, max_seq=16), seed=5,
                      prompt=np.arange(3, 9, dtype=np.int32), max_gen=4)
 TIE = dict(name="tie_d4", kind="tie", data=4, vocab=256, rows=(10, 140))
+# the serve launcher's rank body at data 2 x pp 2 over the same requests
+# in a gathered and a resident layout (each cuts the params its own way)
+SERVE_CLI = dict(name="serve_cli_d2_pp2", kind="serve_cli")
 # reduced Jamba (Mamba, attention and MoE layers) trained on data 2 x
 # groups 2 (pp 1: its 8 layers do not split into static stage slots),
 # four micro-batches of one sequence a rank: held to the reference's
@@ -395,13 +412,15 @@ def _serve_case(name):
                          cfg, rc, one))
     case = dict(name=name, kind="serve", arch=arch, data=data, pods=pods,
                 overrides=ov, spec=spec, params=params,
-                work=_serve_work(arch, sampled=name == "serve_d2_pp2"))
-    if name == "serve_d2_pp2":
+                work=_serve_work(arch,
+                                 sampled=name.startswith("serve_d2_pp2")))
+    if name.startswith("serve_d2_pp2"):
         rng = np.random.RandomState(1)
         case["first"] = {
             "tokens": rng.randint(0, 256, size=(4, 4)).astype(np.int32),
             "pos": np.array([0, 4, 0, 9], np.int32),
             "slot_mask": np.array([True, True, False, True])}
+    if name == "serve_d2_pp2":
         case["scalar"] = case["work"][1][0], case["work"][1][1]["max_gen"]
         case["lockstep"] = True
         case["default"] = DEFAULT_SERVE
@@ -618,9 +637,15 @@ def results(tmp_path_factory):
     serves = {n: _serve_case(n) for n in SERVE}
     tie = _tie_case()
     jcfg, jrc, jamba = _jamba_case()
+    cli = dict(SERVE_CLI, report=os.path.join(tmp, "serve_cli.json"))
+    cli["argv"] = ["--device", "cpu", "--data", "2", "--pp", "2",
+                   "--slots", "4", "--n-requests", "3", "--prompt", "6",
+                   "--gen", "3", "--layouts",
+                   "contiguous,contiguous+resident", "--report",
+                   cli["report"]]
     ctx = _spawn([c for _, _, c in built.values()] + variants + autos
                  + [_embed_case(), int8] + ckpts
-                 + [c for c, _ in serves.values()] + [tie, jamba], tmp)
+                 + [c for c, _ in serves.values()] + [tie, jamba, cli], tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)},
            TIE["name"]: {"ref": _jax_tie(tie)},
            JAMBA["name"]: dict(cfg=jcfg, rc=jrc, case=jamba,
@@ -644,12 +669,13 @@ def results(tmp_path_factory):
         pass
     for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
             EMBED["name"], INT8["name"]] + list(CKPT) + list(SERVE) + [
-            TIE["name"], JAMBA["name"]]:
+            TIE["name"], JAMBA["name"], SERVE_CLI["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
     for c in ckpts:
         out[c["name"]]["dir"] = c["dir"]
+    out[SERVE_CLI["name"]]["report"] = cli["report"]
     return out
 
 
@@ -1040,6 +1066,40 @@ def test_multirank_serve_logits_sampling_and_scalar_path(results):
         assert got["report_logits"].shape == one.shape == (2, 4, 256)
         assert _rel(got["report_logits"], one) <= SERVE_LOGIT_RTOL
     assert r["one_rank"]["streams"][:k] == r["ref"]["streams"][:k]
+
+
+def test_multirank_resident_serve_equals_the_gathered_one(results):
+    """llama at data 2 x pp 2 with serve_resident: every rank's streams,
+    its batched prefill's logits and the launcher's report logits (every
+    row's prefill and decode step) equal the same case without the knob
+    bit for bit, with no FSDP gather on any rank (the case without it
+    gathers); the logits within 1e-5 of the reference engine's with the
+    knob (float32)."""
+    r, base = results["serve_d2_pp2_resident"], results["serve_d2_pp2"]
+    ref = r["ref"]["first_logits"]
+    assert r["ref"]["streams"] == base["ref"]["streams"]
+    for got, want in zip(r["ranks"], base["ranks"]):
+        assert got["gathers"] == 0 < want["gathers"]
+        assert got["streams"] == want["streams"]
+        assert torch.equal(got["first_logits"], want["first_logits"])
+        assert np.array_equal(got["report_logits"], want["report_logits"])
+        assert _rel(got["first_logits"].numpy(), ref) <= SERVE_LOGIT_RTOL
+
+
+def test_multirank_serve_launcher_serves_a_resident_layout(results):
+    """The launcher's ranks serve ``contiguous+resident`` after
+    ``contiguous`` from their own cut of the same params: the same
+    streams, no FSDP gather on any rank in the resident layout."""
+    with open(results[SERVE_CLI["name"]]["report"]) as f:
+        rep = json.load(f)
+    lay = rep["layouts"]
+    assert rep["world"] == WORLD and len(lay["contiguous"]["streams"]) == 3
+    assert lay["contiguous+resident"]["streams"] == \
+        lay["contiguous"]["streams"]
+    for r in rep["ranks"]:
+        counts = r["counts"]
+        assert counts["contiguous+resident"]["gathers"] == 0 < \
+            counts["contiguous"]["gathers"]
 
 
 def test_multirank_serve_engines_keep_lockstep(results):

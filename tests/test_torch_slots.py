@@ -231,7 +231,7 @@ def test_stage_params_raises_on_a_corrupted_use_slot(corrupt):
     pt.use_slot[t, 0] = 1 - bad
     eng = TickEngine(pt=pt, specs={}, seg_p={}, flat=None,
                      comm=fsdp.LocalComm(), cdt=torch.float32,
-                     rs_dtype=torch.float32)
+                     rs_dtype=torch.float32, gatherable=[])
     eng.state.update(acc_full={}, acc_shard={}, xbuf={}, bbuf={})
     if corrupt:
         pt.use_slot[t, 0] = bad    # past the engine's validation

@@ -28,15 +28,18 @@ of ``world`` CPU ranks and runs the cases of ``case_file`` (a
 * ``serve``: a serve Session on the case's mesh, this rank's part of the
   full reference tree, and the engine over the case's requests (every
   rank submits the same, then ticks them with ``run_until_idle``); it
-  saves the streams, the engine's stats and the page copies it made
-  (global ids), and optionally the logits of one batched prefill with
-  ``want_logits`` on fresh caches, the scalar-pos ``serve_prefill`` /
+  saves the streams, the engine's stats, its FSDP gathers and the page
+  copies it made (global ids), and optionally the logits of one batched
+  prefill with ``want_logits`` on fresh caches, the scalar-pos ``serve_prefill`` /
   ``serve_decode`` stream of one prompt in every row, and what a
   lockstep fault raises (rank 0 submits another prompt), what the
   background thread and an unseeded sampled request raise, and the
   stream of a default serve session (pp alone) built under the group.
 * ``tie``: the vocabulary-sharded ``greedy_sample`` over a data axis of
   every rank, on this rank's rows and table shard.
+* ``serve_cli``: the serve launcher's per-rank ``serve`` on the case's
+  command line under this process group (its report goes where the
+  command line says).
 """
 
 from __future__ import annotations
@@ -171,6 +174,7 @@ def _serve(case, rank):
 
     from repro_torch import params as tparams
     from repro_torch.api import SessionError, session
+    from repro_torch.core import executor
     from repro_torch.launch.serve import first_logits
 
     sess = session(case["arch"], mode="serve", device="cpu",
@@ -197,9 +201,11 @@ def _serve(case, rank):
         eng.submit(case["work"][0][0], temperature=0.5)
     except SessionError as e:
         out["unseeded"] = str(e)
+    executor.reset_coll_time()
     reqs = [eng.submit(t, **kw) for t, kw in case["work"]]
     eng.run_until_idle()
     out["streams"] = [r.result(timeout=1) for r in reqs]
+    out["gathers"] = executor.COLL_TIME["gathers"]
     st = eng.stats
     out["stats"] = dict(prefill_steps=st.prefill_steps,
                         decode_steps=st.decode_steps,
@@ -249,6 +255,13 @@ def _serve(case, rank):
     return out
 
 
+def _serve_cli(case, rank):
+    from repro_torch.launch import serve as tserve
+
+    tserve.serve(tserve._args(case["argv"]), rank)
+    return {}
+
+
 def _tie(case, rank):
     from repro_torch.core import vocab as Vb
     from repro_torch.core.comm import Mesh
@@ -272,7 +285,8 @@ def main(rank, world, port, case_file, out_dir):
     try:
         for case in torch.load(case_file, weights_only=False):
             fn = {"train": _train, "embed": _embed, "int8": _int8,
-                  "ckpt": _ckpt, "serve": _serve, "tie": _tie}[case["kind"]]
+                  "ckpt": _ckpt, "serve": _serve, "tie": _tie,
+                  "serve_cli": _serve_cli}[case["kind"]]
             torch.save(fn(case, rank),
                        os.path.join(out_dir, f"{case['name']}.{rank}.pt"))
     finally:
