@@ -35,8 +35,15 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    gpt-1.5B's head.w), the selective scan (K5) in
    float32, and the Jamba training path's kernels at its shapes: K5 and
    its backward K5b at one micro-batch (b 1, s 4096, d 8192, n 16,
-   float32) and K2 over Jamba's untied head [4096, 65536] at 4096 rows
-   — each timed beside
+   float32) and K2 over Jamba's untied head [4096, 65536] at 4096 rows,
+   and the kernels of qwen2-moe-a2.7b's and phi-3-vision-4.2b's paths:
+   K1 and K1b at one training micro-batch of each (b 1, s 4096; 16
+   heads of 128 and 32 of 96, MHA), K2 over qwen's untied head [2048,
+   151936] and phi3's [3072, 32064] at 4096 rows (phi3's last 128-column
+   vocabulary tile holds 64 columns: the first rows take its labels, and
+   the kernel run over the head without them must fail the check), K3
+   and K4 at qwen's serve cell (8 rows, 16 heads of 128, MHA) and K3 at
+   phi3's (32 heads of 96, MHA) — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
@@ -136,7 +143,23 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    the checks of step 3 (counters 0 before the engine run, the kernel
    launched and no plain version after it, first-step logits against
    the plain versions, and gpt's across its two layouts), then the same
-   decode and prefill traces of each of those three runs; then one
+   decode and prefill traces of each of those three runs; then
+   ``[serve qwen2-moe-a2.7b]``: all 24 layers at full width (60 experts
+   top-4 and the shared FFN every layer, 28.6 GB) in both layouts (K3,
+   then K4, at e 128 MHA) with the checks of step 3 and the MoE capacity
+   deferrals logged, and its decode traced; ``[train qwen2-moe-a2.7b]``:
+   the published widths cut to 3 layers (all 60 experts, 2.33 B
+   parameters; 4 x 4096 tokens, vpp 1) by the Jamba cell's rules, K1 24,
+   K1b 12 and K2 8 times a step; ``[serve phi-3-vision-4.2b]``: all 32
+   layers (7.6 GB, K3 at e 96 MHA) through the engine on the same
+   requests, then 8 rows of 256 float patch embeddings from the vision
+   stream prefilled and 32 greedy steps decoded through the kernels and
+   through the plain versions, every row's logits at every step within
+   0.05 of the row's max |logit|, token agreement logged;
+   ``[train phi-3-vision-4.2b]``: the widths cut to 16 layers (2.01 B
+   parameters) on 4 x 4096 float patch embeddings by the same rules,
+   ``embed.table``'s step-1 gradient exactly 0 in both runs, K1 128, K1b
+   64 and K2 8 times a step; then one
    training step of each training model (llama, gpt-1.5B, Jamba's cut)
    on fresh params under the profiler (device busy share, kernels by
    device time, launches a step, and the device time of K1, K1b, K2, K5
@@ -207,6 +230,7 @@ number, profiler traces) go to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -325,15 +349,46 @@ JAMBA_TRAIN = dict(arch=JAMBA, seq=4096, global_batch=4, vocab=JAMBA_VOCAB,
                    d_model=4096, steps=3,
                    launches={"selective_scan": 16, "selective_scan_bwd": 8,
                              "fused_xent": 8},
-                   loss0=math.log(JAMBA_VOCAB) + 0.5,
+                   loss0=math.log(JAMBA_VOCAB) + 0.5, leaves=".mix.",
                    cuts="depth 32 -> 2 (mamba:dense, mamba:moe), experts "
                         "16 -> 8 (80 GB card)")
-JAMBA_LOSS_RTOL, JAMBA_NORM_RTOL = 2e-3, 1e-2
-# and each Mamba leaf's gradient (layers 0 and 1) within JAMBA_LEAF_RTOL
-# of the plain versions', relative to its max |plain|: the H100 read
-# 2.8e-3 to 7.2e-3 over the 18 leaves (one to two bf16 ulps, 2^-8), and a
-# wrong dA, dD or dB from K5b moves its leaves by O(1)
+# the cut training cells' step-1 rule (Jamba's, qwen2-moe's and
+# phi-3-vision's): loss and pre-clip grad norm relative
+CUT_LOSS_RTOL, CUT_NORM_RTOL = 2e-3, 1e-2
+# and, for Jamba, each Mamba leaf's gradient (layers 0 and 1) within
+# JAMBA_LEAF_RTOL of the plain versions', relative to its max |plain|:
+# the H100 read 2.8e-3 to 7.2e-3 over the 18 leaves (one to two bf16
+# ulps, 2^-8), and a wrong dA, dD or dB from K5b moves its leaves by O(1)
 JAMBA_LEAF_RTOL = 2e-2
+# the qwen2-moe training cell: qwen2-moe-a2.7b at its published widths
+# (all 60 experts top-4, the shared FFN of 5632) cut to 3 attn:moe layers
+# (configs/qwen2_moe_a2p7b.py one_card_train_config; 2.33 B parameters),
+# zeropp, vpp 1, 4 micro-batches of one 4096-token sequence in units of
+# 2. A step launches K1 3 x 4 x 2 times (F and B's recompute), K1b 3 x 4
+# (at e = 128, MHA), K2 2 x 4 over the untied [2048, 151936] head. The
+# phi-3-vision cell: phi-3-vision-4.2b's widths cut to 16 layers (2.01 B
+# parameters), vpp 2, 4 micro-batches of 4096 float patch embeddings
+# (the vision stub) in units of 2: K1 16 x 4 x 2, K1b 16 x 4 (e = 96,
+# MHA), K2 2 x 4 over [3072, 32064], whose last 128-column tile holds 64;
+# the table takes no gradient. Each step 1 by the cut cells' rule, its
+# loss near ln(vocab) + 1/2 (RMSNorm and a 1/sqrt(d) untied head)
+QWEN, PHI3 = "qwen2-moe-a2.7b", "phi-3-vision-4.2b"
+QWEN_TRAIN = dict(arch=QWEN, seq=4096, global_batch=4, vocab=151936,
+                  d_model=2048, steps=3,
+                  launches={"flash_attention_fwd": 24,
+                            "flash_attention_bwd": 12, "fused_xent": 8},
+                  loss0=math.log(151936) + 0.5, pin_routing=True,
+                  cuts="depth 24 -> 3 (80 GB card); all 60 experts and the "
+                       "shared FFN")
+PHI3_TRAIN = dict(arch=PHI3, seq=4096, global_batch=4, vocab=32064,
+                  d_model=3072, steps=3,
+                  launches={"flash_attention_fwd": 128,
+                            "flash_attention_bwd": 64, "fused_xent": 8},
+                  loss0=math.log(32064) + 0.5, zero_embed=True,
+                  cuts="depth 32 -> 16 (80 GB card)")
+# the phi-3-vision serve cell's float prefill: 8 rows of 256 patch
+# embeddings from the stream, then 32 greedy decode steps
+VISION_PREFILL, VISION_DECODE = 256, 32
 # device kernels of each training kernel, by name, for the step's profile
 TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K1b flash_attention_bwd": ("dq_tc", "dkdv_tc"),
@@ -682,6 +737,11 @@ YI_ATTN = dict(tag="e128_", b=SLOTS, h=32, g=4, e=128, S=MAX_SEQ, seed=5)
 # 1024 pages)
 MESH_ATTN = dict(tag="mesh_", b=2, h=32, g=8, e=64, S=MAX_SEQ, seed=6,
                  pages=SLOTS * MAX_SEQ // PAGE // 2)
+# qwen2-moe-a2.7b (MHA, 16 heads of 128; both layouts) and
+# phi-3-vision-4.2b (MHA, 32 heads of 96; contiguous) over 2048 keys
+QWEN_ATTN = dict(tag="qwen_", b=SLOTS, h=16, g=16, e=128, S=MAX_SEQ,
+                 seed=7)
+PHI3_ATTN = dict(tag="phi3_", b=SLOTS, h=32, g=32, e=96, S=MAX_SEQ, seed=8)
 
 
 def kernel_phases(torch, flush):
@@ -1333,7 +1393,10 @@ def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
     """K2 over an untied head read in place as [d, vocab] bf16, one
     micro-batch's n rows (the step's denominator: four micro-batches),
     against its plain version, with the probe of the head's bytes read
-    as a [vocab, d] table."""
+    as a [vocab, d] table. Where vocab is not a multiple of K2's
+    128-column tile, the first rows take the labels of the last, partial
+    tile, and the check must fail the kernel run over the head without
+    those columns (their labels outside it, their dW columns zero)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_xent as fx
@@ -1345,6 +1408,8 @@ def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
     head = (torch.randn((d, vocab), generator=gen, device=dev)
             / d ** 0.5).to(torch.bfloat16)
     lab = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    tail = vocab % fx.TILE
+    lab[:tail] = torch.arange(vocab - tail, vocab, device=dev)
     mask = torch.ones(n, device=dev)
     kw = dict(chunk=8192, mask=mask, denom=float(4 * n))
     nbytes = (hn.nbytes + head.nbytes + lab.nbytes + mask.nbytes
@@ -1383,6 +1448,21 @@ def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
     _, w_dw = rel_excess(bad[1][1], plain[1][1], 1e-4, "dW")
     if not (w_loss > 1.0 and w_dw > 1.0):
         fail("the fused_xent check passes head.w read as a table")
+    if tail:
+        keep = vocab - tail
+        bad = fx.softmax_xent(hn, head[:, :keep].contiguous(),
+                              torch.where(lab < keep, lab, -1), **kw)
+        dw = torch.zeros_like(plain[1][1])
+        dw[:, :keep] = bad[1][1]
+        log(f"[kernel] fused_xent check, the last {tail} columns (a "
+            f"partial {fx.TILE}-column tile) dropped:")
+        _, w_loss = rel_excess(bad[0].reshape(1), plain[0].reshape(1), 1e-5,
+                               "loss")
+        _, w_dh = rel_excess(bad[1][0], plain[1][0], 1e-4, "dh")
+        _, w_dw = rel_excess(dw, plain[1][1], 1e-4, "dW")
+        if not (w_loss > 1.0 and w_dh > 1.0 and w_dw > 1.0):
+            fail(f"the fused_xent check passes the last {tail} columns "
+                 "dropped")
 
 
 def vocab_shard_phase(torch, flush, results, name, n, d, vocab, layout,
@@ -1759,13 +1839,48 @@ def jamba_train_kernel_phases(torch, flush, resources):
     return results
 
 
-def jamba_train_phase(torch, cell):
-    """jamba-v0.1-52b's train cut on the card: step 1 through the kernels
-    and through the plain versions (loss and pre-clip gradient norm),
-    then timed steps with the launch counters set to 0 before them: step
-    ms, tokens/s, peak memory, aux_sum, the dropped assignments (the
-    forward's routing calls) and K5 / K5b / K2 launches a step. Returns
-    the result row (the session and its state are released)."""
+def slice_kernel_phases(torch, flush):
+    """The kernels of qwen2-moe's and phi-3-vision's paths at their
+    shapes: K1 and K1b at one training micro-batch of each (b 1, s 4096:
+    qwen's 16 heads of 128, phi3's 32 of 96, both MHA); K2 over qwen's
+    untied head [2048, 151936] and phi3's [3072, 32064] (its last
+    128-column tile partial, with the dropped-tile probe) at 4096 rows;
+    K3 and K4 at qwen's serve cell (8 rows, 16 heads of 128, MHA, 2048
+    keys) and K3 at phi3's (32 heads of 96, MHA: with the NaN probe of
+    the pad columns). Returns {"qwen": train rows, "phi3": train rows,
+    "serve": serve rows}."""
+    out = {}
+    for key, c, h, e, seed in (("qwen", QWEN_TRAIN, 16, 128, 9),
+                               ("phi3", PHI3_TRAIN, 32, 96, 10)):
+        out[key] = []
+        flash_phases(torch, flush, out[key], f"{key}_causal_e{e}", 1,
+                     c["seq"], h, h, e)
+        head_xent_phase(torch, flush, out[key], f"{key}_head",
+                        c["global_batch"] // 4 * c["seq"], c["d_model"],
+                        c["vocab"], seed=seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["serve"] = []
+    serve_attention_phases(torch, flush, out["serve"], QWEN_ATTN,
+                           ("causal_prefill", "decode", "bf16_prefill",
+                            "bf16_decode"))
+    serve_attention_phases(torch, flush, out["serve"], PHI3_ATTN,
+                           ("causal_prefill", "decode"))
+    return out
+
+
+def cut_train_phase(torch, cell):
+    """A cut training cell on the card (jamba-v0.1-52b's, qwen2-moe's,
+    phi-3-vision's): step 1 through the kernels and through the plain
+    versions (loss and pre-clip gradient norm; with ``leaves``, each
+    gradient whose name holds it, Jamba's Mamba leaves; with
+    ``zero_embed``, the table's gradient exactly zero in both runs, a
+    float-embedding batch never reading the table; with ``pin_routing``,
+    the plain run replays the kernel run's expert picks), then timed steps
+    with the launch counters set to 0 before them: step ms, tokens/s,
+    peak memory, aux_sum, for a MoE model the dropped assignments (the
+    forward's routing calls), and the cell's kernels' launches a step.
+    Returns the result row (the session and its state are released)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import ops
@@ -1778,12 +1893,16 @@ def jamba_train_phase(torch, cell):
     desc = sess.describe()
     sc = sess.shape_cfg
     mo = sess.cfg.moe
-    log(f"{tag} {desc['n_params']} params ({cell['cuts']}), schedule "
+    log(f"{tag} {desc['n_params']} params ({cell['cuts']}), "
+        f"{sess.cfg.n_layers} layers, schedule "
         f"{desc['schedule']['name']}, vpp {sess.rc.vpp}, "
         f"{sess.rc.microbatches} micro-batches in units of "
-        f"{sess.rc.unit}, batch {sc.global_batch} x {sc.seq_len}; "
-        f"{mo.n_experts} experts top-{mo.top_k} at capacity factor "
-        f"{mo.capacity_factor}")
+        f"{sess.rc.unit}, batch {sc.global_batch} x {sc.seq_len}"
+        + (f"; {mo.n_experts} experts top-{mo.top_k} at capacity factor "
+           f"{mo.capacity_factor}, {mo.n_shared} shared of "
+           f"{mo.d_ff_shared}" if mo is not None else "")
+        + ("; float patch embeddings (the vision stub)"
+           if sess.cfg.frontend == "vision" else ""))
     t0 = time.perf_counter()
     params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -1792,6 +1911,10 @@ def jamba_train_phase(torch, cell):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     stream = sess.stream()
     batch = stream.batch(0)
+    if sess.cfg.frontend == "vision" and batch["tokens"].shape != (
+            sc.global_batch, sc.seq_len, sess.cfg.d_model):
+        fail(f"{tag}: the stream's tokens are {batch['tokens'].shape}, not "
+             "float patch embeddings [batch, seq, d_model]")
 
     def norm(grads):
         sq = sum((g.float() ** 2).sum() for part in ("io", "segments")
@@ -1799,40 +1922,56 @@ def jamba_train_phase(torch, cell):
                            else grads[part]["main"]).values())
         return float(sq.sqrt())
 
-    # the Mamba mixers' leaves, whose gradients K5b feeds (the norm is
-    # mostly the head's and the expert banks')
-    def mamba_grads(grads):
+    # the leaves held one by one (Jamba's Mamba mixers, whose gradients
+    # K5b feeds: the norm is mostly the head's and the expert banks')
+    def leaf_grads(grads):
         return {n_: g_.float().clone()
                 for n_, g_ in grads["segments"]["main"].items()
-                if ".mix." in n_}
+                if cell.get("leaves") and cell["leaves"] in n_}
 
     # ---- step 1: kernels vs plain versions ------------------------------ #
-    rows, leaves = {}, {}
+    # qwen2-moe's plain run replays the kernel run's expert picks (its
+    # router's near ties: see PIN_SERVE)
+    rows, leaves, picks = {}, {}, None
     for name, s_ in (("kernels", sess), ("plain versions", plain)):
         t0 = time.perf_counter()
-        g, m = s_.train_step(params, batch)
+        with (blocks.pinned_routing(picks) if cell.get("pin_routing")
+              else contextlib.nullcontext()) as picks:
+            g, m = s_.train_step(params, batch)
         torch.cuda.synchronize()
         rows[name] = dict(loss=float(m["loss_sum"]), norm=norm(g),
                           aux=float(m["aux_sum"]),
                           s=time.perf_counter() - t0)
-        leaves[name] = mamba_grads(g)
+        if cell.get("zero_embed"):
+            rows[name]["embed_grad_nonzero"] = int(torch.count_nonzero(
+                g["io"]["embed.table"]))
+        leaves[name] = leaf_grads(g)
         del g, m
         gc.collect()
         torch.cuda.empty_cache()
     k, p = rows["kernels"], rows["plain versions"]
-    log(f"{tag} step 1: loss kernels {k['loss']:.6f} ({k['s']:.2f} s), "
+    log(f"{tag} step 1"
+        + (f" (expert picks of {len(picks)} routing calls pinned)"
+           if picks is not None else "")
+        + f": loss kernels {k['loss']:.6f} ({k['s']:.2f} s), "
         f"plain versions {p['loss']:.6f} ({p['s']:.2f} s); pre-clip grad "
         f"norm {k['norm']:.6f} / {p['norm']:.6f}; aux_sum {k['aux']:.6f} "
-        f"/ {p['aux']:.6f}; tolerance loss {JAMBA_LOSS_RTOL:g}, norm "
-        f"{JAMBA_NORM_RTOL:g} relative")
-    if not abs(k["loss"] - p["loss"]) <= JAMBA_LOSS_RTOL * abs(p["loss"]):
+        f"/ {p['aux']:.6f}; tolerance loss {CUT_LOSS_RTOL:g}, norm "
+        f"{CUT_NORM_RTOL:g} relative")
+    if not abs(k["loss"] - p["loss"]) <= CUT_LOSS_RTOL * abs(p["loss"]):
         fail(f"step-1 loss {k['loss']} off the plain versions' {p['loss']}")
-    if not abs(k["norm"] - p["norm"]) <= JAMBA_NORM_RTOL * p["norm"]:
+    if not abs(k["norm"] - p["norm"]) <= CUT_NORM_RTOL * p["norm"]:
         fail(f"step-1 grad norm {k['norm']} off the plain versions' "
              f"{p['norm']}")
     if not abs(k["loss"] - cell["loss0"]) <= 0.5:
         fail(f"step-1 loss {k['loss']} is not near {cell['loss0']:.3f}")
-    # each Mamba leaf: max |kernels - plain| over max |plain|
+    if cell.get("zero_embed"):
+        log(f"{tag} step 1: embed.table gradient nonzero elements: kernels "
+            f"{k['embed_grad_nonzero']}, plain versions "
+            f"{p['embed_grad_nonzero']} (a float batch reads no table)")
+        if k["embed_grad_nonzero"] or p["embed_grad_nonzero"]:
+            fail(f"{tag}: embed.table took a gradient from a float batch")
+    # each held leaf: max |kernels - plain| over max |plain|
     leaf_err = {}
     for n_, gp in leaves["plain versions"].items():
         scale = float(gp.abs().max())
@@ -1840,14 +1979,17 @@ def jamba_train_phase(torch, cell):
             fail(f"step-1 gradient of {n_} is zero")
         leaf_err[n_] = float(
             (leaves["kernels"][n_] - gp).abs().max()) / scale
-    worst = max(leaf_err, key=leaf_err.get)
-    log(f"{tag} step 1 Mamba leaves, max |kernels - plain| / max |plain|: "
-        + ", ".join(f"{n_} {e_:.3e}" for n_, e_ in sorted(leaf_err.items()))
-        + f"; tolerance {JAMBA_LEAF_RTOL:g}")
-    if not leaf_err[worst] <= JAMBA_LEAF_RTOL:
-        fail(f"step-1 gradient of {worst} is {leaf_err[worst]:.3e} off the "
-             f"plain versions' (tolerance {JAMBA_LEAF_RTOL:g})")
-    rows["mamba_leaf_err"] = leaf_err
+    if leaf_err:
+        worst = max(leaf_err, key=leaf_err.get)
+        log(f"{tag} step 1 leaves '{cell['leaves']}', max |kernels - "
+            "plain| / max |plain|: "
+            + ", ".join(f"{n_} {e_:.3e}"
+                        for n_, e_ in sorted(leaf_err.items()))
+            + f"; tolerance {JAMBA_LEAF_RTOL:g}")
+        if not leaf_err[worst] <= JAMBA_LEAF_RTOL:
+            fail(f"step-1 gradient of {worst} is {leaf_err[worst]:.3e} off "
+                 f"the plain versions' (tolerance {JAMBA_LEAF_RTOL:g})")
+        rows["leaf_err"] = leaf_err
     del plain, leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -1885,7 +2027,7 @@ def jamba_train_phase(torch, cell):
             f"of {row['assignments']} assignments, grad norm "
             f"{row['grad_norm']:.3f}, max memory "
             f"{row['max_memory_gb']:.2f} GiB")
-    if not all(r["assignments"] for r in steps):
+    if mo is not None and not all(r["assignments"] for r in steps):
         fail(f"no routing was counted in the timed steps: {steps}")
     launches = train_launches()
     counters = {k_: v - base.get(k_, 0)
@@ -2709,10 +2851,16 @@ def workload(vocab: int = 128256):
             for n in lens]
 
 
-def first_step(torch, sess, params):
+def first_step(torch, sess, params, picks=None, record=False):
     """Logits of one prefill step on fresh caches: slot 0 takes the first
-    prompt at position 0, the other slots are masked."""
+    prompt at position 0, the other slots are masked. With ``picks`` (the
+    expert ids and slots an earlier first step recorded) the routing
+    replays them (``blocks.pinned_routing``); with ``record`` it routes
+    freely and records its picks. Returns (logits, the recorded picks or
+    None)."""
     import numpy as np
+
+    from repro_torch.models import blocks
 
     prompt = workload(sess.cfg.vocab)[0]
     n = sess.max_slots
@@ -2724,11 +2872,24 @@ def first_step(torch, sess, params):
         batch["page_tables"] = np.arange(
             n * sess.pages_per_slot, dtype=np.int32).reshape(n, -1)
     caches = sess.init_caches()
-    _, logits, _ = sess.serve_step_batched(params, caches, batch,
-                                           want_logits=True)
+    with (blocks.pinned_routing(picks) if record or picks is not None
+          else contextlib.nullcontext()) as got:
+        _, logits, _ = sess.serve_step_batched(params, caches, batch,
+                                               want_logits=True)
     del caches
     torch.cuda.empty_cache()
-    return logits[0].float()
+    return logits[0].float(), got
+
+
+# the serve cells whose first-step check pins the plain run's expert
+# picks to the kernel run's (each layout its own: the kernel runs of the
+# two layouts route alike). qwen2-moe's 60-way router sits at near ties
+# on random weights: one bf16 rounding flips a token's top-4 set and the
+# flips compound over the 24 layers (routing freely, kernels and plain
+# read 3.27 apart at a max |logit| of 4.36, the rows whose set differs
+# rising from 0.16% at layer 0 to 63% at layer 23; PERF.md §6). Jamba's
+# 4 MoE layers route alike in both runs and stay free
+PIN_SERVE = {QWEN}
 
 
 def profile_serve(torch, sess, params, layout, kind="decode", steps=5):
@@ -2830,14 +2991,16 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plain = session(arch, reduced=False, device="cuda", max_slots=SLOTS,
                     max_seq=max_seq, overrides=dict(kernel_impl="ref"), **kw)
-    lg_k = first_step(torch, sess, params)
-    lg_p = first_step(torch, plain, params)
+    lg_k, picks = first_step(torch, sess, params, record=arch in PIN_SERVE)
+    lg_p, _ = first_step(torch, plain, params, picks)
     if not bool(torch.isfinite(lg_k).all()) or lg_k.shape != (vocab,):
         fail(f"{layout}: first-step logits are not finite [vocab] values")
     scale = lg_p.abs().max().item()
     d_plain = (lg_k - lg_p).abs().max().item()
+    pinned = (f", expert picks of {len(picks)} routing calls pinned"
+              if picks is not None else "")
     log(f"[serve] {arch} {layout}: first-step logits kernel vs plain "
-        "versions: "
+        f"versions{pinned}: "
         f"max |diff| {d_plain:.4e} (max |logit| {scale:.3f}; tolerance "
         f"0.05 * max |logit|), argmax {int(lg_k.argmax())} vs "
         f"{int(lg_p.argmax())}")
@@ -2904,15 +3067,102 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
         prefill_step_ms=sum(times["prefill"]) / max(len(times["prefill"]), 1),
         decode_step_ms=sum(times["decode"]) / max(len(times["decode"]), 1),
         max_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+        capacity_deferrals=st.capacity_deferrals,
         launches=launches, counters=counters, first_logits_vs_plain=d_plain)
     log(f"[serve] {arch} {layout}: {N_REQ} requests, "
         f"{st.generated_tokens} tokens "
         f"in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s; "
         f"{st.prefill_steps} prefill steps of {res['prefill_step_ms']:.2f} "
         f"ms, {st.decode_steps} decode steps of {res['decode_step_ms']:.2f} "
-        f"ms; peak memory {res['max_memory_gb']:.2f} GiB; launches "
-        f"{launches}; dispatch {counters}")
+        f"ms; peak memory {res['max_memory_gb']:.2f} GiB; MoE capacity "
+        f"deferrals {st.capacity_deferrals}; launches {launches}; "
+        f"dispatch {counters}")
     return res, outs, lg_k, params, sess
+
+
+def vision_prefill_phase(torch, sess, params):
+    """phi-3-vision's float prefill on the card: every slot row prefills
+    ``VISION_PREFILL`` patch embeddings drawn from the vision stream
+    (seed 0), then ``VISION_DECODE`` greedy steps feed the sampled ids
+    through the table, through the kernels (``sess``) and the plain
+    versions on the same params, each on fresh caches; the plain run is
+    fed the kernel run's ids, so both see the same positions. Every
+    row's logits at every step must agree within 0.05 of the row's max
+    |logit| (the serve phases' rule); token agreement is counted; step
+    ms are the kernel run's (host clock, synchronised)."""
+    import numpy as np
+
+    from repro_torch.api import session
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops
+
+    tag = f"[serve {PHI3} float prefill]"
+    n, d = sess.max_slots, sess.cfg.d_model
+    emb = SyntheticStream(DataConfig(
+        seq_len=VISION_PREFILL, global_batch=n, vocab=sess.cfg.vocab,
+        kind="vision", d_model=d)).batch(0)["tokens"]
+    if emb.shape != (n, VISION_PREFILL, d) or emb.dtype != np.float32:
+        fail(f"{tag} the stream gave {emb.shape} {emb.dtype}")
+    plain = session(PHI3, reduced=False, device="cuda", max_slots=n,
+                    max_seq=sess.spec.max_seq,
+                    overrides=dict(kernel_impl="ref"))
+    caches = {"k": sess.init_caches(), "p": plain.init_caches()}
+    reset_serve_launches()
+    worst, agree, times = 0.0, 0, {"prefill": [], "decode": []}
+    counters = {}       # the kernel run's dispatches
+    toks = emb
+    for i in range(VISION_DECODE + 1):
+        pos = np.full(n, 0 if i == 0 else VISION_PREFILL + i - 1, np.int32)
+        out = {}
+        for key, s_ in (("k", sess), ("p", plain)):
+            base = ops.kernel_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, lg, caches[key] = s_.serve_step_batched(
+                params, caches[key], {"tokens": toks, "pos": pos},
+                want_logits=True)
+            torch.cuda.synchronize()
+            if key == "k":
+                times["decode" if i else "prefill"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                for k_, v in ops.kernel_counters().items():
+                    if v - base.get(k_, 0):
+                        counters[k_] = counters.get(k_, 0) + v - base.get(
+                            k_, 0)
+            out[key] = (np.asarray(tok), lg.float())
+        (tk, lk), (tp, lp) = out["k"], out["p"]
+        if lk.shape != (n, sess.cfg.vocab) or not bool(
+                torch.isfinite(lk).all()):
+            fail(f"{tag} step {i}: logits not finite [{n}, vocab] values")
+        row = ((lk - lp).abs().max(dim=1).values
+               / lp.abs().max(dim=1).values)
+        worst = max(worst, float(row.max()))
+        agree += int((tk == tp).sum())
+        toks = tk.astype(np.int32)[:, None]
+    launches = serve_launches()
+    if any(k_.startswith("ref_") for k_ in counters):
+        fail(f"{tag} the kernel run reached a plain version: {counters}")
+    if launches["slotted_attention"] == 0:
+        fail(f"{tag} the kernel run never launched slotted_attention")
+    steps = VISION_DECODE + 1
+    res = dict(rows=n, prefill=VISION_PREFILL, decode_steps=VISION_DECODE,
+               worst_row_diff=worst, token_agreement=agree / (n * steps),
+               prefill_ms=times["prefill"][0],
+               decode_step_ms=sum(times["decode"]) / VISION_DECODE,
+               launches=launches)
+    log(f"{tag} {n} rows x {VISION_PREFILL} patch embeddings, then "
+        f"{VISION_DECODE} greedy steps: logits kernels vs plain versions, "
+        f"worst max |diff| / the row's max |logit| {worst:.4e} (tolerance "
+        f"0.05); token agreement {res['token_agreement']:.4f}; prefill "
+        f"{res['prefill_ms']:.2f} ms, decode steps "
+        f"{res['decode_step_ms']:.2f} ms; launches {launches}")
+    if not worst <= 0.05:
+        fail(f"{tag} logits off the plain versions by {worst:.4e} of the "
+             "row's max |logit|")
+    del caches, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def serve_multirank_phase(torch, c):
@@ -3155,6 +3405,7 @@ def main() -> None:
     shard_kernels = shard_kernel_phases(torch, flush)
     scan_kernels = scan_kernel_phase(torch, flush, resources)
     jamba_train_kernels = jamba_train_kernel_phases(torch, flush, resources)
+    slice_kernels = slice_kernel_phases(torch, flush)
     mark("kernel phases")
     del flush
     gc.collect()
@@ -3183,7 +3434,7 @@ def main() -> None:
     mark("ckpt gpt_paper")
     log(f"[train] before jamba: {torch.cuda.memory_allocated() / 2**30:.2f} "
         "GiB allocated")
-    train_jamba = jamba_train_phase(torch, JAMBA_TRAIN)
+    train_jamba = cut_train_phase(torch, JAMBA_TRAIN)
     for row in jamba_train_kernels:
         row["launches"] = train_jamba["launches"][row["name"].split(":")[0]]
     kernels += jamba_train_kernels
@@ -3230,20 +3481,59 @@ def main() -> None:
     del params_g, sess_gc, sess_gp, params_y, sess_y
     gc.collect()
     torch.cuda.empty_cache()
+    # qwen2-moe-a2.7b at full width and depth (28.6 GB of weights) in both
+    # layouts (K3, then K4, at e = 128 MHA), its decode profiled
+    log(f"[serve] before qwen: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB allocated")
+    qwen_c, outs_qc, lg_qc, params_q, sess_qc = serve_phase(
+        torch, "contiguous", arch=QWEN)
+    qwen_p, outs_qp, lg_qp, params_q, sess_qp = serve_phase(
+        torch, "paged", params_q, arch=QWEN)
+    compare_layouts(QWEN, lg_qc, lg_qp, outs_qc, outs_qp)
+    del sess_qp
+    profiles.append(profile_serve(torch, sess_qc, params_q,
+                                  "qwen_contiguous", "decode", 5))
+    serve += [qwen_c, qwen_p]
+    del params_q, sess_qc
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("serve qwen2-moe-a2.7b")
+    train_qwen = cut_train_phase(torch, QWEN_TRAIN)
+    mark("train qwen2-moe-a2.7b")
+    # phi-3-vision-4.2b at full width and depth (7.6 GB; K3 at e = 96
+    # MHA): the engine on token-id prompts, then the float prefill
+    phi3, _, _, params_v, sess_v = serve_phase(torch, "contiguous",
+                                               arch=PHI3)
+    phi3["float_prefill"] = vision_prefill_phase(torch, sess_v, params_v)
+    serve.append(phi3)
+    del params_v, sess_v
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("serve phi-3-vision-4.2b")
+    train_phi3 = cut_train_phase(torch, PHI3_TRAIN)
+    mark("train phi-3-vision-4.2b")
+    for cell, train_ in (("qwen", train_qwen), ("phi3", train_phi3)):
+        for row in slice_kernels[cell]:
+            row["launches"] = train_["launches"][row["name"].split(":")[0]]
+        kernels += slice_kernels[cell]
     # each serving kernel row reads its wrapper's launches in the serve run
-    # of its cell: the phase name's width tag and the wrapper pick it
+    # of its cell: the phase name's tag and the wrapper pick it
     runs = {("", "slotted_attention"): contig, ("", "paged_attention"): paged,
             ("e128_", "slotted_attention"): jamba,
             ("e128_", "paged_attention"): yi,
             ("e96_", "slotted_attention"): gpt_c,
-            ("e96_", "paged_attention"): gpt_p}
+            ("e96_", "paged_attention"): gpt_p,
+            ("qwen_", "slotted_attention"): qwen_c,
+            ("qwen_", "paged_attention"): qwen_p,
+            ("phi3_", "slotted_attention"): phi3}
     def serve_launches(rows):
         for row in rows:
             lib, phase = row["name"].split(":")
-            tag = next((t for t in ("e96_", "e128_", "mesh_")
-                        if phase.startswith(t)), "")
+            tag = next((t for t in ("e96_", "e128_", "mesh_", "qwen_",
+                                    "phi3_") if phase.startswith(t)), "")
             row["launches"] = runs[tag, lib]["launches"][lib]
 
+    serve_kernels += slice_kernels["serve"]
     mesh_kernels = [r for r in serve_kernels if ":mesh_" in r["name"]]
     serve_launches([r for r in serve_kernels if r not in mesh_kernels])
     kernels = serve_kernels + kernels
@@ -3278,7 +3568,8 @@ def main() -> None:
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
-         "train": [train, train_gpt, train_jamba], "ckpt": ckpt,
+         "train": [train, train_gpt, train_jamba, train_qwen, train_phi3],
+         "ckpt": ckpt,
          "multirank": multirank,
          "auto": auto, "serve_multirank": serve_multi,
          "profiles": profiles,

@@ -22,7 +22,11 @@ same way, with Mamba, attention and gathered-MoE layers;
 the published widths cut to two layers and eight experts
 (``one_card_train_config()``): the selective scan runs K5 forward and K5b
 backward, and the router's load-balance loss is seeded into each B task
-(``describe()["last_step"]["aux_sum"]`` after a step).
+(``describe()["last_step"]["aux_sum"]`` after a step). qwen2-moe-a2.7b
+adds shared experts (a SwiGLU FFN every token runs beside the routed
+ones); phi-3-vision-4.2b takes the vision stub's float patch embeddings
+[b, s, d] as its ``tokens`` (the stream draws them; ``serve_prefill`` and
+``serve_step_batched`` take them too; the engine takes token-id prompts).
 
 Training on a mesh of ranks runs the same calls in every rank's process,
 after ``torch.distributed.init_process_group`` (world size pods x data x
@@ -649,11 +653,14 @@ class Session:
                                    **mesh)
 
     def stream(self, seed: int = 0) -> SyntheticStream:
-        """The deterministic synthetic token stream of the train shape."""
-        sc = self.shape_cfg
+        """The deterministic synthetic stream of the train shape: token
+        ids, or for a vision config float patch embeddings [b, s, d]."""
+        cfg, sc = self.cfg, self.shape_cfg
         return SyntheticStream(DataConfig(
             seq_len=sc.seq_len, global_batch=sc.global_batch,
-            vocab=self.cfg.vocab, seed=seed))
+            vocab=cfg.vocab, seed=seed,
+            kind="vision" if cfg.frontend == "vision" else "lm",
+            d_model=cfg.d_model))
 
     # ------------------------------------------------------------------ #
     # Checkpoints
@@ -808,8 +815,10 @@ class Session:
         if self.mesh is not None:
             return self._mesh_step(params, caches, batch, want_logits)
         dev = self.device
-        tb = {"tokens": torch.as_tensor(np.asarray(batch["tokens"]),
-                                        dtype=torch.int32, device=dev)}
+        toks = torch.as_tensor(np.asarray(batch["tokens"]))
+        # token ids, or a vision prefill's float embeddings [b, s, d]
+        tb = {"tokens": toks.to(device=dev, dtype=(
+            torch.float32 if toks.is_floating_point() else torch.int32))}
         pos = np.asarray(batch.get("pos", 0))
         tb["pos"] = (int(pos) if pos.ndim == 0 else
                      torch.as_tensor(pos, dtype=torch.int32, device=dev))
@@ -833,8 +842,9 @@ class Session:
         return tok.cpu(), caches
 
     def serve_prefill(self, params, caches, batch):
-        """Run a prompt (scalar ``pos``, every row) through the stages;
-        returns (tokens, caches)."""
+        """Run a prompt (scalar ``pos``, every row) through the stages:
+        ``tokens`` ids [b, s], or for a vision config float patch
+        embeddings [b, s, d]; returns (tokens, caches)."""
         if self.paged:
             raise SessionError(
                 "paged sessions serve through the slotted path "
@@ -850,9 +860,11 @@ class Session:
     def serve_step_batched(self, params, caches, batch,
                            want_logits: bool = False):
         """One slot-aware step (prefill chunk s>=1 or decode s==1):
-        ``pos`` int32 [max_slots] (each slot's first position), optional
-        ``slot_mask`` bool [max_slots] gating cache writes, and for paged
-        sessions ``page_tables`` int32 [max_slots, pages_per_slot].
+        ``tokens`` ids [max_slots, s] or float embeddings [max_slots, s,
+        d] (a vision prefill), ``pos`` int32 [max_slots] (each slot's
+        first position), optional ``slot_mask`` bool [max_slots] gating
+        cache writes, and for paged sessions ``page_tables`` int32
+        [max_slots, pages_per_slot].
         Returns ``(tokens[max_slots], caches)`` or, with ``want_logits``,
         ``(tokens, logits[max_slots, vocab], caches)``."""
         pos = batch.get("pos")

@@ -413,6 +413,10 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
                      if any(sub in n for sub in rc.no_defer_extra)}
     no_defer = frozenset(no_defer)
     tokens, labels = batch["tokens"], batch["labels"]
+    # the vision stub's float patch embeddings [n, seq, d] go in as they
+    # are (cast to the compute dtype): no table lookup and no gradient to
+    # the table, as in the reference
+    int_tokens = not tokens.is_floating_point()
     rope = M.rope_for(cfg, seq, dev)
     d = cfg.d_model
 
@@ -438,8 +442,9 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
     def f_branch(eng, row):
         u, v = row["mb"], row["v"]
         if p_rank == 0 and v == 0:
-            x = Vb.embed_lookup(io_p["embed.table"], tok_slice(tokens, u),
-                                vloc, cdt, comm)
+            ids = tok_slice(tokens, u)
+            x = (Vb.embed_lookup(io_p["embed.table"], ids, vloc, cdt, comm)
+                 if int_tokens else M.embed_tokens(io_p, ids, cfg, cdt))
         else:
             x = st["xbuf"].pop(u)
         t = Tape(eng.stage_params(v, row["use_slot"]), mode="fwd",
@@ -477,7 +482,7 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
             st["wstash"].put((v, u), stash)
         for n, g in igrads.items():
             st["acc_full"][n][v] += g.float()
-        if p_rank == 0 and v == 0:
+        if p_rank == 0 and v == 0 and int_tokens:
             _, dropped = Vb.embed_grad(tok_slice(tokens, u), dx.float(),
                                        vloc, cfg.vocab, io_g["embed.table"],
                                        comm)
@@ -581,9 +586,10 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
     """One rank's serve step on the tick engine (prefill chunk or decode).
 
     ``batch`` holds this rank's rows of the step's batch, on the device:
-    ``tokens`` int [b_loc, s], ``pos`` an int or an int [b_loc] tensor,
-    optional ``slot_mask`` bool [b_loc] and ``page_tables`` int [b_loc,
-    pages_per_slot] (shard-local page ids). ``caches`` is this rank's
+    ``tokens`` int [b_loc, s] (or a vision prefill's float embeddings
+    [b_loc, s, d], which go in as they are), ``pos`` an int or an int
+    [b_loc] tensor, optional ``slot_mask`` bool [b_loc] and
+    ``page_tables`` int [b_loc, pages_per_slot] (shard-local page ids). ``caches`` is this rank's
     cache tree, written in place. Returns ``(tokens, caches)`` or
     ``(tokens, logits, caches)``: int32 [gb] and float32 [gb, vocab], the
     same on every rank (logits are not returned on a multi-pod mesh)."""
@@ -646,7 +652,8 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
         if p_rank == 0 and v == 0:
             ids = tok_slice(tokens, u)
             x = (Vb.embed_lookup(io_p["embed.table"], ids, vloc, cdt, comm)
-                 if vloc is not None else M.embed_tokens(io_p, ids, cfg, cdt))
+                 if vloc is not None and not ids.is_floating_point()
+                 else M.embed_tokens(io_p, ids, cfg, cdt))
         else:
             x = st["xbuf"].pop(u)
         params_v = eng.stage_params(v, row["use_slot"])

@@ -186,7 +186,9 @@ class Runtime:
 def make_train_step(rt: Runtime, shape_cfg):
     """Returns step(params, batch) -> (grads, metrics). ``batch`` holds
     the global ``tokens`` and ``labels`` [global_batch, seq] (numpy or
-    tensors), the same on every rank; each rank takes its data shard.
+    tensors; a vision config's ``tokens`` are float patch embeddings
+    [global_batch, seq, d_model]), the same on every rank; each rank
+    takes its data shard.
     Grads are float32 trees shaped like this rank's params, summed over
     the pods; metrics are ``loss_sum`` (the step's mean token loss),
     ``aux_sum`` (the auxiliary losses of every micro-batch's stages; the
@@ -214,19 +216,19 @@ def make_train_step(rt: Runtime, shape_cfg):
     shard = rt.shape.shard_of(rt.rank)
     rows = slice(shard * n_local, (shard + 1) * n_local)
 
-    def to_dev(a):
-        if isinstance(a, torch.Tensor):
-            return a[rows].to(device=rt.device, dtype=torch.long)
-        return torch.as_tensor(np.asarray(a)[rows], dtype=torch.long,
-                               device=rt.device)
-
     def step(params, batch):
+        b = {}
         for k in ("tokens", "labels"):
-            if tuple(batch[k].shape) != (gb, seq):
-                raise ValueError(f"batch[{k!r}] is "
-                                 f"{tuple(batch[k].shape)}, the step takes "
-                                 f"[{gb}, {seq}]")
-        b = {k: to_dev(batch[k]) for k in ("tokens", "labels")}
+            a = batch[k]
+            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+                np.asarray(a))
+            want = ((gb, seq, rt.cfg.d_model)
+                    if k == "tokens" and a.is_floating_point() else (gb, seq))
+            if tuple(a.shape) != want:
+                raise ValueError(f"batch[{k!r}] is {tuple(a.shape)}, the "
+                                 f"step takes {list(want)}")
+            b[k] = a[rows].to(device=rt.device, dtype=(
+                torch.float32 if a.is_floating_point() else torch.long))
         return train_body(params, b, rt=rt, shape_cfg=shape_cfg, mbs=mbs,
                           denom=denom, aux_seed=aux_seed)
 
@@ -274,7 +276,8 @@ def make_serve_step(rt: Runtime, shape_cfg, *, prompt_len: int = 1,
     logits, caches) with ``want_logits``, on this rank of ``rt``'s mesh.
 
     ``batch`` is the step's whole batch, the same on every rank (numpy
-    arrays or tensors): ``tokens`` [gb, prompt_len]; ``pos`` an int, or
+    arrays or tensors): ``tokens`` [gb, prompt_len] (or float embeddings
+    [gb, prompt_len, d_model], a vision prefill); ``pos`` an int, or
     [gb] per slot; optional ``slot_mask`` [gb] and ``page_tables`` [gb,
     max_seq // page_size] (shard-local page ids). Each rank takes its
     shard's rows. ``tokens`` come back int32 [gb] and ``logits`` float32
@@ -307,11 +310,15 @@ def make_serve_step(rt: Runtime, shape_cfg, *, prompt_len: int = 1,
         return a[rows].to(device=dev, dtype=dtype)
 
     def step(params, caches, batch):
-        if tuple(np.shape(batch["tokens"])) != (gb, prompt_len):
-            raise ValueError(f"batch['tokens'] is "
-                             f"{tuple(np.shape(batch['tokens']))}, the "
-                             f"step takes [{gb}, {prompt_len}]")
-        b = {"tokens": local(batch["tokens"], torch.int32)}
+        toks = batch["tokens"]
+        toks = toks if isinstance(toks, torch.Tensor) else torch.as_tensor(
+            np.asarray(toks))
+        flt = toks.is_floating_point()   # a vision prefill's embeddings
+        want = (gb, prompt_len) + ((rt.cfg.d_model,) if flt else ())
+        if tuple(toks.shape) != want:
+            raise ValueError(f"batch['tokens'] is {tuple(toks.shape)}, "
+                             f"the step takes {list(want)}")
+        b = {"tokens": local(toks, torch.float32 if flt else torch.int32)}
         pos = batch.get("pos", 0)
         b["pos"] = (local(pos, torch.int32) if np.ndim(pos) == 1
                     else int(pos))

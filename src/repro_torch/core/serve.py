@@ -154,8 +154,10 @@ def serve_step(cfg, rc, geo, params, caches, batch, *, rope,
                write_rows=None):
     """One prefill chunk (s > 1) or decode step (s == 1) over every row.
 
-    ``batch``: ``tokens`` int [b, s] on the device; ``pos`` an int (every
-    row at the same position) or an int [b] tensor (per slot);
+    ``batch``: ``tokens`` int [b, s] on the device (or a vision
+    prefill's float embeddings [b, s, d], which go in as they are);
+    ``pos`` an int (every row at the same position) or an int [b] tensor
+    (per slot);
     optional ``slot_mask`` bool [b] (rows allowed to write their cache;
     ``write_rows`` is its index form, if the caller has it) and
     ``page_tables`` int [b, ppr] for paged caches. Returns ``(tokens,

@@ -141,6 +141,10 @@ class Tape:
                 tuple(pnames), inputs, outs_t))
         return out_vals[0] if n_out == 1 else out_vals
 
+    def add(self, a: TVal, b: TVal) -> TVal:
+        """``a + b`` as a prim."""
+        return self.prim(lambda x, y: x + y, a, b)
+
     def elementwise(self, fn: Callable, x: TVal) -> TVal:
         """``fn`` applied to one value (an activation), as a prim."""
         return self.prim(fn, x)

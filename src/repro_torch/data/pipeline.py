@@ -1,9 +1,12 @@
 """Deterministic synthetic token pipeline (numpy only).
 
 The port's copy of ``DataConfig`` and ``SyntheticStream`` from
-``repro/data/pipeline.py`` for token models: sample ``i`` is a function
-of the seed and ``i`` alone, so the port and the reference draw the same
-batches. The modality stubs (enc-dec, vision) come with their blocks.
+``repro/data/pipeline.py`` for token models and the vision stub: sample
+``i`` is a function of the seed and ``i`` alone, so the port and the
+reference draw the same batches. A ``vision`` sample's ``tokens`` are
+float patch embeddings [s, d_model], drawn after the same token draws as
+the reference's. The enc-dec kind (the audio stub's frames) comes with
+the encoder-decoder (ROADMAP.md queue 1 item 6d).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ class DataConfig:
     global_batch: int
     vocab: int
     seed: int = 0
+    kind: str = "lm"          # lm | vision
+    d_model: int = 0          # for stub embeddings
     structure: int = 97       # synthetic data has learnable structure:
     # token t+1 = (a * token_t + b) % structure-ish mixture + noise
 
@@ -48,7 +53,11 @@ class SyntheticStream:
         noise = rng.random(s + 1) < 0.05
         toks = np.where(noise, rng.integers(0, cfg.vocab, s + 1), toks)
         toks = (toks % cfg.vocab).astype(np.int32)
-        return {"tokens": toks[:-1], "labels": toks[1:]}
+        out = {"tokens": toks[:-1], "labels": toks[1:]}
+        if cfg.kind == "vision":
+            out["tokens"] = rng.standard_normal(
+                (s, cfg.d_model)).astype(np.float32) * 0.1
+        return out
 
     def batch(self, step: int) -> dict[str, np.ndarray]:
         cfg = self.cfg

@@ -18,6 +18,10 @@ Usage:
       --full --device cuda --slots 8 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --full --device cuda --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen2-moe-a2.7b --full --device cuda --slots 8 --page-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi-3-vision-4.2b --full --device cuda --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --backend gloo --data 2 --pp 2 --slots 4 --prefill-chunk 4
   PYTHONPATH=src python -m repro_torch.launch.serve --full --data 2 \\
@@ -63,8 +67,11 @@ session's, so a checkpoint of the one-rank trainer (pp 1) serves with
 gpt-1.5B, 22 layers, d_model 2304, 24 heads of 96, LayerNorm and the
 GELU MLP; yi-9b, minitron-4b and phi4-mini-3.8b at full depth;
 jamba-v0.1-52b: d_model 4096 at depth 8, one period of its layer
-pattern, as ``one_card_config()`` cuts it); without it the reduced
-smoke config runs. Jamba's Mamba layers keep
+pattern, as ``one_card_config()`` cuts it; qwen2-moe-a2.7b at full depth,
+60 experts and the shared FFN, 28.6 GB; phi-3-vision-4.2b at full depth,
+serving token-id prompts as the reference's engine does: a float patch
+prefill goes through ``Session.serve_step_batched``); without it the
+reduced smoke config runs. Jamba's Mamba layers keep
 per-slot state, so ``--page-size`` and ``--prefill-chunk`` are refused
 for it.
 """

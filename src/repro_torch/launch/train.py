@@ -13,6 +13,12 @@ Prints one line a step (loss, grad norm, step ms, tokens/s) and
       --arch jamba-v0.1-52b --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-v0.1-52b --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen2-moe-a2.7b --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen2-moe-a2.7b --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch phi-3-vision-4.2b --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --backend gloo --data 2 --pp 2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --data 2 \\
@@ -43,9 +49,12 @@ schedule and how it was found (a search, or a hit of the plan cache,
 16 layers, d_model 2048, vocab 128256, 4 sequences of 2048 a step;
 gpt_paper: gpt-1.5B, 22 layers, d_model 2304, vocab 50304, 8 sequences
 of 1024 a step; jamba-v0.1-52b: its widths cut to 2 layers and 8
-experts, vpp 1, 4 sequences of 4096 a step; bf16, random weights from
-seed 0); without it the reduced smoke config. The default device is the
-card.
+experts, vpp 1, 4 sequences of 4096 a step; qwen2-moe-a2.7b: its widths,
+all 60 experts and the shared FFN, cut to 3 layers, vpp 1, 4 sequences of
+4096 a step; phi-3-vision-4.2b: its widths cut to 16 layers, 4 sequences
+of 4096 float patch embeddings a step (the vision stub: the table takes
+no gradient); bf16, random weights from seed 0); without it the reduced
+smoke config. The default device is the card.
 
 ``--data D --pp P [--groups G] [--pods Q]`` trains on Q * D * G * P
 ranks (pods replicate the parameters and all-reduce the gradients):

@@ -421,7 +421,45 @@ def _route(logits: torch.Tensor, mo, cap: int):
     rank = torch.cumsum(flat_oh, dim=0) - flat_oh
     slot = (rank * flat_oh).sum(-1).reshape(n, K)
     slot = torch.where(slot < cap, slot, cap)
+    if _PINNED:
+        box = _PINNED[-1]
+        if box["replay"]:
+            if box["next"] >= len(box["picks"]):
+                raise ValueError("pinned_routing: more routing calls than "
+                                 "the recorded run made")
+            topi, slot = box["picks"][box["next"]]
+            if topi.shape != (n, K):
+                raise ValueError(f"pinned_routing: call {box['next']} routes "
+                                 f"[{n}, {K}], the recorded run "
+                                 f"{list(topi.shape)}")
+            box["next"] += 1
+            topw = probs.gather(1, topi)
+            topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+        else:
+            box["picks"].append((topi, slot))
     return topw, topi, slot
+
+
+_PINNED: list[dict] = []
+
+
+@contextlib.contextmanager
+def pinned_routing(picks: list | None = None):
+    """Pin every routing call's discrete decisions while open, to hold two
+    runs of a MoE model to each other where its routers sit at near ties
+    (random weights: one bf16 rounding flips a token's top-k set, and the
+    flips compound over the layers). With ``picks`` None it records each
+    call's expert ids and capacity slots, in call order, into the yielded
+    list; given that list from a run on the same shapes, it replays them
+    call by call, with the weights renormalised from this run's router
+    probabilities at the pinned ids (so they stay differentiable)."""
+    box = {"picks": [] if picks is None else picks,
+           "replay": picks is not None, "next": 0}
+    _PINNED.append(box)
+    try:
+        yield box["picks"]
+    finally:
+        _PINNED.remove(box)
 
 
 _DROP_COUNTS: list[dict] = []
@@ -445,7 +483,7 @@ def counting_drops():
 
 def apply_moe(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> tuple[TVal, TVal]:
     """The gathered top-k MoE FFN on the tape (the reference's
-    ``apply_moe`` without expert parallelism, shared experts or stats).
+    ``apply_moe`` without expert parallelism or stats).
     Returns (y, aux): aux is the Switch load-balance term, E times the sum
     over experts of (share of first picks) x (mean probability).
 
@@ -456,13 +494,10 @@ def apply_moe(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> tuple[TVal, TVal]:
     dropped picks and is cut off), the three expert banks are dense nodes
     (dW deferred to W), and combine gathers each pick's output through the
     drop slot (zeros for a dropped pick), weighted by its routing
-    weight."""
+    weight. With shared experts (``n_shared``) every token also runs the
+    shared SwiGLU FFN: its three banks are dense nodes, and its output is
+    added to the routed one."""
     mo = ctx.cfg.moe
-    if mo.n_shared:
-        raise NotImplementedError(
-            f"{ctx.cfg.name}: training MoE layers with shared experts "
-            "(n_shared) arrives with the remaining blocks (ROADMAP.md queue "
-            "1 item 6)")
     b, s, d = x.shape
     n = b * s
     cap = _capacity(n, mo)
@@ -505,7 +540,13 @@ def apply_moe(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> tuple[TVal, TVal]:
         out = (gathered * wv[..., None].to(yv.dtype)).sum(dim=1)
         return out.reshape(b, s, d)
 
-    return t.prim(combine, ye, topw), aux
+    y = t.prim(combine, ye, topw)
+    if mo.n_shared:
+        g2 = t.dense(x, f"{pfx}.s_wg", "bsd,df->bsf")
+        u2 = t.dense(x, f"{pfx}.s_wu", "bsd,df->bsf")
+        h2 = t.prim(lambda a, b2: F.silu(a) * b2, g2, u2)
+        y = t.add(y, t.dense(h2, f"{pfx}.s_wd", "bsf,fd->bsd"))
+    return y, aux
 
 
 def moe_fwd(ctx, params, pfx, x):

@@ -12,8 +12,11 @@ mixer and a SwiGLU, GELU-MLP or gathered-MoE FFN (``attn:dense``,
 ``attn:moe``, ``mamba:dense``, ``mamba:moe``), RMSNorm or LayerNorm, and
 a tied or untied head. Serving and training run all four kinds with
 either norm, either dense MLP and either head; a MoE layer's router adds
-its load-balance term to the stage's auxiliary loss. Any other layer
-kind or variant raises ``NotImplementedError``.
+its load-balance term to the stage's auxiliary loss, and its shared
+experts (``n_shared``) add a SwiGLU FFN that every token runs. A vision
+config (``frontend="vision"``) takes float patch embeddings [b, s, d] in
+place of token ids, as the reference's stub does. Any other layer kind
+or variant raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ from repro_torch.models.common import (
     torch_dtype,
 )
 
-_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; MLA, "
-               "xLSTM, enc-dec and the other variants arrive in later "
-               "slices (ROADMAP.md queue 1)")
+_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; xLSTM, "
+               "the encoder-decoder with the audio stub, and MLA with the "
+               "MTP head arrive in later slices (ROADMAP.md queue 1 items "
+               "6c-6e)")
 _SERVE_KINDS = ("attn:dense", "attn:moe", "mamba:dense", "mamba:moe")
 
 # --------------------------------------------------------------------------- #
@@ -73,7 +77,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     missing = [what for what, bad in (
         ("the encoder-decoder", cfg.encdec is not None),
         ("the MTP head", cfg.mtp),
-        (f"the {cfg.frontend} frontend", cfg.frontend is not None)) if bad]
+        (f"the {cfg.frontend} frontend",
+         cfg.frontend not in (None, "vision"))) if bad]
     if missing:
         raise NotImplementedError(_NOT_PORTED.format(
             what=", ".join(missing), name=cfg.name))
@@ -209,8 +214,9 @@ def apply_stage(t: Tape, ctx: blocks.LayerCtx, seg: Segment, x: TVal,
 
 def reference_logits(cfg, rc, params, tokens):
     """Full forward on one device, looping stages in logical order; the
-    plain oracle of the pipeline. Returns (logits [b, s, vocab] in the
-    compute dtype, aux)."""
+    plain oracle of the pipeline. ``tokens`` are ids [b, s] or, for a
+    vision config, float embeddings [b, s, d]. Returns (logits [b, s,
+    vocab] in the compute dtype, aux)."""
     geo = build_geometry(cfg, rc)
     dtype = torch_dtype(rc.compute_dtype)
     io = params["io"]
@@ -274,8 +280,11 @@ def layer_cache_spec(cfg, rc, kind, batch, max_seq) -> dict[str, tuple]:
 
 
 def embed_tokens(params, tokens, cfg, dtype):
-    """tokens int [b, s] -> [b, s, d]. Ids are clamped into the table, as
-    a JAX gather clamps out-of-range indices."""
+    """tokens int [b, s] -> [b, s, d], or float embeddings [b, s, d] (the
+    vision stub's patches) cast to ``dtype``. Ids are clamped into the
+    table, as a JAX gather clamps out-of-range indices."""
+    if tokens.is_floating_point():
+        return tokens.to(dtype)
     ids = tokens.long().clamp(0, params["embed.table"].shape[0] - 1)
     return params["embed.table"][ids].to(dtype)
 

@@ -162,6 +162,79 @@ def test_dense_arch_param_specs_equal_reference(arch, full):
         {n: _fields(s) for n, s in jmodel.io_specs(cfg).items()}
 
 
+# the two archs of the MoE-shared-experts and vision-stub slice: their
+# serve (full depth) and train-cut parameter counts, from the ParamSpecs,
+# and their train cuts' depths
+SLICE = {"qwen2-moe-a2.7b": (14_315_587_584, 2_333_988_864, 3),
+         "phi-3-vision-4.2b": (3_821_079_552, 2_009_041_920, 16)}
+
+
+@pytest.mark.parametrize("arch", list(SLICE))
+def test_slice_arch_configs_equal_reference_field_by_field(arch):
+    """``config()`` and ``reduced()`` of qwen2-moe-a2.7b and
+    phi-3-vision-4.2b equal the reference's; the serve run is pp 1 in
+    bf16, the train run zeropp at pp 1; the full-width serve and train
+    sessions count the parameters the config modules' docstrings state,
+    the train cut at its widths (qwen: all 60 experts and the shared
+    FFN); their specs equal the reference's at both."""
+    tmod, jmod = get_arch(arch), jget_arch(arch)
+    assert _fields(tmod.config()) == _fields(jmod.config())
+    for t, j in zip(tmod.reduced(), jmod.reduced()):
+        assert _fields(t) == _fields(j)
+    one = tmod.one_card_run()
+    assert (one.pp, one.vpp, one.microbatches) == (1, 1, 1)
+    assert one.param_dtype == one.compute_dtype == "bfloat16"
+    rc = tmod.one_card_train_run()
+    assert (rc.pp, rc.microbatches, rc.unit, rc.schedule) == (
+        1, 4, 2, "zeropp")
+    assert (tmod.TRAIN_SEQ, tmod.TRAIN_BATCH) == (4096, 4)
+    n_serve, n_train, depth = SLICE[arch]
+    cut = tmod.one_card_train_config()
+    assert cut == dataclasses.replace(tmod.config(), n_layers=depth)
+    s = session(arch, reduced=False, max_seq=64, device="cpu")
+    t = session(arch, mode="train", reduced=False, device="cpu")
+    assert (s.describe()["n_params"], t.describe()["n_params"]) == (
+        n_serve, n_train)
+    assert t.cfg == cut and t.rc == rc
+    assert f"{n_serve:,}" in tmod.one_card_run.__doc__
+    assert f"{n_train:,}" in tmod.one_card_train_config.__doc__
+    for full in (True, False):
+        jcfg = jmod.config() if full else jmod.reduced()[0]
+        tcfg = tmod.config() if full else tmod.reduced()[0]
+        jgeo = jmodel.build_geometry(jcfg, jmod.reduced()[1])
+        tgeo = tmodel.build_geometry(tcfg, tmod.reduced()[1])
+        for js, ts in zip(jgeo.segments, tgeo.segments, strict=True):
+            assert _fields(ts) == _fields(js)
+            assert {n: _fields(x) for n, x in tmodel.stage_specs(
+                tcfg, ts).items()} == {n: _fields(x) for n, x in
+                                       jmodel.stage_specs(jcfg, js).items()}
+        assert {n: _fields(x) for n, x in tmodel.io_specs(tcfg).items()} \
+            == {n: _fields(x) for n, x in jmodel.io_specs(jcfg).items()}
+
+
+def test_every_reference_id_of_a_registered_arch_resolves():
+    """Each canonical name and alias of the reference's registry resolves
+    in the port to the same architecture, wherever the port registers
+    it: 8 of the reference's 11. The other three are refused, naming the
+    roadmap items that bring them."""
+    from repro.api import registry as jreg
+    from repro_torch.api import registry as treg
+    assert len(treg.list_archs()) == 8
+    ported = set(treg.list_archs())
+    missing = set()
+    for name, aliases in jreg._BUILTIN_ARCHS.items():
+        if name not in ported:
+            missing.add(name)
+            for a in (name, *aliases):
+                with pytest.raises(treg.RegistryError, match="6c-6e"):
+                    get_arch(a)
+            continue
+        want = jget_arch(name).config().name
+        for a in (name, *aliases):
+            assert get_arch(a).config().name == want, a
+    assert missing == {"xlstm_1p3b", "whisper_large_v3", "deepseek_v3_671b"}
+
+
 @pytest.mark.parametrize("full,pp", [(False, 1), (False, 2), (True, 1)])
 def test_param_specs_equal_reference(full, pp):
     cfg = jllama.config() if full else jllama.reduced()[0]
@@ -233,7 +306,7 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
     with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", mode="train", device="cpu", data=2)
     with pytest.raises(SessionError, match="unknown architecture"):
-        session("qwen2-moe-a2.7b", max_seq=16, device="cpu")
+        session("xlstm-1.3b", max_seq=16, device="cpu")
     # a serve session on a mesh, too (multi-rank serving)
     with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", max_seq=16, data=2, device="cpu")

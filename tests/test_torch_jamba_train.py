@@ -7,7 +7,7 @@
   the reference blocks on the reference tape (``jax.vjp`` inside its
   prims): outputs, the input cotangent, the immediate grads, the W
   stash's grads and the router's aux, with a capacity small enough that
-  picks drop;
+  picks drop, and ``apply_moe`` with one shared FFN;
 * one reduced-Jamba train step at one micro-batch against
   ``jax.value_and_grad(reference_loss)`` (loss + weight * aux, every
   grad), and at two micro-batches, 4 layers, vpp 2 against the JAX
@@ -220,15 +220,26 @@ def test_tape_blocks_equal_reference_blocks(which, cf):
 
 
 def test_tape_moe_refuses_shared_experts():
-    """Shared experts train with the remaining blocks (queue 1 item 6)."""
+    """Shared experts train: reduced Jamba's MoE layer with one shared
+    FFN (of 2 x d_ff_expert, the width the specs derive) on the tape in
+    mode bwd against the reference block: y, aux, dx and every dW, the
+    shared banks' among them."""
     cfg, rc = jget_arch(ARCH).reduced()
-    cfg = _tcfg(dataclasses.replace(
-        cfg, moe=dataclasses.replace(cfg.moe, n_shared=1)))
-    t = ttape.Tape({}, mode="fwd")
-    x = t.value(torch.zeros(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tblocks.apply_moe(t, tblocks.LayerCtx(cfg=cfg, rc=_trc(rc), rope={}),
-                          "L1.ffn", x)
+    cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, n_shared=1))
+    params = _layer_params(cfg, rc, seed=2)
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 16, cfg.d_model).astype(np.float32)
+    dy = rng.randn(2, 16, cfg.d_model).astype(np.float32)
+    (jy, jaux, jdx, _, jdw), (ty, taux, tdx, _, tdw) = _run_block(
+        "moe", cfg, rc, params, x, dy, aux_seed=0.3)
+    assert _rel(ty.numpy(), jy) <= BLOCK_RTOL
+    assert _rel(tdx.numpy(), jdx) <= BLOCK_RTOL
+    assert abs(float(taux) - float(jaux)) <= 1e-6 * abs(float(jaux))
+    assert {"L1.ffn.s_wg", "L1.ffn.s_wu", "L1.ffn.s_wd"} <= set(tdw)
+    assert set(tdw) == set(jdw)
+    for n in jdw:
+        assert _rel(tdw[n].numpy(), jdw[n]) <= BLOCK_RTOL, n
 
 
 def test_counting_drops_counts_forward_routing_only():

@@ -138,6 +138,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
 from repro_torch.configs import jamba_v0p1_52b as tjamba  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
+from repro_torch.configs import qwen2_moe_a2p7b as tqwen  # noqa: E402
 from repro_torch.core.comm import MeshShape  # noqa: E402
 from repro_torch.core.pipeline import Runtime  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -213,6 +214,11 @@ SERVE_CLI = dict(name="serve_cli_d2_pp2", kind="serve_cli")
 # single-device forward run per sequence, which is what the pipeline's
 # micro-batches see (the router's capacity and aux are per micro-batch)
 JAMBA = dict(name="jamba_d2_g2", arch="jamba-v0.1-52b", data=2, groups=2)
+# reduced qwen2-moe (3 attn:moe layers, padded to 4, each with a shared
+# FFN in the flat slab) trained on data 2 x pp 2, four micro-batches of
+# one sequence a rank: held, as the Jamba case is, to the reference's
+# forward run per sequence at the case's stage layout
+QWEN = dict(name="qwen_d2_pp2", arch="qwen2-moe-a2.7b", data=2, pp=2)
 # the int8 rule of the reference's flat_int8 case: max |int8 - float32|
 # over every gradient, over the float32 run's global max |g|
 INT8_RULE = 0.02
@@ -303,12 +309,31 @@ def _jamba_case():
                          params=_numpy_params(cfg, rc, rng), batch=batch)
 
 
-def _jax_per_sequence(case):
+def _qwen_case():
+    """The qwen data 2 x pp 2 case: (cfg, rc, case)."""
+    cfg, rc = tqwen.reduced()
+    rc = dataclasses.replace(rc, pp=QWEN["pp"], vpp=1, schedule="zeropp",
+                             microbatches=MB, unit=UNIT)
+    gb = QWEN["data"] * MB
+    rng = np.random.RandomState(13)
+    batch = {k: rng.randint(0, cfg.vocab, (gb, SEQ)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    ov = dict(pp=QWEN["pp"], vpp=1, schedule="zeropp", microbatches=MB,
+              unit=UNIT)
+    case = dict(name=QWEN["name"], kind="train", arch=QWEN["arch"],
+                data=QWEN["data"], pods=1, seq=SEQ, overrides=ov,
+                optim=OPTIM, params=_numpy_params(cfg, rc, rng),
+                batch=batch)
+    return cfg, rc, case
+
+
+def _jax_per_sequence(case, rc):
     """The reference's loss over one-sequence micro-batches: the mean
     token cross-entropy of ``reference_logits`` run on each sequence
     alone, plus router_aux_weight times the mean of their aux; with its
-    gradients and the aux sum."""
-    jcfg, jrc = jmodel.get_arch(case["arch"]).reduced()
+    gradients and the aux sum. ``rc`` gives the stage layout the case's
+    params are stacked in."""
+    jcfg, jrc = _jax_configs(case["arch"], rc)
     w = jcfg.moe.router_aux_weight
 
     def loss(p, tokens, labels):
@@ -637,6 +662,7 @@ def results(tmp_path_factory):
     serves = {n: _serve_case(n) for n in SERVE}
     tie = _tie_case()
     jcfg, jrc, jamba = _jamba_case()
+    qcfg, qrc, qwen = _qwen_case()
     cli = dict(SERVE_CLI, report=os.path.join(tmp, "serve_cli.json"))
     cli["argv"] = ["--device", "cpu", "--data", "2", "--pp", "2",
                    "--slots", "4", "--n-requests", "3", "--prompt", "6",
@@ -645,11 +671,14 @@ def results(tmp_path_factory):
                    cli["report"]]
     ctx = _spawn([c for _, _, c in built.values()] + variants + autos
                  + [_embed_case(), int8] + ckpts
-                 + [c for c, _ in serves.values()] + [tie, jamba, cli], tmp)
+                 + [c for c, _ in serves.values()] + [tie, jamba, qwen, cli],
+                 tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)},
            TIE["name"]: {"ref": _jax_tie(tie)},
            JAMBA["name"]: dict(cfg=jcfg, rc=jrc, case=jamba,
-                               ref=_jax_per_sequence(jamba))}
+                               ref=_jax_per_sequence(jamba, jrc)),
+           QWEN["name"]: dict(cfg=qcfg, rc=qrc,
+                              ref=_jax_per_sequence(qwen, qrc))}
     # the reference engines (and the port's one rank) while the ranks run
     for name, (case, flat) in serves.items():
         out[name] = dict(case=case, ref=_jax_serve(case, flat))
@@ -669,7 +698,7 @@ def results(tmp_path_factory):
         pass
     for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
             EMBED["name"], INT8["name"]] + list(CKPT) + list(SERVE) + [
-            TIE["name"], JAMBA["name"], SERVE_CLI["name"]]:
+            TIE["name"], JAMBA["name"], QWEN["name"], SERVE_CLI["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -777,6 +806,40 @@ def test_multirank_jamba_matches_per_sequence_reference(results):
         got = _get(grads, path)
         assert got.dtype == torch.float32
         assert _rel(_np(got), ref) <= GRAD_RTOL, path
+        n += 1
+    assert n == sum(1 for _ in _leaves(grads))
+
+
+def test_multirank_qwen_shared_experts_match_per_sequence_reference(
+        results):
+    """Reduced qwen2-moe on data 2 x pp 2 (the shared FFN's s_wg / s_wu /
+    s_wd gathered and reduced through the flat slab like the other stage
+    tensors): every rank's loss_sum plus router_aux_weight times aux_sum
+    over the 8 global micro-batches, the aux_sum, and the unsharded
+    gradients against the reference's loss over one-sequence
+    micro-batches (``_jax_per_sequence``), at STEP_RTOL; the global grad
+    norm equal on every rank."""
+    r = results[QWEN["name"]]
+    want, want_aux, ref_grads = r["ref"]
+    w = r["cfg"].moe.router_aux_weight
+    n_mb = QWEN["data"] * MB
+    ranks = r["ranks"]
+    assert want_aux > 0
+    for got in ranks:
+        assert abs(got["aux"] - want_aux) <= STEP_RTOL * want_aux
+        loss = got["loss"] + w * got["aux"] / n_mb
+        assert abs(loss - want) <= STEP_RTOL * abs(want)
+    assert len({g["grad_norm"] for g in ranks}) == 1
+    rt = Runtime(r["cfg"], r["rc"], "cpu", MeshShape(QWEN["data"],
+                                                     QWEN["pp"], 1, 1))
+    assert {"L0.ffn.s_wg", "L0.ffn.s_wu", "L0.ffn.s_wd"} <= \
+        set(rt.gatherable["main"])
+    grads = tparams.unshard(rt, [g["grads"] for g in ranks])
+    n = 0
+    for path, ref in _leaves(ref_grads):
+        got = _get(grads, path)
+        assert got.dtype == torch.float32
+        assert _rel(_np(got), ref) <= STEP_RTOL, path
         n += 1
     assert n == sum(1 for _ in _leaves(grads))
 

@@ -4,7 +4,7 @@
 Runs phases of the checkout at ``TREE`` (its own ``chip_smoke.py`` and
 ``src/``): ``train_phase`` for llama3.2-1b and then gpt-1.5B, or the
 cells named in a third argument, a comma-separated list of
-llama3.2-1b, gpt_paper, jamba-v0.1-52b (``jamba_train_phase``),
+llama3.2-1b, gpt_paper, jamba-v0.1-52b (``cut_train_phase``),
 multirank (``multirank_phase``: llama3.2-1b trained on four gloo ranks)
 and serve_multirank (``serve_multirank_phase``: served on four gloo
 ranks in each of the checkout's layouts), with nothing else in the
@@ -44,7 +44,7 @@ def main() -> None:
     cs.OUT.mkdir(parents=True, exist_ok=True)
     build.build_all()
     cells = {c["arch"]: (c, cs.train_phase) for c in (cs.LLAMA, cs.GPT)}
-    cells[cs.JAMBA_TRAIN["arch"]] = (cs.JAMBA_TRAIN, cs.jamba_train_phase)
+    cells[cs.JAMBA_TRAIN["arch"]] = (cs.JAMBA_TRAIN, cs.cut_train_phase)
     cells["multirank"] = (cs.MULTI, cs.multirank_phase)
     cells["serve_multirank"] = (cs.SERVE_MULTI, cs.serve_multirank_phase)
     names = (sys.argv[3].split(",") if len(sys.argv) > 3
