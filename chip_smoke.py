@@ -10,13 +10,13 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
 
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints the build time, and
-   for the entry functions of the attention kernels, K2 and K5 their
+   for the entry functions of the attention kernels, K2, K5 and K6 their
    registers and spills (ptxas) and tensor-core instructions
    (``cuobjdump -sass``): the serving kernels' bf16 entries at every
    head width (K3 causal and window + stats at 64, 96 and 128, K4 over
    bf16 and int8 pages at 64, 96 and 128), K2's in both head layouts
    and K1/K1b's at head dims 96 and 128 must hold HGMMA (wgmma), and
-   those K2 and K1/K1b entries and K5's must not spill;
+   those K2 and K1/K1b entries and K5's, K6's and K6b's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
    kernels at each serve cell's shapes (llama3.2-1b's e 64: K3 causal
@@ -43,7 +43,12 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    vocabulary tile holds 64 columns: the first rows take its labels, and
    the kernel run over the head without them must fail the check), K3
    and K4 at qwen's serve cell (8 rows, 16 heads of 128, MHA) and K3 at
-   phi3's (32 heads of 96, MHA) — each timed beside
+   phi3's (32 heads of 96, MHA), the sLSTM kernels in bf16 at xlstm's
+   shapes (4 heads of 512): K6 at one training micro-batch (2 x 2048
+   steps) saving the states, K6b from them, K6 at the serve prefill (8 x
+   512) and one decode step with the state in and out, with the
+   design's sequential floor (K6 and K6b on one warp), and K2 over
+   xlstm's untied head [2048, 50304] at 4096 rows — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
@@ -63,7 +68,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    K2's float32 outputs within 1e-4 of the plain tensor's largest value
    (1e-5 relative for its loss; the bf16 body splits h and dlog into
    two bf16 terms each to hold that rule on the tensor cores); K5's y
-   and final state within 1e-5 of the plain tensor's largest value, and
+   and final state within 1e-5 of the plain tensor's largest value; K6's
+   and K6b's bf16 outputs each element within one bf16 ulp of the plain
+   value, their float32 states within 1e-5 of the largest, two K6b runs
+   equal bit for bit; and
    K5 chained over two halves with h0 equal bit for bit to one pass over
    the whole; K5's phase also logs its resident warps an SM (ptxas
    registers and block size, and the CUDA occupancy query) and its MUFU
@@ -85,10 +93,12 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    (K2 over a shard, whose shards' statistics, combined with a max and a
    sum, must also equal the whole-vocab K2's loss, dh and dW), B and C
    swapped (K5; K5b too, and x's channels rolled by one and A's sign
-   flipped, a non-finite reading failing the rule); at e 96 (128-wide tiles, zero pad columns) q, K and V
-   with NaN in the first 32 columns of every odd head must leave the
-   even heads' K3/K4 outputs finite and within the rule (a 128-wide
-   read would run into the next head);
+   flipped, a non-finite reading failing the rule), the gates' i and f
+   swapped (K6) and the saved states shifted by a step (K6b); at e 96
+   (128-wide tiles, zero pad columns) q, K and V with NaN in the first
+   32 columns of every odd head must leave the even heads' K3/K4
+   outputs finite and within the rule (a 128-wide read would run into
+   the next head);
 3. serve phases: llama3.2-1b at full published width (16 layers, d_model
    2048, bf16, random weights from a seeded generator) through the port's
    ``ServeEngine``, 8 slots, ``max_seq`` 2048, 16 requests with prompts of
@@ -159,7 +169,18 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    ``[train phi-3-vision-4.2b]``: the widths cut to 16 layers (2.01 B
    parameters) on 4 x 4096 float patch embeddings by the same rules,
    ``embed.table``'s step-1 gradient exactly 0 in both runs, K1 128, K1b
-   64 and K2 8 times a step; then one
+   64 and K2 8 times a step; ``[serve xlstm-1.3b]``: all 48 layers (40
+   mLSTM, 8 sLSTM, no FFN; 6.8 GB of weights, 5.4 GB of float32 state)
+   through the engine on the same requests, contiguous only, K6 launched
+   8 times a step (prefill and decode), the first step's logits held
+   against the plain versions in float32 compute on the same weights
+   cast up (the bf16 reading logged: bf16 rounding alone puts the plain
+   versions 0.68 of max |logit| from float32 on these weights), its
+   decode traced; ``[train xlstm-1.3b]``: the widths cut to 24 layers
+   (1.80 B parameters; vpp 2, 8 x 2048 tokens) by the cut cells' rule,
+   K6 32, K6b 16 and K2 8 times a step, step 1 against the plain
+   versions at one period of 6 layers (vpp 1) with the sLSTM layer's
+   leaves held by Jamba's leaf rule; then one
    training step of each training model (llama, gpt-1.5B, Jamba's cut)
    on fresh params under the profiler (device busy share, kernels by
    device time, launches a step, and the device time of K1, K1b, K2, K5
@@ -279,7 +300,8 @@ XENT_PASSES = {"split": ("xent_split",),
 SERVE_KERNELS = {"K3 slotted_attention": ("slotted_tc", "slotted_kernel"),
                  "K4 paged_attention": ("paged_tc", "paged_kernel"),
                  "K3/K4 key-split combine": ("combine_e",),
-                 "K5 selective_scan": ("::scan_kernel<",)}
+                 "K5 selective_scan": ("::scan_kernel<",),
+                 "K6 slstm_scan": ("slstm_fwd_kernel<",)}
 SLOTTED = dict(route="cuda",
                source="src/repro_torch/kernels/csrc/slotted_attention.cu",
                replaces="src/repro/kernels/paged_attention.py:117")
@@ -386,6 +408,57 @@ PHI3_TRAIN = dict(arch=PHI3, seq=4096, global_batch=4, vocab=32064,
                             "flash_attention_bwd": 64, "fused_xent": 8},
                   loss0=math.log(32064) + 0.5, zero_embed=True,
                   cuts="depth 32 -> 16 (80 GB card)")
+# the xLSTM cells. Serving: xlstm-1.3b at full width and depth, 48
+# layers (40 mLSTM, 8 sLSTM, no FFN; 6.8 GB of bf16 weights and 5.4 GB
+# of float32 recurrent state at 8 slots), contiguous caches only (the
+# recurrent state has no pages): K6 launches once a step per sLSTM layer,
+# prefill and decode alike. Training: the published widths cut to 24
+# layers (20 mLSTM, 4 sLSTM; 1.80 B parameters), zeropp, vpp 2 (k = 12),
+# 4 micro-batches of two 2048-token sequences in units of 2. A step
+# launches K6 4 x 4 x 2 times (F and B's recompute), K6b 4 x 4 and K2 2 x
+# 4 over the untied [2048, 50304] head; the mLSTM's scans are plain
+# PyTorch on every device. Step 1 by the cut cells' rule, and the
+# sLSTM layer's leaves (L5: w_gates, g_bias, w_out) by Jamba's leaf
+# rule, at one period of 6 layers (5 mLSTM, then the sLSTM; vpp 1, its
+# own params from seed 0): the plain run's sLSTM is a Python loop of ~15
+# launches a step (tens of seconds a step at 24 layers), and in bf16 the
+# mLSTM's normaliser amplifies rounding from layer to layer (on these
+# random weights the plain bf16 serve step reads 0.68 of max |logit|
+# from a float32 one, tools/serve_gap.py): at 24 layers one-ulp
+# differences in K6's output move those leaves past the rule, at 6
+# layers they read 1.3e-3 to 2.7e-3 on the H100
+XLSTM, SLSTM_LAYERS = "xlstm-1.3b", 8
+XLSTM_TRAIN = dict(arch=XLSTM, seq=2048, global_batch=8, vocab=50304,
+                   d_model=2048, steps=3,
+                   launches={"slstm_scan": 32, "slstm_scan_bwd": 16,
+                             "fused_xent": 8},
+                   loss0=math.log(50304) + 0.5, leaves="L5.mix.",
+                   step1_layers=6,
+                   cuts="depth 48 -> 24 (80 GB card)")
+# the serve cells whose first-step check runs in float32 compute (the
+# weights cast up), the bf16 reading logged: xlstm-1.3b's bf16 rounding
+# alone puts the plain versions 0.68 of max |logit| from float32 (see
+# XLSTM_TRAIN), 13x the serve rule
+FIRST_STEP_F32 = {XLSTM}
+SLSTM = dict(route="cuda",
+             source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+             replaces="src/repro/kernels/ref.py:419")
+# K6 / K6b shapes: one training micro-batch (2 x 2048 steps), the serve
+# cell's prefill (8 slots x 512 steps, the longest prompt) and decode
+# (one step), 4 heads of 512
+SLSTM_SHAPES = {"train": (2, 2048), "prefill": (8, 512), "decode": (8, 1)}
+SLSTM_H, SLSTM_E = 4, 512
+# float32 outputs of K6 / K6b (the saved and final states, the initial
+# state's cotangent) within SLSTM_RTOL of max |plain|: the same float32
+# operations in the same order, with other exp / tanh / log1p; bf16
+# outputs (y, dgates) each within one bf16 ulp of the plain value
+# (|diff| <= 2^-7 (|plain| + mean |plain|), tests/test_torch_cuda.py's
+# rule), both rounding the same float32 value
+SLSTM_RTOL = 1e-5
+# float operations a channel and step counted for the bound (each exp,
+# log1p, tanh and division one): the forward's cell ~25, the backward's
+# recompute and reverse step ~60
+SLSTM_FLOPS = {"fwd": 25, "bwd": 60}
 # the phi-3-vision serve cell's float prefill: 8 rows of 256 patch
 # embeddings from the stream, then 32 greedy decode steps
 VISION_PREFILL, VISION_DECODE = 256, 32
@@ -397,7 +470,9 @@ TRAIN_KERNELS = {"K1 flash_attention_fwd": ("flash_fwd_tc",),
                  "K5b selective_scan_bwd": tuple(
                      f"(anonymous namespace)::{k}" for k in (
                          "chunk_kernel<", "carry_kernel(", "bwd_kernel<",
-                         "reduce_kernel<"))}
+                         "reduce_kernel<")),
+                 "K6 slstm_scan": ("slstm_fwd_kernel<",),
+                 "K6b slstm_scan_bwd": ("slstm_bwd_kernel<",)}
 # the checkpoint phase: gpt-1.5B's train cell (full width and depth) for
 # 4 steps under the fault-tolerance controller, a checkpoint every 2
 # steps (async, keep 1), a failure injected before step 3 (index), so the
@@ -610,7 +685,8 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
                                    "flash_attention_fwd",
                                    "flash_attention_bwd",
                                    "fused_xent", "selective_scan",
-                                   "selective_scan_bwd")) -> dict:
+                                   "selective_scan_bwd", "slstm_scan")
+                     ) -> dict:
     """Per entry function of the named libraries (keyed "library:name";
     the serving float32 attention bodies' instantiations share one name;
     K1/K1b's are named by their head widths, K2's by their head layout,
@@ -620,7 +696,8 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
     cuobjdump (None where the toolkit has no cuobjdump). Fails if a
     serving kernel's (the window contract's included), K2's (either head
     layout) or a 96- or 128-wide K1/K1b bf16 tensor-core entry has no
-    HGMMA, or one of those K2 or K1/K1b entries or a K5 entry spills."""
+    HGMMA, or one of those K2 or K1/K1b entries or a K5, K6 or K6b entry
+    spills."""
     import os
     import re
 
@@ -636,6 +713,11 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
                       r"dlog_kernel|dw_kernel|dh_kernel)ILi([01])E")
 
     def name_of(lib, mangled):
+        m = re.search(r"(slstm_fwd_kernel|slstm_bwd_kernel)I(13__nv_bfloat16"
+                      r"|f)E", mangled)
+        if m:    # K6 / K6b by the gates' dtype
+            return (f"{lib}:{m.group(1)}"
+                    f"<{'bf16' if 'bfloat' in m.group(2) else 'float'}>")
         m = re.search(r"(chunk_kernel|bwd_kernel|reduce_kernel)ILi(\d+)E",
                       mangled)
         if m:    # K5b: its templated kernels by state size
@@ -711,6 +793,13 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
     if not scan:
         fail("the selective_scan build has no scan_kernel entry")
     for k in scan:
+        if res[k].get("spill_bytes"):
+            fail(f"{k} spills {res[k]['spill_bytes']} bytes")
+    slstm = [k for k in res if k.startswith("slstm_scan:slstm_")]
+    if len(slstm) != 4:
+        fail(f"the slstm_scan build has entries {slstm}, not K6 and K6b in "
+             "float32 and bf16")
+    for k in slstm:
         if res[k].get("spill_bytes"):
             fail(f"{k} spills {res[k]['spill_bytes']} bytes")
     return res
@@ -1869,22 +1958,198 @@ def slice_kernel_phases(torch, flush):
     return out
 
 
+def ulp_err(a, p, what: str) -> float:
+    """max |a - p| of a bf16 output, failing unless each element is within
+    one bf16 ulp of the plain value (|diff| <= 2^-7 (|plain| + mean
+    |plain|))."""
+    a, p = a.float(), p.float()
+    diff = (a - p).abs()
+    limit = 2.0 ** -7 * (p.abs() + p.abs().mean())
+    worst = (diff / limit).max().item()
+    log(f"[kernel]   {what}: max |diff| {diff.max().item():.3e}, max "
+        f"|plain| {p.abs().max().item():.3e}, worst |diff| / one-ulp "
+        f"limit {worst:.4f}")
+    if not worst <= 1.0:
+        fail(f"{what}: kernel off its plain version by {worst} x the "
+             "one-ulp limit")
+    return diff.max().item()
+
+
+def slstm_kernel_phase(torch, flush):
+    """K6 and K6b at the xLSTM paths' shapes (bf16 gates, 4 heads of 512)
+    against their plain versions: K6 at one training micro-batch (2 x
+    2048 steps) saving the states for K6b, as B's recompute runs it; at
+    the serve prefill (8 slots x 512 steps) and one decode step, state in
+    and out; K6b at the training micro-batch from those saved states.
+    Then K2 over xlstm-1.3b's untied head [2048, 50304] at one
+    micro-batch's 4096 rows. Each with the byte bound; the plain
+    versions are Python loops over the steps. Logs the sequential floor
+    of the design (K6 and K6b timed on one warp, 32 channels, at 2048
+    steps: s steps of the dependent chain of one step's arithmetic) and
+    the loop-carried floor (s x the two dependent operations of m' =
+    max(lf + m, i) at 4 clocks each, at the card's maximum SM clock).
+    Probes that must fail: the gates' i and f swapped (K6), the saved
+    states shifted by a step (K6b)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as sl
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, e = SLSTM_H, SLSTM_E
+    results = []
+    shape = sl.launch_shape()
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    mhz = float(clk[0]) if clk and clk[0].isdigit() else None
+
+    def gates(b, s):
+        return torch.randn((b, s, h, 4, e), generator=gen,
+                           device=dev).to(bf16)
+
+    def state(b):
+        return (torch.randn((b, h, e), generator=gen, device=dev),
+                torch.randn((b, h, e), generator=gen, device=dev).abs(),
+                torch.randn((b, h, e), generator=gen, device=dev))
+
+    # K6 at the training micro-batch, saving the states
+    b, s = SLSTM_SHAPES["train"]
+    x = gates(b, s)
+    n_ch = b * s * h * e
+    log(f"[kernel] slstm_scan launch: {shape['threads']} threads a block, "
+        f"one a channel ({b * h * e} channels at the training shape: "
+        f"{-(-b * h * e // shape['threads'])} blocks), register tiles of "
+        f"{shape['tile_fwd']} steps forward, {shape['tile_bwd']} "
+        "backward")
+    log(f"[kernel] slstm_scan:train gates [{b}, {s}, {h}, 4, {e}] bf16, "
+        "states saved (tolerance: y each element within one bf16 ulp; "
+        f"the saved states max |diff| <= {SLSTM_RTOL:g} max |plain|)")
+    record_phase(torch, flush, results, "slstm_scan:train", SLSTM,
+                 lambda: sl.slstm_scan(x, save_states=True),
+                 lambda: ref.slstm_walk(x, None, True),
+                 None, 2 * 4 * n_ch + 2 * n_ch + 12 * n_ch,
+                 SLSTM_FLOPS["fwd"] * n_ch,
+                 lambda a, p: max(ulp_err(a[0], p[0], "y"),
+                                  rel_err(a[1], p[2], SLSTM_RTOL,
+                                          "saved states")),
+                 plain_iters=2, dtype="float32")
+    y, states = sl.slstm_scan(x, save_states=True)
+    log("[kernel] slstm_scan check, the gates' i and f swapped:")
+    bad = sl.slstm_scan(x[:, :, :, [1, 0, 2, 3]].contiguous())
+    diff = (bad.float() - y.float()).abs()
+    if not (diff > 2.0 ** -7 * (y.float().abs()
+                                + y.float().abs().mean())).any():
+        fail("the slstm_scan check passes the gates' i and f swapped")
+    del bad, diff
+
+    # K6b at the training micro-batch, from those states
+    dy = torch.randn((b, s, h, e), generator=gen, device=dev).to(bf16)
+
+    def check_bwd(a, p):
+        err = ulp_err(a[0], p[0], "dgates")
+        scale = max(w.abs().max().item() for w in p[1])
+        d0 = max((g - w).abs().max().item() for g, w in zip(a[1], p[1]))
+        log(f"[kernel]   d(state in): max |diff| {d0:.3e}, max |plain| "
+            f"{scale:.3e}")
+        if not d0 <= SLSTM_RTOL * scale:
+            fail(f"slstm_scan_bwd's d(state in) off the plain version's by "
+                 f"{d0} (max |plain| {scale})")
+        return err
+
+    log(f"[kernel] slstm_scan_bwd:train gates, dy [{b}, {s}, {h}, (4,) "
+        f"{e}] bf16, the saved states (tolerance: dgates each element "
+        f"within one bf16 ulp; d(state in) max |diff| <= {SLSTM_RTOL:g} "
+        "max |plain| of the three)")
+    record_phase(torch, flush, results, "slstm_scan_bwd:train", SLSTM,
+                 lambda: sl.slstm_scan_bwd(x, dy, states),
+                 lambda: ref.slstm_scan_bwd(x, dy, states),
+                 None, 2 * 4 * n_ch + 2 * n_ch + 12 * n_ch + 2 * 4 * n_ch
+                 + 12 * b * h * e, SLSTM_FLOPS["bwd"] * n_ch, check_bwd,
+                 plain_iters=2, dtype="float32")
+    again = sl.slstm_scan_bwd(x, dy, states)[0]
+    same = torch.equal(again, sl.slstm_scan_bwd(x, dy, states)[0])
+    log(f"[kernel] slstm_scan_bwd: two runs bit-identical {same}")
+    if not same:
+        fail("two runs of slstm_scan_bwd differ")
+    log("[kernel] slstm_scan_bwd check, the saved states shifted by a "
+        "step:")
+    bad = sl.slstm_scan_bwd(x, dy, states.roll(1, dims=2).contiguous())[0]
+    diff = (bad.float() - again.float()).abs()
+    if not (diff > 2.0 ** -7 * (again.float().abs()
+                                + again.float().abs().mean())).any():
+        fail("the slstm_scan_bwd check passes the states shifted by a step")
+    del bad, diff, again, y, states, dy
+
+    # the sequential floor: one warp (32 channels) walking s steps
+    xw = torch.randn((1, s, 1, 4, 32), generator=gen, device=dev).to(bf16)
+    yw, sw = sl.slstm_scan(xw, save_states=True)
+    dyw = torch.randn_like(yw)
+    warp = {"fwd": time_ms(torch, lambda: sl.slstm_scan(xw), flush),
+            "fwd_save": time_ms(torch, lambda: sl.slstm_scan(
+                xw, save_states=True), flush),
+            "bwd": time_ms(torch, lambda: sl.slstm_scan_bwd(xw, dyw, sw),
+                           flush)}
+    chain = s * 2 * 4 / (mhz * 1e6) * 1e3 if mhz else None
+    log(f"[kernel] slstm sequential floor at {s} steps: one warp K6 "
+        f"{warp['fwd']:.4f} ms ({warp['fwd_save']:.4f} ms saving the "
+        f"states), K6b {warp['bwd']:.4f} ms ({warp['fwd'] / s * 1e6:.1f} "
+        f"and {warp['bwd'] / s * 1e6:.1f} ns a step); loop-carried chain "
+        + (f"{chain:.4f} ms at {mhz:g} MHz" if chain else "not measured"))
+    for row, key in zip(results, ("fwd_save", "bwd")):
+        row.update(one_warp_ms=warp[key], chain_floor_ms=chain,
+                   sm_clock_max_mhz=mhz, launch=shape)
+    del xw, yw, sw, dyw
+
+    # K6 at the serve prefill and one decode step, state in and out
+    for tag in ("prefill", "decode"):
+        b, s = SLSTM_SHAPES[tag]
+        xs, st = gates(b, s), state(b)
+        n_ch = b * s * h * e
+        log(f"[kernel] slstm_scan:{tag} gates [{b}, {s}, {h}, 4, {e}] "
+            "bf16, state in and out (tolerance: y within one bf16 ulp; "
+            f"the final state max |diff| <= {SLSTM_RTOL:g} max |plain|)")
+        record_phase(
+            torch, flush, results, f"slstm_scan:{tag}", SLSTM,
+            lambda: sl.slstm_scan(xs, state=st, return_state=True),
+            lambda: ref.slstm_scan(xs, state=st, return_state=True),
+            None, 2 * 4 * n_ch + 2 * n_ch + 2 * 12 * b * h * e,
+            SLSTM_FLOPS["fwd"] * n_ch,
+            lambda a, p: max([ulp_err(a[0], p[0], "y")] + [
+                rel_err(g, w, SLSTM_RTOL, f"final {nm}")
+                for g, w, nm in zip(a[1], p[1], "cnm")]),
+            plain_iters=2 if s > 1 else 3, dtype="float32")
+        results[-1].update(sm_clock_max_mhz=mhz, launch=shape)
+        del xs, st
+    c = XLSTM_TRAIN
+    head_xent_phase(torch, flush, results, "xlstm_head",
+                    c["global_batch"] // 4 * c["seq"], c["d_model"],
+                    c["vocab"], seed=12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
 def cut_train_phase(torch, cell):
     """A cut training cell on the card (jamba-v0.1-52b's, qwen2-moe's,
-    phi-3-vision's): step 1 through the kernels and through the plain
-    versions (loss and pre-clip gradient norm; with ``leaves``, each
-    gradient whose name holds it, Jamba's Mamba leaves; with
-    ``zero_embed``, the table's gradient exactly zero in both runs, a
-    float-embedding batch never reading the table; with ``pin_routing``,
-    the plain run replays the kernel run's expert picks), then timed steps
-    with the launch counters set to 0 before them: step ms, tokens/s,
-    peak memory, aux_sum, for a MoE model the dropped assignments (the
-    forward's routing calls), and the cell's kernels' launches a step.
+    phi-3-vision's, xlstm-1.3b's): step 1 through the kernels and
+    through the plain versions (loss and pre-clip gradient norm; with
+    ``leaves``, each gradient whose name holds it, Jamba's Mamba leaves,
+    xlstm's sLSTM leaves; with ``zero_embed``, the table's gradient
+    exactly zero in both runs, a float-embedding batch never reading the
+    table; with ``pin_routing``, the plain run replays the kernel run's
+    expert picks; with ``step1_layers``, step 1 runs at that cut depth,
+    vpp 1, on its own params), then timed steps with the launch counters
+    set to 0 before them: step ms, tokens/s, peak memory, aux_sum, for a
+    MoE model the dropped assignments (the forward's routing calls), and
+    the cell's kernels' launches a step.
     Returns the result row (the session and its state are released)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import slstm_scan as sl
     from repro_torch.models import blocks
 
     tag = f"[train {cell['arch']}]"
@@ -1930,14 +2195,25 @@ def cut_train_phase(torch, cell):
                 if cell.get("leaves") and cell["leaves"] in n_}
 
     # ---- step 1: kernels vs plain versions ------------------------------ #
+    # at a cut depth (vpp 1) where the cell names one, on its own params
+    # from seed 0
+    depth = cell.get("step1_layers")
+    if depth:
+        sess1, plain1 = (train_session(cell, layers=depth, overrides=dict(
+            vpp=1, **extra)) for extra in ({}, dict(kernel_impl="ref")))
+        params1 = sess1.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+    else:
+        sess1, plain1, params1 = sess, plain, params
+    at = f" ({depth} layers, vpp 1)" if depth else ""
     # qwen2-moe's plain run replays the kernel run's expert picks (its
     # router's near ties: see PIN_SERVE)
     rows, leaves, picks = {}, {}, None
-    for name, s_ in (("kernels", sess), ("plain versions", plain)):
+    for name, s_ in (("kernels", sess1), ("plain versions", plain1)):
         t0 = time.perf_counter()
         with (blocks.pinned_routing(picks) if cell.get("pin_routing")
               else contextlib.nullcontext()) as picks:
-            g, m = s_.train_step(params, batch)
+            g, m = s_.train_step(params1, batch)
         torch.cuda.synchronize()
         rows[name] = dict(loss=float(m["loss_sum"]), norm=norm(g),
                           aux=float(m["aux_sum"]),
@@ -1950,7 +2226,7 @@ def cut_train_phase(torch, cell):
         gc.collect()
         torch.cuda.empty_cache()
     k, p = rows["kernels"], rows["plain versions"]
-    log(f"{tag} step 1"
+    log(f"{tag} step 1{at}"
         + (f" (expert picks of {len(picks)} routing calls pinned)"
            if picks is not None else "")
         + f": loss kernels {k['loss']:.6f} ({k['s']:.2f} s), "
@@ -1981,7 +2257,7 @@ def cut_train_phase(torch, cell):
             (leaves["kernels"][n_] - gp).abs().max()) / scale
     if leaf_err:
         worst = max(leaf_err, key=leaf_err.get)
-        log(f"{tag} step 1 leaves '{cell['leaves']}', max |kernels - "
+        log(f"{tag} step 1{at} leaves '{cell['leaves']}', max |kernels - "
             "plain| / max |plain|: "
             + ", ".join(f"{n_} {e_:.3e}"
                         for n_, e_ in sorted(leaf_err.items()))
@@ -1990,7 +2266,7 @@ def cut_train_phase(torch, cell):
             fail(f"step-1 gradient of {worst} is {leaf_err[worst]:.3e} off "
                  f"the plain versions' (tolerance {JAMBA_LEAF_RTOL:g})")
         rows["leaf_err"] = leaf_err
-    del plain, leaves
+    del plain, leaves, sess1, plain1, params1
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1999,7 +2275,7 @@ def cut_train_phase(torch, cell):
     # counts them; B's recompute routes the same tokens again)
     opt = sess.init_opt_state(params)
     torch.cuda.synchronize()
-    for mod in (fa, fx, ss):
+    for mod in (fa, fx, ss, sl):
         mod.reset_launches()
     base = ops.kernel_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -2068,8 +2344,9 @@ def train_launches():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import slstm_scan as sl
 
-    return {**fa.LAUNCHES, **fx.LAUNCHES, **ss.LAUNCHES}
+    return {**fa.LAUNCHES, **fx.LAUNCHES, **ss.LAUNCHES, **sl.LAUNCHES}
 
 
 def train_session(cell, **kw):
@@ -2959,16 +3236,18 @@ def profile_serve(torch, sess, params, layout, kind="decode", steps=5):
 def serve_launches():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import slstm_scan as sl
 
-    return {**pa.LAUNCHES, **ss.LAUNCHES}
+    return {**pa.LAUNCHES, **ss.LAUNCHES, **sl.LAUNCHES}
 
 
 def reset_serve_launches():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import slstm_scan as sl
 
-    pa.reset_launches()
-    ss.reset_launches()
+    for mod in (pa, ss, sl):
+        mod.reset_launches()
 
 
 def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
@@ -2995,17 +3274,40 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
     lg_p, _ = first_step(torch, plain, params, picks)
     if not bool(torch.isfinite(lg_k).all()) or lg_k.shape != (vocab,):
         fail(f"{layout}: first-step logits are not finite [vocab] values")
-    scale = lg_p.abs().max().item()
-    d_plain = (lg_k - lg_p).abs().max().item()
     pinned = (f", expert picks of {len(picks)} routing calls pinned"
               if picks is not None else "")
-    log(f"[serve] {arch} {layout}: first-step logits kernel vs plain "
-        f"versions{pinned}: "
-        f"max |diff| {d_plain:.4e} (max |logit| {scale:.3f}; tolerance "
-        f"0.05 * max |logit|), argmax {int(lg_k.argmax())} vs "
-        f"{int(lg_p.argmax())}")
-    if d_plain > 0.05 * scale:
-        fail(f"{layout}: first-step logits off the plain versions")
+    wide = arch in FIRST_STEP_F32
+
+    def first_check(a, b, label, held):
+        """max |a - b| of the first-step logits, failing by the serve rule
+        where ``held``."""
+        scale = b.abs().max().item()
+        diff = (a - b).abs().max().item()
+        log(f"[serve] {arch} {layout}: first-step logits{label} kernel vs "
+            f"plain versions{pinned}: max |diff| {diff:.4e} (max |logit| "
+            f"{scale:.3f}; "
+            + ("tolerance 0.05 * max |logit|" if held else "recorded")
+            + f"), argmax {int(a.argmax())} vs {int(b.argmax())}")
+        if held and diff > 0.05 * scale:
+            fail(f"{layout}: first-step logits{label} off the plain "
+                 "versions")
+        return diff
+
+    d_plain = first_check(lg_k, lg_p, "", held=not wide)
+    d_f32 = None
+    if wide:
+        # the same weights cast up, both paths in float32 compute
+        ov = dict(param_dtype="float32", compute_dtype="float32")
+        p32 = {"io": {n: t.float() for n, t in params["io"].items()},
+               "segments": {sn: {n: t.float() for n, t in sg.items()}
+                            for sn, sg in params["segments"].items()}}
+        lg32 = [first_step(torch, session(
+            arch, reduced=False, device="cuda", max_slots=SLOTS,
+            max_seq=max_seq, overrides=dict(ov, **extra), **kw), p32)[0]
+            for extra in ({}, dict(kernel_impl="ref"))]
+        del p32
+        torch.cuda.empty_cache()
+        d_f32 = first_check(*lg32, " (float32 compute)", held=True)
 
     times = {"prefill": [], "decode": []}
     step = sess.serve_step_batched
@@ -3041,9 +3343,16 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
         fail(f"{layout}: {st.finished_requests}/{N_REQ} requests finished")
     if any(not 0 <= t < vocab for o in outs for t in o):
         fail(f"{layout}: token ids outside the vocabulary")
-    need = "paged_attention" if layout == "paged" else "slotted_attention"
+    need = ("slstm_scan" if arch == XLSTM else "paged_attention"
+            if layout == "paged" else "slotted_attention")
     if launches[need] == 0:
         fail(f"{layout}: the engine run never launched {need}")
+    if arch == XLSTM and launches[need] != SLSTM_LAYERS * (
+            st.prefill_steps + st.decode_steps):
+        # one K6 launch per sLSTM layer a step, prefill and decode
+        fail(f"{layout}: slstm_scan launched {launches[need]} times in "
+             f"{st.prefill_steps + st.decode_steps} steps, expected "
+             f"{SLSTM_LAYERS} a step")
     if arch == JAMBA:
         # one K5 launch per Mamba layer a prefill step (decode steps take
         # the plain one-step update, which has no kernel), one K3 launch
@@ -3068,7 +3377,8 @@ def serve_phase(torch, layout, params=None, arch=ARCH, max_seq=MAX_SEQ):
         decode_step_ms=sum(times["decode"]) / max(len(times["decode"]), 1),
         max_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
         capacity_deferrals=st.capacity_deferrals,
-        launches=launches, counters=counters, first_logits_vs_plain=d_plain)
+        launches=launches, counters=counters, first_logits_vs_plain=d_plain,
+        first_logits_vs_plain_f32=d_f32)
     log(f"[serve] {arch} {layout}: {N_REQ} requests, "
         f"{st.generated_tokens} tokens "
         f"in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s; "
@@ -3406,6 +3716,7 @@ def main() -> None:
     scan_kernels = scan_kernel_phase(torch, flush, resources)
     jamba_train_kernels = jamba_train_kernel_phases(torch, flush, resources)
     slice_kernels = slice_kernel_phases(torch, flush)
+    slstm_kernels = slstm_kernel_phase(torch, flush)
     mark("kernel phases")
     del flush
     gc.collect()
@@ -3516,6 +3827,24 @@ def main() -> None:
         for row in slice_kernels[cell]:
             row["launches"] = train_["launches"][row["name"].split(":")[0]]
         kernels += slice_kernels[cell]
+    # xlstm-1.3b at full width and depth (48 layers, 6.8 GB of weights,
+    # contiguous caches: K6 at every sLSTM layer of every step), its
+    # decode profiled, then the 24-layer training cut (K6, K6b, K2)
+    xl, _, _, params_x, sess_x = serve_phase(torch, "contiguous", arch=XLSTM)
+    serve.append(xl)
+    profiles.append(profile_serve(torch, sess_x, params_x,
+                                  "xlstm_contiguous", "decode", 5))
+    del params_x, sess_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("serve xlstm-1.3b")
+    train_xlstm = cut_train_phase(torch, XLSTM_TRAIN)
+    mark("train xlstm-1.3b")
+    for row in slstm_kernels:
+        lib, phase = row["name"].split(":")
+        row["launches"] = (xl if phase in ("prefill", "decode")
+                           else train_xlstm)["launches"][lib]
+    kernels += slstm_kernels
     # each serving kernel row reads its wrapper's launches in the serve run
     # of its cell: the phase name's tag and the wrapper pick it
     runs = {("", "slotted_attention"): contig, ("", "paged_attention"): paged,
@@ -3568,7 +3897,8 @@ def main() -> None:
     OUT.joinpath("chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
-         "train": [train, train_gpt, train_jamba, train_qwen, train_phi3],
+         "train": [train, train_gpt, train_jamba, train_qwen, train_phi3,
+                   train_xlstm],
          "ckpt": ckpt,
          "multirank": multirank,
          "auto": auto, "serve_multirank": serve_multi,

@@ -23,7 +23,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("slotted_attention", "paged_attention", "flash_attention_fwd",
            "flash_attention_bwd", "fused_xent", "selective_scan",
-           "selective_scan_bwd")
+           "selective_scan_bwd", "slstm_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,9 @@ SIGNATURES = {
         "selective_scan_bwd": [_P] * 14 + [_I] * 4 + [_P],
         "selective_scan_bwd_workspace": [_I] * 4 + [_P],
         "selective_scan_bwd_occupancy": [_I, _P]},
+    "slstm_scan": {"slstm_scan_fwd": [_P] * 9 + [_I] * 5 + [_P],
+                   "slstm_scan_bwd": [_P] * 10 + [_I] * 5 + [_P],
+                   "slstm_scan_shape": [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -17,9 +17,15 @@ goes to the fused cross-entropy kernel (K2), ``selective_scan`` to the
 selective-scan kernel (K5) and ``selective_scan_train``, the training
 path's differentiable scan, to K5 forward and K5b backward through a
 ``torch.autograd.Function``; ``xent_stats`` / ``xent_grads``, K2's two
-passes apart, serve the vocabulary-sharded loss. ``selective_scan_step``,
+passes apart, serve the vocabulary-sharded loss. ``slstm_scan`` goes to
+the sLSTM kernel (K6) and ``slstm_scan_train``, the training path's
+differentiable sLSTM, to K6 forward and K6b backward. ``selective_scan_step``,
 one decode step of the scan, is plain PyTorch on every device, as in the
-reference (which has no kernel for it either); it is not counted.
+reference (which has no kernel for it either); it is not counted. The
+mLSTM's scans, ``mlstm_chunkwise`` and ``mlstm_step``, are plain PyTorch
+on every device too (float32 products over chunks of 128, a few hundred
+launches a layer); they are counted under their own names, with no
+``ref_`` prefix, since no kernel stands beside them.
 
 Every call bumps a process-wide counter (``kernel_counters``), one count
 per executed call — the port runs eagerly, so there is no trace-time
@@ -35,6 +41,7 @@ from repro_torch.kernels import fused_xent as fx
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as ss
+from repro_torch.kernels import slstm_scan as sl
 
 _COUNTERS: dict[str, int] = {}
 
@@ -152,3 +159,41 @@ def selective_scan_train(x, dt, A, B, C, D, *, impl=None):
 def selective_scan_step(h, x, dt, A, B, C, D):
     """One decode step of the scan (plain PyTorch on every device)."""
     return ref.selective_scan_step(h, x, dt, A, B, C, D)
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk=128, state=None,
+                    return_state=False):
+    """The chunkwise mLSTM (plain PyTorch on every device); see
+    ``ref.mlstm_chunkwise``."""
+    _count("mlstm_chunkwise")
+    return ref.mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk=chunk,
+                               state=state, return_state=return_state)
+
+
+def mlstm_step(state, q, k, v, i_gate, f_gate):
+    """One mLSTM decode step (plain PyTorch on every device)."""
+    _count("mlstm_step")
+    return ref.mlstm_step(state, q, k, v, i_gate, f_gate)
+
+
+def slstm_scan(x_gates, *, state=None, return_state=False, impl=None):
+    """The sLSTM over a sequence (prefill, or one decode step); see
+    ``ref.slstm_scan``."""
+    if not _use_kernel(x_gates, impl):
+        _count("ref_slstm")
+        return ref.slstm_scan(x_gates, state=state,
+                              return_state=return_state)
+    _count("kernel_slstm")
+    if state is not None:
+        state = tuple(t.float().contiguous() for t in state)
+    return sl.slstm_scan(x_gates.contiguous(), state=state,
+                         return_state=return_state)
+
+
+def slstm_scan_train(x_gates, *, impl=None):
+    """The differentiable sLSTM (zero initial state, y only) of the
+    training path: K6 forward and K6b backward on the card, the plain
+    versions on the CPU (``kernel_slstm`` / ``kernel_slstm_bwd`` or
+    ``ref_slstm`` / ``ref_slstm_bwd`` in the counters)."""
+    return sl.scan(x_gates, use_kernel=_use_kernel(x_gates, impl),
+                   count=_count)

@@ -16,13 +16,17 @@ versions by kernel: slotted — ``attention`` with a ``[b]`` ``q_offset``
 ``softmax_xent``, the composition of its two passes ``xent_stats`` and
 ``xent_grads`` (the vocabulary-sharded loss runs them apart); selective
 scan — ``selective_scan``.
-``selective_scan_step`` (one decode step of the scan) has no kernel on
-either side and runs as plain PyTorch on every device.
+sLSTM — ``slstm_scan`` (K6, through ``slstm_walk``) and its gradient
+``slstm_scan_bwd`` (K6b).
+``selective_scan_step`` (one decode step of the scan), ``mlstm_chunkwise``
+and ``mlstm_step`` (the mLSTM's scans) have no kernel on either side and
+run as plain PyTorch on every device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
@@ -441,3 +445,239 @@ def selective_scan_step(h, x, dt, A, B, C, D):
     h_new = g * h + dt[..., None] * B[:, None, :] * x[..., None]
     y = torch.einsum("bdn,bn->bd", h_new, C) + D[None] * x
     return h_new, y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# mLSTM (xLSTM matrix-memory cell), chunkwise-parallel
+# --------------------------------------------------------------------------- #
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, *, chunk=128, state=None,
+                    return_state=False):
+    """Chunkwise mLSTM (``repro/kernels/ref.py mlstm_chunkwise``): within
+    a chunk a quadratic form, across chunks the [b, h, e, e] float32
+    matrix state, stabilised by the running max-log-gate m.
+
+    q, k, v: [b, s, h, e]; i_gate: [b, s, h] (the pre-exp log input
+    gate); f_gate: [b, s, h] (the forget logits, pre-sigmoid). ``state``
+    is (C [b, h, e, e], n [b, h, e], m [b, h]) float32, zeros when None.
+    The state is kept scaled by exp(-m). A ragged last chunk is padded
+    with i = -1e30 (no write) and f = +1e30 (log-sigmoid 0, no decay), so
+    the padding leaves the state as it is. Returns y [b, s, h, e] in
+    q.dtype and, with ``return_state``, the state after step s - 1.
+    """
+    b, s, h, e = q.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        def z(a, cv=0.0):
+            return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad), value=cv)
+
+        q, k, v = z(q), z(k), z(v)
+        i_gate, f_gate = z(i_gate, -1e30), z(f_gate, 1e30)
+    qf = q.float().reshape(b, nc, chunk, h, e) * (e ** -0.5)
+    kf = k.float().reshape(b, nc, chunk, h, e)
+    vf = v.float().reshape(b, nc, chunk, h, e)
+    ig = i_gate.float().reshape(b, nc, chunk, h)
+    fg = F.logsigmoid(f_gate.float()).reshape(b, nc, chunk, h)
+    if state is None:
+        C = torch.zeros((b, h, e, e), dtype=torch.float32, device=q.device)
+        nrm = torch.zeros((b, h, e), dtype=torch.float32, device=q.device)
+        m = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    else:
+        C, nrm, m = state
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()[None, :, :, None]
+    ys = []
+    for j in range(nc):
+        qc, kc, vc, ic, fc = (t[:, j] for t in (qf, kf, vf, ig, fg))
+        Fc = torch.cumsum(fc, dim=1)                     # [b, c, h]
+        # per-position stabiliser m_t = max(m + F_t, F_t + cummax(i - F))
+        Mi = torch.cummax(ic - Fc, dim=1).values
+        m_t = torch.maximum(m[:, None] + Fc, Fc + Mi)
+        w_old = torch.exp(m[:, None] + Fc - m_t)
+        out_inter = torch.einsum("bche,bhef->bchf", qc, C) \
+            * w_old[..., None]
+        nrm_inter = torch.einsum("bche,bhe->bch", qc, nrm) * w_old
+        # pair weights exp(F_t - F_j + i_j - m_t), j <= t: [b, t, j, h]
+        lw = (Fc[:, :, None, :] - Fc[:, None, :, :] + ic[:, None, :, :]
+              - m_t[:, :, None, :])
+        w_pair = torch.where(causal, torch.exp(lw), 0.0)
+        sw = torch.einsum("bche,bjhe->bcjh", qc, kc) * w_pair
+        out_intra = torch.einsum("bcjh,bjhe->bche", sw, vc)
+        nrm_t = nrm_inter + sw.sum(dim=2)
+        denom = torch.maximum(nrm_t.abs(), torch.exp(-m_t))
+        ys.append((out_inter + out_intra) / denom[..., None])
+        # the state at the chunk's end
+        m_end = m_t[:, -1]
+        decay = torch.exp(m + Fc[:, -1] - m_end)
+        w_j = torch.exp(Fc[:, -1:, :] - Fc + ic - m_end[:, None])
+        kw = kc * w_j[..., None]
+        C = C * decay[..., None, None] \
+            + torch.einsum("bche,bchf->bhef", kw, vc)
+        nrm = nrm * decay[..., None] + kw.sum(dim=1)
+        m = m_end
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, h, e)[:, :s]
+    y = y.to(q.dtype)
+    if return_state:
+        return y, (C, nrm, m)
+    return y
+
+
+def mlstm_step(state, q, k, v, i_gate, f_gate):
+    """One mLSTM decode step (``repro/kernels/ref.py mlstm_step``). q, k,
+    v: [b, h, e]; gates [b, h]; state (C, n, m) float32. Returns (the new
+    state, y [b, h, e] in q.dtype)."""
+    C, nrm, m = state
+    e = q.shape[-1]
+    qf = q.float() * (e ** -0.5)
+    ig = i_gate.float()
+    lf = F.logsigmoid(f_gate.float())
+    m_new = torch.maximum(lf + m, ig)
+    i_w = torch.exp(ig - m_new)
+    decay = torch.exp(lf + m - m_new)
+    kw = k.float() * i_w[..., None]
+    C_new = C * decay[..., None, None] \
+        + kw[..., :, None] * v.float()[..., None, :]
+    n_new = nrm * decay[..., None] + kw
+    num = torch.einsum("bhe,bhef->bhf", qf, C_new)
+    den = torch.maximum(torch.einsum("bhe,bhe->bh", qf, n_new).abs(),
+                        torch.exp(-m_new))
+    y = num / den[..., None]
+    return (C_new, n_new, m_new), y.to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# sLSTM (scalar-memory cell with exponential gating), sequential scan
+# --------------------------------------------------------------------------- #
+
+# the clamp of the sLSTM's normaliser (``max(n, 1e-6)``)
+SLSTM_N_MIN = 1e-6
+
+
+def _slstm_zeros(b, h, e, device):
+    z = torch.zeros((b, h, e), dtype=torch.float32, device=device)
+    return z, z, z
+
+
+def slstm_walk(x_gates, state=None, save_states=False):
+    """The sLSTM recurrence one step at a time (the reference's
+    ``lax.scan``), per channel in float32:
+
+      lf = log_sigmoid(f), m' = max(lf + m, i),
+      c' = exp(lf + m - m') c + exp(i - m') tanh(z),
+      n' = exp(lf + m - m') n + exp(i - m'),
+      y = sigmoid(o) c' / max(n', 1e-6).
+
+    x_gates: [b, s, h, 4, e] pre-activations (i, f, z, o). Returns (y
+    [b, s, h, e] in x_gates.dtype, the state after the last step, and
+    with ``save_states`` the state before each step, [3, b, s, h, e]
+    float32 (c, n, m): what K6 saves for K6b; else None)."""
+    b, s, h, _, e = x_gates.shape
+    xg = x_gates.float()
+    c, n, m = (state if state is not None
+               else _slstm_zeros(b, h, e, x_gates.device))
+    floor = torch.tensor(SLSTM_N_MIN, dtype=torch.float32,
+                         device=x_gates.device)
+    ys, saved = [], []
+    for t in range(s):
+        if save_states:
+            saved.append(torch.stack((c, n, m)))
+        gi, gf, gz, go = xg[:, t].unbind(2)
+        lf = F.logsigmoid(gf)
+        m_new = torch.maximum(lf + m, gi)
+        i_w = torch.exp(gi - m_new)
+        f_w = torch.exp(lf + m - m_new)
+        c = f_w * c + i_w * torch.tanh(gz)
+        n = f_w * n + i_w
+        m = m_new
+        ys.append(torch.sigmoid(go) * c / torch.maximum(n, floor))
+    y = (torch.stack(ys, dim=1) if s else
+         xg.new_zeros((b, 0, h, e))).to(x_gates.dtype)
+    states = None
+    if save_states:
+        states = (torch.stack(saved, dim=2) if s else
+                  xg.new_zeros((3, b, 0, h, e)))
+    return y, (c, n, m), states
+
+
+def slstm_scan(x_gates, *, state=None, return_state=False):
+    """sLSTM over a sequence (``repro/kernels/ref.py slstm_scan``):
+    x_gates [b, s, h, 4, e] (i, f, z, o pre-activations); ``state`` (c,
+    n, m) [b, h, e] float32 each, zeros when None. Returns y [b, s, h, e]
+    in x_gates.dtype and, with ``return_state``, the final state."""
+    y, st, _ = slstm_walk(x_gates, state)
+    return (y, st) if return_state else y
+
+
+def _tie_weight(a, b):
+    """d max(a, b) / da: 1 where a > b, 0.5 at a tie, 0 below (JAX's and
+    torch's ``maximum`` split a tie evenly)."""
+    return (a > b).float() + 0.5 * (a == b).float()
+
+
+def slstm_scan_bwd(x_gates, dy, states, d_state=None):
+    """The gradient of :func:`slstm_scan` for the cotangents dy [b, s, h,
+    e] of y and ``d_state`` (dc, dn, dm) of the final state (zeros when
+    None), from the state before each step, ``states`` [3, b, s, h, e]
+    (``slstm_walk(..., save_states=True)``). The reverse walk, step by
+    step, in K6b's order of operations (the kernel's oracle): each step
+    recomputes its forward from the saved state, then
+
+      dc' += dy sg / nd,  dn' += -dy sg c' / nd^2 [n' > 1e-6],
+      dfw = dc' c + dn' n,  diw = dc' tanh(z) + dn',
+      dm' -= diw iw + dfw fw, split over (lf + m, i) by the max,
+      dc = dc' fw, dn = dn' fw, dm = d(lf + m).
+
+    The clamp max(n', 1e-6) passes nothing to n' where it binds (half at
+    a tie), as the max of m' does. Returns (dgates [b, s, h, 4, e] in
+    x_gates.dtype, (dc, dn, dm) of the initial state, float32)."""
+    b, s, h, _, e = x_gates.shape
+    xg = x_gates.float()
+    dyf = dy.float()
+    if d_state is None:
+        dc, dn, dm = _slstm_zeros(b, h, e, x_gates.device)
+    else:
+        dc, dn, dm = (t.float() for t in d_state)
+    floor = torch.tensor(SLSTM_N_MIN, dtype=torch.float32,
+                         device=x_gates.device)
+    dg = torch.empty((b, s, h, 4, e), dtype=torch.float32,
+                     device=x_gates.device)
+    for t in reversed(range(s)):
+        c, n, m = states[:, :, t]
+        gi, gf, gz, go = xg[:, t].unbind(2)
+        g = dyf[:, t]
+        # the step's forward, recomputed
+        lf = F.logsigmoid(gf)
+        a = lf + m
+        mn = torch.maximum(a, gi)
+        iw = torch.exp(gi - mn)
+        fw = torch.exp(a - mn)
+        tz = torch.tanh(gz)
+        cn = fw * c + iw * tz
+        nn = fw * n + iw
+        sg = torch.sigmoid(go)
+        nd = torch.maximum(nn, floor)
+        # y = sg cn / nd
+        p = sg * cn
+        dp = g / nd
+        dnd = -(g * p) / (nd * nd)
+        dcn = dc + dp * sg
+        dnn = dn + dnd * _tie_weight(nn, floor)
+        dgo = dp * cn * sg * (1.0 - sg)
+        # cn = fw c + iw tz, nn = fw n + iw
+        dfw = dcn * c + dnn * n
+        diw = dcn * tz + dnn
+        dgz = dcn * iw * (1.0 - tz * tz)
+        dc, dn = dcn * fw, dnn * fw
+        # iw = exp(i - mn), fw = exp(a - mn), mn = max(a, i)
+        e_i, e_f = diw * iw, dfw * fw
+        dmn = dm - e_i - e_f
+        wa = _tie_weight(a, gi)
+        da = e_f + dmn * wa
+        dgi = e_i + dmn * (1.0 - wa)
+        # a = lf + m, lf = log_sigmoid(f)
+        dm = da
+        dgf = da * torch.sigmoid(-gf)
+        dg[:, t] = torch.stack((dgi, dgf, dgz, dgo), dim=2)
+    return dg.to(x_gates.dtype), (dc, dn, dm)

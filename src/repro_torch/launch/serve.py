@@ -22,6 +22,10 @@ Usage:
       --arch qwen2-moe-a2.7b --full --device cuda --slots 8 --page-size 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi-3-vision-4.2b --full --device cuda --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --device cpu --slots 4 --n-requests 8 --prompt 12 --gen 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --full --device cuda --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --backend gloo --data 2 --pp 2 --slots 4 --prefill-chunk 4
   PYTHONPATH=src python -m repro_torch.launch.serve --full --data 2 \\

@@ -19,6 +19,10 @@ Prints one line a step (loss, grad norm, step ms, tokens/s) and
       --arch qwen2-moe-a2.7b --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch phi-3-vision-4.2b --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch xlstm-1.3b --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch xlstm-1.3b --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --backend gloo --data 2 --pp 2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --data 2 \\

@@ -1,22 +1,25 @@
 """Transformer blocks: tape versions for training, cached for serving.
 
 The port's counterpart of ``repro/models/blocks.py`` for dense attention,
-Mamba and gathered-MoE layers. Training: ``apply_norm`` (RMSNorm or
-LayerNorm), ``apply_attn``, ``apply_ffn`` (SwiGLU or the GELU MLP),
-``apply_mamba`` (the selective scan: K5 forward, K5b backward on the
-card) and ``apply_moe`` (gathered top-k experts with the router's
-load-balance loss) are written against the ZeroPP tape
+Mamba, xLSTM (mLSTM and sLSTM) and gathered-MoE layers. Training:
+``apply_norm`` (RMSNorm or LayerNorm), ``apply_attn``, ``apply_ffn``
+(SwiGLU or the GELU MLP), ``apply_mamba`` (the selective scan: K5
+forward, K5b backward on the card), ``apply_mlstm`` (the chunkwise
+mLSTM, plain PyTorch), ``apply_slstm`` (the sLSTM: K6 forward, K6b
+backward on the card) and ``apply_moe`` (gathered top-k experts with the
+router's load-balance loss) are written against the ZeroPP tape
 (``core/tape.py``): every parameterised GEMM is a ``dense`` node
 (deferred dW, the W task; the expert banks too), everything else a
 ``prim`` (immediate grads in B). Serving: ``norm_fwd`` (RMSNorm or
-LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP),
-``attn_cached`` with its three cache layouts (paged pool, per-slot
-positions, one scalar position), ``mamba_cached`` (prefill through the
-selective-scan kernel, decode one SSM step) and ``moe_fwd`` (the
-gathered top-k MoE, no tape). The reference's sequence-sharded cache branch
-(``blocks.py:832``) combines attention across ranks and waits for the
-multi-rank slices. Params are flat dicts named like the reference's (``L{j}.``
-prefixes are added by the stage assembly in ``model.py``).
+LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP), ``attn_cached`` with
+its three cache layouts (paged pool, per-slot positions, one scalar
+position), ``mamba_cached`` (prefill through the selective-scan kernel,
+decode one SSM step), ``mlstm_cached`` / ``slstm_cached`` (prefill and
+decode of the xLSTM cells; the sLSTM through K6) and ``moe_fwd`` (the
+gathered top-k MoE, no tape). The reference's sequence-sharded cache
+branch (``blocks.py:832``) combines attention across ranks and waits for
+the multi-rank slices. Params are flat dicts named like the reference's
+(``L{j}.`` prefixes are added by the stage assembly in ``model.py``).
 
 Two JAX behaviours are reproduced on purpose, because the serve engine
 relies on them:
@@ -32,8 +35,9 @@ relies on them:
 Unlike the reference, the caches are updated in place: the leaves handed
 in are views of the session's cache tree, and ``attn_cached`` writes K/V
 (and int8 scales) straight into them and returns the same tensors;
-``_slot_state`` writes a Mamba layer's new conv and SSM state into its
-leaves on the writing rows only.
+``_slot_state`` writes a recurrent layer's new state (Mamba's conv and
+SSM state, the mLSTM's C, n, m, the sLSTM's c, n, m) into its leaves on
+the writing rows only.
 """
 
 from __future__ import annotations
@@ -732,3 +736,146 @@ def _slot_state(ctx, cache, new):
         rows = _write_rows(ctx, old.shape[0], old.device)
         old[rows] = v[rows].to(old.dtype)
     return cache
+
+
+# --------------------------------------------------------------------------- #
+# xLSTM blocks (mLSTM and sLSTM mixers; training and serving)
+# --------------------------------------------------------------------------- #
+
+
+def _mlstm_dims(cfg):
+    """(di, heads, e) of the mLSTM: the up-projection di = proj_factor d
+    split over the heads."""
+    di = int(cfg.xlstm.proj_factor * cfg.d_model)
+    return di, cfg.n_heads, di // cfg.n_heads
+
+
+def mlstm_specs(cfg: ModelConfig, pfx: str):
+    d = cfg.d_model
+    di, h, e = _mlstm_dims(cfg)
+    return {
+        f"{pfx}.w_up": ParamSpec((d, 2 * di), fsdp_dim=1),
+        f"{pfx}.wq": ParamSpec((di, h, e), fsdp_dim=0),
+        f"{pfx}.wk": ParamSpec((di, h, e), fsdp_dim=0),
+        f"{pfx}.wv": ParamSpec((di, h, e), fsdp_dim=0),
+        f"{pfx}.w_if": ParamSpec((di, 2, h), fsdp_dim=0, scale=0.1),
+        f"{pfx}.if_bias": ParamSpec((2, h), "zeros"),
+        f"{pfx}.w_out": ParamSpec((di, d), fsdp_dim=0),
+    }
+
+
+def _mlstm_gates(w_if, if_bias, xb):
+    """(log input gate, forget logits) [..., h] from the up-projected
+    activations, in float32; the block adds 1.0 to the forget logits."""
+    gates = _dense(xb.float(), w_if.float()) + if_bias
+    return gates[..., 0, :], gates[..., 1, :] + 1.0
+
+
+def apply_mlstm(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+    """The mLSTM mixer on the tape (the reference's ``apply_mlstm``): the
+    up-projection, q / k / v and the out-projection are dense nodes; the
+    split into the cell's input and the gate z is a prim; the core (the
+    input and forget gates from ``w_if`` and ``if_bias``, the chunkwise
+    scan in plain PyTorch, ``y * silu(z)`` in the compute dtype) is a
+    prim with those two params."""
+    di, _, _ = _mlstm_dims(ctx.cfg)
+    up = t.dense(x, f"{pfx}.w_up", "bsd,de->bse")
+    xb, z = t.prim(lambda v: (v[..., :di], v[..., di:]), up, n_out=2)
+    q = t.dense(xb, f"{pfx}.wq", "bse,ehf->bshf")
+    k = t.dense(xb, f"{pfx}.wk", "bse,ehf->bshf")
+    v = t.dense(xb, f"{pfx}.wv", "bse,ehf->bshf")
+
+    def core(w_if, if_bias, xbv, qv, kv, vv, zv):
+        ig, fg = _mlstm_gates(w_if, if_bias, xbv)
+        y = ops.mlstm_chunkwise(qv, kv, vv, ig, fg)
+        return y.reshape(y.shape[0], y.shape[1], -1) * F.silu(zv)
+
+    y = t.prim(core, xb, q, k, v, z,
+               pnames=(f"{pfx}.w_if", f"{pfx}.if_bias"))
+    return t.dense(y, f"{pfx}.w_out", "bse,ed->bsd")
+
+
+def _mlstm_proj(params, pfx, x, di):
+    """(xb, z, q, k, v, i gate, f logits) of the serve path's mLSTM."""
+    up = _dense(x, params[f"{pfx}.w_up"])
+    xb, z = up[..., :di], up[..., di:]
+    q, k, v = (_dense(xb, params[f"{pfx}.{w}"]) for w in ("wq", "wk", "wv"))
+    ig, fg = _mlstm_gates(params[f"{pfx}.w_if"], params[f"{pfx}.if_bias"],
+                          xb)
+    return z, q, k, v, ig, fg
+
+
+def mlstm_cached(ctx, params, pfx, x, cache, pos):
+    """Prefill (s > 1) runs the chunkwise scan with the state out; decode
+    (s == 1) steps the cell (``mlstm_decode``). As in the reference,
+    prefill ignores the incoming state and starts from zero, and takes
+    ``silu(z)`` in float32, cast to the compute dtype (the tape form takes
+    it in the compute dtype). Returns (y, new state {C, n, m}); the
+    caller stores the state (``_slot_state``)."""
+    if x.shape[1] == 1:
+        return mlstm_decode(ctx, params, pfx, x, cache, pos)
+    b, s, _ = x.shape
+    di, _, _ = _mlstm_dims(ctx.cfg)
+    z, q, k, v, ig, fg = _mlstm_proj(params, pfx, x, di)
+    y, state = ops.mlstm_chunkwise(q, k, v, ig, fg, return_state=True)
+    y = y.reshape(b, s, -1)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = _dense(y.to(x.dtype), params[f"{pfx}.w_out"])
+    return y, dict(zip("Cnm", state))
+
+
+def mlstm_decode(ctx, params, pfx, x, cache, pos):
+    """One mLSTM step from the cached state. cache: {"C": [b, h, e, e],
+    "n": [b, h, e], "m": [b, h]} float32; x [b, 1, d]."""
+    di, _, _ = _mlstm_dims(ctx.cfg)
+    z, q, k, v, ig, fg = _mlstm_proj(params, pfx, x[:, 0], di)
+    state, y = ops.mlstm_step((cache["C"], cache["n"], cache["m"]), q, k, v,
+                              ig, fg)
+    y = (y.reshape(y.shape[0], -1) * F.silu(z)).to(x.dtype)
+    return _dense(y, params[f"{pfx}.w_out"])[:, None], dict(zip("Cnm",
+                                                                state))
+
+
+def slstm_specs(cfg: ModelConfig, pfx: str):
+    d, h = cfg.d_model, cfg.n_heads
+    e = d // h
+    return {
+        f"{pfx}.w_gates": ParamSpec((d, h, 4, e), fsdp_dim=0),
+        f"{pfx}.g_bias": ParamSpec((h, 4, e), "zeros"),
+        f"{pfx}.w_out": ParamSpec((d, d), fsdp_dim=0),
+    }
+
+
+def apply_slstm(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+    """The sLSTM mixer on the tape (the reference's ``apply_slstm``): the
+    gate projection and the out-projection are dense nodes; the core (the
+    gate bias, then the recurrence through ``ops.slstm_scan_train``: K6
+    forward, K6b backward on the card) is a prim with ``g_bias``."""
+    g = t.dense(x, f"{pfx}.w_gates", "bsd,dhge->bshge")
+
+    def core(g_bias, gv):
+        return ops.slstm_scan_train(gv + g_bias, impl=ctx.rc.kernel_impl)
+
+    y = t.prim(core, g, pnames=(f"{pfx}.g_bias",))
+    y = t.prim(lambda v: v.reshape(v.shape[0], v.shape[1], -1), y)
+    return t.dense(y, f"{pfx}.w_out", "bsd,de->bse")
+
+
+def slstm_cached(ctx, params, pfx, x, cache, pos):
+    """Prefill (s > 1) or one decode step (s == 1) of the sLSTM through
+    ``ops.slstm_scan`` (K6 on the card) with the state in and out. Unlike
+    the mLSTM's, the prefill starts from the cached state, as the
+    reference's does (the engine zeroes a slot's rows on admission).
+    Returns (y, new state {c, n, m})."""
+    b, s, _ = x.shape
+    g = _dense(x, params[f"{pfx}.w_gates"]) + params[f"{pfx}.g_bias"]
+    y, state = ops.slstm_scan(g, state=(cache["c"], cache["n"], cache["m"]),
+                              return_state=True, impl=ctx.rc.kernel_impl)
+    y = _dense(y.reshape(b, s, -1).to(x.dtype), params[f"{pfx}.w_out"])
+    return y, dict(zip("cnm", state))
+
+
+def slstm_decode(ctx, params, pfx, x, cache, pos):
+    """One sLSTM step (``slstm_cached`` at s == 1, the reference's
+    ``slstm_decode``)."""
+    return slstm_cached(ctx, params, pfx, x, cache, pos)

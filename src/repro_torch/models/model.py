@@ -9,8 +9,10 @@ reference parameter tree carries over name for name.
 
 The port has blocks for decoder layers with an attention or a Mamba
 mixer and a SwiGLU, GELU-MLP or gathered-MoE FFN (``attn:dense``,
-``attn:moe``, ``mamba:dense``, ``mamba:moe``), RMSNorm or LayerNorm, and
-a tied or untied head. Serving and training run all four kinds with
+``attn:moe``, ``mamba:dense``, ``mamba:moe``), for xLSTM's FFN-free
+layers (``mlstm:none``, ``slstm:none``: the mixer alone, no ``ln2`` and
+no FFN, as the reference's ``"<mix>:none"``), RMSNorm or LayerNorm, and
+a tied or untied head. Serving and training run all six kinds with
 either norm, either dense MLP and either head; a MoE layer's router adds
 its load-balance term to the stage's auxiliary loss, and its shared
 experts (``n_shared``) add a SwiGLU FFN that every token runs. A vision
@@ -35,11 +37,19 @@ from repro_torch.models.common import (
     torch_dtype,
 )
 
-_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; xLSTM, "
-               "the encoder-decoder with the audio stub, and MLA with the "
-               "MTP head arrive in later slices (ROADMAP.md queue 1 items "
-               "6c-6e)")
-_SERVE_KINDS = ("attn:dense", "attn:moe", "mamba:dense", "mamba:moe")
+_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; the "
+               "encoder-decoder with the audio stub, and MLA with the MTP "
+               "head arrive in later slices (ROADMAP.md queue 1 items "
+               "6d-6e)")
+_SERVE_KINDS = ("attn:dense", "attn:moe", "mamba:dense", "mamba:moe",
+                "mlstm:none", "slstm:none")
+# each mixer's specs, tape form and cached form (prefill / decode)
+_MIXERS = {
+    "attn": (blocks.attn_specs, blocks.apply_attn, blocks.attn_cached),
+    "mamba": (blocks.mamba_specs, blocks.apply_mamba, blocks.mamba_cached),
+    "mlstm": (blocks.mlstm_specs, blocks.apply_mlstm, blocks.mlstm_cached),
+    "slstm": (blocks.slstm_specs, blocks.apply_slstm, blocks.slstm_cached),
+}
 
 # --------------------------------------------------------------------------- #
 # Geometry
@@ -124,15 +134,13 @@ def layer_slot_specs(cfg: ModelConfig, kind: str, pfx: str):
     mix, ffn = kind.split(":")
     sp: dict[str, ParamSpec] = {}
     sp.update(blocks.norm_specs(cfg, f"{pfx}.ln1"))
-    if mix == "attn":
-        sp.update(blocks.attn_specs(cfg, f"{pfx}.mix"))
-    else:
-        sp.update(blocks.mamba_specs(cfg, f"{pfx}.mix"))
-    sp.update(blocks.norm_specs(cfg, f"{pfx}.ln2"))
-    if ffn == "moe":
-        sp.update(blocks.moe_specs(cfg, f"{pfx}.ffn"))
-    else:
-        sp.update(blocks.ffn_specs(cfg, f"{pfx}.ffn"))
+    sp.update(_MIXERS[mix][0](cfg, f"{pfx}.mix"))
+    if ffn != "none":
+        sp.update(blocks.norm_specs(cfg, f"{pfx}.ln2"))
+        if ffn == "moe":
+            sp.update(blocks.moe_specs(cfg, f"{pfx}.ffn"))
+        else:
+            sp.update(blocks.ffn_specs(cfg, f"{pfx}.ffn"))
     return sp
 
 
@@ -173,8 +181,10 @@ def rope_for(cfg: ModelConfig, seq: int, device=None):
 def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
                 keep: float) -> tuple[TVal, TVal | None]:
     """Pre-norm residual layer; ``keep`` (0.0 for padding layers) scales
-    each residual branch, as the reference's ``u + v * keep``. Returns
-    (y, the MoE router's auxiliary loss, or None for a dense FFN)."""
+    each residual branch, as the reference's ``u + v * keep``. An
+    FFN-free kind (``<mix>:none``) is the mixer's branch alone. Returns
+    (y, the MoE router's auxiliary loss, or None for a dense FFN or
+    none)."""
     _check_kind(ctx.cfg, kind)
     mix, ffn = kind.split(":")
 
@@ -182,13 +192,12 @@ def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
         return t.prim(lambda u, v: u + v * keep, a, b)
 
     h = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln1", x)
-    if mix == "attn":
-        h = blocks.apply_attn(t, ctx, f"{pfx}.mix", h)
-    else:
-        h = blocks.apply_mamba(t, ctx, f"{pfx}.mix", h)
+    h = _MIXERS[mix][1](t, ctx, f"{pfx}.mix", h)
     x = res_add(x, h)
-    h2 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln2", x)
     aux = None
+    if ffn == "none":
+        return x, aux
+    h2 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln2", x)
     if ffn == "moe":
         h2, aux = blocks.apply_moe(t, ctx, f"{pfx}.ffn", h2)
     else:
@@ -267,13 +276,25 @@ def layer_cache_spec(cfg, rc, kind, batch, max_seq) -> dict[str, tuple]:
     storage dtype is decoupled from compute: fp32/bf16, or int8 for
     quantised pages (their scales are added by ``init_serve_caches``).
     A Mamba layer keeps its conv state [batch, d_conv-1, di] in the
-    compute dtype and its SSM state [batch, di, d_state] in float32."""
+    compute dtype and its SSM state [batch, di, d_state] in float32; an
+    mLSTM layer its matrix memory C [batch, h, e, e], normaliser n [batch,
+    h, e] and stabiliser m [batch, h], an sLSTM layer c, n and m [batch,
+    h, d / h], all float32."""
     _check_kind(cfg, kind)
-    if kind.startswith("mamba:"):
+    f32 = torch.float32
+    mix = kind.split(":")[0]
+    if mix == "mamba":
         mc, di, _ = blocks._mamba_dims(cfg)
         return {"conv": ((batch, mc.d_conv - 1, di),
                          torch_dtype(rc.compute_dtype)),
-                "h": ((batch, di, mc.d_state), torch.float32)}
+                "h": ((batch, di, mc.d_state), f32)}
+    if mix == "mlstm":
+        _, h, e = blocks._mlstm_dims(cfg)
+        return {"C": ((batch, h, e, e), f32), "n": ((batch, h, e), f32),
+                "m": ((batch, h), f32)}
+    if mix == "slstm":
+        h = cfg.n_heads
+        return {n: ((batch, h, cfg.d_model // h), f32) for n in "cnm"}
     kv_dt = torch_dtype(rc.kv_cache_dtype or rc.compute_dtype)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, kv_dt), "v": (shape, kv_dt)}
@@ -296,14 +317,13 @@ def cached_layer(ctx, params, kind, pfx, x, cache, pos):
     blocks.check_serves(cfg)
     mix, ffn = kind.split(":")
     h = blocks.norm_fwd(cfg, params, f"{pfx}.ln1", x)
-    if mix == "attn":
-        dh, cache = blocks.attn_cached(ctx, params, f"{pfx}.mix", h, cache,
-                                       pos)
-    else:
-        dh, c2 = blocks.mamba_cached(ctx, params, f"{pfx}.mix", h, cache,
-                                     pos)
-        cache = blocks._slot_state(ctx, cache, c2)
+    dh, c2 = _MIXERS[mix][2](ctx, params, f"{pfx}.mix", h, cache, pos)
+    # attention writes its K/V in place; a recurrent layer's new state is
+    # stored on the writing rows
+    cache = c2 if mix == "attn" else blocks._slot_state(ctx, cache, c2)
     x = x + dh
+    if ffn == "none":
+        return x, cache
     h2 = blocks.norm_fwd(cfg, params, f"{pfx}.ln2", x)
     if ffn == "moe":
         x = x + blocks.moe_fwd(ctx, params, f"{pfx}.ffn", h2)

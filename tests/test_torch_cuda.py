@@ -42,6 +42,11 @@ cotangents across them through each chunk's decay, and sums dA, dD, dB
 and dC over up to 4096 steps and hundreds of channels in another order:
 every gradient within 1e-4 of the plain tensor's max |value|, and two
 runs equal bit for bit (no float atomics).
+The sLSTM kernels (K6, K6b) compute in float32 in the plain walks' order
+of operations, one step at a time, with other exp / tanh / log1p
+implementations: float32 outputs within 1e-5 of the plain tensor's max
+|value|, bf16 outputs by the one-ulp rule above; chained runs and
+repeated runs equal bit for bit.
 """
 
 import numpy as np
@@ -51,9 +56,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_xent as fx  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
+from repro_torch.kernels import slstm_scan as sl  # noqa: E402
 from torch_cases import late_rolled as _late_rolled  # noqa: E402
 from torch_cases import odd_heads_nan as _odd_heads_nan  # noqa: E402
 from torch_cases import paged_case as _paged_case  # noqa: E402
@@ -827,3 +834,115 @@ def test_fused_xent_over_vocab_shards(cuda, w_dtype, layout):
     bad = fx.xent_stats(h, shard(1), local(1, shift=False), chunk=256)
     assert (bad[1] - stats[1][1]).abs().max().item() > \
         1e-5 * stats[1][1].abs().max().item()
+
+
+SLSTM_RTOL = 1e-5
+
+
+def _slstm_case(seed, b, s, h, e, dtype, device):
+    """Gates N(0, 1) in ``dtype``; a state with n > 0; dy and the final
+    state's cotangent N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    xg = _t(rng.randn(b, s, h, 4, e).astype(np.float32)).to(device)
+    st = tuple(_t(a.astype(np.float32)).to(device) for a in (
+        rng.randn(b, h, e), np.abs(rng.randn(b, h, e)), rng.randn(b, h, e)))
+    dy = _t(rng.randn(b, s, h, e).astype(np.float32)).to(device)
+    dst = tuple(_t(rng.randn(b, h, e).astype(np.float32)).to(device)
+                for _ in range(3))
+    return xg.to(dtype), st, dy.to(dtype), dst
+
+
+def _slstm_close(got, want, dtype):
+    """float32 within SLSTM_RTOL of max |plain|; a bf16 output each
+    element within one bf16 ulp of the plain version's, which rounds the
+    same float32 value (the two compute in float32 in the same order,
+    with other exp / tanh / log1p implementations)."""
+    if dtype == torch.float32:
+        _rel_close(got, want, SLSTM_RTOL)
+    else:
+        _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 7, 300])
+@pytest.mark.parametrize("e,with_state", [(512, True), (512, False),
+                                          (40, True)])
+def test_slstm_scan_kernel_matches_plain(cuda, dtype, s, e, with_state):
+    """K6 against the plain walk: y, the final state and the saved states
+    (float32) within SLSTM_RTOL of max |plain|, y by the dtype's rule; at
+    one step (a decode step), within a register tile and over many; e
+    not a multiple of the block. Chained over two parts it repeats the
+    same float32 operations, so it equals the one-pass run bit for bit;
+    the gates' i and f swapped must fail the check (where they matter: a
+    state or more than one step)."""
+    xg, st, _, _ = _slstm_case(30 + s, 2, s, 4, e, dtype, cuda)
+    st = st if with_state else None
+    before = sl.LAUNCHES["slstm_scan"]
+    y, fin, states = sl.slstm_scan(xg, state=st, return_state=True,
+                                   save_states=True)
+    assert sl.LAUNCHES["slstm_scan"] == before + 1
+    wy, wfin, wstates = tref.slstm_walk(xg, st, save_states=True)
+    assert y.dtype == dtype and fin[0].dtype == torch.float32
+    _slstm_close(y, wy, dtype)
+    for g, w in zip(fin, wfin):
+        _rel_close(g, w, SLSTM_RTOL)
+    _rel_close(states, wstates, SLSTM_RTOL)
+    assert torch.equal(sl.slstm_scan(xg, state=st), y)
+    half = s // 2
+    y1, st1 = sl.slstm_scan(xg[:, :half].contiguous(), state=st,
+                            return_state=True)
+    y2, st2 = sl.slstm_scan(xg[:, half:].contiguous(), state=st1,
+                            return_state=True)
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert all(torch.equal(a, b_) for a, b_ in zip(st2, fin))
+    # one step from a zero state gives y = sigmoid(o) tanh(z) whatever i
+    # and f are, so the probe needs a state or a second step
+    if s > 1 or with_state:
+        bad = sl.slstm_scan(xg[:, :, :, [1, 0, 2, 3]].contiguous(),
+                            state=st)
+        assert (bad.float() - wy.float()).abs().max().item() > \
+            4 * 2**-7 * wy.float().abs().max().item()
+    with pytest.raises(ValueError, match="dtype"):
+        sl.slstm_scan(xg.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,e,with_state", [
+    (2, 1, 512, True), (2, 5, 40, False), (2, 300, 512, True),
+    (2, 2048, 512, False), (1, 2048, 512, True)])
+def test_slstm_scan_bwd_kernel_matches_plain(cuda, dtype, b, s, e,
+                                             with_state):
+    """K6b against the plain reverse walk (``ref.slstm_scan_bwd``, the
+    same order of operations) from the states K6 saved: dgates by the
+    dtype's rule, the initial state's cotangent within SLSTM_RTOL of the
+    largest |plain| of the three (from a zero state dm's true value is 0
+    and both read rounding noise); at the training length of 2048. Two
+    runs equal bit for bit (no atomics); the training op's autograd equal
+    to it; the saved states rolled by a step must fail the check."""
+    xg, st, dy, dst = _slstm_case(40 + s, b, s, 4, e, dtype, cuda)
+    st = st if with_state else None
+    _, states = sl.slstm_scan(xg, state=st, save_states=True)
+    before = sl.LAUNCHES["slstm_scan_bwd"]
+    dg, d0 = sl.slstm_scan_bwd(xg, dy, states, dst)
+    assert sl.LAUNCHES["slstm_scan_bwd"] == before + 1
+    wdg, wd0 = tref.slstm_scan_bwd(xg, dy, states, dst)
+    assert dg.dtype == dtype
+    _slstm_close(dg, wdg, dtype)
+    scale = max(w.abs().max().item() for w in wd0)
+    for g, w in zip(d0, wd0):
+        assert (g - w).abs().max().item() <= SLSTM_RTOL * scale
+    again, _ = sl.slstm_scan_bwd(xg, dy, states, dst)
+    assert torch.equal(again, dg)
+    x = xg.clone().requires_grad_(True)
+    y = ops.slstm_scan_train(x)
+    (g,) = torch.autograd.grad(y, x, dy)
+    want, _ = sl.slstm_scan_bwd(xg, dy, sl.slstm_scan(
+        xg, save_states=True)[1])
+    assert torch.equal(g, want)
+    if s > 1:
+        bad, _ = sl.slstm_scan_bwd(xg, dy, states.roll(1, dims=2)
+                                   .contiguous(), dst)
+        assert (bad.float() - wdg.float()).abs().max().item() > \
+            4 * 2**-7 * wdg.float().abs().max().item()
