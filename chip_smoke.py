@@ -14,8 +14,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    registers and spills (ptxas) and tensor-core instructions
    (``cuobjdump -sass``): the serving kernels' bf16 entries at every
    head width (K3 causal and window + stats at 64, 96 and 128, K4 over
-   bf16 and int8 pages at 64, 96 and 128), K2's in both head layouts
-   and K1/K1b's at head dims 96 and 128 must hold HGMMA (wgmma), and
+   bf16 and int8 pages at 64, 96 and 128), K2's in its three head
+   layouts (a [V, d] table, a [d, V] head, and a [d, V] head whose rows
+   are 4-byte aligned only: head4) and K1/K1b's at head dims 96 and 128
+   must hold HGMMA (wgmma), and
    those K2 and K1/K1b entries and K5's, K6's and K6b's must not spill;
 2. kernel phases: each kernel at the shapes its path gives it, against
    its plain PyTorch version on the same inputs — the serving attention
@@ -48,7 +50,17 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    steps) saving the states, K6b from them, K6 at the serve prefill (8 x
    512) and one decode step with the state in and out, with the
    design's sequential floor (K6 and K6b on one warp), and K2 over
-   xlstm's untied head [2048, 50304] at 4096 rows — each timed beside
+   xlstm's untied head [2048, 50304] at 4096 rows, and the kernels of
+   whisper-large-v3's paths (20 heads of 64, MHA): K1 and K1b at one
+   training micro-batch (b 2) bidirectional over 1500 frames, causal
+   over 448 decoder positions and 448 rows over the 1500 frames
+   (cross-attention), K2 over its untied head [1280, 51866] (rows of
+   4-byte alignment: the head4 entries) at 896 rows with two more probes
+   that must fail (the straddling 16-byte chunk's real columns dropped,
+   dW read at a 16-byte-rounded pitch), K1 at its serve cell (b 8: the
+   encoder over 1500 frames, the cross-attention's 64-row prefill and
+   1-row decode over them) and K3 at its decoder's self-attention (448
+   positions, a 64-row prefill and a decode) — each timed beside
    the plain version, a PyTorch library call computing the same function
    (``library_ms``; timed only, never used by the port; none exists for
    the scan) and the least time the card could take (``bound_ms``, from
@@ -176,11 +188,24 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    against the plain versions in float32 compute on the same weights
    cast up (the bf16 reading logged: bf16 rounding alone puts the plain
    versions 0.68 of max |logit| from float32 on these weights), its
-   decode traced; ``[train xlstm-1.3b]``: the widths cut to 24 layers
-   (1.80 B parameters; vpp 2, 8 x 2048 tokens) by the cut cells' rule,
-   K6 32, K6b 16 and K2 8 times a step, step 1 against the plain
-   versions at one period of 6 layers (vpp 1) with the sLSTM layer's
-   leaves held by Jamba's leaf rule; then one
+   decode traced; ``[train xlstm-1.3b]``: the widths cut to 12 layers
+   (vpp 2, 8 x 2048 tokens; 24 fit the card, 12 keep the script inside
+   its time limit) by the cut cells' rule, K6 16, K6b 8 and K2 8 times a
+   step, step 1 against the plain versions at one period of 6 layers
+   (vpp 1) with the sLSTM layer's leaves held by Jamba's leaf rule;
+   ``[serve whisper-large-v3]``: all 64 layers at full width (3.2 GB),
+   8 slots of 448 positions, the memory of 8 x 1500 frames of the audio
+   stub (a numpy seed) through the encoder's 32 stages, a 64-token
+   prefill in every slot and 64 greedy decode steps through the
+   session's slot-aware step (K3 for the decoder's self-attention, K1
+   for its cross-attention over the memory), the memory and every
+   slot's first-step logits within 0.05 of the row's max |value| of the
+   plain versions on the same weights, K1 launched 32 times for the
+   encoder and 32 a step, K3 32 a step, no plain version reached;
+   ``[train whisper-large-v3]``: uncut (1.60 B parameters, zeropp at pp
+   1, V = 32 stages a segment, 8 x 448 tokens with 1500 frames each) by
+   the cut cells' rule at full depth, K1 768, K1b 384 and K2 8 times a
+   step; then one
    training step of each training model (llama, gpt-1.5B, Jamba's cut)
    on fresh params under the profiler (device busy share, kernels by
    device time, launches a step, and the device time of K1, K1b, K2, K5
@@ -189,9 +214,10 @@ CUDA; it imports nothing of jax or of the JAX package. In order:
    four ranks spawned by ``python -m repro_torch.launch.train`` as a
    subprocess, all on this card, collectives staged through host memory
    (gloo), gathers and reduce-scatters issued asynchronously and waited
-   on late: first llama3.2-1b at full width and depth on data 2 x pp 2
-   (``--full --data 2 --pp 2 --seq 1024 --backend gloo --steps 3``; seq
-   cut from 2048 to 1024 for four ranks' memory), then llama3.2-1b at
+   on late: first llama3.2-1b at full width cut to 8 layers on data 2 x
+   pp 2 (``--full --data 2 --pp 2 --layers 8 --seq 1024 --backend gloo
+   --steps 3``; seq cut from 2048 to 1024 for four ranks' memory, depth
+   for the script's time limit), then llama3.2-1b at
    full width cut to 8 layers on pods 2 x data 2 x pp 1 with the stage
    grads reduced in int8 with error feedback (``--full --pods 2 --data
    2 --pp 1 --layers 8 --seq 1024 --grad-compress int8``: flat slabs,
@@ -283,11 +309,13 @@ TC_SERVE = ("slotted_tc_e64", "slotted_tc_e96", "slotted_tc_e128",
             "slotted_win_e64", "slotted_win_e96", "slotted_win_e128",
             "paged_tc_bf16", "paged_tc_int8", "paged_tc_bf16_e96",
             "paged_tc_int8_e96", "paged_tc_bf16_e128", "paged_tc_int8_e128")
-# K2's bf16 tensor-core entry functions in both head layouts (a [V, d]
-# table, a [d, V] head), and its split and lse kernels
+# K2's bf16 tensor-core entry functions in its head layouts (a [V, d]
+# table, a [d, V] head, a [d, V] head with 4-byte rows: vocab % 8 != 0),
+# and its split and lse kernels
+XENT_LAYOUTS = ("table", "head", "head4")
 TC_XENT = tuple(f"{k}<{lay}>" for k in ("stats_tc", "dlog_tc", "dw_tc",
                                          "dh_tc")
-                for lay in ("table", "head"))
+                for lay in XENT_LAYOUTS)
 # K1's and K1b's bf16 tensor-core entries at the head widths this slice
 # added (96 runs the 128-wide body with zero pad columns)
 TC_FLASH_WIDE = tuple(f"{k}<{e},{e}>" for k in ("flash_fwd_tc", "dq_tc",
@@ -429,12 +457,41 @@ PHI3_TRAIN = dict(arch=PHI3, seq=4096, global_batch=4, vocab=32064,
 # layers they read 1.3e-3 to 2.7e-3 on the H100
 XLSTM, SLSTM_LAYERS = "xlstm-1.3b", 8
 XLSTM_TRAIN = dict(arch=XLSTM, seq=2048, global_batch=8, vocab=50304,
-                   d_model=2048, steps=3,
-                   launches={"slstm_scan": 32, "slstm_scan_bwd": 16,
+                   d_model=2048, steps=3, layers=12,
+                   launches={"slstm_scan": 16, "slstm_scan_bwd": 8,
                              "fused_xent": 8},
                    loss0=math.log(50304) + 0.5, leaves="L5.mix.",
                    step1_layers=6,
-                   cuts="depth 48 -> 24 (80 GB card)")
+                   cuts="depth 48 -> 12 (80 GB card: 24; 12 for the "
+                        "script's time limit)")
+# the whisper-large-v3 cells, uncut: 32 encoder and 32 decoder layers, d
+# 1280, 20 heads of 64 (MHA), LayerNorm, the GELU MLP, an untied head.w
+# [1280, 51866] (rows of 103,732 bytes: K2's head4 entries), the audio
+# stub's 1500 float frames a sequence. Training: zeropp at pp 1 (V = 32
+# stages of one layer a segment), 4 micro-batches of two 448-token
+# sequences in units of 2; the encoder walks its forward table, the
+# decoder its zeropp table, the encoder its stripped backward. A step
+# launches K1 4 x 32 x 2 (the encoder's F and B's recompute) + 4 x 32 x 2
+# x 2 (the decoder's self- and cross-attention, F and recompute) = 768
+# times, K1b 4 x 32 x 3 = 384, K2 2 x 4. Step 1 by the cut cells' rule,
+# its loss near ln(vocab) + 1/2 (a final LayerNorm and a 1/sqrt(d)
+# head). Serving: 8 slots of 448 positions, the memory of 8 x 1500
+# frames (a numpy seed) from the encoder's stages (K1, bidirectional),
+# one prefill of 64 tokens and 64 greedy decode steps through the
+# slot-aware step: K3 for the decoder's self-attention, K1 for its
+# cross-attention over the 1500 frames, one launch each a layer a step
+WHISPER = "whisper-large-v3"
+WHISPER_TRAIN = dict(arch=WHISPER, seq=448, global_batch=8, vocab=51866,
+                     d_model=1280, steps=3,
+                     launches={"flash_attention_fwd": 768,
+                               "flash_attention_bwd": 384, "fused_xent": 8},
+                     loss0=math.log(51866) + 0.5,
+                     cuts="none (64 layers at full width; the batch: 8 x "
+                          "448 decoder tokens, 1500 frames each)")
+WHISPER_SERVE = dict(slots=SLOTS, max_seq=448, prompt=64, gen=64,
+                     enc_ctx=1500, layers=32)
+WHISPER_ATTN = dict(tag="whisper_", b=SLOTS, h=20, g=20, e=64, S=448,
+                    seed=12, prefill=64)
 # the serve cells whose first-step check runs in float32 compute (the
 # weights cast up), the bf16 reading logged: xlstm-1.3b's bf16 rounding
 # alone puts the plain versions 0.68 of max |logit| from float32 (see
@@ -491,14 +548,15 @@ CKPT_NORM_RTOL = 1e-5
 # the multi-rank train phases, each four ranks (one process each, all on
 # this card over gloo), seq 1024 for four ranks' memory on one card;
 # zeropp, vpp 2, 4 micro-batches of one sequence in units of 2 a batch
-# shard. "multirank": llama3.2-1b at full width and depth on data 2 x pp
-# 2, float32 reduces: 8 x 1024 tokens a step. "pods": llama3.2-1b at
+# shard. "multirank": llama3.2-1b at full width cut to 8 layers on data 2
+# x pp 2, float32 reduces: 8 x 1024 tokens a step. "pods": llama3.2-1b at
 # full width cut to 8 layers on pods 2 x data 2 x pp 1, the stage grads
 # reduced in int8 with error feedback, flat slabs, gathers issued a tick
 # ahead: 16 x 1024 tokens a step
-MULTI = dict(name="multirank", arch=ARCH, data=2, pp=2, seq=1024,
-             global_batch=8, steps=3, backend="gloo",
-             cuts="seq 2048 -> 1024 for four ranks' memory on one card")
+MULTI = dict(name="multirank", arch=ARCH, data=2, pp=2, layers=8,
+             seq=1024, global_batch=8, steps=3, backend="gloo",
+             cuts="seq 2048 -> 1024 for four ranks' memory on one card; "
+                  "depth 16 -> 8 for the script's time limit")
 PODS = dict(name="pods", arch=ARCH, pods=2, data=2, pp=1, layers=8,
             seq=1024, global_batch=16, steps=3, backend="gloo",
             flags=("--grad-compress", "int8"),
@@ -706,11 +764,12 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
         f"combine{st}_e{e}" for st in ("", "_stats") for e in (64, 96, 128))
         + ("slotted_kernel", "paged_kernel", "xent_split", "lse_kernel"),
         key=len, reverse=True)
-    # K1/K1b by head widths <E,EV>; K2 by head layout <0: table, 1: head>
+    # K1/K1b by head widths <E,EV>; K2 by head layout <0: table, 1: head,
+    # 2: a head with 4-byte rows>
     flash = re.compile(r"(flash_fwd_tc|flash_fwd_kernel|dq_tc|dkdv_tc|"
                        r"dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E")
     xent = re.compile(r"(stats_tc|dlog_tc|dw_tc|dh_tc|stats_kernel|"
-                      r"dlog_kernel|dw_kernel|dh_kernel)ILi([01])E")
+                      r"dlog_kernel|dw_kernel|dh_kernel)ILi([012])E")
 
     def name_of(lib, mangled):
         m = re.search(r"(slstm_fwd_kernel|slstm_bwd_kernel)I(13__nv_bfloat16"
@@ -732,7 +791,7 @@ def kernel_resources(build, names=("slotted_attention", "paged_attention",
         m = xent.search(mangled)
         if m:
             return (f"{lib}:{m.group(1)}"
-                    f"<{('table', 'head')[int(m.group(2))]}>")
+                    f"<{XENT_LAYOUTS[int(m.group(2))]}>")
         return f"{lib}:" + next((k for k in short if k in mangled),
                                 mangled[:60])
 
@@ -1156,7 +1215,8 @@ def serve_attention_phases(torch, flush, results, cell, phases):
             nan_probe(name, lambda: pa.paged_attention(qn, kn, vn, **kw),
                       lambda: ref.paged_attention(qn, kn, vn, **kw), on)
 
-    run = {"causal_prefill": lambda: slotted_phase("causal_prefill", 512),
+    run = {"causal_prefill": lambda: slotted_phase(
+               "causal_prefill", cell.get("prefill", 512)),
            "decode": lambda: slotted_phase("decode", 1),
            "window_stats": window_phase,
            "bf16_decode": lambda: paged_phase("bf16_decode", 1, False),
@@ -1363,14 +1423,16 @@ def train_kernel_phases(torch, flush):
     return results
 
 
-def flash_phases(torch, flush, results, tag, b, s, h, g, e):
-    """K1 (causal) and K1b at one shape, each against its plain version
-    under the bf16 row rule, timed beside SDPA and the bound, with the
-    probes that must fail the rule: K's kv heads rolled by one and V
-    rolled over kv heads at the keys of the second half (K1); the
-    neighbouring q head's lse and K rolled over kv heads at the keys of
-    the second half (K1b). With g == h (MHA) a roll over kv heads is a
-    roll over heads."""
+def flash_phases(torch, flush, results, tag, b, s, h, g, e, *, sk=None,
+                 causal=True, bwd=True):
+    """K1 (causal, or bidirectional with ``causal=False``; ``s`` query
+    rows over ``sk`` keys, ``s`` by default) and, with ``bwd``, K1b at one
+    shape, each against its plain version under the bf16 row rule, timed
+    beside SDPA and the bound, with the probes that must fail the rule:
+    K's kv heads rolled by one and V rolled over kv heads at the keys of
+    the second half (K1); the neighbouring q head's lse and K rolled over
+    kv heads at the keys of the second half (K1b). With g == h (MHA) a
+    roll over kv heads is a roll over heads."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1387,14 +1449,16 @@ def flash_phases(torch, flush, results, tag, b, s, h, g, e):
     def rep_kv(x):
         return x.repeat_interleave(rep, dim=2).transpose(1, 2)
 
-    q, k, v, do = rand(b, s, h, e), rand(b, s, g, e), rand(b, s, g, e), \
+    sk = sk or s
+    q, k, v, do = rand(b, s, h, e), rand(b, sk, g, e), rand(b, sk, g, e), \
         rand(b, s, h, e)
-    n_pairs = b * s * (s + 1) // 2
-    shapes = (f"q [{b}, {s}, {h}, {e}], k/v [{b}, {s}, {g}, {e}], causal")
+    n_pairs = b * s * (s + 1) // 2 if causal else b * s * sk
+    shapes = (f"q [{b}, {s}, {h}, {e}], k/v [{b}, {sk}, {g}, {e}], "
+              + ("causal" if causal else "bidirectional"))
     qt, kt, vt = q.transpose(1, 2), rep_kv(k), rep_kv(v)
 
     def lib():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
     def check(a, p):
         rel_err(a[1], p[1], 1e-5, "lse")
@@ -1407,23 +1471,25 @@ def flash_phases(torch, flush, results, tag, b, s, h, g, e):
         "lse 1e-5 of max |plain|)")
     record_phase(torch, flush, results, f"flash_attention_fwd:{tag}",
                  FLASH_FWD,
-                 lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-                 lambda: ref.attention(q, k, v, causal=True,
+                 lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                 lambda: ref.attention(q, k, v, causal=causal,
                                        return_lse=True),
                  lib, 2 * q.nbytes + k.nbytes + v.nbytes + b * h * s * 4,
                  n_pairs * h * 2 * (e + e), check)
-    plain = ref.attention(q, k, v, causal=True)
+    plain = ref.attention(q, k, v, causal=causal)
     bf16_probe(fa, fa.flash_attention_fwd(
-        q, k.roll(1, dims=2).contiguous(), v, causal=True)[:1], (plain,),
+        q, k.roll(1, dims=2).contiguous(), v, causal=causal)[:1], (plain,),
         ("flash_attention_fwd out",), "K's kv heads rolled by one")
     bf16_probe(fa, fa.flash_attention_fwd(q, k, late_rolled(v),
-                                          causal=True)[:1], (plain,),
+                                          causal=causal)[:1], (plain,),
                ("flash_attention_fwd out",),
-               f"V rolled over kv heads at keys >= {s // 2}")
+               f"V rolled over kv heads at keys >= {sk // 2}")
+    if not bwd:
+        return
 
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     do_t = do.transpose(1, 2)
 
     def lib_bwd():
@@ -1432,8 +1498,8 @@ def flash_phases(torch, flush, results, tag, b, s, h, g, e):
 
     def check_bwd(a, p):
         gq, gk, gv = (x.float().transpose(1, 2) for x in lib_bwd())
-        sdpa = (gq, gk.reshape(b, s, g, rep, e).sum(3),
-                gv.reshape(b, s, g, rep, e).sum(3))
+        sdpa = (gq, gk.reshape(b, sk, g, rep, e).sum(3),
+                gv.reshape(b, sk, g, rep, e).sum(3))
         for x, y, what in zip(sdpa, p, ("dq", "dk", "dv")):
             bf16_excess(fa, x, y, f"{what} (SDPA, for the record)")
         return max(bf16_err(fa, x, y, what)
@@ -1445,21 +1511,21 @@ def flash_phases(torch, flush, results, tag, b, s, h, g, e):
     record_phase(torch, flush, results, f"flash_attention_bwd:{tag}",
                  FLASH_BWD,
                  lambda: fa.flash_attention_bwd(q, k, v, out, do, lse,
-                                                causal=True),
+                                                causal=causal),
                  lambda: ref.attention_bwd(q, k, v, out, do, lse,
-                                           causal=True),
+                                           causal=causal),
                  lib_bwd,
                  (q.nbytes + k.nbytes + v.nbytes + out.nbytes + do.nbytes
                   + lse.nbytes + 4 * (q.numel() + k.numel() + v.numel())),
                  n_pairs * h * 2 * (3 * e + 2 * e), check_bwd)
-    plain = ref.attention_bwd(q, k, v, out, do, lse, causal=True)
+    plain = ref.attention_bwd(q, k, v, out, do, lse, causal=causal)
     whats = tuple(f"flash_attention_bwd {w}" for w in ("dq", "dk", "dv"))
     bf16_probe(fa, fa.flash_attention_bwd(
-        q, k, v, out, do, lse.roll(1, dims=1).contiguous(), causal=True),
+        q, k, v, out, do, lse.roll(1, dims=1).contiguous(), causal=causal),
         plain, whats, "the neighbouring q head's lse")
     bf16_probe(fa, fa.flash_attention_bwd(q, late_rolled(k), v, out, do,
-                                          lse, causal=True),
-               plain, whats, f"K rolled over kv heads at keys >= {s // 2}")
+                                          lse, causal=causal),
+               plain, whats, f"K rolled over kv heads at keys >= {sk // 2}")
 
 
 def gpt_kernel_phases(torch, flush):
@@ -1485,7 +1551,11 @@ def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
     as a [vocab, d] table. Where vocab is not a multiple of K2's
     128-column tile, the first rows take the labels of the last, partial
     tile, and the check must fail the kernel run over the head without
-    those columns (their labels outside it, their dW columns zero)."""
+    those columns (their labels outside it, their dW columns zero). Where
+    vocab % 8 != 0 (rows 4-byte aligned: the head4 entries), the check
+    must also fail the run without the real columns of the 16-byte chunk
+    that straddles each row's end, and dW read as if written at a
+    16-byte-rounded pitch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_xent as fx
@@ -1552,6 +1622,31 @@ def head_xent_phase(torch, flush, results, tag, n, d, vocab, seed):
         if not (w_loss > 1.0 and w_dh > 1.0 and w_dw > 1.0):
             fail(f"the fused_xent check passes the last {tail} columns "
                  "dropped")
+    rag = vocab % 8
+    if rag:
+        keep = vocab - rag
+        bad = fx.softmax_xent(hn, head[:, :keep].contiguous(),
+                              torch.where(lab < keep, lab, -1), **kw)
+        dw = torch.zeros_like(plain[1][1])
+        dw[:, :keep] = bad[1][1]
+        log(f"[kernel] fused_xent check, the straddling chunk's {rag} real "
+            f"columns ({keep}..{vocab - 1}) dropped:")
+        _, w_loss = rel_excess(bad[0].reshape(1), plain[0].reshape(1), 1e-5,
+                               "loss")
+        _, w_dh = rel_excess(bad[1][0], plain[1][0], 1e-4, "dh")
+        _, w_dw = rel_excess(dw, plain[1][1], 1e-4, "dW")
+        if not (w_loss > 1.0 and w_dh > 1.0 and w_dw > 1.0):
+            fail("the fused_xent check passes the straddling chunk's "
+                 "columns dropped")
+        pitch = -(-vocab // 8) * 8
+        got = fx.softmax_xent(hn, head, lab, **kw)[1][1]
+        flat = torch.zeros(d * pitch, device=dev)
+        flat.view(d, pitch)[:, :vocab] = got
+        log(f"[kernel] fused_xent check, dW written at pitch {pitch}:")
+        _, w_dw = rel_excess(flat[:d * vocab].view(d, vocab), plain[1][1],
+                             1e-4, "dW")
+        if not w_dw > 1.0:
+            fail(f"the fused_xent check passes dW at pitch {pitch}")
 
 
 def vocab_shard_phase(torch, flush, results, name, n, d, vocab, layout,
@@ -1958,6 +2053,182 @@ def slice_kernel_phases(torch, flush):
     return out
 
 
+def whisper_kernel_phases(torch, flush):
+    """The kernels of whisper-large-v3's paths at their shapes (20 heads
+    of 64, MHA): K1 and K1b at one training micro-batch (b 2) over the
+    encoder's 1500 frames (bidirectional; the last 64-key tile holds 28
+    keys), the decoder's 448 causal rows, and the cross-attention's 448
+    rows over the 1500 frames; K2 over the untied head [1280, 51866] read
+    in place with its 4-byte rows (the head4 entries) at the micro-batch's
+    896 rows, with the probes of the straddling chunk; the serve cell's K1
+    (b 8: the encoder over 1500 frames, the cross-attention's 64-row
+    prefill and 1-row decode over them, forward only) and K3 (the
+    decoder's self-attention, 448 positions, a 64-row prefill and a
+    decode). Returns {"train": rows, "serve": rows}."""
+    c, sv = WHISPER_TRAIN, WHISPER_SERVE
+    b, s, ctx = c["global_batch"] // 4, c["seq"], sv["enc_ctx"]
+    out = {"train": [], "serve": []}
+    flash_phases(torch, flush, out["train"], "whisper_enc", b, ctx, 20, 20,
+                 64, causal=False)
+    flash_phases(torch, flush, out["train"], "whisper_dec_causal", b, s, 20,
+                 20, 64)
+    flash_phases(torch, flush, out["train"], "whisper_cross", b, s, 20, 20,
+                 64, sk=ctx, causal=False)
+    head_xent_phase(torch, flush, out["train"], "whisper_head", b * s,
+                    c["d_model"], c["vocab"], seed=11)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag, sq, sk in (("whisper_serve_enc", ctx, ctx),
+                        ("whisper_serve_cross_prefill", sv["prompt"], ctx),
+                        ("whisper_serve_cross_decode", 1, ctx)):
+        flash_phases(torch, flush, out["serve"], tag, sv["slots"], sq, 20,
+                     20, 64, sk=sk, causal=False, bwd=False)
+    serve_attention_phases(torch, flush, out["serve"], WHISPER_ATTN,
+                           ("causal_prefill", "decode"))
+    return out
+
+
+def whisper_serve_phase(torch, c):
+    """whisper-large-v3 served on one rank at full width and depth: the
+    memory of ``slots`` x 1500 frames (the audio stub's, a numpy seed)
+    through the encoder's 32 stages (``models/model.py encode``: K1
+    bidirectional), a prefill of ``prompt`` tokens in every slot and
+    ``gen`` greedy decode steps through the session's slot-aware step
+    (the decoder's self-attention through K3, its cross-attention over
+    the memory through K1). First the same memory and prefill through
+    the plain versions (``kernel_impl="ref"``) on the same weights: the
+    memory and every slot's first-step logits within 0.05 of their row's
+    max |value| (the serve rule). Then a timed run on fresh caches with
+    the launch counters at 0: encode, prefill and decode step ms, tok/s,
+    peak memory, the K1 and K3 launches (one each a decoder layer a step,
+    32 K1 for the encoder), no plain version reached."""
+    import numpy as np
+
+    from repro_torch.api import session
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as M
+
+    tag = f"[serve {WHISPER}]"
+    kw = dict(reduced=False, device="cuda", max_slots=c["slots"],
+              max_seq=c["max_seq"])
+    sess = session(WHISPER, **kw)
+    plain = session(WHISPER, overrides=dict(kernel_impl="ref"), **kw)
+    cfg = sess.cfg
+    t0 = time.perf_counter()
+    params = sess.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{tag} params: {sess.describe()['n_params']} "
+        f"({sess.rc.param_dtype}) in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"{c['slots']} slots, max_seq {c['max_seq']}, memory "
+        f"[{c['slots']}, {c['enc_ctx']}, {cfg.d_model}]")
+    rng = np.random.RandomState(0)
+    frames = torch.from_numpy((0.1 * rng.standard_normal(
+        (c["slots"], c["enc_ctx"], cfg.d_model))).astype(np.float32)).cuda()
+    prompts = rng.randint(0, cfg.vocab, size=(c["slots"], c["prompt"])
+                          ).astype(np.int32)
+    n = c["slots"]
+
+    def encoded(s_):
+        caches = s_.init_caches()
+        with torch.no_grad():
+            caches["enc_memory"].copy_(M.encode(s_.cfg, s_.rc, params,
+                                                frames))
+        return caches
+
+    def row_rule(a, p, what):
+        """max over rows of |a - p| / the row's max |p|, failing above
+        0.05 (the serve rule)."""
+        a, p = a.float(), p.float()
+        worst = float(((a - p).abs().amax(-1)
+                       / p.abs().amax(-1).clamp_min(1e-30)).max())
+        log(f"{tag} first step, {what} kernels vs plain versions: max over "
+            f"rows of max |diff| / the row's max |plain| {worst:.4e} "
+            "(tolerance 0.05)")
+        if not worst <= 0.05:
+            fail(f"{tag}: the {what} off the plain versions")
+        return worst
+
+    first = {"tokens": prompts, "pos": np.zeros(n, np.int32)}
+    ck, cp = encoded(sess), encoded(plain)
+    mem_err = row_rule(ck["enc_memory"], cp["enc_memory"], "memory")
+    _, lg_k, ck = sess.serve_step_batched(params, ck, first,
+                                          want_logits=True)
+    _, lg_p, cp = plain.serve_step_batched(params, cp, first,
+                                           want_logits=True)
+    if not (bool(torch.isfinite(lg_k).all())
+            and tuple(lg_k.shape) == (n, cfg.vocab)):
+        fail(f"{tag}: first-step logits are not finite [slots, vocab]")
+    lg_err = row_rule(lg_k, lg_p, "logits")
+    agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
+    del ck, cp, plain, lg_k, lg_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the timed run -------------------------------------------------- #
+    reset_serve_launches()
+    fa.reset_launches()
+    base = ops.kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = encoded(sess)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    toks, out = prompts, []
+    pos = np.zeros(n, np.int32)
+    for i in range(c["gen"] + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = sess.serve_step_batched(params, caches, {
+            "tokens": toks, "pos": pos})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        pos = pos + toks.shape[1]
+        toks = np.asarray(tok, np.int32)[:, None]
+        out.append(toks[:, 0])
+    stream = np.stack(out, 1)
+    if not ((stream >= 0) & (stream < cfg.vocab)).all():
+        fail(f"{tag}: token ids outside the vocabulary")
+    launches = {**fa.LAUNCHES, **serve_launches()}
+    counters = {k: v - base.get(k, 0) for k, v in ops.kernel_counters().items()
+                if v - base.get(k, 0)}
+    steps = c["gen"] + 1
+    want = {"flash_attention_fwd": c["layers"] * (steps + 1),
+            "slotted_attention": c["layers"] * steps}
+    for lib, k in want.items():
+        if launches[lib] != k:
+            fail(f"{tag}: {lib} launched {launches[lib]} times, expected "
+                 f"{k} (the encoder's layers, then one a decoder layer a "
+                 "step)")
+    if any(k.startswith("ref_") for k in counters):
+        fail(f"{tag}: the run reached a plain version: {counters}")
+    wall = sum(times) / 1e3
+    res = dict(arch=WHISPER, layout="contiguous", slots=n,
+               prompt=c["prompt"], decode_steps=c["gen"],
+               generated_tokens=n * steps, encode_ms=enc_ms,
+               prefill_step_ms=times[0],
+               decode_step_ms=sum(times[1:]) / c["gen"],
+               tok_per_s=n * steps / wall, wall_s=wall,
+               max_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+               first_memory_vs_plain=mem_err,
+               first_logits_vs_plain=lg_err, first_argmax_agree=agree,
+               launches=launches, counters=counters)
+    log(f"{tag} encode {enc_ms:.2f} ms, prefill {times[0]:.2f} ms, "
+        f"{c['gen']} decode steps of {res['decode_step_ms']:.2f} ms: "
+        f"{n * steps} tokens in {wall:.3f} s = {res['tok_per_s']:.1f} "
+        f"tok/s; peak memory {res['max_memory_gb']:.2f} GiB; first-step "
+        f"argmax agreement {agree:.3f}; launches {launches}; dispatch "
+        f"{counters}")
+    del params, caches, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def ulp_err(a, p, what: str) -> float:
     """max |a - p| of a bf16 output, failing unless each element is within
     one bf16 ulp of the plain value (|diff| <= 2^-7 (|plain| + mean
@@ -2182,17 +2453,19 @@ def cut_train_phase(torch, cell):
              "float patch embeddings [batch, seq, d_model]")
 
     def norm(grads):
-        sq = sum((g.float() ** 2).sum() for part in ("io", "segments")
-                 for g in (grads[part] if part == "io"
-                           else grads[part]["main"]).values())
+        sq = sum((g.float() ** 2).sum() for g in grads["io"].values())
+        sq = sq + sum((g.float() ** 2).sum()
+                      for sg in grads["segments"].values()
+                      for g in sg.values())
         return float(sq.sqrt())
 
     # the leaves held one by one (Jamba's Mamba mixers, whose gradients
     # K5b feeds: the norm is mostly the head's and the expert banks')
     def leaf_grads(grads):
-        return {n_: g_.float().clone()
-                for n_, g_ in grads["segments"]["main"].items()
-                if cell.get("leaves") and cell["leaves"] in n_}
+        return {f"{sn}/{n_}": g_.float().clone()
+                for sn, sg in grads["segments"].items()
+                for n_, g_ in sg.items()
+                if cell.get("leaves") and cell["leaves"] in f"{sn}/{n_}"}
 
     # ---- step 1: kernels vs plain versions ------------------------------ #
     # at a cut depth (vpp 1) where the cell names one, on its own params
@@ -2350,9 +2623,11 @@ def train_launches():
 
 
 def train_session(cell, **kw):
-    """The full-width train Session of a training cell on the card."""
+    """The full-width train Session of a training cell on the card (cut to
+    the cell's ``layers`` where it names them)."""
     from repro_torch.api import session
 
+    kw.setdefault("layers", cell.get("layers"))
     return session(cell["arch"], mode="train", reduced=False,
                    device="cuda", seq_len=cell["seq"],
                    global_batch=cell["global_batch"], **kw)
@@ -3717,6 +3992,7 @@ def main() -> None:
     jamba_train_kernels = jamba_train_kernel_phases(torch, flush, resources)
     slice_kernels = slice_kernel_phases(torch, flush)
     slstm_kernels = slstm_kernel_phase(torch, flush)
+    whisper_kernels = whisper_kernel_phases(torch, flush)
     mark("kernel phases")
     del flush
     gc.collect()
@@ -3845,6 +4121,17 @@ def main() -> None:
         row["launches"] = (xl if phase in ("prefill", "decode")
                            else train_xlstm)["launches"][lib]
     kernels += slstm_kernels
+    # whisper-large-v3 at full width and depth: served (8 slots over the
+    # memory of 8 x 1500 frames), then trained (64 layers, 8 x 448 tokens)
+    whisper = whisper_serve_phase(torch, WHISPER_SERVE)
+    serve.append(whisper)
+    mark("serve whisper-large-v3")
+    train_whisper = cut_train_phase(torch, WHISPER_TRAIN)
+    mark("train whisper-large-v3")
+    for part, run_ in (("train", train_whisper), ("serve", whisper)):
+        for row in whisper_kernels[part]:
+            row["launches"] = run_["launches"][row["name"].split(":")[0]]
+        kernels += whisper_kernels[part]
     # each serving kernel row reads its wrapper's launches in the serve run
     # of its cell: the phase name's tag and the wrapper pick it
     runs = {("", "slotted_attention"): contig, ("", "paged_attention"): paged,
@@ -3898,7 +4185,7 @@ def main() -> None:
         {"card": card, "build_s": t_build, "resources": resources,
          "kernels": kernels, "serve": serve,
          "train": [train, train_gpt, train_jamba, train_qwen, train_phi3,
-                   train_xlstm],
+                   train_xlstm, train_whisper],
          "ckpt": ckpt,
          "multirank": multirank,
          "auto": auto, "serve_multirank": serve_multi,

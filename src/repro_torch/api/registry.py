@@ -3,9 +3,9 @@
 Resolves an architecture id to its config module with the reference's
 name normalisation ("llama3.2-1b" -> ``llama3p2_1b``) and aliases
 ("phi-3-vision-4.2b" -> ``phi3_vision_4p2b``), holding only the
-architectures whose blocks the port has. The others of
-``repro/api/registry.py`` (whisper-large-v3, deepseek-v3-671b) arrive
-with their blocks (``ROADMAP.md`` queue 1).
+architectures whose blocks the port has. The other of
+``repro/api/registry.py`` (deepseek-v3-671b) arrives with its blocks
+(``ROADMAP.md`` queue 1).
 Schedules register their ``(SchedParams) -> TickTable`` builders with
 :func:`register_schedule`; the built-ins live in ``core/generators.py``,
 imported on first lookup.
@@ -29,7 +29,8 @@ ARCHS = {"llama3p2_1b": "repro_torch.configs.llama3p2_1b",
          "phi4_mini_3p8b": "repro_torch.configs.phi4_mini_3p8b",
          "qwen2_moe_a2p7b": "repro_torch.configs.qwen2_moe_a2p7b",
          "phi3_vision_4p2b": "repro_torch.configs.phi3_vision_4p2b",
-         "xlstm_1p3b": "repro_torch.configs.xlstm_1p3b"}
+         "xlstm_1p3b": "repro_torch.configs.xlstm_1p3b",
+         "whisper_large_v3": "repro_torch.configs.whisper_large_v3"}
 # the reference's aliases of the registered architectures that the
 # normalisation does not already turn into their canonical names
 ALIASES = {"phi_3_vision_4p2b": "phi3_vision_4p2b"}
@@ -44,9 +45,8 @@ def get_arch(name: str):
         hint = f" (did you mean {close[0]!r}?)" if close else ""
         raise RegistryError(
             f"unknown architecture {name!r}{hint}; the port knows: "
-            f"{', '.join(list_archs())}. whisper-large-v3 and "
-            "deepseek-v3-671b arrive with their blocks (ROADMAP.md queue 1 "
-            "items 6d-6e).")
+            f"{', '.join(list_archs())}. deepseek-v3-671b arrives with its "
+            "blocks (ROADMAP.md queue 1 item 6e).")
     return importlib.import_module(ARCHS[key])
 
 

@@ -203,6 +203,11 @@ class Session:
         # does; pp alone walks its stages on one rank
         on_mesh = world > 1 and (spec.mode == "train"
                                  or world > self.rc.pp)
+        if on_mesh and spec.mode == "serve" and self.cfg.encdec is not None:
+            raise SessionError(
+                f"{self.cfg.name} serves on one rank: serving an "
+                "encoder-decoder on a mesh of ranks (its memory sharded "
+                "with the slot rows) waits for ROADMAP.md queue 1 item 6g")
         if on_mesh:
             if spec.device == "cuda":
                 self.device = _rank_card()
@@ -515,7 +520,15 @@ class Session:
 
     def init_caches(self):
         """Zeroed caches on the device; on a mesh this rank's part: its V
-        stage slots and its shard's slot rows, or its block of pages."""
+        stage slots and its shard's slot rows, or its block of pages. An
+        encoder-decoder's tree carries the memory ``enc_memory`` [slots,
+        enc_ctx, d], which the caller fills (``models/model.py
+        encode``)."""
+        if self.paged and self.cfg.encdec is not None:
+            raise SessionError(
+                "paged KV serving does not cover encoder-decoder "
+                "sessions (enc_memory has no page layout) — drop "
+                "page_size")
         on_mesh = self.mesh is not None
         shards = self._shards if on_mesh else 1
         return CS.init_serve_caches(
@@ -654,13 +667,20 @@ class Session:
 
     def stream(self, seed: int = 0) -> SyntheticStream:
         """The deterministic synthetic stream of the train shape: token
-        ids, or for a vision config float patch embeddings [b, s, d]."""
+        ids, or for a vision config float patch embeddings [b, s, d]; an
+        encoder-decoder's adds the audio stub's frames ``enc_tokens`` [b,
+        enc_ctx, d]."""
         cfg, sc = self.cfg, self.shape_cfg
         return SyntheticStream(DataConfig(
             seq_len=sc.seq_len, global_batch=sc.global_batch,
-            vocab=cfg.vocab, seed=seed,
-            kind="vision" if cfg.frontend == "vision" else "lm",
-            d_model=cfg.d_model))
+            vocab=cfg.vocab, seed=seed, kind=self._input_kind(),
+            d_model=cfg.d_model,
+            enc_ctx=cfg.encdec.enc_ctx if cfg.encdec else 0))
+
+    def _input_kind(self) -> str:
+        cfg = self.cfg
+        return ("enc_dec" if cfg.encdec else
+                "vision" if cfg.frontend == "vision" else "lm")
 
     # ------------------------------------------------------------------ #
     # Checkpoints
@@ -911,6 +931,8 @@ class Session:
                 "segments": [{"name": sg.name, "layers": sg.n_layers,
                               "stages": geo.seg_stages(sg), "k": sg.k}
                              for sg in geo.segments],
+                "kind": self._input_kind(),
+                "enc_ctx": cfg.encdec.enc_ctx if cfg.encdec else 0,
             },
             "kernels": {
                 "impl": rc.kernel_impl or "auto",
@@ -959,12 +981,13 @@ class Session:
         state, with the reference's keys."""
         rc = self.rc
         sel = self.plan_selection
-        plan = sel.selected if sel is not None else self.rt.plans["main"]
+        plan = sel.selected if sel is not None else \
+            self.rt.plans[self.rt.seg_key]
         pt = plan.packed
         if sel is not None:
             ana = sel.analysis
         else:
-            cm = self._cost_model(rc.vpp)
+            cm = self._cost_model(plan.params.V)
             ana = plan.analyze(cm if plan.has_w else fused_cost_model(cm),
                                preset=self.spec.cost_preset)
         alpha, beta = COLLECTIVE_ALPHA_BETA[self.spec.cost_preset]

@@ -346,7 +346,7 @@ class SessionSpec:
         is the module's ``one_card_train_config()`` in train mode and its
         ``one_card_config()`` in serve mode where it defines them (a model
         cut to fit one card), else ``config()``; a ``layers`` cuts its
-        depth."""
+        depth (an encoder-decoder's encoder and decoder alike)."""
         mod = get_arch(self.arch)
         if self.reduced:
             cfg, rc = mod.reduced()
@@ -363,4 +363,7 @@ class SessionSpec:
             rc = dataclasses.replace(rc, **self.overrides)
         if self.layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=self.layers)
+            if cfg.encdec is not None:   # both segments
+                cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+                    cfg.encdec, enc_layers=self.layers))
         return mod, cfg, rc

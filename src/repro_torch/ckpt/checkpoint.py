@@ -185,7 +185,8 @@ class MeshLayout:
         if kind == "io":
             return tuple(rt.io_specs[name].shape)
         sname, n = name
-        return (rt.Pe * rt.rc.vpp,) + tuple(rt.stage_specs[sname][n].shape)
+        return (rt.Pe * rt.segs[sname].vpp,) + tuple(
+            rt.stage_specs[sname][n].shape)
 
     def sources(self, where) -> list[int]:
         """The ranks of pod 0 whose parts make the global leaf."""

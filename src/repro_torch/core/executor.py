@@ -40,6 +40,12 @@ buffers exist for ``lax.scan``. ``validate_unit_stash_packed`` still
 bounds them: a table that could outlive a unit-depth slot is refused
 before the first tick, and the engine checks the bound as it stores.
 
+An encoder-decoder walks three tables a step (``train_body``): the
+encoder's forward, the decoder's F / B / W with cross-attention over
+the memory, and the encoder's B / W seeded by the memory's cotangent,
+with the memory and that cotangent summed over the model axis between
+the walks.
+
 F runs the stage under ``no_grad`` and stashes its input (remat); B
 recomputes the stage on a ``bwd`` tape, seeds the loss at the last stage
 through ``loss_and_dy``, and accumulates float32 grads per stage slot; W
@@ -392,12 +398,31 @@ class TickEngine:
 
 
 def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
-                       seq, denom, io_g, metrics, aux_seed=0.0):
+                       seq, denom, io_g, metrics, aux_seed=0.0, *,
+                       inject: str = "tokens", seed: str | None = "loss",
+                       membuf=None, dmembuf: str | None = None,
+                       seed_buf=None, carry_in=None) -> dict:
     """Run one segment's plan on the tick engine; accumulates into io_g
-    and metrics in place and returns this rank's stage grads {name: [V,
-    *local shape]} (reduced over the data axis, not yet across groups).
-    ``aux_seed`` is the cotangent of each B task's auxiliary-loss output
-    (the router weight over the global micro-batch count)."""
+    and metrics in place. ``aux_seed`` is the cotangent of each B task's
+    auxiliary-loss output (the router weight over the global
+    micro-batch count). The reference's segment arguments:
+
+      inject:  the batch key of stage 0's inputs (ids or float embeds)
+      seed:    what B seeds at the last stage: "loss" (the head's loss
+               and dh), "buffer" (``seed_buf[u]``) or None (a table with
+               no B)
+      membuf:  None, "collect" (keep each micro-batch's last-stage
+               output: the encoder's memory) or a tensor [n_mb, mbs,
+               enc_ctx, d], the memory cross-attention reads
+      dmembuf: "collect" to sum the memory's cotangent of every B task
+               (float32) by micro-batch
+      carry_in: the F->B stash of an earlier walk of the same segment
+               (the encoder's backward after its forward walk)
+
+    Returns ``stage_grads`` (this rank's {name: [V, *local shape]},
+    reduced over the data axis, not yet across groups; None for a table
+    with no B), ``membuf``, ``dmembuf`` and ``carry`` (the F->B stash,
+    for a later walk)."""
     cfg, rc = rt.cfg, rt.rc
     cdt = torch_dtype(rc.compute_dtype)
     V, Pe, U = seg.vpp, rt.Pe, pt.U
@@ -405,6 +430,7 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
     specs = rt.stage_specs[seg.name]
     dev = rt.device
     vloc, comm = rt.vloc, rt.comm
+    has_b = bool((pt.kind == KB).any())
     # fused-backward baselines have no W tasks: every dense dW is
     # computed inside B (classic 1F1B / GPipe semantics)
     no_defer = set() if pt.has_w else set(specs)
@@ -412,13 +438,16 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
         no_defer |= {n for n in specs
                      if any(sub in n for sub in rc.no_defer_extra)}
     no_defer = frozenset(no_defer)
-    tokens, labels = batch["tokens"], batch["labels"]
-    # the vision stub's float patch embeddings [n, seq, d] go in as they
-    # are (cast to the compute dtype): no table lookup and no gradient to
-    # the table, as in the reference
+    tokens, labels = batch[inject], batch.get("labels")
+    # the vision stub's patches and the audio stub's frames (float
+    # embeddings [n, seq, d]) go in as they are (cast to the compute
+    # dtype): no table lookup and no gradient to the table, as in the
+    # reference
     int_tokens = not tokens.is_floating_point()
     rope = M.rope_for(cfg, seq, dev)
     d = cfg.d_model
+    n_mb = pt.n_mb
+    is_last = (lambda v: p_rank == Pe - 1 and v == V - 1)
 
     eng = TickEngine(
         pt=pt, specs=specs, seg_p=seg_p, flat=rt.flat_layouts[seg.name],
@@ -427,17 +456,34 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
         grad_compress=rc.grad_compress, gatherable=rt.gatherable[seg.name])
     eng.state.update(
         xbuf=_Stash(U, "fwd wire"), bbuf=_Stash(U, "bwd wire"),
-        fstash=_Stash(U, "F->B"), wstash=_Stash(U, "B->W"),
-        acc_full={n: torch.zeros((V, *specs[n].shape), dtype=torch.float32,
-                                 device=dev) for n in specs},
-        acc_shard={n: torch.zeros((V, *rt.local_shape(seg.name, n)),
-                                  dtype=torch.float32, device=dev)
-                   for n in specs})
+        fstash=(carry_in if carry_in is not None
+                else _Stash(U, "F->B")),
+        wstash=_Stash(U, "B->W"))
+    if has_b:
+        eng.state.update(
+            acc_full={n: torch.zeros((V, *specs[n].shape),
+                                     dtype=torch.float32, device=dev)
+                      for n in specs},
+            acc_shard={n: torch.zeros((V, *rt.local_shape(seg.name, n)),
+                                      dtype=torch.float32, device=dev)
+                       for n in specs})
     st = eng.state
-    tok_slice = make_tok_slice(rt.g_rank, pt.n_mb, mbs)
+    if isinstance(membuf, str):
+        membuf = torch.zeros((n_mb, mbs, seq, d), dtype=cdt, device=dev)
+        collect = membuf
+    else:
+        collect = None
+    if dmembuf == "collect":
+        dmembuf = torch.zeros((n_mb, mbs, cfg.encdec.enc_ctx, d),
+                              dtype=torch.float32, device=dev)
+    tok_slice = make_tok_slice(rt.g_rank, n_mb, mbs)
 
-    def ctx():
-        return blocks.LayerCtx(cfg=cfg, rc=rc, rope=rope, causal=seg.causal)
+    def ctx(t, u):
+        """(the layer context, the memory's tape value or None)."""
+        mem = t.value(membuf[u]) if collect is None and membuf is not None \
+            else None
+        return blocks.LayerCtx(cfg=cfg, rc=rc, rope=rope, causal=seg.causal,
+                               enc_memory=mem), mem
 
     def f_branch(eng, row):
         u, v = row["mb"], row["v"]
@@ -449,9 +495,12 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
             x = st["xbuf"].pop(u)
         t = Tape(eng.stage_params(v, row["use_slot"]), mode="fwd",
                  no_defer=no_defer)
-        y, _ = M.apply_stage(t, ctx(), seg, t.value(x), v * Pe + p_rank)
+        y, _ = M.apply_stage(t, ctx(t, u)[0], seg, t.value(x),
+                             v * Pe + p_rank)
         st["fstash"].put((v, u), x)
         st["send_f"] = y.val
+        if collect is not None and is_last(v):
+            collect[u] = y.val
 
     def b_branch(eng, row):
         u, v = row["mb"], row["v"]
@@ -459,8 +508,9 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
         t = Tape(eng.stage_params(v, row["use_slot"]), mode="bwd",
                  no_defer=no_defer)
         xin = t.value(x)
-        out, aux = M.apply_stage(t, ctx(), seg, xin, v * Pe + p_rank)
-        if p_rank == Pe - 1 and v == V - 1:
+        c, mem = ctx(t, u)
+        out, aux = M.apply_stage(t, c, seg, xin, v * Pe + p_rank)
+        if seed == "loss" and is_last(v):
             h = out.val.reshape(mbs * seq, d)
             lab = tok_slice(labels, u).reshape(mbs * seq)
             loss, dh, iog = Vb.loss_and_dy(cfg, rc, io_p, h, lab, denom,
@@ -469,6 +519,8 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
                 io_g[n] += g
             metrics["loss_sum"] += loss.detach().float()
             dy = dh.reshape(mbs, seq, d)
+        elif seed == "buffer" and is_last(v):
+            dy = seed_buf[u].to(cdt)
         else:
             dy = st["bbuf"].pop(u)
         seeds = {out.idx: dy.to(out.val.dtype)}
@@ -487,6 +539,9 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
                                        vloc, cfg.vocab, io_g["embed.table"],
                                        comm)
             metrics["emb_dropped"] += dropped
+        if dmembuf is not None and mem is not None and mem.idx in cots:
+            # the cross-attention memory's cotangent: this stage's share
+            dmembuf[u] += cots[mem.idx].float()
         metrics["aux_sum"] += aux.val.float()
 
     def w_branch(eng, row):
@@ -496,16 +551,29 @@ def segment_train_scan(rt, seg, pt: PackedTable, seg_p, io_p, batch, mbs,
                 s.dw_spec, s.x, s.dy).float()
 
     eng.run({KF: f_branch, KB: b_branch, KW: w_branch})
-    leftover = [k for k in ("xbuf", "bbuf", "fstash", "wstash") if st[k]]
+    # a forward-only walk hands its F->B stash on to the backward walk
+    live = ("xbuf", "bbuf", "wstash") + (("fstash",) if has_b else ())
+    leftover = [k for k in live if st[k]]
     if leftover:
         raise RuntimeError(f"table left live stashes: {leftover}")
-    return st["acc_shard"]
+    return {"stage_grads": st.get("acc_shard"), "membuf": collect,
+            "dmembuf": dmembuf, "carry": st["fstash"]}
 
 
 def train_body(params, batch, *, rt, shape_cfg, mbs, denom, aux_seed=0.0):
     """One rank's training step: (grads, metrics), grads in float32 in
     this rank's local shapes; ``batch`` is this rank's data shard;
-    ``aux_seed`` seeds each micro-batch's auxiliary loss."""
+    ``aux_seed`` seeds each micro-batch's auxiliary loss.
+
+    An encoder-decoder walks three tables, as the reference does: the
+    encoder forward (``enc_fwd``; the drain rank keeps each
+    micro-batch's memory), the decoder's (``dec``: F / B / W with
+    cross-attention over the memory, each B adding the memory's
+    cotangent), then the encoder's B and W (``enc_bwd``), seeded at its
+    last stage by that cotangent. The memory and its cotangent are summed
+    over the model axis between the walks, so every stage rank holds
+    them; the grads of both segments then take the same reductions."""
+    cfg = rt.cfg
     io_p = params["io"]
     dev = rt.device
     io_g = {n: torch.zeros(a.shape, dtype=torch.float32, device=dev)
@@ -513,22 +581,48 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom, aux_seed=0.0):
     metrics = {"loss_sum": torch.zeros((), dtype=torch.float32, device=dev),
                "aux_sum": torch.zeros((), dtype=torch.float32, device=dev),
                "emb_dropped": 0}
-    seg = rt.segs["main"]
-    seg_grads = segment_train_scan(
-        rt, seg, rt.tables["main"], params["segments"]["main"], io_p, batch,
-        mbs, shape_cfg.seq_len, denom, io_g, metrics, aux_seed)
     mesh = rt.mesh
+    seq = shape_cfg.seq_len
+    args = (io_p, batch, mbs)
+    if cfg.encdec is None:
+        res = segment_train_scan(
+            rt, rt.segs["main"], rt.tables["main"],
+            params["segments"]["main"], *args, seq, denom, io_g, metrics,
+            aux_seed)
+        seg_grads = {"main": res["stage_grads"]}
+    else:
+        enc, ctx_len = rt.segs["enc"], cfg.encdec.enc_ctx
+
+        def over_model(t):
+            return mesh.model_comm.all_reduce(t) if mesh is not None else t
+
+        res_e = segment_train_scan(
+            rt, enc, rt.tables["enc_fwd"], params["segments"]["enc"], *args,
+            ctx_len, denom, io_g, metrics, aux_seed, inject="enc_tokens",
+            seed=None, membuf="collect")
+        res_d = segment_train_scan(
+            rt, rt.segs["dec"], rt.tables["dec"], params["segments"]["dec"],
+            *args, seq, denom, io_g, metrics, aux_seed,
+            membuf=over_model(res_e["membuf"]), dmembuf="collect")
+        res_eb = segment_train_scan(
+            rt, enc, rt.tables["enc_bwd"], params["segments"]["enc"], *args,
+            ctx_len, denom, io_g, metrics, aux_seed, inject="enc_tokens",
+            seed="buffer", seed_buf=over_model(res_d["dmembuf"]),
+            carry_in=res_e["carry"])
+        seg_grads = {"enc": res_eb["stage_grads"],
+                     "dec": res_d["stage_grads"]}
     if mesh is None:
         # one rank: the cross-group and data reductions of the reference
         # are sums over a single rank
-        return {"io": io_g, "segments": {"main": seg_grads}}, metrics
+        return {"io": io_g, "segments": seg_grads}, metrics
     # ---- cross-group gradient reduction (stage rows duplicated across
     # groups) and the float32 sum across pods; then the io grads over the
     # model axis, across pods and, unless their vocabulary shard is local
     # and complete, over the data axis ---------------------------------- #
     pod = mesh.pod_comm
-    seg_grads = {n: pod.all_reduce(fsdp.group_allreduce(g, mesh))
-                 for n, g in seg_grads.items()}
+    seg_grads = {sname: {n: pod.all_reduce(fsdp.group_allreduce(g, mesh))
+                         for n, g in sg.items()}
+                 for sname, sg in seg_grads.items()}
     for n in io_g:
         g = pod.all_reduce(mesh.model_comm.all_reduce(io_g[n]))
         if rt.vloc is None or n not in Vb.SHARDED:
@@ -540,7 +634,7 @@ def train_body(params, batch, *, rt, shape_cfg, mbs, denom, aux_seed=0.0):
     metrics = {"loss_sum": w.all_reduce(metrics["loss_sum"]),
                "aux_sum": w.all_reduce(metrics["aux_sum"]),
                "emb_dropped": int(w.all_reduce(dropped))}
-    return {"io": io_g, "segments": {"main": seg_grads}}, metrics
+    return {"io": io_g, "segments": seg_grads}, metrics
 
 
 # --------------------------------------------------------------------------- #
@@ -592,7 +686,9 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
     ``page_tables`` int [b_loc, pages_per_slot] (shard-local page ids). ``caches`` is this rank's
     cache tree, written in place. Returns ``(tokens, caches)`` or
     ``(tokens, logits, caches)``: int32 [gb] and float32 [gb, vocab], the
-    same on every rank (logits are not returned on a multi-pod mesh)."""
+    same on every rank (logits are not returned on a multi-pod mesh).
+    An encoder-decoder walks its decoder segment, each micro-batch's
+    cross-attention reading its rows of ``caches["enc_memory"]``."""
     cfg, rc = rt.cfg, rt.rc
     io_p = params["io"]
     Pe, G, p_rank, g_rank = rt.Pe, rt.G, rt.p_rank, rt.g_rank
@@ -606,21 +702,24 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
     if page_tables is not None and not (per_slot and page_size > 0):
         raise ValueError(
             "page_tables require a per-slot pos vector and page_size > 0")
-    seg = rt.segs["main"]
+    key = rt.seg_key
+    seg = rt.segs[key]
     V, n_kinds = seg.vpp, len(seg.kinds)
     pt = rt.serve_plan().packed
     if (pt.reduce_v >= 0).any():
         raise ValueError("the serve table reduces gradients: it must be "
                          "forward-only")
-    tree = caches["main"]
+    tree = caches[key]
+    # an encoder-decoder's memory, [b_loc, enc_ctx, d] beside the caches
+    memory = caches.get("enc_memory")
     dev = tokens.device
     s, d = tokens.shape[1], cfg.d_model
     eng = TickEngine(
-        pt=pt, specs=rt.stage_specs["main"], seg_p=params["segments"]["main"],
-        flat=rt.flat_layouts["main"], comm=comm, cdt=cdt,
+        pt=pt, specs=rt.stage_specs[key], seg_p=params["segments"][key],
+        flat=rt.flat_layouts[key], comm=comm, cdt=cdt,
         rs_dtype=torch.float32, p_rank=p_rank, mesh=mesh,
         act=((mbs, s, d), cdt), times=COLL_TIME,
-        gatherable=rt.gatherable["main"])
+        gatherable=rt.gatherable[key])
     st = eng.state
     st["xbuf"] = _Stash(pt.U, "fwd wire")
     tok_slice = make_tok_slice(g_rank, Btot, mbs)
@@ -664,6 +763,8 @@ def serve_body(params, caches, batch, *, rt, mbs: int, Btot: int,
                           if slot_mask is not None else None)
         ctx.page_tables = (tok_slice(page_tables, u)
                            if page_tables is not None else None)
+        if memory is not None:
+            ctx.enc_memory = tok_slice(memory, u)
         ch = [cache_get(tree, j, v, u) for j in range(n_kinds)]
         y, ch2 = M.cached_stage(ctx, seg, params_v, x, ch, v * Pe + p_rank,
                                 tok_slice(pos, u) if per_slot else pos)

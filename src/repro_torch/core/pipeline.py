@@ -3,7 +3,9 @@
 The port's counterpart of ``repro/core/pipeline.py``: ``Runtime`` builds
 the segment's ``SchedulePlan`` (or adopts an injected one, e.g. the
 winner of ``schedule="auto"``) and, once a serve step asks, the
-forward-only serve plan (``plans["serve_main"]``), the parameter specs,
+forward-only serve plan (``plans["serve_main"]``; an encoder-decoder's
+three training tables, ``enc_fwd``, ``dec`` and ``enc_bwd``, and
+``serve_dec``), the parameter specs,
 the gatherable sets (none under ``serve_resident``), the flat FSDP
 layouts (``coalesce="flat"``; none for ``"none"``) and
 the vocabulary shard for one rank of a pods x data x (groups x pp)
@@ -36,11 +38,12 @@ from repro_torch.core import vocab as Vb
 from repro_torch.core.comm import Mesh, MeshShape
 from repro_torch.core import serve as CS
 from repro_torch.core.executor import serve_body, train_body
-from repro_torch.core.generators import SchedParams
+from repro_torch.core.generators import SchedParams, generate
 from repro_torch.core.plan import (
     UNIT_GATED_SCHEDULES,
     PackedTable,
     SchedulePlan,
+    strip_fwd,
 )
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig, RunConfig
@@ -57,7 +60,11 @@ class Runtime:
     e.g. the winner of ``schedule="auto"``, whose table was generated
     under a cost preset — which is used as it is (re-packed only for
     another gather prefetch), never regenerated from its name; its
-    table's unit sets the stash depth."""
+    table's unit sets the stash depth. An encoder-decoder has three
+    training tables, as the reference's: ``enc_fwd`` (forward-only, every
+    micro-batch live), ``dec`` (the session's schedule, or the injected
+    plan) and ``enc_bwd`` (the schedule's encoder table stripped of its F
+    tasks, every micro-batch live), and one pipeline group."""
 
     def __init__(self, cfg: ModelConfig, rc: RunConfig, device,
                  mesh: MeshShape | None = None,
@@ -97,10 +104,31 @@ class Runtime:
                 else rc.microbatches)
         sp = SchedParams(P=rc.pp, V=rc.vpp, n_mb=rc.microbatches,
                          unit=unit)
-        self.plans = {"main": (
+        pf = rc.gather_prefetch
+        # the segment that ends in the head: trained by the session's
+        # schedule and walked by the serve step
+        self.seg_key = "dec" if cfg.encdec is not None else "main"
+        if cfg.encdec is not None:
+            if self.G != 1:
+                raise ValueError(
+                    f"groups={self.G}: an encoder-decoder runs as one "
+                    "pipeline group, as the reference's")
+            # the encoder's passes are not unit-gated (forward-only, then
+            # its stripped backward): their stashes hold every micro-batch
+            enc_sp = dataclasses.replace(sp, V=self.segs["enc"].vpp,
+                                         unit=rc.microbatches)
+            sp = dataclasses.replace(sp, V=self.segs["dec"].vpp)
+            self.plans = {
+                "enc_fwd": SchedulePlan.build("fwd_only", enc_sp,
+                                              prefetch=pf),
+                "enc_bwd": SchedulePlan.from_table(
+                    f"strip_fwd[{rc.schedule}]", enc_sp,
+                    strip_fwd(generate(rc.schedule, enc_sp)), prefetch=pf)}
+        else:
+            self.plans = {}
+        self.plans[self.seg_key] = (
             self._adopt(plan, sp) if plan is not None else
-            SchedulePlan.build(rc.schedule, sp,
-                               prefetch=rc.gather_prefetch))}
+            SchedulePlan.build(rc.schedule, sp, prefetch=pf))
         self.sp = sp
         self.multi_pod = self.shape.pods > 1
         self.io_specs = M.io_specs(cfg)
@@ -133,15 +161,17 @@ class Runtime:
         return plan.with_prefetch(self.rc.gather_prefetch)
 
     def serve_plan(self) -> SchedulePlan:
-        """The forward-only serve table, ``plans["serve_main"]``, built
-        when a serve step first asks for it (a train runtime never
+        """The forward-only serve table of the head's segment,
+        ``plans["serve_main"]`` (``"serve_dec"`` for an encoder-decoder),
+        built when a serve step first asks for it (a train runtime never
         does): not unit-gated, its wires hold every micro-batch."""
-        if "serve_main" not in self.plans:
-            self.plans["serve_main"] = SchedulePlan.build(
+        key = f"serve_{self.seg_key}"
+        if key not in self.plans:
+            self.plans[key] = SchedulePlan.build(
                 "fwd_only",
                 dataclasses.replace(self.sp, unit=self.rc.microbatches),
                 prefetch=self.rc.gather_prefetch)
-        return self.plans["serve_main"]
+        return self.plans[key]
 
     @property
     def tables(self) -> dict[str, PackedTable]:
@@ -187,8 +217,9 @@ def make_train_step(rt: Runtime, shape_cfg):
     """Returns step(params, batch) -> (grads, metrics). ``batch`` holds
     the global ``tokens`` and ``labels`` [global_batch, seq] (numpy or
     tensors; a vision config's ``tokens`` are float patch embeddings
-    [global_batch, seq, d_model]), the same on every rank; each rank
-    takes its data shard.
+    [global_batch, seq, d_model]; an encoder-decoder's batch adds the
+    audio stub's frames ``enc_tokens`` [global_batch, enc_ctx,
+    d_model]), the same on every rank; each rank takes its data shard.
     Grads are float32 trees shaped like this rank's params, summed over
     the pods; metrics are ``loss_sum`` (the step's mean token loss),
     ``aux_sum`` (the auxiliary losses of every micro-batch's stages; the
@@ -216,13 +247,17 @@ def make_train_step(rt: Runtime, shape_cfg):
     shard = rt.shape.shard_of(rt.rank)
     rows = slice(shard * n_local, (shard + 1) * n_local)
 
+    encdec = rt.cfg.encdec
+    keys = ("tokens", "labels") + (("enc_tokens",) if encdec else ())
+
     def step(params, batch):
         b = {}
-        for k in ("tokens", "labels"):
+        for k in keys:
             a = batch[k]
             a = a if isinstance(a, torch.Tensor) else torch.as_tensor(
                 np.asarray(a))
-            want = ((gb, seq, rt.cfg.d_model)
+            want = ((gb, encdec.enc_ctx, rt.cfg.d_model) if k == "enc_tokens"
+                    else (gb, seq, rt.cfg.d_model)
                     if k == "tokens" and a.is_floating_point() else (gb, seq))
             if tuple(a.shape) != want:
                 raise ValueError(f"batch[{k!r}] is {tuple(a.shape)}, the "

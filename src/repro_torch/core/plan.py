@@ -27,7 +27,7 @@ import hashlib
 
 import numpy as np
 
-from repro_torch.core.generators import SchedParams, generate
+from repro_torch.core.generators import SchedParams, generate, retick
 from repro_torch.core.schedules import B as KB
 from repro_torch.core.schedules import F as KF
 from repro_torch.core.schedules import KIND_NAMES as KIND
@@ -277,11 +277,19 @@ def pack_table(tt: TickTable, prefetch: int = 0) -> PackedTable:
     )
 
 
+def strip_fwd(tt: TickTable) -> TickTable:
+    """The B / W tasks of ``tt`` alone, re-ticked with every F taken as
+    done: the encoder's backward table, whose forwards ran in an earlier
+    walk (the reference's ``strip_fwd``)."""
+    from repro_torch.core.autogen import orders_from_table
+    orders = [[task for task in o if task.kind != KF]
+              for o in orders_from_table(tt)]
+    return retick(orders, tt.P, tt.V, tt.n_mb, tt.unit, assume_f=True)
+
+
 # --------------------------------------------------------------------------- #
 # SchedulePlan
 # --------------------------------------------------------------------------- #
-
-
 
 
 def table_digest(tt: TickTable) -> str:

@@ -33,6 +33,10 @@ or with paging ``[P·V, n_pages, page_size, g, e]`` leaves plus
 for int8 pools. A Mamba layer slot holds ``L{j}.conv`` ``[P·V, slots,
 d_conv-1, di]`` (compute dtype) and ``L{j}.h`` ``[P·V, slots, di,
 d_state]`` (float32); its state has no positions, so it is never paged.
+An encoder-decoder's tree is its decoder's, ``{"dec": {...}}``, with the
+memory beside it: ``"enc_memory"`` ``[slots, enc_ctx, d]`` in the compute
+dtype, which the caller fills (``models/model.py encode``) and a slot
+reset zeroes, as the reference's; it has no page layout.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ def init_serve_caches(cfg, rc, geo, *, slots: int, max_seq: int,
     ``n_pages`` pages."""
     tree = {}
     for seg in geo.segments:
+        if seg.name == "enc":
+            continue
         rows = stages or geo.seg_stages(seg)
         slots_tree = {}
         for j, kind in enumerate(seg.kinds):
@@ -76,14 +82,26 @@ def init_serve_caches(cfg, rc, geo, *, slots: int, max_seq: int,
                 slots_tree[f"L{j}.{n}"] = torch.zeros(
                     (rows,) + shape, dtype=dt, device=device)
         tree[seg.name] = slots_tree
+    if cfg.encdec is not None:
+        if page_size:
+            raise ValueError("the encoder's memory has no page layout; "
+                             "build an encoder-decoder's caches without "
+                             "page_size")
+        tree["enc_memory"] = torch.zeros(
+            (slots, cfg.encdec.enc_ctx, cfg.d_model),
+            dtype=torch_dtype(rc.compute_dtype), device=device)
     return tree
 
 
 def reset_slot_caches(caches, rows: torch.Tensor):
     """Zero the cache rows ``rows`` (int64 slot indices) of every leaf in
     place (batch on axis 1). Slot reclaim: stale bytes beyond the new
-    request's horizon must not leak into it."""
-    for sub in caches.values():
+    request's horizon must not leak into it. The memory's rows (axis 0)
+    too."""
+    for key, sub in caches.items():
+        if key == "enc_memory":
+            sub[rows] = 0
+            continue
         for a in sub.values():
             a[:, rows] = 0
     return caches
@@ -152,7 +170,9 @@ def rope_for(cfg, max_seq: int, device) -> dict:
 def serve_step(cfg, rc, geo, params, caches, batch, *, rope,
                page_size: int = 0, want_logits: bool = False,
                write_rows=None):
-    """One prefill chunk (s > 1) or decode step (s == 1) over every row.
+    """One prefill chunk (s > 1) or decode step (s == 1) over every row
+    (an encoder-decoder's decoder, its cross-attention reading
+    ``caches["enc_memory"]``).
 
     ``batch``: ``tokens`` int [b, s] on the device (or a vision
     prefill's float embeddings [b, s, d], which go in as they are);
@@ -173,10 +193,11 @@ def serve_step(cfg, rc, geo, params, caches, batch, *, rope,
     if page_tables is not None and not (per_slot and page_size > 0):
         raise ValueError(
             "page_tables require a per-slot pos vector and page_size > 0")
-    seg = geo.segments[0]
+    seg = geo.segments[-1]   # the decoder of an encoder-decoder
     seg_p = params["segments"][seg.name]
     tree = caches[seg.name]
     ctx = LayerCtx(cfg=cfg, rc=rc, rope=rope, causal=True,
+                   enc_memory=caches.get("enc_memory"),
                    slot_mask=batch.get("slot_mask"), write_rows=write_rows,
                    page_tables=page_tables, page_size=page_size)
     x = M.embed_tokens(io, tokens, cfg, torch_dtype(rc.compute_dtype))

@@ -18,6 +18,12 @@ gradients in B. A prim may have several outputs (``n_out``: the conv's
 two halves, the router's weights and auxiliary loss); in B an output
 that received no cotangent gets zeros, as in the reference.
 
+An input from outside the stage is a tape value too (``Tape.value``):
+the stage's activation, and a decoder's cross-attention memory, which
+its K/V dense nodes read; ``backward`` returns every input's cotangent
+by index, so a B task hands the memory's back (the encoder's backward
+walk is seeded by their sum).
+
 Modes: ``"fwd"`` (the F task) computes under ``torch.no_grad``; ``"bwd"``
 computes *and* records, then :meth:`Tape.backward` walks the records in
 reverse. Each ``prim`` runs under ``torch.enable_grad`` on inputs

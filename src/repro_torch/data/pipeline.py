@@ -1,12 +1,13 @@
 """Deterministic synthetic token pipeline (numpy only).
 
 The port's copy of ``DataConfig`` and ``SyntheticStream`` from
-``repro/data/pipeline.py`` for token models and the vision stub: sample
-``i`` is a function of the seed and ``i`` alone, so the port and the
-reference draw the same batches. A ``vision`` sample's ``tokens`` are
-float patch embeddings [s, d_model], drawn after the same token draws as
-the reference's. The enc-dec kind (the audio stub's frames) comes with
-the encoder-decoder (ROADMAP.md queue 1 item 6d).
+``repro/data/pipeline.py`` for token models, the audio stub and the
+vision stub: sample ``i`` is a function of the seed and ``i`` alone, so
+the port and the reference draw the same batches. An ``enc_dec``
+sample adds ``enc_tokens``, the audio stub's float frame embeddings
+[enc_ctx, d_model], and a ``vision`` sample's ``tokens`` are float patch
+embeddings [s, d_model]; both are drawn after the same token draws as
+the reference's.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ class DataConfig:
     global_batch: int
     vocab: int
     seed: int = 0
-    kind: str = "lm"          # lm | vision
+    kind: str = "lm"          # lm | enc_dec | vision
     d_model: int = 0          # for stub embeddings
+    enc_ctx: int = 0
     structure: int = 97       # synthetic data has learnable structure:
     # token t+1 = (a * token_t + b) % structure-ish mixture + noise
 
@@ -54,6 +56,9 @@ class SyntheticStream:
         toks = np.where(noise, rng.integers(0, cfg.vocab, s + 1), toks)
         toks = (toks % cfg.vocab).astype(np.int32)
         out = {"tokens": toks[:-1], "labels": toks[1:]}
+        if cfg.kind == "enc_dec":
+            out["enc_tokens"] = rng.standard_normal(
+                (cfg.enc_ctx, cfg.d_model)).astype(np.float32) * 0.1
         if cfg.kind == "vision":
             out["tokens"] = rng.standard_normal(
                 (s, cfg.d_model)).astype(np.float32) * 0.1

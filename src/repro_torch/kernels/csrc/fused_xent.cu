@@ -29,7 +29,9 @@
 //     both float32, dw in w's layout ([V, d] or [d, V]); dlog scratch for
 //     one vocabulary chunk of Vc columns (Vc % 128 == 0): float32 [n, Vc]
 //     for a float32 w, bf16 [2, n, Vc] (two terms) for a bf16 w.
-// Requires d % 8 == 0, and V % 8 == 0 for a head (16-byte rows).
+// Requires d % 8 == 0; a float32 head needs V % 8 == 0 (16-byte rows), a
+// bf16 head V % 2 == 0 (4-byte rows: see "A head whose rows are not
+// 16-byte aligned" below).
 //
 // Bound on the H100: operations. The function is three GEMM-shaped
 // products of 2 n d V flops each (logits, dh, dW): 3.2 TFLOP a call at
@@ -83,6 +85,16 @@
 //   the head's tiles in place with the other transpose flag (the logits'
 //   B operand MN-major, dh's K-major), and dw_tc computes dW^T = h^T dlog
 //   (the same three terms) so that it stores rows of the [d, V] gradient.
+//   A head whose rows are not 16-byte aligned (V % 8 != 0, whisper's
+//   51866 columns: rows of 103,732 bytes) is still read in place, as
+//   layout HEAD4: its tiles are filled with 4-byte cp.async copies into
+//   the same swizzled tile (fill4), each pair of columns zero-filled on
+//   its own at or past the last column, so the 16-byte chunk that
+//   straddles a row's end brings its real columns and zeros and no copy
+//   reads past the row; the logits past V are kept out by index, as
+//   before, and dW is stored at the head's own pitch V, two columns a
+//   store (V even: no pair straddles the end). V % 8 == 0 keeps the
+//   16-byte copies (HEAD), instruction for instruction.
 //
 // float32 w: the CUDA-core body below (gemm and its five kernels), in
 // float32 throughout, as the reference computes it: 128 x 128 output
@@ -499,6 +511,34 @@ __device__ __forceinline__ void fill(uint32_t dst, const bf16* src, int ld,
   }
 }
 
+// fill for a source whose rows are 4-byte aligned only (ld and c0 even,
+// cols even): each 16-byte chunk of the tile lands as four 4-byte copies,
+// a pair of columns zero-filled at or past column `cols` (or past
+// `rows`) without a read, so no copy passes a row's end.
+template <int R, int W>
+__device__ __forceinline__ void fill4(uint32_t dst, const bf16* src, int ld,
+                                      int r0, int rows, int c0, int cols) {
+  constexpr int C = W / 8;
+  static_assert(R * C % NT == 0, "tile");
+#pragma unroll
+  for (int i = 0; i < R * C / NT; ++i) {
+    const int q = threadIdx.x + i * NT, r = q / C, c = q % C;
+    const bool row_ok = r0 + r < rows;
+    const size_t at =
+        row_ok ? static_cast<size_t>(r0 + r) * ld + c0 + c * 8 : 0;
+    const uint32_t to = dst + swz<R>(r, c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool ok = row_ok && c0 + c * 8 + 2 * u < cols;
+      cp4(to + 4 * u, src + (ok ? at + 2 * u : 0), ok);
+    }
+  }
+}
+
+// A [d, V] head with V % 8 != 0 (V even): HEAD's products over tiles
+// filled by fill4 (the C entries pick it; the float32 body has none).
+constexpr int HEAD4 = 2;
+
 // The three products. load() stages k tile kt of the block's operands at
 // s; mma() issues this warpgroup's wgmmas on a staged k tile into its
 // 64 x 128 accumulator (two m64n64 halves). A operand of warpgroup g:
@@ -513,7 +553,7 @@ template <int LAYOUT>
 struct Logits {
   static constexpr int STAGE = 3 * TILE, STAGES = 4, PROMOTE = 0;
   const bf16* hs;  // [2, n, d]: hi, lo
-  const bf16* w;   // [V, d] (TABLE) or [d, V] (HEAD)
+  const bf16* w;   // [V, d] (TABLE) or [d, V] (HEAD, HEAD4)
   int n, d, V;
   __device__ int k_tiles() const { return (d + BK - 1) / BK; }
   __device__ __forceinline__ void load(uint32_t s, int m0, int v0,
@@ -521,14 +561,16 @@ struct Logits {
     const int k0 = kt * BK;
     fill<BT, BK>(s, hs, d, m0, n, k0, d);
     fill<BT, BK>(s + TILE, hs + static_cast<size_t>(n) * d, d, m0, n, k0, d);
-    if constexpr (LAYOUT == HEAD)
+    if constexpr (LAYOUT == HEAD4)
+      fill4<BK, BT>(s + 2 * TILE, w, V, k0, d, v0, V);
+    else if constexpr (LAYOUT == HEAD)
       fill<BK, BT>(s + 2 * TILE, w, V, k0, d, v0, V);
     else
       fill<BT, BK>(s + 2 * TILE, w, d, v0, V, k0, d);
   }
   __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
                                       int zero) const {
-    constexpr int TB_ = LAYOUT == HEAD;  // B MN-major
+    constexpr int TB_ = LAYOUT != TABLE;  // B MN-major
     const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
@@ -561,14 +603,16 @@ struct DH {
     fill<BT, BK>(s, dl, Vc, m0, n, k0, Vc);
     fill<BT, BK>(s + TILE, dl + static_cast<size_t>(n) * Vc, Vc, m0, n, k0,
                  Vc);
-    if constexpr (LAYOUT == HEAD)
+    if constexpr (LAYOUT == HEAD4)
+      fill4<BT, BK>(s + 2 * TILE, w, V, e0, d, k0, cw);
+    else if constexpr (LAYOUT == HEAD)
       fill<BT, BK>(s + 2 * TILE, w, V, e0, d, k0, cw);
     else
       fill<BK, BT>(s + 2 * TILE, w, d, k0, cw, e0, d);
   }
   __device__ __forceinline__ void mma(uint32_t s, float (&acc)[2][32],
                                       int zero) const {
-    constexpr int TB_ = LAYOUT != HEAD;  // B MN-major
+    constexpr int TB_ = LAYOUT == TABLE;  // B MN-major
     const uint32_t a = s + (threadIdx.x / WG) * HALF, b = s + 2 * TILE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
@@ -599,7 +643,7 @@ struct DW {
   __device__ __forceinline__ void load(uint32_t s, int a0, int b0,
                                        int kt) const {
     const int k0 = kt * BK;
-    const bool head = LAYOUT == HEAD;
+    const bool head = LAYOUT != TABLE;
     const int c0 = head ? b0 : a0, e0 = head ? a0 : b0;
     // A's two terms, then B's
     const uint32_t sd = head ? s + 2 * TILE : s, sh = head ? s : s + 2 * TILE;
@@ -829,7 +873,7 @@ __global__ void __launch_bounds__(NT, 1)
   extern __shared__ __align__(1024) uint8_t smem_x[];
   const int e0 = blockIdx.x * BT, t0 = blockIdx.y * BT;
   float acc[2][32];
-  if constexpr (LAYOUT == HEAD) {
+  if constexpr (LAYOUT != TABLE) {
     mainloop(p, ring(smem_x), e0, t0, acc);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -942,8 +986,8 @@ int bwd(const bf16* hs, const bf16* w, const int* labels, const float* lse,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     // the chunk's part of w: rows c0.. of a table, columns c0.. of a head
-    const bf16* wc = w + (LAYOUT == HEAD ? static_cast<size_t>(c0)
-                                         : static_cast<size_t>(c0) * d);
+    const bf16* wc = w + (LAYOUT != TABLE ? static_cast<size_t>(c0)
+                                          : static_cast<size_t>(c0) * d);
     dh_tc<LAYOUT><<<dim3(cdiv(d, BT), cdiv(n, BT)), NT, sh, st>>>(
         DH<LAYOUT>{dl, wc, n, d, Vc, cw, V}, dh, c0 > 0);
     err = cudaGetLastError();
@@ -960,9 +1004,12 @@ template <int LAYOUT>
 int fwd_any(int w_dtype, const float* h, const void* w, const int* labels,
             float* lse, float* labl, float* pm, float* pl, void* hs, int n,
             int d, int V, cudaStream_t st) {
-  if (w_dtype == 0)
+  if constexpr (LAYOUT == xtc::HEAD4) {   // bf16 only
+    if (w_dtype != 1 || hs == nullptr) return -1;
+  } else if (w_dtype == 0) {
     return fwd_cc<LAYOUT>(h, static_cast<const float*>(w), labels, lse,
                           labl, pm, pl, n, d, V, st);
+  }
   if (w_dtype == 1 && hs != nullptr)
     return xtc::fwd<LAYOUT>(h, static_cast<const __nv_bfloat16*>(w), labels,
                             lse, labl, pm, pl,
@@ -975,10 +1022,13 @@ int bwd_any(int w_dtype, const float* h, const void* w, const int* labels,
             const float* lse, const float* scale, float* dh, float* dw,
             void* dlog, const void* hs, int n, int d, int V, int Vc,
             cudaStream_t st) {
-  if (w_dtype == 0)
+  if constexpr (LAYOUT == xtc::HEAD4) {   // bf16 only
+    if (w_dtype != 1 || hs == nullptr) return -1;
+  } else if (w_dtype == 0) {
     return bwd_cc<LAYOUT>(h, static_cast<const float*>(w), labels, lse,
                           scale, dh, dw, static_cast<float*>(dlog), n, d, V,
                           Vc, st);
+  }
   if (w_dtype == 1 && hs != nullptr)
     return xtc::bwd<LAYOUT>(static_cast<const __nv_bfloat16*>(hs),
                             static_cast<const __nv_bfloat16*>(w), labels,
@@ -988,17 +1038,18 @@ int bwd_any(int w_dtype, const float* h, const void* w, const int* labels,
   return -1;
 }
 
-// d % 8 == 0; a [d, V] head also needs V % 8 == 0 (its 16-byte rows)
+// d % 8 == 0; a [d, V] head also needs V even (its rows 4-byte aligned;
+// fwd_any / bwd_any refuse a float32 one unless V % 8 == 0)
 bool shape_ok(int layout, int d, int V) {
-  return d % 8 == 0 && V >= 1 && (layout == TABLE || V % 8 == 0);
+  return d % 8 == 0 && V >= 1 && (layout == TABLE || V % 2 == 0);
 }
 
 }  // namespace
 
 // w_dtype codes: 0 float32 (the CUDA-core body), 1 bfloat16 (the
 // tensor-core body, which needs the hs scratch). layout: 0 a [V, d]
-// table (the tied embedding), 1 a [d, V] head (an untied head.w), read in
-// place either way; dw has w's layout. Returns 0, a cudaError_t, or -1
+// table (the tied embedding), 1 a [d, V] head (an untied head.w; V % 8 !=
+// 0 runs HEAD4, bf16 only), read in place either way; dw has w's layout. Returns 0, a cudaError_t, or -1
 // for a dtype, layout or shape without an instantiation.
 extern "C" int fused_xent_fwd(int w_dtype, int layout, const float* h,
                               const void* w, const int* labels, float* lse,
@@ -1010,6 +1061,9 @@ extern "C" int fused_xent_fwd(int w_dtype, int layout, const float* h,
   if (layout == TABLE)
     return fwd_any<TABLE>(w_dtype, h, w, labels, lse, labl, pm, pl, hs, n, d,
                           V, st);
+  if (layout == HEAD && V % 8 != 0)
+    return fwd_any<xtc::HEAD4>(w_dtype, h, w, labels, lse, labl, pm, pl, hs,
+                               n, d, V, st);
   if (layout == HEAD)
     return fwd_any<HEAD>(w_dtype, h, w, labels, lse, labl, pm, pl, hs, n, d,
                          V, st);
@@ -1042,6 +1096,9 @@ extern "C" int fused_xent_bwd(int w_dtype, int layout, const float* h,
   if (layout == TABLE)
     return bwd_any<TABLE>(w_dtype, h, w, labels, lse, scale, dh, dw, dlog,
                           hs, n, d, V, Vc, st);
+  if (layout == HEAD && V % 8 != 0)
+    return bwd_any<xtc::HEAD4>(w_dtype, h, w, labels, lse, scale, dh, dw,
+                               dlog, hs, n, d, V, Vc, st);
   if (layout == HEAD)
     return bwd_any<HEAD>(w_dtype, h, w, labels, lse, scale, dh, dw, dlog,
                          hs, n, d, V, Vc, st);

@@ -24,9 +24,11 @@ the CPU. For CUDA tensors it checks dtype, shape and layout (h float32
 ``[n, d]``; the head ``[d, vocab]`` float32 or bfloat16, read in place in
 one of two layouts: the transposed view of a contiguous ``[vocab, d]``
 table, as a tied embedding is, or a contiguous ``[d, vocab]`` matrix, as
-an untied ``head.w`` is), launches its pass on the current stream and
-raises if a launch is refused; any other layout raises. ``LAUNCHES``
-counts kernel launches, one per pass.
+an untied ``head.w`` is: with vocab % 8 == 0 (16-byte rows), or, bf16,
+any even vocab, such as whisper's 51866 columns, whose 4-byte rows the
+kernel fills its tiles from with 4-byte copies), launches its pass on the
+current stream and raises if a launch is refused; any other layout
+raises. ``LAUNCHES`` counts kernel launches, one per pass.
 """
 
 from __future__ import annotations
@@ -61,15 +63,20 @@ def _table(w_head: torch.Tensor, d: int) -> tuple[torch.Tensor, int]:
         raise ValueError(f"w_head has dtype {w_head.dtype}; the kernel "
                          "takes float32 or bfloat16")
     vocab = w_head.shape[1]
-    if w_head.is_contiguous() and vocab % 8 == 0:
+    # the kernel's row alignment: 16-byte copies, or for a bf16 head 4-byte
+    # ones (an even vocab)
+    rows_ok = vocab % 8 == 0 or (w_head.dtype == torch.bfloat16
+                                 and vocab % 2 == 0)
+    if w_head.is_contiguous() and rows_ok:
         base, layout = w_head, HEAD
     elif w_head.t().is_contiguous():
         base, layout = w_head.t(), TABLE
     else:
         raise ValueError(
-            f"w_head {tuple(w_head.shape)} with strides {w_head.stride()} "
-            "must be a contiguous [d, vocab] head with vocab % 8 == 0, or "
-            f"the [d, vocab] transpose of a contiguous [vocab, {d}] table")
+            f"w_head {w_head.dtype} {tuple(w_head.shape)} with strides "
+            f"{w_head.stride()} must be a contiguous [d, vocab] head with "
+            "vocab % 8 == 0 (bfloat16: vocab even), or the [d, vocab] "
+            f"transpose of a contiguous [vocab, {d}] table")
     if base.data_ptr() % 16:
         raise ValueError("w_head must be 16-byte aligned")
     return base, layout

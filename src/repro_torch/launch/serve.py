@@ -77,7 +77,10 @@ serving token-id prompts as the reference's engine does: a float patch
 prefill goes through ``Session.serve_step_batched``); without it the
 reduced smoke config runs. Jamba's Mamba layers keep
 per-slot state, so ``--page-size`` and ``--prefill-chunk`` are refused
-for it.
+for it. An encoder-decoder (whisper-large-v3) is refused through the
+engine's own error, as the reference's CLI refuses it: it serves
+through ``Session.serve_prefill`` / ``serve_decode`` (or the slot-aware
+``serve_step_batched``) with the encoder's memory in its caches.
 """
 
 from __future__ import annotations

@@ -23,6 +23,10 @@ Prints one line a step (loss, grad norm, step ms, tokens/s) and
       --arch xlstm-1.3b --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch xlstm-1.3b --full --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --full --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --backend gloo --data 2 --pp 2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --full --data 2 \\
@@ -57,7 +61,11 @@ experts, vpp 1, 4 sequences of 4096 a step; qwen2-moe-a2.7b: its widths,
 all 60 experts and the shared FFN, cut to 3 layers, vpp 1, 4 sequences of
 4096 a step; phi-3-vision-4.2b: its widths cut to 16 layers, 4 sequences
 of 4096 float patch embeddings a step (the vision stub: the table takes
-no gradient); bf16, random weights from seed 0); without it the reduced
+no gradient); whisper-large-v3 uncut, 32 encoder and 32 decoder layers,
+8 sequences of 448 tokens a step, each with 1500 float frames of the
+audio stub (the encoder's forward walk, the decoder's table, the
+encoder's backward walk); bf16, random weights from seed 0); without it
+the reduced
 smoke config. The default device is the card.
 
 ``--data D --pp P [--groups G] [--pods Q]`` trains on Q * D * G * P

@@ -10,8 +10,12 @@ backward on the card) and ``apply_moe`` (gathered top-k experts with the
 router's load-balance loss) are written against the ZeroPP tape
 (``core/tape.py``): every parameterised GEMM is a ``dense`` node
 (deferred dW, the W task; the expert banks too), everything else a
-``prim`` (immediate grads in B). Serving: ``norm_fwd`` (RMSNorm or
-LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP), ``attn_cached`` with
+``prim`` (immediate grads in B); ``apply_attn(..., cross=True)`` is the
+decoder's cross-attention over the encoder's memory (a tape value, whose
+cotangent B returns). Serving: ``norm_fwd`` (RMSNorm or
+LayerNorm), ``ffn_fwd`` (SwiGLU or the GELU MLP), ``cross_attn_decode``
+(the memory's K/V projected again at every call, as the reference's),
+``attn_cached`` with
 its three cache layouts (paged pool, per-slot positions, one scalar
 position), ``mamba_cached`` (prefill through the selective-scan kernel,
 decode one SSM step), ``mlstm_cached`` / ``slstm_cached`` (prefill and
@@ -70,6 +74,9 @@ class LayerCtx:
     rc: RunConfig
     rope: dict[int, tuple[torch.Tensor, torch.Tensor]]  # head_dim -> tables
     causal: bool = True
+    enc_memory: Any = None           # the encoder's output [b, enc_ctx, d]
+    #                                  that cross-attention reads: a TVal
+    #                                  on the tape, a tensor when serving
     slot_mask: Any = None            # [b] bool: rows allowed to write their
     #                                  cache slot (continuous batching);
     #                                  None = every row writes
@@ -160,13 +167,25 @@ def apply_norm(t: Tape, cfg: ModelConfig, pfx: str, x: TVal) -> TVal:
     return t.prim(rms, x, pnames=(f"{pfx}.scale",))
 
 
-def apply_attn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal) -> TVal:
+def apply_attn(t: Tape, ctx: LayerCtx, pfx: str, x: TVal, *,
+               cross: bool = False) -> TVal:
     """Self-attention: QKV and O are dense nodes; RoPE and the attention
-    core (the flash kernels on the card) are one prim."""
+    core (the flash kernels on the card) are one prim. ``cross``: q from
+    x, k and v from the memory ``ctx.enc_memory`` (a tape value, so B
+    returns its cotangent), no RoPE and no causal mask, as the
+    reference's cross-attention."""
     cfg, rc = ctx.cfg, ctx.rc
+    kv_src = ctx.enc_memory if cross else x
     q = t.dense(x, f"{pfx}.wq", "bsd,dhe->bshe")
-    k = t.dense(x, f"{pfx}.wk", "bsd,dge->bsge")
-    v = t.dense(x, f"{pfx}.wv", "bsd,dge->bsge")
+    k = t.dense(kv_src, f"{pfx}.wk", "bsd,dge->bsge")
+    v = t.dense(kv_src, f"{pfx}.wv", "bsd,dge->bsge")
+    if cross:
+        def core(qv, kv, vv):
+            return ops.attention(qv, kv, vv, causal=False, q_offset=0,
+                                 block_k=rc.attn_block_k,
+                                 impl=rc.kernel_impl)
+        o = t.prim(core, q, k, v)
+        return t.dense(o, f"{pfx}.wo", "bshe,hed->bsd")
     cos, sin = ctx.rope[cfg.head_dim]
 
     def core(qv, kv, vv):
@@ -376,6 +395,19 @@ def attn_cached(ctx: LayerCtx, params, pfx, x, cache, pos):
         cache = {"k": kc, "v": vc}
     y = _dense(o, params[f"{pfx}.wo"], n_in=2)
     return y, cache
+
+
+def cross_attn_decode(ctx: LayerCtx, params, pfx, x, memory):
+    """Cross-attention of a prefill chunk or a decode step: q from x [b,
+    s, d], k and v projected from the memory [b, enc_ctx, d] again at
+    every call, as the reference does; bidirectional, through the flash
+    forward (K1 on the card)."""
+    q = _dense(x, params[f"{pfx}.wq"])
+    k = _dense(memory, params[f"{pfx}.wk"])
+    v = _dense(memory, params[f"{pfx}.wv"])
+    o = ops.attention(q, k, v, causal=False, q_offset=0,
+                      block_k=ctx.rc.attn_block_k, impl=ctx.rc.kernel_impl)
+    return _dense(o, params[f"{pfx}.wo"], n_in=2)
 
 
 # --------------------------------------------------------------------------- #

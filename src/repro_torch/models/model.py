@@ -17,8 +17,13 @@ either norm, either dense MLP and either head; a MoE layer's router adds
 its load-balance term to the stage's auxiliary loss, and its shared
 experts (``n_shared``) add a SwiGLU FFN that every token runs. A vision
 config (``frontend="vision"``) takes float patch embeddings [b, s, d] in
-place of token ids, as the reference's stub does. Any other layer kind
-or variant raises ``NotImplementedError``.
+place of token ids, as the reference's stub does. An encoder-decoder
+(``encdec``, the audio stub's float frames as the encoder's input) has
+two segments, ``enc`` (bidirectional ``enc`` layers) then ``dec``
+(causal ``dec`` layers with cross-attention over the encoder's output,
+the memory), each one layer a stage; serving runs the ``dec`` segment
+with the memory held beside the caches, as the reference's serve step
+does. Any other layer kind or variant raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,12 +42,14 @@ from repro_torch.models.common import (
     torch_dtype,
 )
 
-_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; the "
-               "encoder-decoder with the audio stub, and MLA with the MTP "
-               "head arrive in later slices (ROADMAP.md queue 1 items "
-               "6d-6e)")
+_NOT_PORTED = ("{what} of {name} has no block in repro_torch yet; MLA "
+               "with the MTP head arrives in a later slice (ROADMAP.md "
+               "queue 1 item 6e)")
 _SERVE_KINDS = ("attn:dense", "attn:moe", "mamba:dense", "mamba:moe",
-                "mlstm:none", "slstm:none")
+                "mlstm:none", "slstm:none", "dec")
+# the encoder-decoder's kinds: pre-norm self-attention and the GELU MLP
+# (enc), with cross-attention between them (dec)
+_KINDS = _SERVE_KINDS + ("enc",)
 # each mixer's specs, tape form and cached form (prefill / decode)
 _MIXERS = {
     "attn": (blocks.attn_specs, blocks.apply_attn, blocks.attn_cached),
@@ -85,10 +92,9 @@ class Geometry:
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = [what for what, bad in (
-        ("the encoder-decoder", cfg.encdec is not None),
         ("the MTP head", cfg.mtp),
         (f"the {cfg.frontend} frontend",
-         cfg.frontend not in (None, "vision"))) if bad]
+         cfg.frontend not in (None, "vision", "audio"))) if bad]
     if missing:
         raise NotImplementedError(_NOT_PORTED.format(
             what=", ".join(missing), name=cfg.name))
@@ -98,8 +104,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def build_geometry(cfg: ModelConfig, rc: RunConfig) -> Geometry:
-    """Derive (and validate) the static stage layout."""
+    """Derive (and validate) the static stage layout. An encoder-decoder
+    has two segments of one layer a stage, V = layers / pp each: the
+    bidirectional encoder, then the causal decoder."""
     _check_supported(cfg)
+    if cfg.encdec is not None:
+        v_enc = max(1, cfg.encdec.enc_layers // rc.pp)
+        v_dec = max(1, cfg.n_layers // rc.pp)
+        return Geometry(rc.pp, rc.groups, (
+            Segment("enc", cfg.encdec.enc_layers, v_enc, 1, ("enc",),
+                    causal=False),
+            Segment("dec", cfg.n_layers, v_dec, 1, ("dec",))))
     L = cfg.n_layers
     pv = rc.pp * rc.vpp
     k = -(-L // pv)
@@ -122,8 +137,9 @@ def storage_index(p: int, v: int, V: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in _SERVE_KINDS:
+def _check_kind(cfg: ModelConfig, kind: str,
+                kinds: tuple[str, ...] = _KINDS) -> None:
+    if kind not in kinds:
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"layer kind {kind!r}", name=cfg.name))
 
@@ -131,8 +147,17 @@ def _check_kind(cfg: ModelConfig, kind: str) -> None:
 def layer_slot_specs(cfg: ModelConfig, kind: str, pfx: str):
     """Specs for one layer slot of the given static kind."""
     _check_kind(cfg, kind)
-    mix, ffn = kind.split(":")
     sp: dict[str, ParamSpec] = {}
+    if kind in ("enc", "dec"):
+        sp.update(blocks.norm_specs(cfg, f"{pfx}.ln1"))
+        sp.update(blocks.attn_specs(cfg, f"{pfx}.mix"))
+        sp.update(blocks.norm_specs(cfg, f"{pfx}.ln2"))
+        if kind == "dec":
+            sp.update(blocks.attn_specs(cfg, f"{pfx}.xattn"))
+            sp.update(blocks.norm_specs(cfg, f"{pfx}.ln3"))
+        sp.update(blocks.ffn_specs(cfg, f"{pfx}.ffn"))
+        return sp
+    mix, ffn = kind.split(":")
     sp.update(blocks.norm_specs(cfg, f"{pfx}.ln1"))
     sp.update(_MIXERS[mix][0](cfg, f"{pfx}.mix"))
     if ffn != "none":
@@ -182,15 +207,30 @@ def apply_layer(t: Tape, ctx: blocks.LayerCtx, kind: str, pfx: str, x: TVal,
                 keep: float) -> tuple[TVal, TVal | None]:
     """Pre-norm residual layer; ``keep`` (0.0 for padding layers) scales
     each residual branch, as the reference's ``u + v * keep``. An
-    FFN-free kind (``<mix>:none``) is the mixer's branch alone. Returns
-    (y, the MoE router's auxiliary loss, or None for a dense FFN or
-    none)."""
+    FFN-free kind (``<mix>:none``) is the mixer's branch alone; ``enc``
+    is bidirectional self-attention and the MLP, ``dec`` causal
+    self-attention, cross-attention over ``ctx.enc_memory`` and the MLP.
+    Returns (y, the MoE router's auxiliary loss, or None for a dense FFN
+    or none)."""
     _check_kind(ctx.cfg, kind)
-    mix, ffn = kind.split(":")
 
     def res_add(a, b):
         return t.prim(lambda u, v: u + v * keep, a, b)
 
+    if kind in ("enc", "dec"):
+        h = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln1", x)
+        h = blocks.apply_attn(t, dataclasses.replace(
+            ctx, causal=kind == "dec"), f"{pfx}.mix", h)
+        x = res_add(x, h)
+        last = "ln2"
+        if kind == "dec":
+            h2 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln2", x)
+            h2 = blocks.apply_attn(t, ctx, f"{pfx}.xattn", h2, cross=True)
+            x = res_add(x, h2)
+            last = "ln3"
+        h3 = blocks.apply_norm(t, ctx.cfg, f"{pfx}.{last}", x)
+        return res_add(x, blocks.apply_ffn(t, ctx, f"{pfx}.ffn", h3)), None
+    mix, ffn = kind.split(":")
     h = blocks.apply_norm(t, ctx.cfg, f"{pfx}.ln1", x)
     h = _MIXERS[mix][1](t, ctx, f"{pfx}.mix", h)
     x = res_add(x, h)
@@ -221,16 +261,10 @@ def apply_stage(t: Tape, ctx: blocks.LayerCtx, seg: Segment, x: TVal,
     return x, aux_total
 
 
-def reference_logits(cfg, rc, params, tokens):
-    """Full forward on one device, looping stages in logical order; the
-    plain oracle of the pipeline. ``tokens`` are ids [b, s] or, for a
-    vision config, float embeddings [b, s, d]. Returns (logits [b, s,
-    vocab] in the compute dtype, aux)."""
-    geo = build_geometry(cfg, rc)
-    dtype = torch_dtype(rc.compute_dtype)
-    io = params["io"]
-    seg = geo.segments[0]
-    x = embed_tokens(io, tokens, cfg, dtype)
+def _run_segment(cfg, rc, geo, params, seg, x, memory=None):
+    """The segment's stages in logical order on a fwd tape; ``memory``
+    (the encoder's output) feeds the decoder's cross-attention. Returns
+    (y, the summed auxiliary loss)."""
     ctx = blocks.LayerCtx(cfg=cfg, rc=rc,
                           rope=rope_for(cfg, x.shape[1], x.device),
                           causal=seg.causal)
@@ -239,8 +273,38 @@ def reference_logits(cfg, rc, params, tokens):
     for s in range(geo.seg_stages(seg)):
         idx = storage_index(s % geo.pp, s // geo.pp, seg.vpp)
         t = Tape({n: a[idx] for n, a in stacked.items()}, mode="fwd")
+        if memory is not None:
+            ctx.enc_memory = t.value(memory)
         xv, aux = apply_stage(t, ctx, seg, t.value(x), s)
         x, aux_total = xv.val, aux_total + aux.val
+    return x, aux_total
+
+
+def encode(cfg, rc, params, enc_tokens):
+    """The encoder segment over the audio stub's frames ``enc_tokens``
+    [b, enc_ctx, d] (cast to the compute dtype): the memory [b, enc_ctx,
+    d] that the decoder's cross-attention reads, as the reference's
+    training encoder computes it (the serve caches' ``enc_memory``)."""
+    geo = build_geometry(cfg, rc)
+    x = embed_tokens(params["io"], enc_tokens, cfg,
+                     torch_dtype(rc.compute_dtype))
+    return _run_segment(cfg, rc, geo, params, geo.segments[0], x)[0]
+
+
+def reference_logits(cfg, rc, params, tokens, enc_tokens=None):
+    """Full forward on one device, looping stages in logical order; the
+    plain oracle of the pipeline. ``tokens`` are ids [b, s] or, for a
+    vision config, float embeddings [b, s, d]; an encoder-decoder also
+    takes the audio stub's frames ``enc_tokens`` [b, enc_ctx, d].
+    Returns (logits [b, s, vocab] in the compute dtype, aux)."""
+    geo = build_geometry(cfg, rc)
+    dtype = torch_dtype(rc.compute_dtype)
+    io = params["io"]
+    x = embed_tokens(io, tokens, cfg, dtype)
+    memory = (encode(cfg, rc, params, enc_tokens)
+              if cfg.encdec is not None else None)
+    x, aux_total = _run_segment(cfg, rc, geo, params, geo.segments[-1], x,
+                                memory)
     xf = x.float()
     if cfg.norm == "layernorm":
         hn = blocks.layer_norm(xf, io["final_norm.scale"],
@@ -252,11 +316,11 @@ def reference_logits(cfg, rc, params, tokens):
     return hn.to(dtype) @ w, aux_total
 
 
-def reference_loss(cfg, rc, params, tokens, labels):
+def reference_loss(cfg, rc, params, tokens, labels, enc_tokens=None):
     """Mean token cross-entropy of :func:`reference_logits` (float32),
     plus ``router_aux_weight`` times the auxiliary loss for a MoE
     model."""
-    logits, aux = reference_logits(cfg, rc, params, tokens)
+    logits, aux = reference_logits(cfg, rc, params, tokens, enc_tokens)
     lf = logits.reshape(-1, logits.shape[-1]).float()
     lse = torch.logsumexp(lf, dim=-1)
     lab = lf.gather(1, labels.reshape(-1, 1).long())[:, 0]
@@ -279,8 +343,10 @@ def layer_cache_spec(cfg, rc, kind, batch, max_seq) -> dict[str, tuple]:
     compute dtype and its SSM state [batch, di, d_state] in float32; an
     mLSTM layer its matrix memory C [batch, h, e, e], normaliser n [batch,
     h, e] and stabiliser m [batch, h], an sLSTM layer c, n and m [batch,
-    h, d / h], all float32."""
-    _check_kind(cfg, kind)
+    h, d / h], all float32. A decoder layer (``dec``) keeps its
+    self-attention's K/V (the memory is a leaf of its own; the encoder
+    keeps no cache)."""
+    _check_kind(cfg, kind, _SERVE_KINDS)
     f32 = torch.float32
     mix = kind.split(":")[0]
     if mix == "mamba":
@@ -311,10 +377,22 @@ def embed_tokens(params, tokens, cfg, dtype):
 
 
 def cached_layer(ctx, params, kind, pfx, x, cache, pos):
-    """Unified prefill (s>1) / decode (s=1) for one pre-norm layer."""
-    _check_kind(ctx.cfg, kind)
+    """Unified prefill (s>1) / decode (s=1) for one pre-norm layer. A
+    decoder layer (``dec``) attends to itself through its cache, then
+    to the memory ``ctx.enc_memory`` (``blocks.cross_attn_decode``)."""
+    _check_kind(ctx.cfg, kind, _SERVE_KINDS)
     cfg = ctx.cfg
     blocks.check_serves(cfg)
+    if kind == "dec":
+        h = blocks.norm_fwd(cfg, params, f"{pfx}.ln1", x)
+        dh, cache = blocks.attn_cached(ctx, params, f"{pfx}.mix", h, cache,
+                                       pos)
+        x = x + dh
+        h2 = blocks.norm_fwd(cfg, params, f"{pfx}.ln2", x)
+        x = x + blocks.cross_attn_decode(ctx, params, f"{pfx}.xattn", h2,
+                                         ctx.enc_memory)
+        h3 = blocks.norm_fwd(cfg, params, f"{pfx}.ln3", x)
+        return x + blocks.ffn_fwd(ctx, params, f"{pfx}.ffn", h3), cache
     mix, ffn = kind.split(":")
     h = blocks.norm_fwd(cfg, params, f"{pfx}.ln1", x)
     dh, c2 = _MIXERS[mix][2](ctx, params, f"{pfx}.mix", h, cache, pos)

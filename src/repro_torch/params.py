@@ -2,7 +2,8 @@
 and the cut of a tree into the ranks' parts.
 
 A full tree is ``{"io": {name: tensor}, "segments": {"main":
-{"L{j}.<...>": [P·V, ...]}}}`` with the reference's names and stage
+{"L{j}.<...>": [P·V, ...]}}}`` (an encoder-decoder's segments ``enc``
+and ``dec``, each with its own V) with the reference's names and stage
 stacking (row ``storage_index(p, v, V) = p * V + v`` holds logical stage
 ``v * P + p``), so ``from_reference`` is a name-for-name copy of
 ``repro``'s tree. One rank of a pods x data x (groups x pp) mesh holds
@@ -88,8 +89,8 @@ def init_all_params(cfg, rc, generator: torch.Generator | None = None,
     return {"io": io, "segments": segments}
 
 
-def _stage_rows(rt, p: int) -> list[int]:
-    V = rt.rc.vpp
+def _stage_rows(rt, sname: str, p: int) -> list[int]:
+    V = rt.segs[sname].vpp
     return [M.storage_index(p, v, V) for v in range(V)]
 
 
@@ -106,7 +107,7 @@ def shard_for_rank(rt, full, rank: int):
         io[n] = a.contiguous().clone()
     segs = {}
     for sname, st in full["segments"].items():
-        rows = _stage_rows(rt, p)
+        rows = _stage_rows(rt, sname, p)
         out = {}
         for n, a in st.items():
             a = a[rows]
@@ -136,13 +137,13 @@ def unshard(rt, trees):
         out = {}
         for n in trees[0]["segments"][sname]:
             ld = rt.local_dim(sname, n)
-            full = [None] * (rt.Pe * rt.rc.vpp)
+            full = [None] * (rt.Pe * rt.segs[sname].vpp)
             for p in range(rt.Pe):
                 parts = [trees[sh.rank_of(d, 0, p)]["segments"][sname][n]
                          for d in range(D if ld is not None else 1)]
                 blk = torch.cat(parts, ld + 1) if len(parts) > 1 \
                     else parts[0]
-                for v, row in enumerate(_stage_rows(rt, p)):
+                for v, row in enumerate(_stage_rows(rt, sname, p)):
                     full[row] = blk[v]
             out[n] = torch.stack(full)
         segs[sname] = out

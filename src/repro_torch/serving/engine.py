@@ -79,10 +79,17 @@ _CHUNKABLE_MIXES = ("attn", "mla", "dec")
 
 
 def check_layout(session, prefill_chunk: int | None = None) -> None:
-    """Refuse what recurrent-state layers cannot carry: paged caches and
-    chunked prefill (a Mamba prefill starts from zero state, so a second
-    chunk would drop the first one's). Raises ``NotImplementedError``;
-    callers may run it before building params."""
+    """Refuse an encoder-decoder (continuous batching drives the
+    decoder-only serve path, as the reference's engine does) and what
+    recurrent-state layers cannot carry: paged caches and chunked prefill
+    (a Mamba prefill starts from zero state, so a second chunk would drop
+    the first one's). Raises ``NotImplementedError``; callers may run it
+    before building params."""
+    if session.cfg.encdec is not None:
+        raise NotImplementedError(
+            "continuous batching drives the decoder-only serve path; "
+            "enc-dec architectures still use serve_prefill/"
+            "serve_decode")
     kinds = session.geo.segments[-1].kinds
     if not any(k.split(":")[0] not in _CHUNKABLE_MIXES for k in kinds):
         return
@@ -128,11 +135,6 @@ class ServeEngine:
                 f"ServeEngine needs a serve-mode session (got mode="
                 f"{session.spec.mode!r}); build one with "
                 "session(arch, mode='serve', max_slots=..., max_seq=...)")
-        if session.cfg.encdec is not None:
-            raise NotImplementedError(
-                "continuous batching drives the decoder-only serve path; "
-                "enc-dec architectures still use serve_prefill/"
-                "serve_decode")
         self.session = session
         self.params = params
         self._paged = bool(session.paged)

@@ -215,24 +215,24 @@ def test_slice_arch_configs_equal_reference_field_by_field(arch):
 def test_every_reference_id_of_a_registered_arch_resolves():
     """Each canonical name and alias of the reference's registry resolves
     in the port to the same architecture, wherever the port registers
-    it: 9 of the reference's 11. The other two are refused, naming the
-    roadmap items that bring them."""
+    it: 10 of the reference's 11. The other one is refused, naming the
+    roadmap item that brings it."""
     from repro.api import registry as jreg
     from repro_torch.api import registry as treg
-    assert len(treg.list_archs()) == 9
+    assert len(treg.list_archs()) == 10
     ported = set(treg.list_archs())
     missing = set()
     for name, aliases in jreg._BUILTIN_ARCHS.items():
         if name not in ported:
             missing.add(name)
             for a in (name, *aliases):
-                with pytest.raises(treg.RegistryError, match="6d-6e"):
+                with pytest.raises(treg.RegistryError, match="6e"):
                     get_arch(a)
             continue
         want = jget_arch(name).config().name
         for a in (name, *aliases):
             assert get_arch(a).config().name == want, a
-    assert missing == {"whisper_large_v3", "deepseek_v3_671b"}
+    assert missing == {"deepseek_v3_671b"}
 
 
 @pytest.mark.parametrize("full,pp", [(False, 1), (False, 2), (True, 1)])
@@ -306,7 +306,7 @@ def test_session_refuses_what_the_slice_lacks(monkeypatch):
     with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", mode="train", device="cpu", data=2)
     with pytest.raises(SessionError, match="unknown architecture"):
-        session("whisper-large-v3", max_seq=16, device="cpu")
+        session("deepseek-v3-671b", max_seq=16, device="cpu")
     # a serve session on a mesh, too (multi-rank serving)
     with pytest.raises(SessionError, match="process group"):
         session("llama3.2-1b", max_seq=16, data=2, device="cpu")

@@ -946,3 +946,115 @@ def test_slstm_scan_bwd_kernel_matches_plain(cuda, dtype, b, s, e,
                                    .contiguous(), dst)
         assert (bad.float() - wdg.float()).abs().max().item() > \
             4 * 2**-7 * wdg.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [1002, 1006])
+def test_fused_xent_head_rows_not_16_byte_aligned(cuda, vocab):
+    """K2 over a bf16 [d, vocab] head with vocab % 8 of 2 and 6 (rows of
+    4-byte alignment, as whisper's 51866 columns) and a ragged last
+    128-column tile, read in place: loss, dh and dW under the float32
+    rule, dW contiguous at the head's own pitch. The rows' labels of the
+    chunk that straddles the end point into it. Probes that must fail:
+    the head without the straddling chunk's real columns (the 16-byte
+    path over vocab - vocab % 8 columns, those labels outside it, their
+    dW columns zero), and dW written at a 16-byte-rounded pitch. A float32
+    head of that width (no instantiation) and an odd vocab raise."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    n, d = 300, 136
+    h = torch.randn((n, d), generator=gen, device=cuda)
+    head = (0.3 * torch.randn((d, vocab), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=cuda)
+    rag = vocab % 8
+    keep = vocab - rag
+    lab[:rag] = torch.arange(keep, vocab, device=cuda)
+    mask = (torch.rand((n,), generator=gen, device=cuda) > 0.25).float()
+    mask[:rag] = 1.0
+    kw = dict(chunk=256, mask=mask, denom=float(n))
+    loss, (dh, dw) = fx.softmax_xent(h, head, lab, **kw)
+    wl, (wdh, wdw) = tref.softmax_xent(h, head, lab, **kw)
+    _rel_close(loss.reshape(1), wl.reshape(1), 1e-5)
+    _rel_close(dh, wdh)
+    _rel_close(dw, wdw)
+    assert dw.shape == head.shape and dw.is_contiguous()
+    bl, (bdh, bdw) = fx.softmax_xent(h, head[:, :keep].contiguous(),
+                                     torch.where(lab < keep, lab, -1), **kw)
+    full = torch.zeros_like(wdw)
+    full[:, :keep] = bdw
+    assert abs(bl.item() - wl.item()) > 1e-5 * abs(wl.item())
+    assert (bdh - wdh).abs().max().item() > 1e-4 * wdh.abs().max().item()
+    assert (full - wdw).abs().max().item() > 1e-4 * wdw.abs().max().item()
+    pitch = -(-vocab // 8) * 8
+    flat = torch.zeros(d * pitch, device=cuda)
+    flat.view(d, pitch)[:, :vocab] = dw
+    shifted = flat[:d * vocab].view(d, vocab)
+    assert (shifted - wdw).abs().max().item() > 1e-4 * wdw.abs().max().item()
+    with pytest.raises(ValueError, match="w_head"):
+        fx.softmax_xent(h, head.float(), lab, **kw)
+    with pytest.raises(ValueError, match="w_head"):
+        fx.softmax_xent(h, head[:, :vocab - 1].contiguous(),
+                        lab.clamp_max(vocab - 2), **kw)
+
+
+# whisper-large-v3's attention: 20 heads of 64 (MHA), the encoder
+# bidirectional over 1500 frames (the last 64-key tile holds 28 keys),
+# the decoder's 448 rows over them (cross-attention), and the serve
+# step's 64-row prefill and one-row decode over them
+WHISPER_FLASH = [dict(sq=1500, sk=1500), dict(sq=448, sk=1500),
+                 dict(sq=64, sk=1500), dict(sq=1, sk=1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WHISPER_FLASH)
+def test_flash_kernels_whisper_shapes_bf16(cuda, case):
+    """K1 (and K1b at the training shapes) in bf16, bidirectional, at
+    whisper's shapes with e = 64 MHA, against the plain versions under the
+    bf16 row rule; K's heads rolled by one and V rolled over heads at the
+    keys of the second half must fail the forward's check, the
+    neighbouring head's lse and K rolled at the keys of the second half
+    the backward's."""
+    bf = torch.bfloat16
+    b, h = 2, 20
+    sq, sk = case["sq"], case["sk"]
+    q, k, v = (_t(a).to(cuda, bf) for a in _qkv(33, b, sq, h, h, 64, sk))
+    kw = dict(causal=False, q_offset=0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want, want_lse = tref.attention(q, k, v, return_lse=True, **kw)
+    _bf16_close(out, want)
+    _rel_close(lse, want_lse, 1e-5)
+    for kk, vv in ((k.roll(1, dims=2).contiguous(), v),
+                   (k, _late_rolled(v))):
+        bad, _ = fa.flash_attention_fwd(q, kk, vv, **kw)
+        assert fa.bf16_excess(bad, want) > 1.0
+    if sq < 448:    # the serve step's shapes run forward only
+        return
+    do = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(34), device=cuda).to(bf)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = tref.attention_bwd(q, k, v, out, do, lse, **kw)
+    for a, w in zip(got, plain):
+        _bf16_close(a, w)
+    for kk, ll in ((k, lse.roll(1, dims=1).contiguous()),
+                   (_late_rolled(k), lse)):
+        bad = fa.flash_attention_bwd(q, kk, v, out, do, ll, **kw)
+        assert max(fa.bf16_excess(a, w) for a, w in zip(bad, plain)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 64])
+def test_slotted_kernel_whisper_decoder_bf16(cuda, sq):
+    """K3 in bf16 at whisper's decoder self-attention: 20 heads of 64
+    (MHA), 8 slots over 448 positions, a 64-token prefill and a decode
+    step at staggered positions; K's heads rolled by one must fail."""
+    bf = torch.bfloat16
+    b, h, S = 8, 20, 448
+    q, k, v = (_t(a).to(cuda, bf) for a in _qkv(35, b, sq, h, h, 64, S))
+    pos = torch.tensor([0, 1, 63, 64, 200, 383, S - sq, S - sq],
+                       dtype=torch.int32, device=cuda)
+    got = pa.flash_attention_slotted(q, k, v, pos=pos)
+    want = tref.attention(q, k, v, q_offset=pos)
+    _bf16_close(got, want)
+    bad = pa.flash_attention_slotted(q, k.roll(1, dims=2).contiguous(), v,
+                                     pos=pos)
+    assert fa.bf16_excess(bad, want) > 1.0

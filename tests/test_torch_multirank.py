@@ -24,6 +24,16 @@ One spawn of four single-threaded gloo processes
   the reference's loss over one-sequence micro-batches
   (``reference_logits`` per sequence: the router's capacity and aux are
   per micro-batch), with the train cases' tolerances;
+* reduced whisper-large-v3 (2 encoder and 2 decoder layers, one a
+  stage) at data 2 x pp 2, each sequence with its 16 float frames: the
+  encoder's forward walk, the decoder's table and the encoder's stripped
+  backward, the memory summed over the model axis after the first walk
+  and its cotangent after the second (stage rank 0 holds the first
+  encoder and decoder layers, rank 1 the last: the memory leaves rank 1
+  and its cotangent reaches rank 1's encoder stage only through those
+  all-reduces); loss and every gradient against ``jax.value_and_grad``
+  of the reference's loss over one-sequence micro-batches, with the
+  train cases' tolerances;
 * checkpoints on the mesh: the llama data 2 x pp 2 and pods 2 x data 2
   cases run two steps under the fault-tolerance controller, saving after
   each step, with a failure injected before the second: every rank
@@ -139,6 +149,7 @@ from repro_torch.configs import gpt_paper as tgpt  # noqa: E402
 from repro_torch.configs import jamba_v0p1_52b as tjamba  # noqa: E402
 from repro_torch.configs import llama3p2_1b as tllama  # noqa: E402
 from repro_torch.configs import qwen2_moe_a2p7b as tqwen  # noqa: E402
+from repro_torch.configs import whisper_large_v3 as twhisper  # noqa: E402
 from repro_torch.core.comm import MeshShape  # noqa: E402
 from repro_torch.core.pipeline import Runtime  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -219,6 +230,10 @@ JAMBA = dict(name="jamba_d2_g2", arch="jamba-v0.1-52b", data=2, groups=2)
 # one sequence a rank: held, as the Jamba case is, to the reference's
 # forward run per sequence at the case's stage layout
 QWEN = dict(name="qwen_d2_pp2", arch="qwen2-moe-a2.7b", data=2, pp=2)
+# reduced whisper-large-v3 on data 2 x pp 2 (an encoder-decoder runs one
+# pipeline group), four micro-batches of one sequence a rank
+WHISPER = dict(name="whisper_d2_pp2", arch="whisper-large-v3", data=2,
+               pp=2)
 # the int8 rule of the reference's flat_int8 case: max |int8 - float32|
 # over every gradient, over the float32 run's global max |g|
 INT8_RULE = 0.02
@@ -325,6 +340,47 @@ def _qwen_case():
                 optim=OPTIM, params=_numpy_params(cfg, rc, rng),
                 batch=batch)
     return cfg, rc, case
+
+
+def _whisper_case():
+    """The whisper data 2 x pp 2 case: (cfg, rc, case); the batch adds
+    each sequence's frames ``enc_tokens``."""
+    cfg, rc = twhisper.reduced()
+    rc = dataclasses.replace(rc, pp=WHISPER["pp"], schedule="zeropp",
+                             microbatches=MB, unit=UNIT)
+    gb = WHISPER["data"] * MB
+    rng = np.random.RandomState(17)
+    batch = {k: rng.randint(0, cfg.vocab, (gb, SEQ)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    batch["enc_tokens"] = (0.1 * rng.randn(
+        gb, cfg.encdec.enc_ctx, cfg.d_model)).astype(np.float32)
+    ov = dict(pp=WHISPER["pp"], schedule="zeropp", microbatches=MB,
+              unit=UNIT)
+    case = dict(name=WHISPER["name"], kind="train", arch=WHISPER["arch"],
+                data=WHISPER["data"], pods=1, seq=SEQ, overrides=ov,
+                optim=OPTIM, params=_numpy_params(cfg, rc, rng),
+                batch=batch)
+    return cfg, rc, case
+
+
+def _jax_whisper(case, rc):
+    """The reference's loss of the whisper case over one-sequence
+    micro-batches (``reference_logits`` on each sequence and its frames
+    alone) and its gradients."""
+    jcfg, jrc = _jax_configs(case["arch"], rc)
+
+    def loss(p, tokens, labels, enc):
+        logits = jax.vmap(lambda t, e: jmodel.reference_logits(
+            jcfg, jrc, p, t[None], enc_tokens=e[None])[0])(tokens, enc)
+        lf = logits.reshape(-1, logits.shape[-1]).astype(jnp.float32)
+        lse = jax.scipy.special.logsumexp(lf, axis=-1)
+        lab = jnp.take_along_axis(lf, labels.reshape(-1)[:, None], 1)[:, 0]
+        return (lse - lab).mean()
+
+    b = case["batch"]
+    val, grads = jax.jit(jax.value_and_grad(loss))(
+        case["params"], b["tokens"], b["labels"], b["enc_tokens"])
+    return float(val), jax.tree.map(np.asarray, grads)
 
 
 def _jax_per_sequence(case, rc):
@@ -663,6 +719,7 @@ def results(tmp_path_factory):
     tie = _tie_case()
     jcfg, jrc, jamba = _jamba_case()
     qcfg, qrc, qwen = _qwen_case()
+    wcfg, wrc, whisper = _whisper_case()
     cli = dict(SERVE_CLI, report=os.path.join(tmp, "serve_cli.json"))
     cli["argv"] = ["--device", "cpu", "--data", "2", "--pp", "2",
                    "--slots", "4", "--n-requests", "3", "--prompt", "6",
@@ -671,14 +728,16 @@ def results(tmp_path_factory):
                    cli["report"]]
     ctx = _spawn([c for _, _, c in built.values()] + variants + autos
                  + [_embed_case(), int8] + ckpts
-                 + [c for c, _ in serves.values()] + [tie, jamba, qwen, cli],
-                 tmp)
+                 + [c for c, _ in serves.values()]
+                 + [tie, jamba, qwen, whisper, cli], tmp)
     out = {INT8["name"]: {"ref": _jax_int8(int8)},
            TIE["name"]: {"ref": _jax_tie(tie)},
            JAMBA["name"]: dict(cfg=jcfg, rc=jrc, case=jamba,
                                ref=_jax_per_sequence(jamba, jrc)),
            QWEN["name"]: dict(cfg=qcfg, rc=qrc,
-                              ref=_jax_per_sequence(qwen, qrc))}
+                              ref=_jax_per_sequence(qwen, qrc)),
+           WHISPER["name"]: dict(cfg=wcfg, rc=wrc,
+                                 ref=_jax_whisper(whisper, wrc))}
     # the reference engines (and the port's one rank) while the ranks run
     for name, (case, flat) in serves.items():
         out[name] = dict(case=case, ref=_jax_serve(case, flat))
@@ -698,7 +757,8 @@ def results(tmp_path_factory):
         pass
     for name in list(TRAIN) + list(VARIANT) + list(AUTO) + [
             EMBED["name"], INT8["name"]] + list(CKPT) + list(SERVE) + [
-            TIE["name"], JAMBA["name"], QWEN["name"], SERVE_CLI["name"]]:
+            TIE["name"], JAMBA["name"], QWEN["name"], WHISPER["name"],
+            SERVE_CLI["name"]]:
         ranks = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"),
                             weights_only=False) for r in range(WORLD)]
         out.setdefault(name, {})["ranks"] = ranks
@@ -840,6 +900,34 @@ def test_multirank_qwen_shared_experts_match_per_sequence_reference(
         got = _get(grads, path)
         assert got.dtype == torch.float32
         assert _rel(_np(got), ref) <= STEP_RTOL, path
+        n += 1
+    assert n == sum(1 for _ in _leaves(grads))
+
+
+def test_multirank_whisper_matches_per_sequence_reference(results):
+    """Reduced whisper-large-v3 on data 2 x pp 2: every rank's loss and
+    the unsharded gradients of both segments and the io (``embed.table``
+    and ``head.w`` vocabulary-sharded) against the reference's loss over
+    one-sequence micro-batches; the global grad norm equal on every
+    rank. Both segments' blocks are gathered over the data axis."""
+    r = results[WHISPER["name"]]
+    want, ref_grads = r["ref"]
+    ranks = r["ranks"]
+    for got in ranks:
+        assert abs(got["loss"] - want) <= LOSS_RTOL * abs(want)
+    assert len({g["grad_norm"] for g in ranks}) == 1
+    assert {g["ranks"][2] for g in ranks} == {0, 1}
+    rt = Runtime(r["cfg"], r["rc"], "cpu", MeshShape(WHISPER["data"],
+                                                     WHISPER["pp"], 1, 1))
+    assert rt.gatherable["enc"] and rt.gatherable["dec"]
+    grads = tparams.unshard(rt, [g["grads"] for g in ranks])
+    assert set(grads["segments"]) == {"enc", "dec"}
+    n = 0
+    for path, ref in _leaves(ref_grads):
+        got = _get(grads, path)
+        assert got.dtype == torch.float32
+        assert float(np.abs(ref).max()) > 0, path
+        assert _rel(_np(got), ref) <= GRAD_RTOL, path
         n += 1
     assert n == sum(1 for _ in _leaves(grads))
 

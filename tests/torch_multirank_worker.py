@@ -73,7 +73,7 @@ def _train(case, rank):
            "aux": float(m["aux_sum"]), "emb_dropped": m["emb_dropped"],
            "ranks": (sess.mesh.d_rank, sess.mesh.g_rank, sess.mesh.p_rank),
            "schedule": sess.rc.schedule,
-           "table": table_digest(sess.rt.plans["main"].table),
+           "table": table_digest(sess.rt.plans[sess.rt.seg_key].table),
            "describe": sess.describe()["schedule"]}
     opt = sess.init_opt_state(p)
     p, opt, om = sess.opt_step(p, grads, opt)
